@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of the DDIM-COLD diffusion system, for NVIDIA Hopper.
+
+The JAX package ``ddim_cold_tpu`` beside it is the reference; this package
+never imports it. Module names mirror it:
+
+* ``ops.schedule``        — DDIM schedule tables (numpy, identical to JAX's)
+* ``ops.flash_attention`` — flash-attention forward: ``csrc/flash_fwd.cu``
+                            on CUDA tensors, its plain version on CPU ones
+* ``ops.sampling``        — ``ddim_sample`` / ``sample_from`` / ``forward_noise``
+* ``models.vit``          — ``DiffusionViT`` (reference state_dict names)
+* ``utils.weights``       — JAX parameter tree → this package's state_dict
+* ``serve``               — bucketed ``Engine`` + ``warmup``
+
+Entry points run on the card (``device=None`` means ``"cuda"``) and raise
+when CUDA is missing; tests pass ``device="cpu"``.
+"""

@@ -1,0 +1,320 @@
+"""DiffusionViT — the x̂0-predicting Vision Transformer, inference forward.
+
+Counterpart of ``ddim_cold_tpu/models/vit.py`` as ``nn.Module``s whose
+state_dict keys are the reference torch model's (reference ViT.py:158-218),
+so a reference ``.pkl`` and a JAX tree converted by
+:func:`ddim_cold_torch.utils.weights.state_dict_from_flax` both load with
+``strict=True``.
+
+Kept from the JAX module: images NHWC in [−1, 1] in, x̂0 NHWC float32 out;
+the qkv unpack order ``(B, N, 3, H, hd)``; ``scale = qk_scale or hd**-0.5``;
+exact-erf GELU; LayerNorm eps 1e-5 with float32 statistics; the time and
+positional embeddings added to every token, CLS included; the patch
+embedding as a reshape plus one linear map in (row, col, channel) feature
+order (the same map as the reference ``Conv2d``, whose weight it holds); the
+reference's exact un-patchify pixel map. Parameters live in float32 and are
+cast to ``dtype`` (float32 or bfloat16) at use, as the JAX modules do.
+
+``use_flash=True`` routes attention through the hand-written flash kernel
+(:mod:`ddim_cold_torch.ops.flash_attention`); ``False`` is the dense einsum
+path, kept as the kernel's oracle. The forward is the deterministic
+(evaluation) forward: dropout, stochastic depth and the later slices' hooks
+(quant, fused, MoE, sequence parallelism, scan_blocks, remat, the step and
+token caches, pipeline stages, the attention probe) raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddim_cold_torch.models.init import torch_default_uniform_, trunc_normal_
+from ddim_cold_torch.ops.flash_attention import flash_attention
+from ddim_cold_torch.utils.platform import resolve_device
+from ddim_cold_torch.utils.slices import refuse_later
+
+#: Model configurations appearing in the reference (same table as the JAX
+#: package's MODEL_CONFIGS).
+MODEL_CONFIGS = {
+    # reference ViT.py:277
+    "oxford_flower_64": dict(
+        img_size=(64, 64), patch_size=4, embed_dim=256, depth=6, num_heads=4
+    ),
+    # reference ViT.py:274 / 20220822.yaml:12-15 / ViT_draft2drawing.py:342
+    "vit_tiny": dict(
+        img_size=(64, 64), patch_size=8, embed_dim=384, depth=7, num_heads=12
+    ),
+    # checkpoint name only (README.md:28-29); both plausible patch sizes
+    "oxford_flower_200_p4": dict(
+        img_size=(200, 200), patch_size=4, embed_dim=256, depth=6, num_heads=4
+    ),
+    "oxford_flower_200_p8": dict(
+        img_size=(200, 200), patch_size=8, embed_dim=384, depth=7, num_heads=12
+    ),
+}
+
+#: constructor hooks of the JAX model that belong to later slices, with
+#: their off value and the ROADMAP.md item that ports them
+_LATER_CTOR = {
+    "quant": (None, "Queue 1 item 7 (quant codec and paths)"),
+    "fused": (False, "Queue 1 item 7 and Queue 2 items 2-4 (fused trunk)"),
+    "num_experts": (1, "Queue 1 item 18 (MoE)"),
+    "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
+    "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
+    "scan_blocks": (False, "Queue 1 item 14 (parallel/pipeline)"),
+    "remat": (False, "Queue 1 item 11 (training)"),
+    "seq_mesh": (None, "Queue 1 item 14 (sequence parallelism)"),
+    "seq_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
+    "batch_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
+    "head_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
+    "sp_mode": ("ring", "Queue 1 item 14 (sequence parallelism)"),
+}
+
+#: forward hooks of the JAX model that belong to later slices
+_LATER_FORWARD = {
+    "return_attention_layer": (None, "Queue 1 item 3 (attention probe)"),
+    "stage": ("full", "Queue 1 item 14 (pipeline stages)"),
+    "tokens": (None, "Queue 1 item 14 (pipeline stages)"),
+    "skip_blocks": (None, "Queue 1 item 8 (step cache)"),
+    "block_delta": (None, "Queue 1 item 8 (step cache)"),
+    "capture_split": (None, "Queue 1 item 8 (step cache)"),
+    "capture_tokens": (False, "Queue 1 item 8 (token cache)"),
+    "token_cache": (None, "Queue 1 item 8 (token cache)"),
+    "token_k": (None, "Queue 1 item 8 (token cache)"),
+}
+
+
+def positionalencoding1d(d_model: int, length: int) -> np.ndarray:
+    """Sinusoidal 1-D positional encoding (reference ViT_draft2drawing.py:140-156)."""
+    if d_model % 2 != 0:
+        raise ValueError(f"Cannot use sin/cos positional encoding with odd dim {d_model}")
+    pe = np.zeros((length, d_model), dtype=np.float32)
+    position = np.arange(0, length, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` in x's dtype: the float32 weight is cast at use (flax Dense)."""
+    bias = lin.bias.to(x.dtype) if lin.bias is not None else None
+    return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm with float32 statistics and affine, cast back to x's dtype
+    (flax LayerNorm with a reduced compute dtype)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(x.dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Image → patch tokens as one GEMM over (row, col, channel) patch
+    features. Holds the reference ``Conv2d``'s weight (E, C, p, p) — for
+    kernel = stride = p the convolution is exactly this linear map."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=patch_size,
+                              stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        p = self.patch_size
+        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, (H // p) * (W // p), p * p * C)
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        return F.linear(x, w.to(x.dtype), self.proj.bias.to(x.dtype))
+
+
+class Mlp(nn.Module):
+    """2-layer exact-erf GELU MLP (reference ViT.py:74-90)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(F.gelu(_linear(x, self.fc1), approximate="none"), self.fc2)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with fused qkv (reference ViT.py:93-117)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None, use_flash: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qk_scale = qk_scale
+        self.use_flash = use_flash
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        head_dim = C // self.num_heads
+        scale = self.qk_scale or head_dim**-0.5
+        # (B, N, 3, H, hd) unpack order, as the reference reshape; q, k, v
+        # stay strided views of the projection (the kernel reads them so)
+        qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, head_dim)
+        q, k, v = qkv.unbind(2)
+        if self.use_flash:
+            out = flash_attention(q, k, v, scale)
+        else:
+            logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+            attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        return _linear(out.reshape(B, N, C), self.proj)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (reference ViT.py:120-138), evaluation form."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, qk_scale: Optional[float] = None,
+                 use_flash: bool = False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                              qk_scale=qk_scale, use_flash=use_flash)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(_layer_norm(x, self.norm1))
+        return x + self.mlp(_layer_norm(x, self.norm2))
+
+
+class DiffusionViT(nn.Module):
+    """The diffusion backbone ``(x_t, t) → x̂0`` (reference ViT.py:158-218).
+
+    ``x``: (B, H, W, C) in [−1, 1]; ``t``: (B,) integer steps in
+    [0, total_steps) (out of range raises, as torch indexing does). Returns
+    (B, H, W, C) float32. Constructor defaults mirror the reference ctor:
+    mlp_ratio=1.0, qkv_bias=True, total_steps=2000; the drop rates are kept
+    for the reference signature and act only in training, which this
+    inference port does not run.
+
+    Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
+    CPU with the reference initializers, then moved to ``device``
+    (None means ``"cuda"``; missing CUDA raises).
+    """
+
+    def __init__(self, img_size: Sequence[int] = (64, 64), patch_size: int = 8,
+                 in_chans: int = 3, embed_dim: int = 256, depth: int = 3,
+                 num_heads: int = 4, mlp_ratio: float = 1.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_rate: float = 0.1, attn_drop_rate: float = 0.1,
+                 drop_path_rate: float = 0.1, total_steps: int = 2000,
+                 dtype: torch.dtype = torch.float32,
+                 use_sincos_pos: bool = False, use_flash: bool = False, *,
+                 device=None, seed: int = 0, **later):
+        refuse_later(later, _LATER_CTOR, "DiffusionViT")
+        if use_flash not in (True, False):
+            raise NotImplementedError(
+                f"use_flash={use_flash!r}: only the flash kernel (True) and the "
+                "dense path (False) are ported; the blockwise 'xla' path is "
+                "ROADMAP.md Queue 1 item 5")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        super().__init__()
+        device = resolve_device(device)
+        self.img_size = tuple(img_size)
+        self.patch_size = patch_size
+        self.in_chans = in_chans
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.total_steps = total_steps
+        self.dtype = dtype
+        self.use_flash = bool(use_flash)
+        E, N = embed_dim, self.num_patches
+
+        self.patch_embed = PatchEmbed(patch_size, E, in_chans)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, E))
+        self.time_embed = nn.Embedding(total_steps, E)
+        if use_sincos_pos:
+            self.register_buffer(
+                "pos_table", torch.from_numpy(positionalencoding1d(E, N + 1))[None],
+                persistent=False)
+            self.pos_embed = None
+        else:
+            self.pos_embed = nn.Parameter(torch.zeros(1, N + 1, E))
+        self.blocks = nn.ModuleList(
+            Block(E, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
+                  qk_scale=qk_scale, use_flash=self.use_flash)
+            for _ in range(depth))
+        self.norm = nn.LayerNorm(E, eps=1e-5)
+        self.head = nn.Linear(E, in_chans * patch_size**2)
+        self._init_weights(torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.eval()
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size[0] // self.patch_size) * (self.img_size[1] // self.patch_size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.cls_token.device
+
+    def _init_weights(self, g: torch.Generator) -> None:
+        """Reference init: trunc_normal(.02) on every Linear weight, the
+        class token, time and positional embeddings; zero Linear biases;
+        LayerNorm (1, 0); torch's default uniform on the patch projection."""
+        fan_in = self.in_chans * self.patch_size**2
+        torch_default_uniform_(self.patch_embed.proj.weight, fan_in, g)
+        torch_default_uniform_(self.patch_embed.proj.bias, fan_in, g)
+        trunc_normal_(self.cls_token, g)
+        trunc_normal_(self.time_embed.weight, g)
+        if self.pos_embed is not None:
+            trunc_normal_(self.pos_embed, g)
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                trunc_normal_(mod.weight, g)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
+            elif isinstance(mod, nn.LayerNorm):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                deterministic: bool = True, **later) -> torch.Tensor:
+        refuse_later(later, _LATER_FORWARD, "DiffusionViT.forward")
+        if not deterministic:
+            raise NotImplementedError(
+                "training forward (dropout, stochastic depth) is ROADMAP.md "
+                "Queue 1 item 11")
+        B = x.shape[0]
+        x = x.to(self.dtype)
+        tokens = self.patch_embed(x)
+        cls = self.cls_token.to(self.dtype).expand(B, 1, self.embed_dim)
+        tokens = torch.cat([cls, tokens], dim=1)
+        # time conditioning: one learned row per step, added to EVERY token
+        # (cls included) with the positional embedding (ViT.py:204-205)
+        time = F.embedding(t.to(x.device).long(),
+                           self.time_embed.weight.to(self.dtype))[:, None, :]
+        pos = self.pos_embed if self.pos_embed is not None else self.pos_table
+        tokens = tokens + pos.to(self.dtype) + time
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        tokens = _linear(_layer_norm(tokens, self.norm), self.head)
+        return self.unpatchify(tokens[:, 1:, :]).float()
+
+    def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, p²C) → (B, H, W, C): pixel (i·p+a, j·p+b, c) ← feature
+        a·pC + b·C + c of patch (i, j) (reference ViT.py:214-217)."""
+        p, C = self.patch_size, self.in_chans
+        H, W = self.img_size
+        x = x.reshape(x.shape[0], H // p, W // p, p, p, C).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(x.shape[0], H, W, C)

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
+so a build takes seconds). Libraries land in ``build/ddim_cold_torch/`` at
+the repository root, keyed by a hash of the source and the flags, and are
+built on first use by :func:`load_library`.
+
+Nothing here runs at import: the CPU tests import every module of the port,
+and this machine-independent module only touches ``nvcc`` and the GPU when a
+kernel is first asked for. There is no fallback: a missing toolkit, a failed
+compile or a missing card raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddim_cold_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+#: the C signature of each kernel's entry point (restype is always c_int:
+#: the launch's cudaError_t)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SIGNATURES = {
+    "flash_fwd": ("flash_fwd",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                  + [_L] * 9 + [_F, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: dict = {}  # name -> ctypes.CDLL, guarded-by: _lock
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels are built from source at "
+                       "first use")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _build(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building it first if needed.
+    Raises when CUDA is unavailable: the kernels have no CPU form."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"kernel {name!r} needs a CUDA device, and "
+                           "torch.cuda.is_available() is False")
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,97 @@
+"""Diffusion schedules (numpy, host-side): the port's own copy.
+
+Counterpart of ``ddim_cold_tpu/ops/schedule.py``, copied for the functions
+the DDIM sampler uses, so the port never imports the JAX package. The tables
+are byte-for-byte the JAX package's (tests pin it).
+
+The reference's signal-level schedule is
+
+    alpha_bar(t) = 1 - sqrt((t + 1) / T)            [+ 1e-5 on the *current* step only]
+
+with the +1e-5 applied to ``alpha_t`` (the current noise level) but NOT to
+``alpha_tk`` (the DDIM jump target). The asymmetry changes sampler outputs
+and is replicated exactly. All values are computed in float64 on the host
+and handed to the sampler as per-step scalars.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+
+#: epsilon added to the *current* alpha only (reference ViT.py:232)
+ALPHA_EPS = 1e-5
+
+
+def alpha_bar(t, total_steps: int, eps: float = 0.0):
+    """Signal level ᾱ(t) = 1 − √((t+1)/T) + eps, on ints, floats or arrays."""
+    t = np.asarray(t, dtype=np.float64)
+    return 1.0 - np.sqrt((t + 1.0) / float(total_steps)) + eps
+
+
+def forward_noise_alpha(t_start: int, total_steps: int) -> float:
+    """ᾱ used when forward-noising an image to level ``t_start``:
+    ``1 − √(t_start/T)``, with no +1 (reference ViT_draft2drawing.py:395)."""
+    return 1.0 - math.sqrt(t_start / float(total_steps))
+
+
+def ddim_time_sequence(total_steps: int, k: int, t_start: int | None = None) -> np.ndarray:
+    """The reverse-process visit order t = t_start, t_start−k, …, > 0
+    (``range(T-1, 0, -k)``, reference ViT.py:226); t_start defaults to T−1."""
+    if t_start is None:
+        t_start = total_steps - 1
+    return np.arange(t_start, 0, -k, dtype=np.int64)
+
+
+class DDIMCoefficients(NamedTuple):
+    """Per-step affine coefficients of the reference's DDIM update
+    ``x' = cx·x + cx0·x̂0 (+ cz·z)``, float32 arrays of shape (n_steps,),
+    plus the int32 time sequence fed to the model."""
+
+    t_seq: np.ndarray  # (n,) int32 — model conditioning step at each iteration
+    cx: np.ndarray  # (n,) float32 — coefficient on the current noisy image
+    cx0: np.ndarray  # (n,) float32 — coefficient on the clamped x0 prediction
+    cz: np.ndarray  # (n,) float32 — σ_t on fresh noise (all-zero when eta=0)
+
+
+def ddim_coefficients(total_steps: int, k: int, t_start: int | None = None,
+                      eta: float = 0.0) -> DDIMCoefficients:
+    """Precompute the affine DDIM-update coefficients for a k-strided schedule.
+
+    When ``t+1−k < 0`` the argument of the target's square root is clamped to
+    0 (ᾱ → 1: jump straight to the clean image). ``eta`` > 0 is the DDIM
+    paper's stochastic interpolation (arXiv:2010.02502 eq. 16); η=0 keeps the
+    reference's exact arithmetic and operation order.
+    """
+    t_seq = ddim_time_sequence(total_steps, k, t_start)
+    T = float(total_steps)
+    cx = np.empty(len(t_seq), dtype=np.float64)
+    cx0 = np.empty(len(t_seq), dtype=np.float64)
+    cz = np.zeros(len(t_seq), dtype=np.float64)
+    for i, t in enumerate(t_seq):
+        a_t = 1.0 - math.sqrt((t + 1.0) / T) + ALPHA_EPS
+        a_tk = 1.0 - math.sqrt(max(t + 1.0 - k, 0.0) / T)
+        if eta == 0.0:
+            # d = √((1−a_tk)/a_tk) − √((1−a_t)/a_t)
+            d = math.sqrt((1.0 - a_tk) / a_tk) - math.sqrt((1.0 - a_t) / a_t)
+            s = math.sqrt(a_tk)
+            # x' = s·x/√a_t + s·d·noise ;  noise = x/√(1−a_t) − √a_t/√(1−a_t)·x0
+            cx[i] = s / math.sqrt(a_t) + s * d / math.sqrt(1.0 - a_t)
+            cx0[i] = -s * d * math.sqrt(a_t) / math.sqrt(1.0 - a_t)
+        else:
+            # x' = √a_tk·x0 + √(1−a_tk−σ²)·ε + σ·z,  ε = (x−√a_t·x0)/√(1−a_t)
+            sigma = eta * math.sqrt((1.0 - a_tk) / (1.0 - a_t)) * math.sqrt(
+                max(1.0 - a_t / a_tk, 0.0))
+            ce = math.sqrt(max(1.0 - a_tk - sigma * sigma, 0.0)) / math.sqrt(
+                1.0 - a_t)
+            cx[i] = ce
+            cx0[i] = math.sqrt(a_tk) - ce * math.sqrt(a_t)
+            cz[i] = sigma
+    return DDIMCoefficients(
+        t_seq=t_seq.astype(np.int32),
+        cx=cx.astype(np.float32),
+        cx0=cx0.astype(np.float32),
+        cz=cz.astype(np.float32),
+    )

@@ -1,0 +1,44 @@
+"""Startup warmup: make the first request pay nothing.
+
+Counterpart of ``ddim_cold_tpu/serve/warmup.py``. PyTorch runs eagerly, so
+what a first request would otherwise pay is building and loading the kernel
+library, the first launch of each kernel, and the first use of each
+(config, bucket) batch shape (cuBLAS handles and workspaces, the caching
+allocator's blocks). ``warmup`` does all of it up front: it loads the
+kernels, then builds and runs every (config, bucket) program once on a zero
+batch. ``Engine.stats["programs"]`` counts the warmed pairs; serving a
+warmed set adds none (the tests pin it).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ddim_cold_torch.serve.batching import SamplerConfig
+
+
+def warmup(engine, configs: Sequence[SamplerConfig]) -> dict:
+    """Load the kernels and run every (config, engine bucket) program once.
+    Returns the number of programs this call added, the total, and what was
+    warmed."""
+    buckets = engine.buckets
+    before = engine.stats["programs"]
+    engine.load_kernels()
+    model = engine.model
+    H, W = model.img_size
+    for config in configs:
+        for bucket in buckets:
+            prog = engine.ensure_program(config, bucket)
+            prog(x_init=torch.zeros((bucket, H, W, model.in_chans),
+                                    device=engine.device))
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    programs = engine.stats["programs"]
+    return {
+        "new_programs": programs - before,
+        "programs": programs,
+        "buckets": buckets,
+        "configs": len(set(configs)),
+    }

@@ -1,0 +1,101 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* no module of ``ddim_cold_torch`` (nor ``chip_smoke.py``) imports jax, flax
+  or the JAX package;
+* the entry points resolve ``device=None`` to CUDA and raise without it,
+  instead of running on the CPU; the kernel loader raises likewise;
+* ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and
+  when the port is not beside it.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ddim_cold_torch import serve
+from ddim_cold_torch.models import DiffusionViT
+from ddim_cold_torch.ops import _build
+from ddim_cold_torch.ops import sampling
+from ddim_cold_torch.utils.platform import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ddim_cold_tpu")
+TINY = dict(img_size=(16, 16), patch_size=4, embed_dim=32, depth=2, num_heads=4)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "ddim_cold_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_device_none_means_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DiffusionViT(**TINY)
+    model = DiffusionViT(**TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.Engine(model, buckets=(2,))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sampling.ddim_sample(model, x_init=np.zeros((1, 16, 16, 3)), k=500)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_loader_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _build.load_library("flash_fwd")
+
+
+def test_engine_refuses_a_model_on_another_device():
+    model = DiffusionViT(**TINY, device="cpu")
+    with pytest.raises(ValueError, match="lives on"):
+        serve.Engine(model, buckets=(2,), device="meta")
+
+
+@pytest.mark.parametrize("where,reason", [
+    ("repo", "torch.cuda.is_available() is False"),
+    ("alone", "No module named 'ddim_cold_torch'"),
+])
+def test_chip_smoke_fails_without_cuda_or_without_the_port(tmp_path, where, reason):
+    """Beside the port and with no card, it stops at the CUDA check; alone,
+    it stops importing the port."""
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(env, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert reason in proc.stderr
+    for line in proc.stdout.splitlines():
+        try:
+            assert not json.loads(line).get("ok")
+        except (ValueError, AttributeError):
+            pass

@@ -1,0 +1,210 @@
+"""The port's DiffusionViT and DDIM sampler against the JAX package's.
+
+One JAX model at the TINY geometry (16px, patch 4, C=32, depth 2, 4 heads)
+is initialised, its parameter tree carried into the port by
+``state_dict_from_flax`` and loaded with ``strict=True``; both packages then
+see the same numpy inputs. JAX runs on the CPU at float32 matmul precision
+(tests/conftest.py), its flash path through the Pallas kernel in interpret
+mode. Tolerances: float32 forward rtol 2e-4 / atol 2e-5 (the bridge's
+reference tolerance, tests/test_torch_bridge.py); bfloat16 forward atol
+1e-2 (about five bf16 ulps at the output's scale of ~0.5: the two
+frameworks round at different points); samplers atol 1e-4 over their 2-4
+steps.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ddim_cold_torch.models import MODEL_CONFIGS as PORT_CONFIGS
+from ddim_cold_torch.models import DiffusionViT as PortViT
+from ddim_cold_torch.models.init import trunc_normal_
+from ddim_cold_torch.ops import sampling as port_sampling
+from ddim_cold_torch.utils.weights import state_dict_from_flax
+from ddim_cold_tpu.models import MODEL_CONFIGS, DiffusionViT
+from ddim_cold_tpu.ops import sampling
+from ddim_cold_tpu.utils.checkpoint import stack_block_params
+
+TINY = dict(img_size=(16, 16), patch_size=4, embed_dim=32, depth=2,
+            num_heads=4, total_steps=2000)
+K = 500  # 4 reverse steps
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    model = DiffusionViT(**TINY)
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((2, 16, 16, 3)),
+                        jnp.zeros((2,), jnp.int32))["params"]
+    return jax.device_get(params)
+
+
+def _port(jax_params, **kw) -> PortViT:
+    model = PortViT(**TINY, device="cpu", **kw)
+    model.load_state_dict(state_dict_from_flax(jax_params, TINY["patch_size"]),
+                          strict=True)
+    return model
+
+
+def _inputs(seed=0, n=2):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 16, 16, 3).astype(np.float32)
+    t = rs.randint(0, TINY["total_steps"], size=(n,)).astype(np.int32)
+    return x, t
+
+
+def _jax_forward(params, x, t, **kw):
+    return np.asarray(DiffusionViT(**TINY, **kw).apply(
+        {"params": params}, jnp.asarray(x), jnp.asarray(t)))
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_forward_matches_jax_f32(jax_params, use_flash):
+    x, t = _inputs()
+    got = _port(jax_params, use_flash=use_flash)(torch.from_numpy(x),
+                                                 torch.from_numpy(t))
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_forward(jax_params, x, t, use_flash=use_flash),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_forward_matches_jax_bf16(jax_params):
+    x, t = _inputs(1)
+    got = _port(jax_params, use_flash=True, dtype=torch.bfloat16)(
+        torch.from_numpy(x), torch.from_numpy(t))
+    want = _jax_forward(jax_params, x, t, use_flash=True, dtype=jnp.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2)
+
+
+def test_scan_blocks_tree_bridges(jax_params):
+    """A scan_blocks (stacked) tree converts to the same state_dict."""
+    flat = state_dict_from_flax(jax_params, TINY["patch_size"])
+    stacked = state_dict_from_flax(stack_block_params(jax_params),
+                                   TINY["patch_size"])
+    assert flat.keys() == stacked.keys()
+    for key in flat:
+        torch.testing.assert_close(flat[key], stacked[key], rtol=0, atol=0)
+
+
+def test_moe_tree_refused(jax_params):
+    tree = dict(jax_params)
+    tree["blocks_0"] = dict(tree["blocks_0"], moe={})
+    with pytest.raises(ValueError, match="MoE"):
+        state_dict_from_flax(tree, TINY["patch_size"])
+
+
+def test_configs_and_defaults_match_jax():
+    assert PORT_CONFIGS == MODEL_CONFIGS
+    m = PortViT(**MODEL_CONFIGS["oxford_flower_64"], device="cpu")
+    ref = DiffusionViT(**MODEL_CONFIGS["oxford_flower_64"])
+    params = jax.eval_shape(lambda: ref.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+        jnp.zeros((1,), jnp.int32)))["params"]
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(params))
+    assert sum(p.numel() for p in m.parameters()) == n_ref
+
+
+def test_init_is_seeded_reference_init():
+    a = PortViT(**TINY, device="cpu", seed=3).state_dict()
+    b = PortViT(**TINY, device="cpu", seed=3).state_dict()
+    c = PortViT(**TINY, device="cpu", seed=4).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["pos_embed"], c["pos_embed"])
+    w = a["blocks.0.attn.qkv.weight"]
+    assert abs(w.std().item() - 0.02) < 2e-3 and w.abs().max().item() < 0.2
+    assert torch.all(a["blocks.0.attn.qkv.bias"] == 0)
+    bound = 1.0 / np.sqrt(3 * 4 * 4)
+    assert a["patch_embed.proj.weight"].abs().max().item() <= bound
+    g = torch.Generator().manual_seed(0)
+    wide = trunc_normal_(torch.empty(10000), g, std=1.0, a=-0.5, b=0.5)
+    assert wide.min().item() >= -0.5 and wide.max().item() <= 0.5
+
+
+@pytest.mark.parametrize("hook", [dict(quant="pallas"), dict(fused=True),
+                                  dict(num_experts=2), dict(scan_blocks=True),
+                                  dict(remat=True), dict(sp_mode="ulysses"),
+                                  dict(use_flash="xla")])
+def test_later_slice_ctor_hooks_raise(hook):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        PortViT(**TINY, device="cpu", **hook)
+
+
+@pytest.mark.parametrize("hook", [dict(capture_split=1), dict(stage="embed"),
+                                  dict(return_attention_layer=0),
+                                  dict(token_k=3), dict(deterministic=False)])
+def test_later_slice_forward_hooks_raise(hook):
+    model = PortViT(**TINY, device="cpu")
+    x, t = _inputs()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model(torch.from_numpy(x), torch.from_numpy(t), **hook)
+
+
+def test_unknown_and_dropped_options_are_type_errors():
+    with pytest.raises(TypeError):
+        PortViT(**TINY, device="cpu", flash_blocks=(256, 512))
+
+
+# ------------------------------------------------------------------ samplers
+
+
+@pytest.mark.parametrize("return_sequence", [False, True])
+def test_ddim_sample_matches_jax(jax_params, return_sequence):
+    x = np.random.RandomState(5).randn(3, 16, 16, 3).astype(np.float32)
+    x_copy = x.copy()
+    want = np.asarray(sampling.ddim_sample(
+        DiffusionViT(**TINY), jax_params, x_init=jnp.asarray(x), k=K,
+        return_sequence=return_sequence))
+    got = port_sampling.ddim_sample(_port(jax_params), x_init=x, k=K,
+                                    return_sequence=return_sequence,
+                                    device="cpu")
+    np.testing.assert_array_equal(x, x_copy)  # the caller's start survives
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_sample_from_matches_jax_with_flash(jax_params):
+    x = np.random.RandomState(6).randn(2, 16, 16, 3).astype(np.float32)
+    want = np.asarray(sampling.sample_from(
+        DiffusionViT(**TINY, use_flash=True), jax_params, jnp.asarray(x),
+        t_start=1000, k=K))
+    xt = torch.from_numpy(x)
+    got = port_sampling.sample_from(_port(jax_params, use_flash=True), xt,
+                                    t_start=1000, k=K, device="cpu")
+    assert torch.equal(xt, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_fresh_start_and_eta_draw_from_the_generator(jax_params):
+    model = _port(jax_params)
+    run = lambda seed, **kw: port_sampling.ddim_sample(
+        model, torch.Generator().manual_seed(seed), n=2, k=K, device="cpu", **kw)
+    torch.testing.assert_close(run(0), run(0), rtol=0, atol=0)
+    torch.testing.assert_close(run(0, eta=0.5), run(0, eta=0.5), rtol=0, atol=0)
+    assert not torch.equal(run(0, eta=0.5), run(0))
+    assert not torch.equal(run(0), run(1))
+    with pytest.raises(ValueError, match="generator"):
+        port_sampling.ddim_sample(model, x_init=np.zeros((1, 16, 16, 3)), k=K,
+                                  eta=0.5, device="cpu")
+
+
+def test_forward_noise_formula():
+    img = torch.from_numpy(np.random.RandomState(7).rand(2, 16, 16, 3)
+                           .astype(np.float32)) * 2 - 1
+    got = port_sampling.forward_noise(torch.Generator().manual_seed(9), img, 500)
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(9))
+    a = 1.0 - np.sqrt(500 / 2000)
+    torch.testing.assert_close(got, np.sqrt(a) * img + np.sqrt(1 - a) * eps)
+
+
+@pytest.mark.parametrize("later", [dict(cache_interval=2), dict(telemetry=True),
+                                   dict(cache_mode="token")])
+def test_later_slice_sampler_options_raise(jax_params, later):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_sampling.ddim_sample(_port(jax_params), x_init=np.zeros((1, 16, 16, 3)),
+                                  k=K, device="cpu", **later)
+    for fn in (port_sampling.cold_sample, port_sampling.ddim_sample_fewstep):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn()
