@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check every kernel.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check every kernel.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -9,21 +9,40 @@ Phases, one JSON object per line:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 off for the float32 comparisons;
-2. build   — compile ``ddim_cold_torch/csrc/flash_fwd.cu`` with ``nvcc`` and
-   load it;
-3. kernel  — each kernel against its plain PyTorch version at the main
-   path's shapes (and the 200px/p8 head dim), in bfloat16 and float32, with
-   CUDA-event median times of the kernel, the plain version and the one
-   PyTorch call that computes the same function (timed only, never used by
-   the port), beside the card's least possible time for the same work;
-4. forward — the full-width, full-depth ``oxford_flower_200_p4`` model (random
+2. build   — compile every ``ddim_cold_torch/csrc/*.cu`` with ``nvcc`` (one
+   ``nvcc`` per source, all started together) and load them;
+3. kernel  — the flash forward kernel against its plain PyTorch version at
+   the main paths' shapes (and the 200px/p8 head dim), in bfloat16 and
+   float32, with CUDA-event median times of the kernel, the plain version
+   and the one PyTorch call that computes the same function (timed only,
+   never used by the port), beside the card's least possible time for the
+   same work;
+4. kernel  — the two flash backward kernels (``flash_bwd_dq``,
+   ``flash_bwd_dkv``) likewise, dq/dk/dv held element-wise to
+   ``flash_attention.grad_error_limit``; the library time is one
+   ``autograd.grad`` through ``F.scaled_dot_product_attention``;
+5. forward — the full-width, full-depth ``oxford_flower_200_p4`` model (random
    weights from a fixed seed), flash kernel against the dense path;
-5. serve   — the main path: a bucketed ``Engine`` over the bf16 flash model,
-   warmed, answering three requests with DDIM k=20 (100 forwards each); the
-   kernel launch counters are zeroed just before and read just after;
-6. profile — one more drain (a single 8-row batch) under ``torch.profiler``:
+6. serve   — the serving path: a bucketed ``Engine`` over the bf16 flash
+   model, warmed, answering three requests with DDIM k=20 (100 forwards
+   each); the kernel launch counters are zeroed just before and read just
+   after;
+7. profile — one more drain (a single 8-row batch) under ``torch.profiler``:
    device time by kernel kind and the device's idle share;
-7. the ``kernels`` summary line, then the card's ``nvidia-smi`` line, then
+8. train-check — one optimizer step of the full-width model with every drop
+   rate 0, the flash path (the kernels) against the dense path on the same
+   weights and batch, float32 and bfloat16: loss, gradient norm and the
+   parameter update within the stated tolerances;
+9. train   — the training path: the bf16 flash model at the 200px YAML's
+   hyper-parameters (drop 0.1, drop path 0.1, attention dropout 0), cold
+   batches of 16 corrupted on the card by ``make_cold_prepare``, 3 warm-up
+   and 20 timed steps; the launch counters are zeroed just before the timed
+   steps and must read depth × steps for each of the three kernels. Then 2
+   steps with attention dropout 0.1 (the JAX default, the YAML path): the
+   dense rule holds and no flash kernel launches;
+10. train-profile — three more training steps under ``torch.profiler``:
+   device time of the three kernels and of the rest, and the idle share;
+11. the ``kernels`` summary line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed check raises and the script exits non-zero. It exits non-zero
@@ -34,13 +53,16 @@ import fails) and when CUDA is unavailable.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 MODEL = "oxford_flower_200_p4"
+SOURCES = ("flash_fwd", "flash_bwd")
 BUCKETS = (4, 8)
 K = 20                      # DDIM stride: np.arange(1999, 0, -20) = 100 forwards
 REQUESTS = ((0, 1), (1, 3), (2, 5))   # (seed, n)
@@ -57,6 +79,25 @@ SCALE_FAULT = 0.02
 #: flash vs dense forward of the whole model: float32 carries the kernel's
 #: ~1e-6 differences through 6 blocks; bfloat16 rounds at different points
 FWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: the training phases: the 20220822_200px.yaml hyper-parameters (AMP, batch
+#: 8 → 16, base_lr 0.005, 8 epochs, cold chain targets over 7 levels)
+TRAIN_WARM, TRAIN_STEPS, DENSE_STEPS, PROFILE_STEPS = 3, 20, 2, 3
+#: cosine length: the YAML's 8 epochs at 64 batches an epoch (a 1,024-image
+#: train folder at batch 16; the schedule only sets the lr of these steps)
+TRAIN_TOTAL_STEPS = 8 * 64
+CHECK_BATCH = 4
+#: flash vs dense, one step at every drop rate 0 (train-check). loss and
+#: ‖g‖: relative; float32 carries the kernels' ~1e-6 differences, bfloat16
+#: rounds at different points in the two attention paths. The update: the
+#: first Adam step moves each parameter by lr·g/(|g|+ε) + lr·wd·p, so two
+#: runs can differ by at most 2·lr (a sign flip) at any element; "upd_rel"
+#: bounds the relative L2 distance of the two updates, which only elements
+#: whose gradient is within the two paths' difference of zero can move
+TRAIN_CHECK_TOL = {
+    "float32": {"loss": 1e-5, "grad_norm": 1e-4, "upd_rel": 1e-2},
+    "bfloat16": {"loss": 1e-2, "grad_norm": 5e-2, "upd_rel": 0.5},
+}
+MAX_UPDATE_GAP_LR = 2.1  # max |Δp| between the paths, in units of lr
 
 
 def emit(obj) -> None:
@@ -108,9 +149,11 @@ def phase_kernels(torch, fa):
     import torch.nn.functional as F
 
     records = {}
-    # the main path dispatches batches of 8 and 4 (bf16); the 200px/p8
-    # geometry holds the D=32 instantiation; f32 holds the exact arithmetic
+    # the serving path dispatches batches of 8 and 4 (bf16), training
+    # batches of 16; the 200px/p8 geometry holds the D=32 instantiation; f32
+    # holds the exact arithmetic
     for geom, (B, N, H, D), dtypes in (
+            ("200_p4_b16", (16, 2501, 4, 64), (torch.bfloat16,)),
             ("200_p4", (8, 2501, 4, 64), (torch.float32, torch.bfloat16)),
             ("200_p4_b4", (4, 2501, 4, 64), (torch.bfloat16,)),
             ("200_p8", (8, 626, 12, 32), (torch.float32, torch.bfloat16))):
@@ -162,6 +205,99 @@ def phase_kernels(torch, fa):
     return records
 
 
+def bwd_bound(name, B, N, H, D, dtype_name):
+    """Least time for one backward kernel: dq does 6·B·H·N²·D FLOP (Q·Kᵀ,
+    dO·Vᵀ, dS·K), dk/dv 8·B·H·N²·D (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q), at the type's
+    peak, vs q, k, v, dO, lse and δ read once and dq (or dk and dv) written
+    once over HBM."""
+    elem = 4 if dtype_name == "float32" else 2
+    gemms, outs = (3, 1) if name == "flash_bwd_dq" else (4, 2)
+    ops = 2.0 * gemms * B * H * N * N * D
+    nbytes = (4 + outs) * B * N * H * D * elem + 2 * 4.0 * B * H * N
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels_bwd(torch, fa):
+    """The two backward kernels vs their plain versions on the same inputs
+    and the same lse (the forward kernel's), per geometry and dtype."""
+    import torch.nn.functional as F
+
+    records = {}
+    # training dispatches batches of 16 (8 per grad-accum slice or the
+    # 64px-style half batch); the 200px/p8 geometry holds D=32
+    for geom, (B, N, H, D), dtypes in (
+            ("200_p4", (16, 2501, 4, 64), (torch.float32, torch.bfloat16)),
+            ("200_p4_b8", (8, 2501, 4, 64), (torch.bfloat16,)),
+            ("200_p8", (16, 626, 12, 32), (torch.float32, torch.bfloat16))):
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.unbind(2)
+            scale = D**-0.5
+            o, lse = fa.flash_forward(q, k, v, scale)
+            do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(dtype)
+            delta = fa.backward_delta(o, do)
+            grad = torch.empty((B, N, 3, H, D), dtype=dtype, device="cuda")
+            dq, dk, dv = grad.unbind(2)
+            run_dq = lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, dq, scale)
+            run_dkv = lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale)
+            run_dq()
+            run_dkv()
+            torch.cuda.synchronize()
+            ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+            ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+            errs = {}
+            for g_name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                     ("dv", dv, ref_dv)):
+                diff = (got.float() - ref.float()).abs()
+                limit = fa.grad_error_limit(ref)
+                scaled = (got.float() * (1 + SCALE_FAULT) - ref.float()).abs()
+                errs[g_name] = {
+                    "max_abs_err": diff.max().item(),
+                    "mean_abs": ref.float().abs().mean().item(),
+                    "max_err_over_limit": (diff / limit).max().item(),
+                    "within_limit": bool((diff <= limit).all()),
+                    "catches_2pct_scale": bool((scaled > limit).any()),
+                    "finite": bool(torch.isfinite(got.float()).all())}
+            # library: one autograd.grad through SDPA (dq, dk, dv together)
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+            go = do.transpose(1, 2)
+            library_ms = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), go, retain_graph=True))
+            for kname, run, plain, parts in (
+                    ("flash_bwd_dq", run_dq,
+                     lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                     ("dq",)),
+                    ("flash_bwd_dkv", run_dkv,
+                     lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                     ("dk", "dv"))):
+                rec = {"phase": "kernel", "kernel": kname, "geometry": geom,
+                       "B": B, "N": N, "H": H, "D": D, "dtype": name,
+                       "errors": {g: errs[g] for g in parts},
+                       "max_abs_err": max(errs[g]["max_abs_err"] for g in parts),
+                       "ms": time_ms(torch, run),
+                       "plain_ms": time_ms(torch, plain, reps=5, warm=1),
+                       "library_ms": library_ms}
+                rec["bound_ms"], rec["bound_by"] = bwd_bound(kname, B, N, H, D, name)
+                emit(rec)
+                for g in parts:
+                    e = errs[g]
+                    check(e["finite"], f"{kname} {g} finite {geom} {name}")
+                    check(e["within_limit"], f"{kname} {g} error {e['max_abs_err']} "
+                          f"over its limit {geom} {name}")
+                    check(e["catches_2pct_scale"], f"{g} limit misses a "
+                          f"{SCALE_FAULT:.0%} scale fault {geom} {name}")
+                records[(geom, name, kname)] = rec
+            del qkv, q, k, v, o, lse, do, delta, grad, dq, dk, dv, ref_dq, ref_dk
+            del ref_dv, qt, kt, vt, out, go
+            torch.cuda.empty_cache()
+    return records
+
+
 def phase_forward(torch, DiffusionViT, MODEL_CONFIGS):
     """Full-width, full-depth model: flash vs dense on the same weights."""
     cfg = MODEL_CONFIGS[MODEL]
@@ -174,7 +310,8 @@ def phase_forward(torch, DiffusionViT, MODEL_CONFIGS):
         name = str(dtype).split(".")[-1]
         flash = DiffusionViT(**cfg, dtype=dtype, use_flash=True, seed=SEED)
         dense = DiffusionViT(**cfg, dtype=dtype, use_flash=False, seed=SEED)
-        a, b = flash(x, t), dense(x, t)
+        with torch.inference_mode():
+            a, b = flash(x, t), dense(x, t)
         err = (a - b).abs().max().item()
         emit({"phase": "forward", "model": MODEL, "dtype": name, "batch": 2,
               "max_abs_err_flash_vs_dense": err, "tol": FWD_TOL[name],
@@ -278,11 +415,216 @@ def phase_profile(torch, eng, config):
           f"profiled flash_fwd launches {rec['flash_fwd_launches']}")
 
 
+def _cold_batches(n: int, batch: int, seed: int):
+    """Synthetic raw cold batches: uint8 (batch, 200, 200, 3) bases and
+    t ∈ [1, 7], from a seeded numpy generator (the repo's way of timing
+    training without a dataset, bench.py's synthetic cold path)."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    return [(rs.integers(0, 256, (batch, 200, 200, 3), dtype=np.uint8),
+             rs.integers(1, 8, (batch,), dtype=np.int32)) for _ in range(n)]
+
+
+def _train_model(torch, **rates):
+    from ddim_cold_torch.models import MODEL_CONFIGS, DiffusionViT
+
+    return DiffusionViT(**MODEL_CONFIGS[MODEL], use_flash=rates.pop("use_flash", True),
+                        dtype=rates.pop("dtype", torch.bfloat16), seed=SEED, **rates)
+
+
+def phase_train_check(torch, fa):
+    """One optimizer step, flash kernels vs dense attention, every drop
+    rate 0, same weights and batch; float32 and bfloat16."""
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    base, t = _cold_batches(1, CHECK_BATCH, SEED + 2)[0]
+    batch = (torch.from_numpy(base).cuda(), torch.from_numpy(t).cuda())
+    lr = 0.005 * 16 / 512  # the YAML's lr: base_lr · effective batch / 512
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        got = {}
+        for use_flash in (True, False):
+            model = _train_model(torch, use_flash=use_flash, dtype=dtype,
+                                 drop_rate=0.0, attn_drop_rate=0.0,
+                                 drop_path_rate=0.0)
+            p0 = [p.detach().clone() for p in model.parameters()]
+            state = create_train_state(model, lr, TRAIN_TOTAL_STEPS)
+            step = make_train_step(model, prepare=prepare)
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0
+            state, loss, _ = step(state, batch, torch.Generator(device="cuda"),
+                                  torch.tensor(5.0, device="cuda"))
+            torch.cuda.synchronize()
+            got[use_flash] = {
+                "loss": loss.item(), "grad_norm": state.grad_norm.item(),
+                "update": [p.detach() - a for p, a in zip(model.parameters(), p0)],
+                "launches": dict(fa.LAUNCHES)}
+            del model, state, step, p0
+        f, d = got[True], got[False]
+        upd_gap = math.sqrt(sum(float(((a - b) ** 2).sum())
+                                for a, b in zip(f["update"], d["update"])))
+        upd_norm = math.sqrt(sum(float((b ** 2).sum()) for b in d["update"]))
+        max_gap = max(float((a - b).abs().max()) for a, b in zip(f["update"], d["update"]))
+        tol = TRAIN_CHECK_TOL[name]
+        rec = {"phase": "train-check", "model": MODEL, "dtype": name,
+               "batch": CHECK_BATCH, "lr": lr,
+               "loss_flash": f["loss"], "loss_dense": d["loss"],
+               "loss_rel": abs(f["loss"] - d["loss"]) / abs(d["loss"]),
+               "grad_norm_flash": f["grad_norm"], "grad_norm_dense": d["grad_norm"],
+               "grad_norm_rel": abs(f["grad_norm"] - d["grad_norm"]) / d["grad_norm"],
+               "upd_rel": upd_gap / upd_norm, "max_param_gap_lr": max_gap / lr,
+               "launches_flash": f["launches"], "launches_dense": d["launches"],
+               "tol": tol, "tol_max_param_gap_lr": MAX_UPDATE_GAP_LR}
+        emit(rec)
+        depth = 6
+        check(f["launches"] == {"flash_fwd": depth, "flash_bwd_dq": depth,
+                                "flash_bwd_dkv": depth},
+              f"train-check flash launches {f['launches']}")
+        check(not any(d["launches"].values()),
+              f"train-check dense launches {d['launches']}")
+        for key in ("loss", "grad_norm", "upd_rel"):
+            val = rec[f"{key}_rel"] if key != "upd_rel" else rec["upd_rel"]
+            check(math.isfinite(val) and val <= tol[key],
+                  f"train-check {name} {key} {val} over {tol[key]}")
+        check(rec["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR,
+              f"train-check {name} param gap {rec['max_param_gap_lr']} lr")
+        del got, f, d
+        torch.cuda.empty_cache()
+
+
+def _run_steps(torch, step, state, batches, gen, loss_rec):
+    from ddim_cold_torch.data.loader import device_prefetch
+
+    loss = None
+    for b in device_prefetch(batches, "cuda"):
+        state, loss, loss_rec = step(state, b, gen, loss_rec)
+    return state, loss, loss_rec
+
+
+def phase_train(torch, fa):
+    """The training path: 3 warm-up and 20 timed steps of the bf16 flash
+    model; then the attention-dropout (dense) rule."""
+    from ddim_cold_torch.config import ExperimentConfig
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    # the 20220822_200px.yaml hyper-parameters, built in code
+    config = ExperimentConfig(exp_name="chip_smoke", framework="train", amp=True,
+                              batch_size=8, epoch=(0, 8), base_lr=0.005,
+                              image_size=(200, 200), diff_step=7, patch_size=4,
+                              embed_dim=256, depth=6, head=4, use_flash=True)
+    batch = config.effective_batch
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    host = _cold_batches(TRAIN_WARM + TRAIN_STEPS + PROFILE_STEPS, batch, SEED + 3)
+    records = {}
+    for attn_drop, n_steps in ((0.0, TRAIN_STEPS), (0.1, DENSE_STEPS)):
+        model = _train_model(torch, use_flash=config.use_flash, drop_rate=0.1,
+                             attn_drop_rate=attn_drop, drop_path_rate=0.1)
+        state = create_train_state(model, config.lr, TRAIN_TOTAL_STEPS)
+        step = make_train_step(model, prepare=prepare)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        loss_rec = torch.tensor(5.0, device="cuda")
+        warm = TRAIN_WARM if attn_drop == 0.0 else 1
+        if attn_drop:
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0  # the dense rule: nothing from here on
+        state, _, loss_rec = _run_steps(torch, step, state, host[:warm], gen, loss_rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if not attn_drop:
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0  # main path starts here
+        t0 = time.perf_counter()
+        state, loss, loss_rec = _run_steps(torch, step, state,
+                                           host[warm:warm + n_steps], gen, loss_rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv")}  # ... and ends here
+        rec = {"phase": "train", "model": MODEL, "dtype": "bfloat16",
+               "use_flash": config.use_flash, "drop_rate": 0.1,
+               "drop_path_rate": 0.1, "attn_drop_rate": attn_drop,
+               "path": "flash" if not attn_drop else "dense (attention dropout)",
+               "batch": batch, "lr": config.lr, "warmup_steps": warm,
+               "steps": n_steps, "wall_s": wall,
+               "ms_per_step": wall / n_steps * 1e3,
+               "img_per_sec": batch * n_steps / wall,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "final_loss": loss.item(), "loss_ema": loss_rec.item(),
+               "launches": launches}
+        emit(rec)
+        check(math.isfinite(rec["final_loss"]), f"train loss {rec['final_loss']}")
+        if attn_drop:
+            check(not any(launches.values()),
+                  f"attn_drop_rate={attn_drop} launched flash kernels: {launches}")
+        else:
+            expect = model.depth * n_steps
+            check(all(n == expect for n in launches.values()),
+                  f"train launches {launches}, expected {expect} each")
+            records = (model, state, step, host[-PROFILE_STEPS:], gen, launches)
+        if attn_drop:
+            del model, state, step
+            torch.cuda.empty_cache()
+    return records
+
+
+def phase_train_profile(torch, model, state, step, batch, gen):
+    """Where a training step's time goes: PROFILE_STEPS more steps under
+    torch.profiler (the host→device copies of the later batches overlap the
+    earlier steps, as in a run); device time of the three kernels and of
+    the rest, and the device's idle share over the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss_rec = torch.tensor(5.0, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run_steps(torch, step, state, batch, gen, loss_rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": [], "gemm": [],
+             "other": []}
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = next((k for k in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")
+                     if k in name), None)
+        if kind is None:
+            kind = ("gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet"))
+                    else "other")
+        kinds[kind].append((e.time_range.start, e.time_range.end))
+        tot = by_name.setdefault(e.name[:80], [0.0, 0])
+        tot[0] += e.time_range.end - e.time_range.start
+        tot[1] += 1
+    spans = [iv for ivs in kinds.values() for iv in ivs]
+    window_us = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) if spans else 0.0
+    busy_us = _union_us(spans)
+    rec = {"phase": "train-profile", "steps": len(batch), "wall_s": wall,
+           "device_window_s": window_us / 1e6, "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / window_us if window_us else None}
+    for kind, ivs in kinds.items():
+        rec[f"{kind}_s"] = sum(hi - lo for lo, hi in ivs) / 1e6
+        rec[f"{kind}_launches"] = len(ivs)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    rec["top_kernels"] = [{"name": n, "s": us / 1e6, "launches": c}
+                          for n, (us, c) in top]
+    emit(rec)
+    for kind in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(rec[f"{kind}_launches"] == model.depth * len(batch),
+              f"profiled {kind} launches {rec[f'{kind}_launches']}")
+
+
 def main() -> int:
     import torch
 
     from ddim_cold_torch import serve
     from ddim_cold_torch.models import MODEL_CONFIGS, DiffusionViT
+    from ddim_cold_torch.ops import _build
     from ddim_cold_torch.ops import flash_attention as fa
 
     if not torch.cuda.is_available():
@@ -298,24 +640,45 @@ def main() -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    lib = fa.load_kernel()
-    emit({"phase": "build", "library": lib._name,
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, at once
+        libs = list(pool.map(_build.load_library, SOURCES))
+    emit({"phase": "build", "libraries": [lib._name for lib in libs],
           "seconds": time.perf_counter() - t0})
 
     records = phase_kernels(torch, fa)
+    bwd = phase_kernels_bwd(torch, fa)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
-    eng, config, launches = phase_serve(torch, model, fa, serve)
+    eng, config, serve_launches = phase_serve(torch, model, fa, serve)
     phase_profile(torch, eng, config)
+    del eng, model
+    torch.cuda.empty_cache()
+    phase_train_check(torch, fa)
+    train_model, state, step, batch, gen, train_launches = phase_train(torch, fa)
+    phase_train_profile(torch, train_model, state, step, batch, gen)
 
-    main_case = records[("200_p4", "bfloat16")]
-    emit({"kernels": [{
+    fwd = records[("200_p4_b16", "bfloat16")]
+    lines = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddim_cold_torch/csrc/flash_fwd.cu",
         "replaces": "ddim_cold_tpu/ops/flash_attention.py:79",
-        "launches": launches, "max_abs_err": main_case["max_abs_err_o"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+        "launches": train_launches["flash_fwd"],
+        "launches_by_path": {"train": train_launches["flash_fwd"],
+                             "serve": serve_launches},
+        "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]}]
+    for name, line in (("flash_bwd_dq", 246), ("flash_bwd_dkv", 284)):
+        rec = bwd[("200_p4", "bfloat16", name)]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "ddim_cold_torch/csrc/flash_bwd.cu",
+            "replaces": f"ddim_cold_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            # one SDPA backward computes dq, dk and dv together
+            "library_ms": rec["library_ms"], "library_covers": "dq+dk+dv"})
+    emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

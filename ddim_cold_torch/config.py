@@ -1,0 +1,338 @@
+"""Experiment configuration — the reference's flat-YAML schema, preserved.
+
+The port's copy of ``ddim_cold_tpu/config.py``: the same schema, derived
+values and validators, so a YAML the JAX trainer reads configures the port's
+trainer the same way. PyYAML is imported inside :func:`load_config` only, so
+code that builds an :class:`ExperimentConfig` directly needs no YAML parser.
+
+Schema (20220822.yaml:1-15): ``initializing, resume, AMP, framework,
+num_gpus, batch_size, epoch: [start, end], base_lr, dataStorage: [train, val],
+image_size, diff_step, patch_size, embed_dim, depth, head``.
+
+Derived-value rules are part of the observable behavior (SURVEY.md quirk #7)
+and replicated exactly (multi_gpu_trainer.py:191-196):
+
+* AMP doubles the per-device batch (AMP ⇒ bf16 compute with float32
+  parameters — no GradScaler: bf16 keeps fp32 range, so loss scaling, a
+  float16 artifact, is unnecessary);
+* lr = base_lr · batch · num_devices / 512.
+
+``diff_step`` is honored — passed to the model as total_steps when
+``honor_diff_step`` is set; by default it is recorded but the time-embedding
+table stays at 2000 rows for checkpoint compatibility (SURVEY.md quirk #4).
+The optional keys the JAX package added keep their meaning; the port's
+trainer refuses those whose slice has not landed (``mesh``, more than one
+device, ``profile_steps``, ``nan_checks``, ``steps_per_dispatch`` > 1,
+MoE, remat, scan_blocks, ``flash_blocks``), naming the ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional
+
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    exp_name: str
+    initializing: str = "none"
+    resume: str = "none"
+    amp: bool = False
+    framework: str = "experiment"
+    num_devices: int = 1
+    batch_size: int = 16
+    epoch: tuple[int, int] = (0, 100)
+    base_lr: float = 0.005
+    data_storage: tuple[str, str] = ("", "")
+    image_size: tuple[int, int] = (64, 64)
+    diff_step: int = 2000
+    patch_size: int = 8
+    embed_dim: int = 384
+    depth: int = 7
+    head: int = 12
+    dataset: str = "cold"
+    seed: int = 42
+    honor_diff_step: bool = False
+    mesh: Optional[dict[str, int]] = None
+    use_flash: "bool | str" = False  # False | True (kernels) | "xla" (blockwise)
+    # Pallas kernel (block_q, block_kv) override of the JAX package; the
+    # port's CUDA kernels have fixed 64-row tiles and refuse it
+    flash_blocks: Optional[tuple] = None
+    use_sincos_pos: bool = False
+    sp_mode: str = "ring"  # seq-parallel strategy: ring | ulysses
+    remat: bool = False
+    profile_steps: int = 0  # trace this many early steps into <run_dir>/trace
+    nan_checks: bool = False  # jax_debug_nans for the whole run
+    cache_images: object = None  # None=auto (fits 2GB), True/False=force
+    # device-side corruption: ship clean bases, corrupt in-jit. Cold datasets:
+    # bit-identical gathers (tests/test_device_path.py), both loaders.
+    # Gaussian: device-drawn ε, train loader only (val stays host-exact).
+    # 2-8× less host→device traffic; False forces the host/C++ pipeline.
+    device_degrade: bool = True
+    # overlap epoch-end checkpoint writes with the next epoch's compute (costs
+    # one transient on-device params+opt_state copy); multi-host runs are
+    # always synchronous (collective orbax writes must not be reordered)
+    async_checkpoint: bool = True
+    scan_blocks: bool = False  # nn.scan over depth (stacked params)
+    microbatches: Optional[int] = None  # pipeline microbatches (default 2·pipe)
+    # every N epochs, additionally save params to <run>/snapshots/epoch_<E>/ —
+    # feeds the per-checkpoint FID trend (scripts/fid_trend.py); 0 = off
+    snapshot_epochs: int = 0
+    # split each optimizer step's batch into N sequential micro-slices with
+    # averaged gradients (one lax.scan in the jitted step) — the standard
+    # big-batch-on-small-HBM tool, absent upstream. 1 = off. Same math as
+    # the unaccumulated step (dropout gets per-slice keys); peak activation
+    # memory drops ~N×. Not composable with a pipe mesh axis (the pipeline
+    # has its own microbatching).
+    grad_accum: int = 1
+    # stack N successive batches into ONE dispatch that lax.scans N full
+    # optimizer steps on device — N× fewer host↔device round trips and N×
+    # larger transfers, the lever when the device is network-attached
+    # (remote-TPU tunnel, DCN-fed host). 1 = off (parity default). Identical
+    # per-step math (rng folds key off state.step, which advances inside the
+    # scan). Epoch tails shorter than N are dropped (drop_last semantics),
+    # and train.log `steps:` lines land on log-window boundary crossings.
+    steps_per_dispatch: int = 1
+    # EMA shadow of the params (standard diffusion practice, absent upstream):
+    # 0 = off (default, byte-identical to the reference behavior); e.g. 0.999
+    # maintains ema ← d·ema + (1−d)·p each step, checkpointed alongside the
+    # live params (bestloss_ema.ckpt + ema_params in lastepoch.ckpt)
+    ema_decay: float = 0.0
+    # Switch-MoE (models/moe.py): >1 swaps each block's MLP for a top-1
+    # routed expert bank whose stacked params shard over an 'expert' mesh
+    # axis — the ep counterpart to mesh's data/model/seq/pipe. 1 = off.
+    num_experts: int = 1
+    moe_capacity_factor: float = 1.25  # per-expert queue: ceil(N·cf/E)
+    moe_aux_weight: float = 0.01  # Switch load-balance loss coefficient
+    # routing implementation (models/moe.py): "einsum" = one-hot GEMM
+    # dispatch (XLA-friendliest, O(N²·cf) activations); "index" =
+    # sort/gather dispatch (O(N·cf·D)) for long-sequence configs
+    moe_dispatch: str = "einsum"
+
+    @property
+    def effective_batch(self) -> int:
+        """AMP doubles the batch (multi_gpu_trainer.py:191-194)."""
+        return self.batch_size * 2 if self.amp else self.batch_size
+
+    @property
+    def data_parallel_size(self) -> int:
+        """Devices the batch is split over: mesh['data'] when an explicit mesh
+        is configured, else num_devices (the pure-dp default)."""
+        if self.mesh:
+            return int(self.mesh.get("data", 1))
+        return self.num_devices
+
+    @property
+    def lr(self) -> float:
+        """base_lr · batch · dp-world / 512 (multi_gpu_trainer.py:196).
+
+        The reference's ``num_gpus`` IS its dp world size; with an explicit
+        mesh the dp world is mesh['data'], keeping lr tied to the global batch
+        actually trained."""
+        return self.base_lr * self.effective_batch * self.data_parallel_size / 512.0
+
+    @property
+    def total_steps(self) -> int:
+        """Model time-embedding rows: 2000 unless diff_step is honored."""
+        return self.diff_step if self.honor_diff_step else 2000
+
+    @property
+    def run_name(self) -> str:
+        """Run dir name = <ExpName><framework> (multi_gpu_trainer.py:198)."""
+        return f"{self.exp_name}{self.framework}"
+
+    def model_kwargs(self) -> dict[str, Any]:
+        """The model's constructor arguments (``flash_blocks`` is checked by
+        the trainer's ``build_model``)."""
+        return dict(
+            img_size=tuple(self.image_size),
+            patch_size=self.patch_size,
+            embed_dim=self.embed_dim,
+            depth=self.depth,
+            num_heads=self.head,
+            total_steps=self.total_steps,
+            use_flash=self.use_flash,
+            use_sincos_pos=self.use_sincos_pos,
+            remat=self.remat,
+            scan_blocks=self.scan_blocks,
+            num_experts=self.num_experts,
+            moe_capacity_factor=self.moe_capacity_factor,
+            moe_dispatch=self.moe_dispatch,
+        )
+
+
+def _check_flash_blocks(value, use_flash):
+    if value is None:
+        return None
+    if use_flash is False:
+        # the same silent-misconfiguration class the unknown-key check
+        # kills: a tuned pair pinned in the yaml with use_flash unset would
+        # validate, thread through model_kwargs, and then attend DENSE
+        raise ValueError(
+            "flash_blocks is set but use_flash is false — the blocks would "
+            "be silently ignored; set use_flash: true (or 'xla', which "
+            "uses only the block_kv half)")
+    try:
+        bq, bkv = (int(v) for v in value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"flash_blocks must be a [block_q, block_kv] pair, got {value!r}")
+    if bq < 1 or bkv < 1:
+        raise ValueError(f"flash_blocks must be positive, got {value!r}")
+    return (bq, bkv)
+
+
+def _check_use_flash(value):
+    # YAML surface: false | true (Pallas kernel) | "xla" (pure-XLA blockwise)
+    if isinstance(value, str):
+        if value.lower() == "xla":
+            return "xla"
+        if value.lower() in ("pallas", "true"):
+            return True
+        if value.lower() in ("false", "none", ""):
+            return False
+        raise ValueError(
+            f"use_flash must be true/false/'xla'/'pallas', got {value!r}")
+    return bool(value)
+
+
+def _check_sp_mode(value: str) -> str:
+    if value not in ("ring", "ulysses"):
+        raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {value!r}")
+    return value
+
+
+def _check_grad_accum(value: int) -> int:
+    if value < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {value!r}")
+    return value
+
+
+def _check_num_experts(value: int) -> int:
+    if value < 1:
+        raise ValueError(f"num_experts must be >= 1, got {value!r}")
+    return value
+
+
+def _check_moe_capacity(value: float) -> float:
+    # cf ≤ 0 clamps every expert queue to one token: nearly all tokens
+    # overflow onto the residual and the MoE silently contributes nothing
+    if value <= 0.0:
+        raise ValueError(f"moe_capacity_factor must be > 0, got {value!r}")
+    return value
+
+
+def _check_moe_aux(value: float) -> float:
+    if value < 0.0:  # negative would actively REWARD routing imbalance
+        raise ValueError(f"moe_aux_weight must be >= 0, got {value!r}")
+    return value
+
+
+def _check_moe_dispatch(value: str) -> str:
+    if value not in ("einsum", "index"):
+        raise ValueError(
+            f"moe_dispatch must be 'einsum' or 'index', got {value!r}")
+    return value
+
+
+def _check_steps_per_dispatch(value: int) -> int:
+    if value < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {value!r}")
+    return value
+
+
+def _check_ema_decay(value: float) -> float:
+    # d=1.0 freezes the shadow at init forever; d>1 diverges to NaN within
+    # steps and the damage only surfaces at sampling time — fail loudly here
+    if not 0.0 <= value < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {value!r}")
+    return value
+
+
+#: every key load_config reads, including the reference-schema aliases —
+#: anything else in the YAML is a typo and must fail loud: this loader is
+#: .get()-based, so an unknown key (`use_flahs: true`, `scan_block: true`)
+#: would otherwise be silently ignored and the run silently misconfigured
+_KNOWN_KEYS = frozenset({
+    "initializing", "resume", "AMP", "amp", "framework", "num_devices",
+    "num_gpus", "batch_size", "epoch", "base_lr", "dataStorage",
+    "image_size", "diff_step", "patch_size", "embed_dim", "depth", "head",
+    "dataset", "seed", "honor_diff_step", "mesh", "use_flash", "flash_blocks",
+    "use_sincos_pos", "sp_mode", "remat", "profile_steps", "nan_checks",
+    "cache_images", "device_degrade", "async_checkpoint", "scan_blocks",
+    "microbatches", "snapshot_epochs", "ema_decay", "num_experts",
+    "moe_capacity_factor", "moe_aux_weight", "moe_dispatch", "grad_accum",
+    "steps_per_dispatch",
+})
+
+
+def load_config(yaml_path: str, exp_name: Optional[str] = None) -> ExperimentConfig:
+    """Parse a reference-schema YAML into an ExperimentConfig (needs PyYAML,
+    imported here and nowhere else)."""
+    import yaml
+
+    with open(yaml_path) as f:
+        raw = yaml.safe_load(f)
+    unknown = sorted(set(raw) - _KNOWN_KEYS)
+    if unknown:
+        import difflib
+
+        hints = []
+        for k in unknown:
+            close = difflib.get_close_matches(k, _KNOWN_KEYS, n=1)
+            hints.append(f"{k!r}" + (f" (did you mean {close[0]!r}?)"
+                                     if close else ""))
+        raise ValueError(
+            f"{yaml_path}: unknown config key(s) {', '.join(hints)} — "
+            "a misspelled key would be silently ignored and the run "
+            "silently misconfigured; remove or fix it")
+    name = exp_name or os.path.splitext(os.path.basename(yaml_path))[0]
+    epoch = raw.get("epoch", [0, 100])
+    return ExperimentConfig(
+        exp_name=name,
+        initializing=raw.get("initializing", "none"),
+        resume=raw.get("resume", "none"),
+        amp=bool(raw.get("AMP", raw.get("amp", False))),
+        framework=raw.get("framework", "experiment"),
+        num_devices=int(raw.get("num_devices", raw.get("num_gpus", 1))),
+        batch_size=int(raw.get("batch_size", 16)),
+        epoch=(int(epoch[0]), int(epoch[1])),
+        base_lr=float(raw.get("base_lr", 0.005)),
+        data_storage=tuple(raw.get("dataStorage", ["", ""])),
+        image_size=tuple(raw.get("image_size", [64, 64])),
+        diff_step=int(raw.get("diff_step", 2000)),
+        patch_size=int(raw.get("patch_size", 8)),
+        embed_dim=int(raw.get("embed_dim", 384)),
+        depth=int(raw.get("depth", 7)),
+        head=int(raw.get("head", 12)),
+        dataset=raw.get("dataset", "cold"),
+        seed=int(raw.get("seed", 42)),
+        honor_diff_step=bool(raw.get("honor_diff_step", False)),
+        mesh=raw.get("mesh"),
+        use_flash=_check_use_flash(raw.get("use_flash", False)),
+        flash_blocks=_check_flash_blocks(
+            raw.get("flash_blocks"),
+            _check_use_flash(raw.get("use_flash", False))),
+        use_sincos_pos=bool(raw.get("use_sincos_pos", False)),
+        sp_mode=_check_sp_mode(raw.get("sp_mode", "ring")),
+        remat=bool(raw.get("remat", False)),
+        profile_steps=int(raw.get("profile_steps", 0)),
+        nan_checks=bool(raw.get("nan_checks", False)),
+        cache_images=raw.get("cache_images"),
+        device_degrade=bool(raw.get("device_degrade", True)),
+        async_checkpoint=bool(raw.get("async_checkpoint", True)),
+        scan_blocks=bool(raw.get("scan_blocks", False)),
+        microbatches=(int(raw["microbatches"]) if "microbatches" in raw else None),
+        snapshot_epochs=int(raw.get("snapshot_epochs", 0)),
+        ema_decay=_check_ema_decay(float(raw.get("ema_decay", 0.0))),
+        num_experts=_check_num_experts(int(raw.get("num_experts", 1))),
+        moe_capacity_factor=_check_moe_capacity(
+            float(raw.get("moe_capacity_factor", 1.25))),
+        moe_aux_weight=_check_moe_aux(float(raw.get("moe_aux_weight", 0.01))),
+        moe_dispatch=_check_moe_dispatch(raw.get("moe_dispatch", "einsum")),
+        grad_accum=_check_grad_accum(int(raw.get("grad_accum", 1))),
+        steps_per_dispatch=_check_steps_per_dispatch(
+            int(raw.get("steps_per_dispatch", 1))),
+    )

@@ -1,4 +1,4 @@
-"""DiffusionViT — the x̂0-predicting Vision Transformer, inference forward.
+"""DiffusionViT — the x̂0-predicting Vision Transformer.
 
 Counterpart of ``ddim_cold_tpu/models/vit.py`` as ``nn.Module``s whose
 state_dict keys are the reference torch model's (reference ViT.py:158-218),
@@ -15,12 +15,27 @@ order (the same map as the reference ``Conv2d``, whose weight it holds); the
 reference's exact un-patchify pixel map. Parameters live in float32 and are
 cast to ``dtype`` (float32 or bfloat16) at use, as the JAX modules do.
 
-``use_flash=True`` routes attention through the hand-written flash kernel
-(:mod:`ddim_cold_torch.ops.flash_attention`); ``False`` is the dense einsum
-path, kept as the kernel's oracle. The forward is the deterministic
-(evaluation) forward: dropout, stochastic depth and the later slices' hooks
-(quant, fused, MoE, sequence parallelism, scan_blocks, remat, the step and
-token caches, pipeline stages, the attention probe) raise
+``use_flash=True`` routes attention through the hand-written flash kernels
+(:mod:`ddim_cold_torch.ops.flash_attention`, forward and backward); ``False``
+is the dense einsum path, kept as the kernels' oracle. The JAX routing rule
+holds: the flash path runs only where no attention weights are needed,
+that is in evaluation (``deterministic=True``) or with ``attn_drop_rate=0``;
+a training forward with attention dropout takes the dense path and drops
+attention weights (JAX vit.py:231, :356, :377-381).
+
+``deterministic=False`` is the training forward. It takes an explicit
+``torch.Generator`` on the model's device and applies, as flax's
+``nn.Dropout`` does (Bernoulli(keep) mask, survivors scaled by 1/keep, rate
+0 the identity): ``pos_drop`` on the embedded tokens, attention-weight
+dropout (dense path only), the proj dropout and both MLP dropouts, all at
+their rates; and per-sample stochastic depth on both residual branches of
+every block, a (B, 1, 1) mask at the rates ``linspace(0, drop_path_rate,
+depth)``. The bits differ from JAX's: the distributions are the same.
+
+The forward records autograd history like any module; the samplers and the
+serving engine run it under ``torch.inference_mode()``. The later slices'
+hooks (quant, fused, MoE, sequence parallelism, scan_blocks, remat, the step
+and token caches, pipeline stages, the attention probe) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
@@ -35,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddim_cold_torch.models.init import torch_default_uniform_, trunc_normal_
-from ddim_cold_torch.ops.flash_attention import flash_attention
+from ddim_cold_torch.ops.flash_attention import flash_attention_qkv
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
@@ -68,7 +83,7 @@ _LATER_CTOR = {
     "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
     "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
     "scan_blocks": (False, "Queue 1 item 14 (parallel/pipeline)"),
-    "remat": (False, "Queue 1 item 11 (training)"),
+    "remat": (False, "Queue 1 item 11 (training: remat)"),
     "seq_mesh": (None, "Queue 1 item 14 (sequence parallelism)"),
     "seq_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
     "batch_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
@@ -108,6 +123,22 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             shape=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: identity without a generator (deterministic) or at
+    rate 0; else a Bernoulli(1 − rate) mask of ``shape`` (default x's; a
+    broadcastable shape gives stochastic depth) with survivors scaled by
+    1/(1 − rate) in x's dtype."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape if shape is None else shape, generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with float32 statistics and affine, cast back to x's dtype
     (flax LayerNorm with a reduced compute dtype)."""
@@ -136,62 +167,89 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """2-layer exact-erf GELU MLP (reference ViT.py:74-90)."""
+    """2-layer exact-erf GELU MLP with dropout after each layer (reference
+    ViT.py:74-90)."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(F.gelu(_linear(x, self.fc1), approximate="none"), self.fc2)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = _dropout(F.gelu(_linear(x, self.fc1), approximate="none"), self.drop,
+                     generator)
+        return _dropout(_linear(x, self.fc2), self.drop, generator)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with fused qkv (reference ViT.py:93-117)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
-                 qk_scale: Optional[float] = None, use_flash: bool = False):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, use_flash: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.qk_scale = qk_scale
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.use_flash = use_flash
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, C = x.shape
         head_dim = C // self.num_heads
         scale = self.qk_scale or head_dim**-0.5
-        # (B, N, 3, H, hd) unpack order, as the reference reshape; q, k, v
-        # stay strided views of the projection (the kernel reads them so)
+        # (B, N, 3, H, hd) unpack order, as the reference reshape; the flash
+        # kernels read q, k, v as strided slices of the projection and write
+        # its gradient as one buffer
         qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, head_dim)
-        q, k, v = qkv.unbind(2)
-        if self.use_flash:
-            out = flash_attention(q, k, v, scale)
+        # the flash path never materialises the weights, so it needs
+        # attention dropout inactive (JAX's weightless_ok, vit.py:231)
+        if self.use_flash and (generator is None or self.attn_drop == 0.0):
+            out = flash_attention_qkv(qkv, scale)
         else:
+            q, k, v = qkv.unbind(2)
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
             attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+            attn = _dropout(attn, self.attn_drop, generator)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-        return _linear(out.reshape(B, N, C), self.proj)
+        out = _linear(out.reshape(B, N, C), self.proj)
+        return _dropout(out, self.proj_drop, generator)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block (reference ViT.py:120-138), evaluation form."""
+    """Pre-LN transformer block with stochastic-depth residuals (reference
+    ViT.py:120-138)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
-                 use_flash: bool = False):
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0, use_flash: bool = False):
         super().__init__()
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
-                              qk_scale=qk_scale, use_flash=use_flash)
+                              qk_scale=qk_scale, attn_drop=attn_drop,
+                              proj_drop=drop, use_flash=use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layer_norm(x, self.norm1))
-        return x + self.mlp(_layer_norm(x, self.norm2))
+    def _residual(self, y: torch.Tensor, generator) -> torch.Tensor:
+        """Per-sample stochastic depth (reference ViT.py:52-71): one
+        Bernoulli(keep) draw per sample, broadcast over tokens and channels."""
+        return _dropout(y, self.drop_path, generator, shape=(y.shape[0], 1, 1))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self._residual(self.attn(_layer_norm(x, self.norm1), generator),
+                               generator)
+        return x + self._residual(self.mlp(_layer_norm(x, self.norm2), generator),
+                                  generator)
 
 
 class DiffusionViT(nn.Module):
@@ -200,9 +258,8 @@ class DiffusionViT(nn.Module):
     ``x``: (B, H, W, C) in [−1, 1]; ``t``: (B,) integer steps in
     [0, total_steps) (out of range raises, as torch indexing does). Returns
     (B, H, W, C) float32. Constructor defaults mirror the reference ctor:
-    mlp_ratio=1.0, qkv_bias=True, total_steps=2000; the drop rates are kept
-    for the reference signature and act only in training, which this
-    inference port does not run.
+    mlp_ratio=1.0, qkv_bias=True, all drop rates 0.1, total_steps=2000; the
+    drop rates act only in the training forward (``deterministic=False``).
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU with the reference initializers, then moved to ``device``
@@ -237,6 +294,9 @@ class DiffusionViT(nn.Module):
         self.total_steps = total_steps
         self.dtype = dtype
         self.use_flash = bool(use_flash)
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate
+        self.drop_path_rate = drop_path_rate
         E, N = embed_dim, self.num_patches
 
         self.patch_embed = PatchEmbed(patch_size, E, in_chans)
@@ -249,10 +309,13 @@ class DiffusionViT(nn.Module):
             self.pos_embed = None
         else:
             self.pos_embed = nn.Parameter(torch.zeros(1, N + 1, E))
+        # stochastic depth decay rule: linspace(0, rate, depth) (ViT.py:176)
+        dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(E, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                  qk_scale=qk_scale, use_flash=self.use_flash)
-            for _ in range(depth))
+                  qk_scale=qk_scale, drop=drop_rate, attn_drop=attn_drop_rate,
+                  drop_path=float(dpr[i]), use_flash=self.use_flash)
+            for i in range(depth))
         self.norm = nn.LayerNorm(E, eps=1e-5)
         self.head = nn.Linear(E, in_chans * patch_size**2)
         self._init_weights(torch.Generator().manual_seed(seed))
@@ -287,14 +350,18 @@ class DiffusionViT(nn.Module):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                deterministic: bool = True, **later) -> torch.Tensor:
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                **later) -> torch.Tensor:
+        """``deterministic=False`` is the training forward and needs
+        ``generator`` (on the model's device) for its dropout masks."""
         refuse_later(later, _LATER_FORWARD, "DiffusionViT.forward")
-        if not deterministic:
-            raise NotImplementedError(
-                "training forward (dropout, stochastic depth) is ROADMAP.md "
-                "Queue 1 item 11")
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("the training forward (deterministic=False) draws "
+                             "dropout masks: pass generator")
         B = x.shape[0]
         x = x.to(self.dtype)
         tokens = self.patch_embed(x)
@@ -306,8 +373,9 @@ class DiffusionViT(nn.Module):
                            self.time_embed.weight.to(self.dtype))[:, None, :]
         pos = self.pos_embed if self.pos_embed is not None else self.pos_table
         tokens = tokens + pos.to(self.dtype) + time
+        tokens = _dropout(tokens, self.drop_rate, generator)  # pos_drop
         for blk in self.blocks:
-            tokens = blk(tokens)
+            tokens = blk(tokens, generator)
         tokens = _linear(_layer_norm(tokens, self.norm), self.head)
         return self.unpatchify(tokens[:, 1:, :]).float()
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
 so a build takes seconds). Libraries land in ``build/ddim_cold_torch/`` at
 the repository root, keyed by a hash of the source and the flags, and are
-built on first use by :func:`load_library`.
+built on first use by :func:`load_library`, each source under its own lock
+(so two sources may build at once, from two threads).
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine-independent module only touches ``nvcc`` and the GPU when a
@@ -29,17 +30,22 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddim_cold_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: the C signature of each kernel's entry point (restype is always c_int:
-#: the launch's cudaError_t)
+#: per source ``csrc/<name>.cu``, the C signature of each of its entry
+#: points (restype is always c_int: the launch's cudaError_t)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "flash_fwd": ("flash_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-                  + [_L] * 9 + [_F, _P]),
+    "flash_fwd": {
+        "flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _P],
+    },
+    "flash_bwd": {
+        "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P],
+        "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_F, _P],
+    },
 }
 
-_lock = threading.Lock()
-_loaded: dict = {}  # name -> ctypes.CDLL, guarded-by: _lock
+# one lock per source: two sources build at once, one source builds once
+_locks = {name: threading.Lock() for name in SIGNATURES}
+_loaded: dict = {}  # name -> ctypes.CDLL, guarded-by: _locks[name]
 
 
 def _nvcc() -> str:
@@ -84,14 +90,14 @@ def load_library(name: str) -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError(f"kernel {name!r} needs a CUDA device, and "
                            "torch.cuda.is_available() is False")
-    with _lock:
+    with _locks[name]:
         lib = _loaded.get(name)
         if lib is None:
             _build(name)
             lib = ctypes.CDLL(str(library_path(name)))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib

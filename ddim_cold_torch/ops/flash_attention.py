@@ -1,12 +1,23 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``ddim_cold_tpu/ops/flash_attention.py`` (forward only).
-``softmax(q·kᵀ·scale)·v`` over ``(B, N, H, D)`` tensors without the N×N
-logits ever reaching device memory: on a CUDA tensor :func:`flash_forward`
-launches ``csrc/flash_fwd.cu`` (see its header for the design and what
-bounds it); on a CPU tensor it computes :func:`flash_forward_reference`,
-the same function written in plain PyTorch. There is no other route: a
-CUDA call that cannot build or launch the kernel raises.
+Counterpart of ``ddim_cold_tpu/ops/flash_attention.py`` (the unfused
+kernels). ``softmax(q·kᵀ·scale)·v`` over ``(B, N, H, D)`` tensors, forward
+and backward, without an N×N matrix ever reaching device memory:
+
+* :func:`flash_forward` launches ``csrc/flash_fwd.cu`` and returns O plus the
+  per-row log-sum-exp;
+* :func:`flash_backward` launches the two kernels of ``csrc/flash_bwd.cu``
+  (dq; dk and dv), which rebuild P from that lse;
+* :class:`FlashAttention` (through :func:`flash_attention_qkv` and
+  :func:`flash_attention`) is the ``torch.autograd.Function`` joining them:
+  residuals (qkv, o, lse), and one ``(B, N, 3, H, D)`` gradient buffer for
+  the qkv projection, so autograd never sums three copies.
+
+Each wrapper takes its kernel on a CUDA tensor and the plain PyTorch version
+of the same function (:func:`flash_forward_reference`,
+:func:`flash_backward_reference`) on a CPU tensor. There is no other route:
+a CUDA call that cannot build or launch a kernel raises. See the ``.cu``
+headers for each kernel's design and what bounds it.
 
 The TPU kernel's padding of D to 128 lanes and N to 8 rows, its
 lane-replicated (m, l, lse) scratch, the Mosaic tile legalisation and the
@@ -31,7 +42,8 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def load_kernel():
-    """Build (first time) and load the kernel library; raises without CUDA."""
+    """Build (first time) and load the forward kernel's library; raises
+    without CUDA."""
     return _build.load_library("flash_fwd")
 
 
@@ -80,6 +92,20 @@ def o_error_limit(o_ref: torch.Tensor) -> torch.Tensor:
     return 2.0**-7 * ref + 2.0**-5 * ref.mean()
 
 
+def _check_kernel_inputs(what: str, *ts: torch.Tensor) -> None:
+    """What every kernel takes on CUDA: D ∈ {32, 64}, float32 or bfloat16,
+    a unit innermost stride."""
+    D = ts[0].shape[-1]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {what} kernel takes head dim {KERNEL_HEAD_DIMS}, "
+                         f"got {D}")
+    if ts[0].dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the {what} kernel takes {list(KERNEL_DTYPES)}, got "
+                         f"{ts[0].dtype}")
+    if any(t.stride(3) != 1 for t in ts):
+        raise ValueError("q, k, v need a unit innermost (head-dim) stride")
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused non-causal attention forward, returning ``(o, lse)``.
@@ -98,14 +124,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_forward runs on CUDA (kernel) or CPU (plain "
                          f"version), got device {q.device}")
     B, N, H, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dim {KERNEL_HEAD_DIMS}, "
-                         f"got {D}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"the flash kernel takes {list(KERNEL_DTYPES)}, got "
-                         f"{q.dtype}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("q, k, v need a unit innermost (head-dim) stride")
+    _check_kernel_inputs("flash", q, k, v)
     lib = load_kernel()
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
@@ -123,7 +142,191 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def grad_error_limit(g_ref: torch.Tensor) -> torch.Tensor:
+    """Element-wise bound on |g_kernel − g_plain| for dq, dk or dv.
+
+    float32: ``2⁻¹⁶·|g_ref| + 2⁻¹³·mean|g_ref|``. Both sides do the same f32
+    operations in another order. Each g is a sum over N terms of
+    P·(dP − δ)·k (or P·dO): the per-term errors are a few 2⁻²⁴ of the term,
+    and where dP ≈ δ the subtraction turns them into errors relative to |dP|
+    rather than to the difference, so their random-sign sum is a small
+    multiple of 2⁻²⁴·√N of a term-sized sum — well under 2⁻¹³ of mean|g|.
+    bfloat16: ``2⁻⁷·|g_ref| + 2⁻⁶·mean|g_ref|``. Each side rounds g to bf16
+    once, so they may land one ulp apart, and one bf16 ulp of x is at most
+    2⁻⁷·|x|. Both sides rebuild P from the same lse, so they round P and dS to
+    bf16 from f32 values that differ only in f32 ordering: a rounding lands on
+    the other side of a bf16 boundary only rarely, and each such flip moves
+    one term of a g-sized sum by 2⁻⁸ of itself. Unlike the forward's O limit
+    (:func:`o_error_limit`) there is no running row max, so the second term
+    is half the forward's.
+    """
+    ref = g_ref.float().abs()
+    if g_ref.dtype == torch.float32:
+        return 2.0**-16 * ref + 2.0**-13 * ref.mean()
+    return 2.0**-7 * ref + 2.0**-6 * ref.mean()
+
+
+def _check_backward(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    B, N, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and dO must have q's shape {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and dO must have q's dtype {q.dtype}, got "
+                         f"{o.dtype}, {do.dtype}")
+    if lse.shape != (B * H, N) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B * H}, {N}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not (q.device == o.device == lse.device == do.device):
+        raise ValueError("q, o, lse, dO devices differ")
+
+
+def backward_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(O∘dO) in f32, as (B·H, N) (TPU path :344)."""
+    B, N, H, _ = o.shape
+    return ((o.float() * do.float()).sum(-1)  # (B, N, H)
+            .transpose(1, 2).reshape(B * H, N).contiguous())
+
+
+def _p_ds(q, k, v, do, lse, delta, scale):
+    """P rebuilt from the lse and dS = P∘(dP − δ), both (B, H, N, N) f32."""
+    B, N, H, _ = q.shape
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    p = torch.exp(logits - lse.reshape(B, H, N, 1))
+    dp = torch.einsum("bnhd,bmhd->bhnm", do.float(), v.float())
+    return p, p * (dp - delta.reshape(B, H, N, 1))
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """The plain version of ``flash_bwd_dq``: dq = scale·dS·K with dS rounded
+    to k's dtype, f32 products, ``(B, N, H, D)`` in q's dtype."""
+    _, ds = _p_ds(q, k, v, do, lse, delta, scale)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds.to(k.dtype).float(), k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale: float):
+    """The plain version of ``flash_bwd_dkv``: dk = scale·dSᵀ·Q with dS
+    rounded to q's dtype, dv = Pᵀ·dO with P rounded to dO's dtype, f32
+    products; ``(dk, dv)``, each ``(B, N, H, D)`` in q's dtype."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, scale)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds.to(q.dtype).float(), q.float()) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(do.dtype).float(), do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_backward_reference(q, k, v, o, lse, do, scale: float) -> torch.Tensor:
+    """The plain version of both backward kernels: P rebuilt from ``lse``,
+    dS = P∘(dP − δ), dS rounded to k's dtype before dS·K and to q's before
+    dSᵀ·Q, P rounded to dO's dtype before Pᵀ·dO, all products in f32.
+    Returns the ``(B, N, 3, H, D)`` gradient of the qkv projection in q's
+    dtype: ``[:, :, 0]`` is dq, ``1`` dk, ``2`` dv."""
+    _check_backward(q, k, v, o, lse, do)
+    delta = backward_delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    return torch.stack((dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)),
+                       dim=2)
+
+
+def _launch(symbol: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
+    """Launch one backward kernel on the current stream; count it."""
+    B, N, H, D = q.shape
+    _check_kernel_inputs("flash backward", q, k, v, do, *outs)
+    lib = _build.load_library("flash_bwd")
+    strides = [s for t in (q, k, v, do, outs[0]) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, symbol)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            B, N, H, D, KERNEL_DTYPES[q.dtype], *strides, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err} "
+                           f"(B={B}, N={N}, H={H}, D={D}, {q.dtype})")
+    LAUNCHES[symbol] += 1
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float) -> None:
+    """Launch the dq kernel, writing ``dq`` (``(B, N, H, D)``, any strides
+    with a unit innermost one); lse and δ ``(B·H, N)`` f32 contiguous.
+    CUDA tensors only: the CPU route is :func:`flash_backward`'s."""
+    _launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
+    """Launch the dk/dv kernel, writing ``dk`` and ``dv`` (two slices with
+    the same strides). CUDA tensors only."""
+    if dk.stride() != dv.stride():
+        raise ValueError("dk and dv must share their strides")
+    _launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale)
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Gradient of :func:`flash_forward`'s O with respect to q, k and v.
+
+    q/k/v: ``(B, N, H, D)``, any strides with a unit innermost stride (the
+    slices of the qkv projection); o and lse: what the forward returned;
+    do: dL/dO, ``(B, N, H, D)``. Returns one ``(B, N, 3, H, D)`` buffer in q's
+    dtype holding dq, dk, dv as its three slices, the gradient of the qkv
+    projection as autograd wants it. On CUDA it launches ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` (D ∈ {32, 64}, float32 or bfloat16; anything else
+    raises); on the CPU it is :func:`flash_backward_reference`.
+    """
+    _check_backward(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward runs on CUDA (kernels) or CPU (plain "
+                         f"version), got device {q.device}")
+    B, N, H, D = q.shape
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    delta = backward_delta(o, do)
+    lse = lse.contiguous()
+    grad = torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grad.unbind(2)
+    flash_bwd_dq(q, k, v, do, lse, delta, dq, scale)
+    flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale)
+    return grad
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over a ``(B, N, 3, H, D)`` qkv
+    projection: forward :func:`flash_forward`, backward
+    :func:`flash_backward` (the TPU path's ``jax.custom_vjp``). The residuals
+    are the projection itself, O and the ``(B·H, N)`` f32 lse; the backward
+    returns the projection's gradient as one buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
+        o, lse = flash_forward(*qkv.unbind(2), scale)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        qkv, o, lse = ctx.saved_tensors
+        return flash_backward(*qkv.unbind(2), o, lse, do, ctx.scale), None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention of the ``(B, N, 3, H, D)`` qkv projection's three slices,
+    ``(B, N, H, D)`` in its dtype; differentiable through the kernels."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (B, N, 3, H, D), got {tuple(qkv.shape)}")
+    return FlashAttention.apply(qkv, scale)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """:func:`flash_forward` without the lse: ``(B, N, H, D)`` in q's dtype."""
-    return flash_forward(q, k, v, scale)[0]
+    """:func:`flash_forward` without the lse: ``(B, N, H, D)`` in q's dtype.
+    Differentiable: q, k and v are stacked into one projection first (a
+    copy the model avoids by calling :func:`flash_attention_qkv`)."""
+    if not any(t.requires_grad for t in (q, k, v)) or not torch.is_grad_enabled():
+        return flash_forward(q, k, v, scale)[0]
+    _check(q, k, v)
+    return flash_attention_qkv(torch.stack((q, k, v), dim=2), scale)

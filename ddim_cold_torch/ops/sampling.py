@@ -11,7 +11,8 @@ Each reverse step is affine in (x, x̂0) with coefficients precomputed on the
 host (:mod:`ddim_cold_torch.ops.schedule`), so the step body is one model
 forward, a clamp and two multiply-adds, with no host synchronisation inside
 the loop (no ``.item()``, no copies to the host): the whole loop enqueues
-asynchronously on the device and can later be captured in a CUDA graph.
+asynchronously on the device and can later be captured in a CUDA graph. It
+runs under ``torch.inference_mode()``: no autograd history is recorded.
 
 Randomness comes from an explicit ``torch.Generator`` living on the
 sampling device; it cannot reproduce JAX's bits, so parity with the JAX
@@ -60,7 +61,7 @@ def forward_noise(generator: torch.Generator, img: torch.Tensor, t_start: int,
     return math.sqrt(alpha) * img + math.sqrt(1.0 - alpha) * eps
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
                 k: int = 10, n: int = 128, x_init=None,
                 t_start: Optional[int] = None, return_sequence: bool = False,

@@ -1,0 +1,226 @@
+"""The training step (counterpart of ``ddim_cold_tpu/train/step.py``).
+
+One ``train_step(state, batch, generator, loss_rec) → (state, loss,
+loss_rec)`` carries the reference inner loop (multi_gpu_trainer.py:109-134):
+forward in the model's compute dtype (bf16 under "AMP": bf16 compute with
+float32 parameters, no GradScaler), smooth-L1 loss in f32, global-norm clip
+1.0, AdamW(wd=0.05) with a per-step cosine schedule to 0.
+
+The optimizer is written out so that it equals the JAX package's optax
+chain ``clip_by_global_norm(1.0) → adamw(cosine_decay_schedule(lr, T, 0),
+b1=.9, b2=.999, eps=1e-8, weight_decay=.05)`` op for op, where PyTorch's own
+pieces differ from it: ``clip_grad_norm_`` adds 1e-6 to the norm (optax does
+not), optax's cosine reads the update count *before* the update, and optax's
+AdamW decays every parameter, biases, LayerNorm and embeddings included. The
+update is a pass of ``torch._foreach_*`` operations over the parameter list,
+in place (PyTorch may update in place where JAX rebuilds the tree).
+
+Randomness (dropout, drop path, a stochastic ``prepare``) comes from one
+``torch.Generator`` on the model's device, drawn in a fixed order; it cannot
+reproduce JAX's bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from ddim_cold_torch.ops.losses import smooth_l1
+
+B1, B2, EPS, WEIGHT_DECAY, MAX_NORM = 0.9, 0.999, 1e-8, 0.05, 1.0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the step carries: the model (its parameters are the live
+    params), the optimizer count ``step`` (a host int: the lr is set from it
+    with no device sync), AdamW's moments in parameter order, and an optional
+    EMA shadow of the params (``ema_decay`` > 0; the reference has no EMA)."""
+
+    model: torch.nn.Module
+    lr: float
+    total_steps: int
+    step: int = 0
+    mu: list = dataclasses.field(default_factory=list)
+    nu: list = dataclasses.field(default_factory=list)
+    ema_params: Optional[list] = None
+    #: global norm of the last update's gradients, before the clip (a
+    #: device scalar: reading it syncs)
+    grad_norm: Optional[torch.Tensor] = None
+
+    @property
+    def names(self) -> list:
+        return [n for n, _ in self.model.named_parameters()]
+
+    @property
+    def params(self) -> list:
+        return list(self.model.parameters())
+
+    def learning_rate(self, count: Optional[int] = None) -> float:
+        """optax ``cosine_decay_schedule(lr, total_steps, alpha=0)`` at the
+        update count (default: the one the next update reads)."""
+        count = min(self.step if count is None else count, self.total_steps)
+        return self.lr * (0.5 * (1.0 + math.cos(math.pi * count / self.total_steps)))
+
+    def opt_state_dict(self) -> dict:
+        """The optimizer state by parameter name (for checkpoints)."""
+        names = self.names
+        return {"count": self.step, "mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu))}
+
+    def load_opt_state_dict(self, state: dict) -> None:
+        names = self.names
+        for which in ("mu", "nu"):
+            if set(state[which]) != set(names):
+                raise ValueError(f"optimizer state {which} does not match this "
+                                 "model's parameters")
+        self.step = int(state["count"])
+        dev = self.params[0].device
+        self.mu = [state["mu"][n].to(dev, torch.float32).clone() for n in names]
+        self.nu = [state["nu"][n].to(dev, torch.float32).clone() for n in names]
+
+    def seed_ema(self) -> None:
+        """EMA shadow := a copy of the current params."""
+        self.ema_params = [p.detach().clone() for p in self.params]
+
+
+def create_train_state(model: torch.nn.Module, lr: float, total_steps: int,
+                       ema_decay: float = 0.0) -> TrainState:
+    """Wrap ``model``'s (already initialised) parameters with the optimizer:
+    zero moments, count 0, and an EMA shadow when ``ema_decay`` > 0."""
+    if total_steps <= 0:
+        raise ValueError(f"total_steps must be positive, got {total_steps}")
+    params = list(model.parameters())
+    state = TrainState(model=model, lr=float(lr), total_steps=int(total_steps),
+                       mu=[torch.zeros_like(p, dtype=torch.float32) for p in params],
+                       nu=[torch.zeros_like(p, dtype=torch.float32) for p in params])
+    if ema_decay:
+        state.seed_ema()
+    return state
+
+
+@torch.no_grad()
+def apply_gradients(state: TrainState, grads: list) -> None:
+    """One optax-chain update of ``state.model``'s parameters, in place:
+    clip by global norm 1.0, Adam moments and bias correction, decoupled
+    weight decay on every parameter, cosine lr, ``p ← p + (−lr)·u``. The
+    clip decision stays on the device (no sync)."""
+    params = state.params
+    lr = state.learning_rate()
+    # clip_by_global_norm: select(‖g‖ < max, g, g / ‖g‖ · max)
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    state.grad_norm = g_norm
+    denom = torch.where(g_norm < MAX_NORM, torch.ones_like(g_norm), g_norm / MAX_NORM)
+    grads = torch._foreach_div(grads, denom)
+    # scale_by_adam: mu = (1−b1)·g + b1·mu; nu = (1−b2)·g² + b2·nu
+    torch._foreach_mul_(state.mu, B1)
+    torch._foreach_add_(state.mu, grads, alpha=1.0 - B1)
+    torch._foreach_mul_(state.nu, B2)
+    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - B2)
+    count = state.step + 1
+    mu_hat = torch._foreach_div(state.mu, 1.0 - B1**count)
+    nu_hat = torch._foreach_div(state.nu, 1.0 - B2**count)
+    denom_v = torch._foreach_sqrt(nu_hat)
+    torch._foreach_add_(denom_v, EPS)
+    updates = torch._foreach_div(mu_hat, denom_v)
+    # add_decayed_weights, then scale_by_learning_rate and apply_updates
+    torch._foreach_add_(updates, params, alpha=WEIGHT_DECAY)
+    torch._foreach_mul_(updates, -lr)
+    torch._foreach_add_(params, updates)
+    state.step = count
+
+
+def make_train_step(model, prepare: Optional[Callable] = None,
+                    ema_decay: float = 0.0, grad_accum: int = 1,
+                    moe_aux_weight: float = 0.0,
+                    steps_per_dispatch: int = 1) -> Callable:
+    """``(state, batch, generator, loss_rec) → (state, loss, loss_rec)``.
+
+    ``batch`` is ``(noisy, target, t)`` tensors on the model's device, or,
+    with ``prepare`` (ops/degrade.make_cold_prepare / make_gaussian_prepare),
+    the raw ``(base, t)`` it corrupts on the device. ``generator`` drives
+    ``prepare``'s noise and the dropout masks.
+
+    The EMA train loss (0.99/0.01, multi_gpu_trainer.py:126) stays a device
+    scalar: the step never syncs with the host. ``ema_decay`` > 0 updates the
+    state's EMA shadow after the update (``ema ← d·ema + (1−d)·p``).
+    ``grad_accum`` > 1 splits the batch into that many interleaved slices
+    (slice j = rows j, j+ga, …, as the JAX step), averages their gradients
+    and their losses, and makes one update. ``moe_aux_weight`` > 0 and
+    ``steps_per_dispatch`` > 1 belong to later slices and raise.
+    """
+    if moe_aux_weight:
+        raise NotImplementedError("moe_aux_weight is ROADMAP.md Queue 1 item 18 (MoE)")
+    if steps_per_dispatch != 1:
+        if steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 is ROADMAP.md Queue 1 item 11 (training: "
+            "multi-step dispatch, a CUDA-graph capture of the step)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if not 0.0 <= ema_decay < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay!r}")
+
+    def loss_and_grads(params, noisy, target, t, generator):
+        pred = model(noisy, t, deterministic=False, generator=generator)
+        loss = smooth_l1(pred, target)
+        return loss, list(torch.autograd.grad(loss, params))
+
+    def train_step(state: TrainState, batch, generator: torch.Generator,
+                   loss_rec: torch.Tensor):
+        if ema_decay and state.ema_params is None:
+            raise ValueError(
+                "ema_decay > 0 but the state carries no ema_params — create it "
+                "with create_train_state(..., ema_decay=...) or call "
+                "state.seed_ema()")
+        if prepare is not None:
+            batch = prepare(batch, generator)
+        noisy, target, t = batch
+        params = state.params
+        if grad_accum == 1:
+            loss, grads = loss_and_grads(params, noisy, target, t, generator)
+        else:
+            b = noisy.shape[0]
+            if b % grad_accum:
+                raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
+            loss, grads = None, None
+            for j in range(grad_accum):
+                loss_j, g_j = loss_and_grads(params, noisy[j::grad_accum],
+                                             target[j::grad_accum],
+                                             t[j::grad_accum], generator)
+                if grads is None:
+                    loss, grads = loss_j, g_j
+                else:
+                    loss = loss + loss_j
+                    torch._foreach_add_(grads, g_j)
+            torch._foreach_div_(grads, float(grad_accum))
+            loss = loss / grad_accum
+        loss = loss.detach()
+        apply_gradients(state, grads)
+        if ema_decay:
+            with torch.no_grad():  # optax.incremental_update(p, ema, 1 − d)
+                step_size = 1.0 - ema_decay
+                torch._foreach_mul_(state.ema_params, 1.0 - step_size)
+                torch._foreach_add_(state.ema_params, params, alpha=step_size)
+        return state, loss, loss_rec * 0.99 + loss * 0.01
+
+    return train_step
+
+
+def make_eval_step(model, prepare: Optional[Callable] = None) -> Callable:
+    """``(batch) → loss``: the deterministic forward's smooth-L1, under
+    ``torch.inference_mode()`` (no autograd history)."""
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        if prepare is not None:
+            batch = prepare(batch, None)
+        noisy, target, t = batch
+        return smooth_l1(model(noisy, t, deterministic=True), target)
+
+    return eval_step

@@ -1,0 +1,349 @@
+"""The training loop on one device (counterpart of
+``ddim_cold_tpu/train/trainer.py``, which replaced ``multi_gpu_trainer.main``).
+
+    run(config)
+    ├─ datasets + ShardedLoader + device_prefetch   (data/)
+    ├─ build_model + create_train_state            (models/, train/step.py)
+    ├─ optional warm-start / resume                (utils/checkpoint.py)
+    └─ epoch loop: train_step → evaluate → log → checkpoint
+
+Behavioural parity with the reference: the EMA(0.99) train loss starting at
+5.0, the every-100-step ``steps:`` line, the per-epoch ``epoch:`` line,
+best/last dual checkpoints, epoch-granular resume restoring the step count
+(the cosine position), the best metric and the EMA loss
+(multi_gpu_trainer.py:53-55,94-106,126,135-163). The step never syncs with
+the host except at log points and epoch ends.
+
+One device only: ``config.mesh``, ``num_devices`` > 1, ``profile_steps``
+and ``nan_checks`` raise, naming their ROADMAP.md items.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ddim_cold_torch.config import ExperimentConfig
+from ddim_cold_torch.data import ColdDownSampleDataset, DiffusionDataset, ShardedLoader
+from ddim_cold_torch.data.loader import device_prefetch
+from ddim_cold_torch.models import DiffusionViT
+from ddim_cold_torch.ops import degrade
+from ddim_cold_torch.train.step import create_train_state, make_eval_step, make_train_step
+from ddim_cold_torch.utils import checkpoint as ckpt
+from ddim_cold_torch.utils.logging import ScalarWriter, asctime, print_log
+from ddim_cold_torch.utils.platform import resolve_device
+
+
+@dataclass
+class TrainResult:
+    best_loss: float
+    last_val_loss: float
+    steps: int
+    run_dir: str
+
+
+class _GracefulStop:
+    """SIGTERM/SIGINT → set a flag; the epoch loop finishes the current step,
+    evaluates, checkpoints and returns normally, leaving a resumable
+    lastepoch.ckpt. A second signal restores the previous dispositions and
+    re-delivers itself. Handlers can only be installed from the main thread;
+    elsewhere this is a no-op (``requested`` stays False)."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev: dict = {}
+
+    def __enter__(self):
+        import signal
+
+        def handler(signum, frame):
+            if self.requested:  # second signal: restore + re-deliver → die now
+                for s, h in self._prev.items():
+                    signal.signal(s, h)
+                os.kill(os.getpid(), signum)
+                return
+            self.requested = True
+
+        try:
+            for s in (signal.SIGTERM, signal.SIGINT):
+                self._prev[s] = signal.signal(s, handler)
+        except ValueError:  # not the main thread
+            self._prev = {}
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        return False
+
+
+class _AsyncSaver:
+    """Runs each epoch's checkpoint writes in a background thread, so the
+    device→host copy and serialization overlap the next epoch's compute. At
+    most one epoch's saves are in flight (``wait`` before the next
+    ``submit``); a save error re-raises at the next wait."""
+
+    def __init__(self, sync: bool):
+        self.sync = sync
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, fn) -> None:
+        if self.sync:
+            fn()
+            return
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised on the main thread at wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+
+def _refuse_later(config: ExperimentConfig) -> None:
+    later = [
+        (config.mesh, "config.mesh", "Queue 1 item 14 (parallel/)"),
+        (config.num_devices > 1, f"num_devices={config.num_devices}",
+         "Queue 1 item 14 (parallel/: data parallelism)"),
+        (config.profile_steps, "profile_steps", "Queue 1 item 16 (observability)"),
+        (config.nan_checks, "nan_checks", "Queue 1 item 16 (observability)"),
+        (config.flash_blocks is not None, "flash_blocks",
+         "Queue 1 item 17 (tuning: the CUDA kernels' tiles are fixed)"),
+    ]
+    for on, what, item in later:
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+def _build_dataset(config: ExperimentConfig, root: str):
+    cache = config.cache_images
+    if config.dataset == "cold":
+        return ColdDownSampleDataset(root, imgSize=config.image_size,
+                                     target_mode="chain", cache_images=cache)
+    if config.dataset == "cold_direct":
+        return ColdDownSampleDataset(root, imgSize=config.image_size,
+                                     target_mode="direct", cache_images=cache)
+    if config.dataset == "gaussian":
+        return DiffusionDataset(root, imgSize=config.image_size,
+                                max_step=config.total_steps, cache_images=cache)
+    raise ValueError(f"unknown dataset kind {config.dataset!r}")
+
+
+def build_model(config: ExperimentConfig, device=None) -> DiffusionViT:
+    """The model from the config, bf16 compute under AMP, weights from
+    ``config.seed``. The JAX drop-rate defaults apply (0.1 each; the config
+    has no key for them), so a training forward with ``use_flash`` takes the
+    dense path, as in the JAX trainer on one device."""
+    _refuse_later(config)
+    return DiffusionViT(dtype=torch.bfloat16 if config.amp else torch.float32,
+                        device=device, seed=config.seed, **config.model_kwargs())
+
+
+def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = None,
+        log_every: int = 100, device=None) -> TrainResult:
+    """Train per the config on one device (None means ``"cuda"``); returns
+    the best/final metrics. ``max_steps`` bounds the optimizer steps (a
+    test/bench hook, not in the reference)."""
+    dev = resolve_device(device)
+    model = build_model(config, device=dev)  # refuses later slices' options
+    saved_dir = os.path.join(base_dir, "Saved_Models")
+    run_dir = os.path.join(saved_dir, config.run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    log = os.path.join(run_dir, "train.log")
+    global_batch = config.effective_batch
+    if config.grad_accum > 1 and global_batch % config.grad_accum:
+        raise ValueError(f"grad_accum needs batch {global_batch} divisible by "
+                         f"{config.grad_accum}")
+    train_set = _build_dataset(config, config.data_storage[0])
+    test_set = _build_dataset(config, config.data_storage[1])
+    # device-side corruption: the datasets ship clean bases and the step
+    # rebuilds the corrupted batch on the device (cold: bit-identical
+    # gathers, both loaders; gaussian: device-drawn ε, train loader only)
+    is_cold = config.dataset in ("cold", "cold_direct")
+    raw_train = config.device_degrade
+    raw_eval = config.device_degrade and is_cold
+    prepare = eval_prepare = None
+    if raw_train:
+        if is_cold:
+            prepare = eval_prepare = degrade.make_cold_prepare(
+                size=int(config.image_size[0]), max_step=train_set.max_step,
+                chain=(config.dataset == "cold"))
+        else:
+            prepare = degrade.make_gaussian_prepare(config.total_steps)
+    train_loader = ShardedLoader(train_set, global_batch, shuffle=True,
+                                 seed=config.seed, drop_last=True, raw=raw_train)
+    test_loader = ShardedLoader(test_set, global_batch, shuffle=False,
+                                drop_last=False, pad_final_batch=True, raw=raw_eval)
+    train_batches, test_batches = len(train_loader), len(test_loader)
+    if train_batches == 0:
+        raise ValueError("dataset smaller than one global batch (drop_last)")
+
+    state = create_train_state(model, config.lr, train_batches * config.epoch[1])
+
+    # warm start (the reference's `initializing` key): load if present, else
+    # persist this init for future runs
+    epoch_start = config.epoch[0]
+    steps, loss_rec, best_loss = 0, 5.0, 5.0
+    if config.initializing not in ("", "none"):
+        init_path = os.path.join(saved_dir, config.initializing)
+        if os.path.isfile(init_path):
+            loaded = ckpt.load_torch_pkl(init_path)
+            ckpt.check_loaded_params(loaded, model.state_dict(), init_path)
+            model.load_state_dict(loaded, strict=True)
+        else:
+            ckpt.save_torch_pkl(model.state_dict(), init_path)
+
+    restored = None
+    if config.resume != "none":
+        restored = ckpt.load_checkpoint(config.resume)
+        ckpt.check_loaded_params(restored["params"], model.state_dict(), config.resume)
+        model.load_state_dict(restored["params"], strict=True)
+        state.load_opt_state_dict(restored["opt_state"])
+        epoch_start = int(restored["epoch"]) + 1
+        steps = int(restored["steps"])
+        loss_rec = float(restored["loss_rec"])
+        best_loss = float(restored["metric"])
+        state.step = steps
+        if config.ema_decay and "ema_params" in restored:
+            names = state.names
+            state.ema_params = [restored["ema_params"][n].to(dev) for n in names]
+        elif config.ema_decay:
+            print_log("resume checkpoint has no ema_params — re-seeding the "
+                      "EMA shadow from the restored params", log)
+        elif "ema_params" in restored:
+            print_log("resume checkpoint carries ema_params but ema_decay is "
+                      "off — dropping the shadow", log)
+        print_log(f"resuming from epoch {epoch_start:8d} of " + config.resume, log)
+        print_log(f"recovering best_loss {best_loss:4f}", log)
+    else:
+        print_log(f"Date: {asctime()}", log)
+        print_log("TrainSet batchs:" + str(train_batches), log)
+        print_log("TestSet batchs:" + str(test_batches), log)
+    if config.ema_decay and state.ema_params is None:
+        # seed the shadow from whatever params the run starts with (fresh
+        # init, warm start, or an ema-less resume)
+        state.seed_ema()
+
+    train_step = make_train_step(model, prepare=prepare, ema_decay=config.ema_decay,
+                                 grad_accum=config.grad_accum,
+                                 moe_aux_weight=(config.moe_aux_weight
+                                                 if config.num_experts > 1 else 0.0),
+                                 steps_per_dispatch=config.steps_per_dispatch)
+    eval_step = make_eval_step(model, prepare=eval_prepare)
+    writer = ScalarWriter(run_dir)
+    generator = torch.Generator(device=dev).manual_seed(config.seed + 1)
+
+    vloss = float("nan")
+    loss_rec_dev = torch.tensor(loss_rec, dtype=torch.float32, device=dev)
+    time_start = time.time()
+    done = False
+    saver = _AsyncSaver(sync=not config.async_checkpoint)
+    stopper = _GracefulStop()
+    stopper.__enter__()  # released after the finally block below: a signal
+    # during the last in-flight checkpoint write stays graceful too
+    try:
+        for epoch in range(epoch_start, config.epoch[1]):
+            train_loader.set_epoch(epoch)
+            for batch in device_prefetch(train_loader, dev):
+                state, _, loss_rec_dev = train_step(state, batch, generator, loss_rec_dev)
+                steps += 1
+                if steps % log_every == 0:
+                    loss_rec = float(loss_rec_dev)  # the only per-step host sync
+                    time_end = time.time()
+                    print_log(f"steps: {steps:8d} loss: {loss_rec:.4f} "
+                              f"time_cost: {time_end - time_start:.2f}", log)
+                    time_start = time.time()
+                    if stopper.requested:
+                        done = True
+                        print_log(f"stop signal at step {steps:8d} — "
+                                  "evaluating, checkpointing, exiting", log)
+                        break
+                if max_steps is not None and steps >= max_steps:
+                    done = True
+                    break
+            if not done and stopper.requested:
+                done = True
+                print_log(f"stop signal at epoch {epoch:4d} end — "
+                          "evaluating, checkpointing, exiting", log)
+            loss_rec = float(loss_rec_dev)
+
+            # -- evaluate: mean loss per batch, mean over batches; one host
+            # sync for the whole val set
+            test_loader.set_epoch(epoch)
+            batch_losses = [eval_step(b) for b in device_prefetch(test_loader, dev)]
+            vloss = float(torch.stack(batch_losses).mean())
+            print_log(f"epoch: {epoch:4d}    loss: {vloss:.5f}    time:{asctime()}", log)
+            writer.add_scalar("loss", vloss, epoch)
+
+            saver.wait()  # at most one epoch's saves in flight
+            # snapshot on the device: the next step updates params in place
+            params_snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            opt_state = state.opt_state_dict()
+            opt_snap = {"count": opt_state["count"],
+                        "mu": {k: v.clone() for k, v in opt_state["mu"].items()},
+                        "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
+            ema_snap = (dict(zip(state.names, (p.clone() for p in state.ema_params)))
+                        if state.ema_params is not None else None)
+
+            # NaN-safe: a diverged epoch (vloss NaN) compares False and
+            # leaves best_loss finite
+            improved = vloss < best_loss
+            if improved:
+                best_loss = vloss
+
+            def save_epoch(epoch=epoch, steps=steps, loss_rec=loss_rec,
+                           improved=improved, best=best_loss,
+                           params=params_snap, opt_state=opt_snap, ema=ema_snap):
+                if improved:
+                    ckpt.save_checkpoint(os.path.join(run_dir, "bestloss.ckpt"), params)
+                    ckpt.save_torch_pkl(params, os.path.join(run_dir, "bestloss.pkl"))
+                    if ema is not None:  # the smoothed weights, beside the live best
+                        ckpt.save_checkpoint(os.path.join(run_dir, "bestloss_ema.ckpt"), ema)
+                        ckpt.save_torch_pkl(ema, os.path.join(run_dir, "bestloss_ema.pkl"))
+                if config.snapshot_epochs and epoch % config.snapshot_epochs == 0:
+                    snap_dir = os.path.join(run_dir, "snapshots")
+                    os.makedirs(snap_dir, exist_ok=True)
+                    ckpt.save_checkpoint(os.path.join(snap_dir, f"epoch_{epoch}.ckpt"), params)
+                    if ema is not None:
+                        ckpt.save_checkpoint(
+                            os.path.join(snap_dir, f"epoch_{epoch}_ema.ckpt"), ema)
+                ckpt.save_checkpoint(
+                    os.path.join(run_dir, "lastepoch.ckpt"),
+                    {"epoch": epoch, "steps": steps, "loss_rec": loss_rec,
+                     "metric": best, "params": params, "opt_state": opt_state,
+                     **({"ema_params": ema} if ema is not None else {})})
+
+            saver.submit(save_epoch)
+            if done:
+                break
+    finally:
+        # every cleanup step runs even when an earlier one raises: an
+        # abandoned checkpoint write loses the final epoch, and a leaked
+        # signal handler outlives run()
+        try:
+            writer.close()
+        finally:
+            try:
+                saver.wait()
+            finally:
+                stopper.__exit__()
+    return TrainResult(best_loss=best_loss, last_val_loss=vloss, steps=steps,
+                       run_dir=run_dir)

@@ -1,0 +1,91 @@
+"""Checkpoints of the port's trainer (its own format, through ``torch.save``).
+
+The reference's dual checkpoints (multi_gpu_trainer.py:94-106,152-163):
+
+* ``lastepoch.ckpt`` — the resume target: ``{epoch, steps, loss_rec,
+  metric, params, opt_state[, ema_params]}``, params and the optimizer
+  moments keyed by the model's state_dict names;
+* ``bestloss.ckpt`` — bare params whenever the val loss improves, plus
+  ``bestloss.pkl``, the params as a reference torch state_dict
+  (``blocks.N.attn.qkv.weight`` …: the port's own parameter names are the
+  reference's, the names ``utils/weights.state_dict_from_flax`` writes).
+
+The warm-start ``initializing`` pkl loads through the same names (a
+reference ``lastepoch`` dict's ``state_dict`` and DDP's ``module.`` prefix
+are accepted). Files are written beside their destination and renamed over
+it, so a crash mid-write never destroys the previous checkpoint. Loads use
+``torch.load(weights_only=True)``: only tensors and plain containers.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.writing"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_checkpoint(path: str, tree: dict) -> None:
+    """Write a checkpoint (a dict of tensors, numbers and dicts of them);
+    tensors are copied to the host first."""
+    _atomic_save(_to_cpu(tree), path)
+
+
+def load_checkpoint(path: str) -> dict:
+    """Read what :func:`save_checkpoint` wrote (tensors on the CPU)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_torch_pkl(state_dict: dict, path: str) -> None:
+    """Params as a reference torch state_dict pickle (float32, on the CPU)
+    that the reference's ``model.load_state_dict`` reads."""
+    _atomic_save({k: v.detach().to("cpu", torch.float32, copy=True)
+                  for k, v in state_dict.items()}, path)
+
+
+def load_torch_pkl(path: str) -> dict:
+    """A reference ``*.pkl`` (bare state_dict, or a dict holding one under
+    ``state_dict``) as a state_dict in the port's (= the reference's) names;
+    DDP's ``module.`` prefix is stripped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {re.sub(r"^module\.", "", k): v for k, v in obj.items()}
+
+
+def check_loaded_params(loaded: dict, expected: dict, src_path: str) -> None:
+    """Refuse, loudly and naming the leaves, a warm-start or resume source
+    whose names or shapes differ from this model's (a stale file from a
+    differently sized run under the same name)."""
+    if set(loaded) != set(expected):
+        missing = sorted(set(expected) - set(loaded))[:4]
+        extra = sorted(set(loaded) - set(expected))[:4]
+        raise ValueError(
+            f"initializing file {src_path} does not match this model config "
+            f"(different parameters — missing {missing}, unexpected {extra}: "
+            "wrong depth, positional-embedding mode, or bias layout)")
+    mism = [f"{k}: file {tuple(loaded[k].shape)} vs model {tuple(v.shape)}"
+            for k, v in expected.items() if tuple(loaded[k].shape) != tuple(v.shape)]
+    if mism:
+        raise ValueError(
+            f"initializing file {src_path} does not match this model config "
+            f"— {'; '.join(mism[:4])}"
+            + (f"; +{len(mism) - 4} more" if len(mism) > 4 else ""))

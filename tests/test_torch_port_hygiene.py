@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * no module of ``ddim_cold_torch`` (nor ``chip_smoke.py``) imports jax, flax
-  or the JAX package;
+  or the JAX package — the training slice's modules included — and none
+  imports PIL, PyYAML, TensorBoard or Triton at module level (the card's
+  machine need not have them: they are imported where they are used);
 * the entry points resolve ``device=None`` to CUDA and raise without it,
   instead of running on the CPU; the kernel loader raises likewise;
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and
@@ -39,11 +41,39 @@ def _imports(path: Path):
             yield node.module
 
 
+def _port_files():
+    return sorted((ROOT / "ddim_cold_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
 def test_port_imports_nothing_of_jax():
-    files = sorted((ROOT / "ddim_cold_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = _port_files()
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_training_slice_modules_are_checked():
+    """The import check above walks every module of the training slice."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}.py" for m in (
+        "config", "ops/losses", "ops/degrade", "data/resize", "data/datasets",
+        "data/loader", "utils/logging", "utils/checkpoint", "train/step",
+        "train/trainer")} <= names
+
+
+def test_optional_packages_are_imported_lazily():
+    """PIL, yaml, tensorboard and triton appear only inside functions."""
+    lazy = ("PIL", "yaml", "tensorboard", "triton")
+    bad = []
+    for f in _port_files():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in tree.body:  # module level only
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                    [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                    else [])
+            bad += [(f.name, m) for m in mods if m.split(".")[0] in lazy
+                    or "tensorboard" in m]
     assert bad == []
 
 
@@ -68,6 +98,17 @@ def test_device_none_means_cuda_and_raises_without_it(no_cuda):
 def test_kernel_loader_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         _build.load_library("flash_fwd")
+
+
+def test_backward_kernels_and_trainer_need_cuda_unless_told(no_cuda, tmp_path):
+    from ddim_cold_torch.config import ExperimentConfig
+    from ddim_cold_torch.train import trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _build.load_library("flash_bwd")
+    cfg = ExperimentConfig(exp_name="x", data_storage=(str(tmp_path), str(tmp_path)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.run(cfg, str(tmp_path))
 
 
 def test_engine_refuses_a_model_on_another_device():

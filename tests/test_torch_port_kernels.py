@@ -9,7 +9,9 @@ The tests that take the ``cuda_device`` fixture need the card and skip
 without it; the others check the build's keying and placement on any
 machine. Tolerances: O element-wise within ``fa.o_error_limit`` (float32
 1e-5; bfloat16 one bf16 ulp of each element plus 2⁻⁵·mean|O|, for p rounded
-against the running row max); lse 1e-5 for both.
+against the running row max); lse 1e-5 for both; dq, dk and dv element-wise
+within ``fa.grad_error_limit`` (float32 2⁻¹⁶·|g| + 2⁻¹³·mean|g|; bfloat16 one
+bf16 ulp of each element plus 2⁻⁶·mean|g|).
 """
 
 import subprocess
@@ -33,22 +35,44 @@ def test_build_is_keyed_by_source_and_lands_in_ignored_dir():
     assert ignored.returncode in (0, 128)  # 128: a copy without .git
 
 
+def _ulp_up(t: torch.Tensor) -> torch.Tensor:
+    """The next bf16 value away from zero, at every element."""
+    return (t.view(torch.int16) + 1).view(torch.bfloat16)
+
+
 def test_bf16_error_limit_admits_one_ulp_and_refuses_a_scale_fault():
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn((1, 626, 3, 4, 32), generator=gen).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
     o, _ = fa.flash_forward_reference(q, k, v, 32**-0.5)
     limit = fa.o_error_limit(o)
-    # the next bf16 value away from zero: one ulp at every element
-    o_ulp = (o.view(torch.int16) + 1).view(torch.bfloat16)
+    o_ulp = _ulp_up(o)
     assert bool(((o_ulp.float() - o.float()).abs() <= limit).all())
     assert bool(((o.float() * 1.02 - o.float()).abs() > limit).any())
+
+
+@pytest.mark.parametrize("which", ["dq", "dk", "dv"])
+def test_grad_error_limit_admits_one_ulp_and_refuses_a_scale_fault(which):
+    """At a ragged 200px/p8-like shape: dq, dk and dv one bf16 ulp off pass
+    the limit; any of them scaled 2% wrong fails it (f32 too)."""
+    gen = torch.Generator().manual_seed(1)
+    qkv = torch.randn((1, 157, 3, 4, 32), generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = fa.flash_forward_reference(q, k, v, 32**-0.5)
+    do = torch.randn(o.shape, generator=gen).to(torch.bfloat16)
+    g = fa.flash_backward_reference(q, k, v, o, lse, do, 32**-0.5)[:, :, "qkv".index(which[1])]
+    limit = fa.grad_error_limit(g)
+    assert bool(((_ulp_up(g).float() - g.float()).abs() <= limit).all())
+    assert bool(((g.float() * 1.02 - g.float()).abs() > limit).any())
+    g32 = fa.flash_backward_reference(*(t.float() for t in (q, k, v, o)), lse,
+                                      do.float(), 32**-0.5)[:, :, "qkv".index(which[1])]
+    assert bool(((g32 * 1.02 - g32).abs() > fa.grad_error_limit(g32)).any())
 
 
 @pytest.fixture
 def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the flash kernel has no CPU form")
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU form")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
@@ -70,6 +94,50 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, N, H, D):
     err = (o.float() - o_ref.float()).abs()
     assert bool((err <= fa.o_error_limit(o_ref)).all()), err.max().item()
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 626, 12, 32),
+                                     (3, 37, 2, 64), (1, 1, 1, 32)])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, B, N, H, D):
+    """dq, dk, dv from the two kernels against the plain version on the
+    same inputs and the same lse, written into one (B, N, 3, H, D) buffer."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=cuda_device).to(dtype)
+    q, k, v = qkv.unbind(2)
+    scale = D**-0.5
+    o, lse = fa.flash_forward_reference(q, k, v, scale)
+    do = torch.randn((B, N, H, D), generator=gen, device=cuda_device).to(dtype)
+    before = (fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"])
+    grad = fa.flash_backward(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"]) == (
+        before[0] + 1, before[1] + 1)
+    ref = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
+    assert grad.shape == (B, N, 3, H, D) and grad.dtype == dtype
+    for i, name in enumerate("qkv"):
+        err = (grad[:, :, i].float() - ref[:, :, i].float()).abs()
+        limit = fa.grad_error_limit(ref[:, :, i])
+        assert bool((err <= limit).all()), (name, err.max().item())
+
+
+def test_flash_autograd_runs_the_kernels(cuda_device):
+    """``flash_attention_qkv`` forward and backward on the card launch one
+    forward and one of each backward kernel, and the gradient reaches the
+    projection as one buffer."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, 300, 3, 4, 64), generator=gen, device=cuda_device)
+    qkv.requires_grad_(True)
+    before = dict(fa.LAUNCHES)
+    o = fa.flash_attention_qkv(qkv, 0.125)
+    (g,) = torch.autograd.grad(o, qkv, torch.ones_like(o))
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] == before.get(name, 0) + 1
+    q, k, v = qkv.detach().unbind(2)
+    o2, lse = fa.flash_forward_reference(q, k, v, 0.125)
+    ref = fa.flash_backward_reference(q, k, v, o2, lse, torch.ones_like(o2), 0.125)
+    assert bool(((g - ref).abs() <= fa.grad_error_limit(ref)).all())
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):

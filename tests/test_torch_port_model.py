@@ -62,8 +62,9 @@ def _jax_forward(params, x, t, **kw):
 @pytest.mark.parametrize("use_flash", [False, True])
 def test_forward_matches_jax_f32(jax_params, use_flash):
     x, t = _inputs()
-    got = _port(jax_params, use_flash=use_flash)(torch.from_numpy(x),
-                                                 torch.from_numpy(t))
+    with torch.no_grad():
+        got = _port(jax_params, use_flash=use_flash)(torch.from_numpy(x),
+                                                     torch.from_numpy(t))
     assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 3)
     np.testing.assert_allclose(got.numpy(),
                                _jax_forward(jax_params, x, t, use_flash=use_flash),
@@ -72,8 +73,9 @@ def test_forward_matches_jax_f32(jax_params, use_flash):
 
 def test_forward_matches_jax_bf16(jax_params):
     x, t = _inputs(1)
-    got = _port(jax_params, use_flash=True, dtype=torch.bfloat16)(
-        torch.from_numpy(x), torch.from_numpy(t))
+    with torch.no_grad():
+        got = _port(jax_params, use_flash=True, dtype=torch.bfloat16)(
+            torch.from_numpy(x), torch.from_numpy(t))
     want = _jax_forward(jax_params, x, t, use_flash=True, dtype=jnp.bfloat16)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2)
@@ -134,7 +136,7 @@ def test_later_slice_ctor_hooks_raise(hook):
 
 @pytest.mark.parametrize("hook", [dict(capture_split=1), dict(stage="embed"),
                                   dict(return_attention_layer=0),
-                                  dict(token_k=3), dict(deterministic=False)])
+                                  dict(token_k=3), dict(skip_blocks=(0, 1))])
 def test_later_slice_forward_hooks_raise(hook):
     model = PortViT(**TINY, device="cpu")
     x, t = _inputs()
