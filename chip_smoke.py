@@ -42,12 +42,30 @@ Phases, one JSON object per line:
    dense rule holds and no flash kernel launches;
 10. train-profile — three more training steps under ``torch.profiler``:
    device time of the three kernels and of the rest, and the idle share;
-11. the ``kernels`` summary line, then the card's ``nvidia-smi`` line, then
-   ``{"ok": true, "device": ...}`` as the last line.
+11. kernel — the quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
+   ``fused_trunk``) against their plain versions at the 200px/p4 serve
+   shape (B=8) and at 200px/p8, in float32 and bfloat16, w8a16 and w8a8
+   (and the float Mlp): element-wise within ``quant.mm_error_limit`` /
+   ``quant.trunk_error_limit``, a 2% fault caught, CUDA-event medians of
+   kernel, plain version and library yardstick, and the bound;
+12. quant-forward — the full-width model in float32 and bfloat16: each
+   quantized or fused forward against the float one, and fused against
+   unfused w8a16, within the stated tolerances;
+13. serve-quant — one warmed engine over the bf16 model serves one 8-row
+   request under each of ``quant="pallas"``, ``quant="pallas", fused=True``,
+   ``quant="w8a8", fused=True`` and ``fused=True``; the launch counters are
+   zeroed just before each drain and must read exactly depth × steps per
+   kernel of the config (dequant_mm 4× that); then one more fused w8a16
+   batch under ``torch.profiler``;
+14. the ``kernels`` summary line (all six kernels), then the card's
+   ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
+   line.
 
-Any failed check raises and the script exits non-zero. It exits non-zero
-without printing a result when the port's package is not beside it (the
-import fails) and when CUDA is unavailable.
+A failed check is reported on stderr when it happens; the run goes on, so
+that one call reports every failure, and exits non-zero at the end without
+the "ok" line. An exception stops it at once. It exits non-zero without
+printing a result when the port's package is not beside it (the import
+fails) and when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -62,14 +80,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 MODEL = "oxford_flower_200_p4"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "dequant_mm", "mlp_fused", "fused_trunk")
 BUCKETS = (4, 8)
 K = 20                      # DDIM stride: np.arange(1999, 0, -20) = 100 forwards
 REQUESTS = ((0, 1), (1, 3), (2, 5))   # (seed, n)
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
 #: FLOP/s per operand type of the kernel's work
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 #: kernel vs plain: O element-wise within ``flash_attention.o_error_limit``
 #: (float32 1e-5; bfloat16 one bf16 ulp of each element plus 2^-5·mean|O|);
 #: lse is f32 arithmetic on either input type, so 1e-5 for both
@@ -104,9 +122,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: every failed check; the run goes on so that one call reports them all,
+#: and exits non-zero, without the "ok" line, at the end
+FAILURES: list = []
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
-        raise SystemExit(f"chip_smoke: FAILED: {what}")
+        FAILURES.append(what)
+        print(f"chip_smoke: FAILED: {what}", file=sys.stderr, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -480,8 +504,9 @@ def phase_train_check(torch, fa):
                "tol": tol, "tol_max_param_gap_lr": MAX_UPDATE_GAP_LR}
         emit(rec)
         depth = 6
-        check(f["launches"] == {"flash_fwd": depth, "flash_bwd_dq": depth,
-                                "flash_bwd_dkv": depth},
+        launched = {k: n for k, n in f["launches"].items() if n}
+        check(launched == {"flash_fwd": depth, "flash_bwd_dq": depth,
+                           "flash_bwd_dkv": depth},
               f"train-check flash launches {f['launches']}")
         check(not any(d["launches"].values()),
               f"train-check dense launches {d['launches']}")
@@ -619,6 +644,313 @@ def phase_train_profile(torch, model, state, step, batch, gen):
               f"profiled {kind} launches {rec[f'{kind}_launches']}")
 
 
+# ------------------------------------------------- the quantized trunk
+
+#: quantized trunk kernels at the 200px/p4 serve shape (B=8 rows of N=2501
+#: tokens, C=256, 4 heads) and at 200px/p8 (N=626, C=384, 12 heads of 32)
+QUANT_GEOMS = (("200_p4", 8, 2501, 256, 4), ("200_p8", 8, 626, 384, 12))
+#: quant-forward: each quantized or fused forward against the float one on
+#: the same weights (x̂0, |x̂0| ≲ 1): w8a16 rounds each weight by at most
+#: half its channel's step; w8a8 also rounds the activations; fused vs
+#: unfused w8a16 and float-fused vs float are the same arithmetic in another
+#: order (FWD_TOL)
+QUANT_FWD_TOL = {"pallas": 2e-2, "w8a8": 5e-2, "xla": 2e-2}
+#: the four served configs: (quant, fused) and the kernels one layer-forward
+#: launches, with how many times
+SERVE_QUANT = ((("pallas", False), {"dequant_mm": 4, "flash_fwd": 1}),
+               (("pallas", True), {"fused_trunk": 1, "mlp_fused": 1}),
+               (("w8a8", True), {"fused_trunk": 1, "mlp_fused": 1}),
+               ((None, True), {"flash_fwd": 1, "mlp_fused": 1}))
+QUANT_KERNELS = ("flash_fwd", "dequant_mm", "mlp_fused", "fused_trunk")
+
+
+def _bound(ops_by_type, nbytes):
+    """Least time: the operations at their type's peak against the bytes
+    at the memory rate."""
+    t_ops = sum(ops / PEAK_FLOPS[kind] for kind, ops in ops_by_type.items())
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _held(torch, got, ref, limit):
+    """Element-wise check of a kernel output against its plain version, and
+    that the limit catches the output scaled 2% wrong."""
+    diff = (got.float() - ref.float()).abs()
+    scaled = (got.float() * (1 + SCALE_FAULT) - ref.float()).abs()
+    return {"max_abs_err": diff.max().item(),
+            "max_abs_ref": ref.float().abs().max().item(),
+            "max_limit": limit.max().item(), "min_limit": limit.min().item(),
+            "max_err_over_limit": (diff / limit).max().item(),
+            "mean_abs_ref": ref.float().abs().mean().item(),
+            "within_limit": bool((diff <= limit).all()),
+            "catches_2pct_scale": bool((scaled > limit).any()),
+            "finite": bool(torch.isfinite(got.float()).all())}
+
+
+def _check_held(rec, what):
+    check(rec["finite"], f"{what} finite")
+    check(rec["within_limit"], f"{what} error {rec['max_abs_err']} over its limit")
+    check(rec["catches_2pct_scale"], f"{what} limit misses a {SCALE_FAULT:.0%} "
+          "scale fault")
+
+
+def phase_kernels_quant(torch, fa, quant):
+    """dequant_mm, mlp_fused and fused_trunk against their plain versions."""
+    import torch.nn.functional as F
+
+    records = {}
+    for geom, B, N, C, H in QUANT_GEOMS:
+        M = B * N
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            elem = 4 if name == "float32" else 2
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+            x = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
+            x2 = x.reshape(M, C)
+            w = {n: quant.quantize_weight(torch.randn((rows, C), generator=gen,
+                                                      device="cuda") * 0.05)
+                 for n, rows in (("qkv", 3 * C), ("proj", C), ("fc1", C), ("fc2", C))}
+            b = {n: torch.randn(wt[0].shape[0], generator=gen, device="cuda") * 0.1
+                 for n, wt in w.items()}
+            deq = {n: quant.dequantize_weight(*wt, dtype) for n, wt in w.items()}
+
+            # dequant_mm: the qkv projection of the unfused w8a16 path
+            codes, scale = w["qkv"]
+            run = lambda: quant.dequant_mm(x2, codes, scale, b["qkv"], dtype)
+            y = run()
+            torch.cuda.synchronize()
+            ref = quant.dequant_mm_reference(x2, codes, scale, b["qkv"]).to(dtype)
+            rec = {"phase": "kernel", "kernel": "dequant_mm", "geometry": geom,
+                   "M": M, "K": C, "N": 3 * C, "dtype": name, "out_dtype": name,
+                   **_held(torch, y, ref, quant.mm_error_limit(x2, codes, scale, ref)),
+                   "ms": time_ms(torch, run),
+                   "plain_ms": time_ms(torch, lambda: quant.dequant_mm_reference(
+                       x2, codes, scale, b["qkv"]), reps=10),
+                   "library_ms": time_ms(torch, lambda: F.linear(
+                       x2, deq["qkv"], b["qkv"].to(dtype))),
+                   "library_covers": "F.linear on the weight dequantized beforehand"}
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                {name: 2.0 * M * 3 * C * C}, M * C * elem + 3 * C * C + M * 3 * C * elem)
+            emit(rec)
+            _check_held(rec, f"dequant_mm {geom} {name}")
+            records[("dequant_mm", geom, name, "pallas")] = rec
+
+            # mlp_fused: float, w8a16, w8a8
+            for mode in (None, "pallas", "w8a8"):
+                if mode is None:
+                    w1, w2 = deq["fc1"].float(), deq["fc2"].float()
+                    kw = {}
+                else:
+                    (w1, s1), (w2, s2) = w["fc1"], w["fc2"]
+                    kw = dict(scale1=s1, scale2=s2, mode=mode)
+                args = (x2, w1, b["fc1"], w2, b["fc2"])
+                run = lambda: quant.mlp_fused(*args, **kw)
+                with torch.inference_mode():
+                    y = run()
+                torch.cuda.synchronize()
+                ref, row_scale = quant.mlp_fused_reference(*args, **kw,
+                                                           return_row_scale=True)
+                flip = (quant.requant_flip_bound(row_scale, w2, s2)
+                        if mode == "w8a8" else None)
+                b1c, b2c = b["fc1"].to(dtype), b["fc2"].to(dtype)
+                rec = {"phase": "kernel", "kernel": "mlp_fused", "geometry": geom,
+                       "M": M, "C": C, "hidden": C, "dtype": name,
+                       "mode": mode or "float",
+                       **_held(torch, y, ref, quant.trunk_error_limit(ref, mode, flip)),
+                       "ms": time_ms(torch, run),
+                       "plain_ms": time_ms(torch, lambda: quant.mlp_fused_reference(
+                           *args, **kw), reps=5, warm=1),
+                       "library_ms": time_ms(torch, lambda: F.linear(F.gelu(
+                           F.linear(x2, deq["fc1"], b1c)), deq["fc2"], b2c)),
+                       "library_covers": "F.linear, F.gelu, F.linear on weights "
+                                         "dequantized beforehand"}
+                rec["bound_ms"], rec["bound_by"] = _bound(
+                    {"int8" if mode == "w8a8" else name: 4.0 * M * C * C},
+                    2 * M * C * elem + w1.numel() * w1.element_size() * 2)
+                emit(rec)
+                _check_held(rec, f"mlp_fused {geom} {name} {mode}")
+                records[("mlp_fused", geom, name, mode)] = rec
+
+            # fused_trunk: w8a16, w8a8
+            D = C // H
+            for mode in ("pallas", "w8a8"):
+                targs = (x, *w["qkv"], b["qkv"], *w["proj"], b["proj"])
+                kw = dict(num_heads=H, scale=D**-0.5, mode=mode)
+                run = lambda: fa.fused_trunk_attention(*targs, **kw)
+                with torch.inference_mode():
+                    y = run()
+                torch.cuda.synchronize()
+                ref, row_scale = fa.fused_trunk_attention_reference(
+                    *targs, **kw, return_row_scale=True)
+                flip = (quant.requant_flip_bound(row_scale, *w["proj"])
+                        if mode == "w8a8" else None)
+
+                def library():
+                    qkv = F.linear(x, deq["qkv"], b["qkv"].to(dtype))
+                    q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+                    o = F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)
+                    return F.linear(o.transpose(1, 2).reshape(B, N, C), deq["proj"],
+                                    b["proj"].to(dtype))
+
+                proj_ops = 2.0 * B * N * C * 4 * C
+                attn_ops = 4.0 * B * N * N * C
+                clusters = -(-N // (fa.FUSED_ROWS * fa.FUSED_CLUSTER))
+                rec = {"phase": "kernel", "kernel": "fused_trunk", "geometry": geom,
+                       "B": B, "N": N, "C": C, "H": H, "dtype": name, "mode": mode,
+                       **_held(torch, y, ref, quant.trunk_error_limit(ref, mode, flip)),
+                       "ms": time_ms(torch, run, reps=10),
+                       "plain_ms": time_ms(torch, lambda: fa.fused_trunk_attention_reference(
+                           *targs, **kw), reps=3, warm=1),
+                       "library_ms": time_ms(torch, library),
+                       "library_covers": "F.linear, SDPA, F.linear on weights "
+                                         "dequantized beforehand",
+                       "work_gflop": (proj_ops + attn_ops) / 1e9,
+                       # every cluster of 8 q tiles re-projects all keys and values
+                       "kv_recompute_gflop": B * clusters * 2.0
+                       * (-(-N // 64) * 64) * C * 2 * C / 1e9}
+                rec["bound_ms"], rec["bound_by"] = _bound(
+                    {"int8" if mode == "w8a8" else name: proj_ops, name: attn_ops}
+                    if mode == "w8a8" else {name: proj_ops + attn_ops},
+                    2 * B * N * C * elem + 4 * C * C)
+                emit(rec)
+                _check_held(rec, f"fused_trunk {geom} {name} {mode}")
+                records[("fused_trunk", geom, name, mode)] = rec
+            del x, x2, w, b, deq, y, ref
+            torch.cuda.empty_cache()
+    return records
+
+
+def phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant):
+    """Full-width model: each quantized or fused forward against the float
+    one, and fused against unfused w8a16, on the same weights."""
+    cfg = MODEL_CONFIGS[MODEL]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    H, W = cfg["img_size"]
+    x = torch.randn((2, H, W, 3), generator=gen, device="cuda")
+    t = torch.randint(0, 2000, (2,), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        base = DiffusionViT(**cfg, dtype=dtype, use_flash=True, seed=SEED)
+        qstate = quant.quantize_state_dict(base.state_dict())
+        outs = {}
+        with torch.inference_mode():
+            outs[(None, False)] = base(x, t)
+            for q, f in (("xla", False), ("pallas", False), ("w8a8", False),
+                         ("pallas", True), ("w8a8", True), (None, True)):
+                m = base.clone(quant=q, fused=f)
+                m.load_state_dict(qstate if q else base.state_dict(), strict=True,
+                                  assign=True)
+                outs[(q, f)] = m(x, t)
+        torch.cuda.synchronize()
+        ref = outs[(None, False)]
+        errs = {f"{q or 'float'}{'_fused' if f else ''}": (o - ref).abs().max().item()
+                for (q, f), o in outs.items() if (q, f) != (None, False)}
+        fused_vs_unfused = (outs[("pallas", True)] - outs[("pallas", False)]).abs().max().item()
+        tol = {"float_fused": FWD_TOL[name], "fused_vs_unfused_pallas": FWD_TOL[name],
+               **{k: QUANT_FWD_TOL[k.split("_")[0]] for k in errs if k != "float_fused"}}
+        emit({"phase": "quant-forward", "model": MODEL, "dtype": name, "batch": 2,
+              "max_abs_err_vs_float": errs,
+              "fused_vs_unfused_pallas": fused_vs_unfused, "tol": tol,
+              "out_abs_max": ref.abs().max().item()})
+        for key, o in outs.items():
+            check(o.shape == (2, H, W, 3) and bool(torch.isfinite(o).all()),
+                  f"quant-forward output {key} {name}")
+        for key, err in errs.items():
+            check(err <= tol[key], f"quant-forward {key} {name}: {err} over {tol[key]}")
+        check(fused_vs_unfused <= tol["fused_vs_unfused_pallas"],
+              f"quant-forward fused vs unfused {name}: {fused_vs_unfused}")
+        del base, qstate, outs, m
+        torch.cuda.empty_cache()
+
+
+def _zero(counters):
+    for c in counters:
+        for key in list(c):
+            c[key] = 0
+
+
+def phase_serve_quant(torch, model, fa, quant, serve):
+    """The four quantized or fused configs served by one warmed engine, one
+    8-row request each, with exact launch counts per config."""
+    import numpy as np
+
+    eng = serve.Engine(model, buckets=(8,))
+    configs = [serve.SamplerConfig(k=K, quant=q, fused=f) for (q, f), _ in SERVE_QUANT]
+    t0 = time.perf_counter()
+    warm = serve.warmup(eng, configs)
+    warm_s = time.perf_counter() - t0
+    programs = eng.stats["programs"]
+    steps = len(range(model.total_steps - 1, 0, -K))
+    launches = {}
+    for config, (_, per_layer) in zip(configs, SERVE_QUANT):
+        label = f"quant={config.quant},fused={config.fused}"
+        _zero((fa.LAUNCHES, quant.LAUNCHES))          # this path starts here
+        ticket = eng.submit(seed=SEED + 7, n=8, config=config)
+        report = eng.run()
+        torch.cuda.synchronize()
+        got = {k: fa.LAUNCHES[k] + quant.LAUNCHES[k] for k in QUANT_KERNELS}  # ... ends
+        want = {k: per_layer.get(k, 0) * model.depth * steps for k in QUANT_KERNELS}
+        img = ticket.result(timeout=900)
+        launches[(config.quant, config.fused)] = got
+        emit({"phase": "serve-quant", "model": MODEL, "dtype": "bfloat16", "k": K,
+              "config": label, "rows": report["rows"], "batches": report["batches"],
+              "wall_s": report["wall_s"], "img_per_sec": report["img_per_sec"],
+              "programs_after_warmup": report["programs"], "launches": got,
+              "expected_launches": want, "warmup_s": warm_s,
+              "warmed_programs": warm["programs"],
+              "param_bytes": eng.stats["param_bytes"],
+              "param_bytes_quant": eng.stats["param_bytes_quant"]})
+        check(img.shape == (8, 200, 200, 3) and bool(np.isfinite(img).all()),
+              f"serve-quant {label} output")
+        check(bool(((img >= 0.0) & (img <= 1.0)).all()), f"serve-quant {label} in [0, 1]")
+        check(report["failed_tickets"] == 0 and report["programs"] == 0
+              and eng.stats["programs"] == programs, f"serve-quant {label} programs")
+        check(got == want, f"serve-quant {label} launches {got}, expected {want}")
+    return eng, configs, launches
+
+
+def _kind_of(name: str, kinds) -> str:
+    name = name.lower()
+    hit = next((k for k in kinds if k in name), None)
+    if hit is not None:
+        return hit
+    return "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet")) else "other"
+
+
+def phase_profile_quant(torch, eng, config, model):
+    """One more fused w8a16 batch under torch.profiler: device time by
+    kernel and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ticket = eng.submit(seed=SEED + 8, n=8, config=config)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ticket.result(timeout=900)
+    kinds = {k: [] for k in QUANT_KERNELS + ("gemm", "other")}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kinds[_kind_of(e.name, QUANT_KERNELS)].append(
+                (e.time_range.start, e.time_range.end))
+    spans = [iv for ivs in kinds.values() for iv in ivs]
+    window_us = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) if spans else 0.0
+    busy_us = _union_us(spans)
+    rec = {"phase": "profile-quant", "config": f"quant={config.quant},fused={config.fused}",
+           "rows": report["rows"], "wall_s": wall, "device_window_s": window_us / 1e6,
+           "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / window_us if window_us else None}
+    for kind, ivs in kinds.items():
+        rec[f"{kind}_s"] = sum(hi - lo for lo, hi in ivs) / 1e6
+        rec[f"{kind}_launches"] = len(ivs)
+    emit(rec)
+    steps = len(range(model.total_steps - 1, 0, -K))
+    check(rec["fused_trunk_launches"] == model.depth * steps,
+          f"profiled fused_trunk launches {rec['fused_trunk_launches']}")
+
+
 def main() -> int:
     import torch
 
@@ -626,6 +958,7 @@ def main() -> int:
     from ddim_cold_torch.models import MODEL_CONFIGS, DiffusionViT
     from ddim_cold_torch.ops import _build
     from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.ops import quant
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -647,9 +980,14 @@ def main() -> int:
 
     records = phase_kernels(torch, fa)
     bwd = phase_kernels_bwd(torch, fa)
+    qk = phase_kernels_quant(torch, fa, quant)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
     eng, config, serve_launches = phase_serve(torch, model, fa, serve)
     phase_profile(torch, eng, config)
+    del eng
+    phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant)
+    eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
+    phase_profile_quant(torch, eng, qconfigs[1], model)
     del eng, model
     torch.cuda.empty_cache()
     phase_train_check(torch, fa)
@@ -663,7 +1001,9 @@ def main() -> int:
         "replaces": "ddim_cold_tpu/ops/flash_attention.py:79",
         "launches": train_launches["flash_fwd"],
         "launches_by_path": {"train": train_launches["flash_fwd"],
-                             "serve": serve_launches},
+                             "serve": serve_launches,
+                             **{f"serve quant={q},fused={f}": n["flash_fwd"]
+                                for (q, f), n in quant_launches.items()}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]}]
@@ -678,7 +1018,27 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             # one SDPA backward computes dq, dk and dv together
             "library_ms": rec["library_ms"], "library_covers": "dq+dk+dv"})
+    for name, line, key in (
+            ("fused_trunk", "ddim_cold_tpu/ops/flash_attention.py:495",
+             ("fused_trunk", "200_p4", "bfloat16", "pallas")),
+            ("dequant_mm", "ddim_cold_tpu/ops/quant.py:275",
+             ("dequant_mm", "200_p4", "bfloat16", "pallas")),
+            ("mlp_fused", "ddim_cold_tpu/ops/quant.py:419",
+             ("mlp_fused", "200_p4", "bfloat16", "pallas"))):
+        rec = qk[key]
+        by_path = {f"serve quant={q},fused={f}": n[name]
+                   for (q, f), n in quant_launches.items()}
+        lines.append({
+            "name": name, "route": "cuda", "source": f"ddim_cold_torch/csrc/{name}.cu",
+            "replaces": line, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_covers": rec["library_covers"],
+            "measured_at": "200_p4 B=8 bfloat16 w8a16"})
     emit({"kernels": lines})
+    if FAILURES:
+        raise SystemExit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

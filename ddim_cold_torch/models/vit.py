@@ -23,6 +23,22 @@ that is in evaluation (``deterministic=True``) or with ``attn_drop_rate=0``;
 a training forward with attention dropout takes the dense path and drops
 attention weights (JAX vit.py:231, :356, :377-381).
 
+``quant`` (None, ``"xla"``, ``"pallas"``, ``"w8a8"``) holds the four trunk
+linears of every block as int8 codes (:class:`~ddim_cold_torch.ops.quant.
+QuantLinear`, the weights of the seeded float init quantized; a float
+state_dict loads after :func:`~ddim_cold_torch.ops.quant.quantize_state_dict`).
+``fused=True`` takes JAX's fused routes: the Mlp runs as one kernel
+(``mlp_fused``) when ``quant != "xla"`` and its dropout is inactive, and
+the attention runs as one qkv → flash → proj kernel (``fused_trunk``) when
+``quant`` is ``"pallas"`` or ``"w8a8"`` and the flash rule above holds
+(JAX vit.py:116-141, :241-265). The fused kernels are forward-only: a
+forward that needs a gradient through them raises. ``flash_blocks``
+``(block_q, block_kv)`` is accepted as in JAX, but in the port only
+``block_q`` means anything, and only for ``quant="w8a8", fused=True``: it
+sets the rows over which the attention context is requantized (default
+512, JAX's fallback off TPU). Every other block size of the JAX package
+changes only the f32 summation order, and the CUDA kernels pick their own.
+
 ``deterministic=False`` is the training forward. It takes an explicit
 ``torch.Generator`` on the model's device and applies, as flax's
 ``nn.Dropout`` does (Bernoulli(keep) mask, survivors scaled by 1/keep, rate
@@ -34,7 +50,7 @@ depth)``. The bits differ from JAX's: the distributions are the same.
 
 The forward records autograd history like any module; the samplers and the
 serving engine run it under ``torch.inference_mode()``. The later slices'
-hooks (quant, fused, MoE, sequence parallelism, scan_blocks, remat, the step
+hooks (MoE, sequence parallelism, scan_blocks, remat, the step
 and token caches, pipeline stages, the attention probe) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
@@ -50,7 +66,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddim_cold_torch.models.init import torch_default_uniform_, trunc_normal_
-from ddim_cold_torch.ops.flash_attention import flash_attention_qkv
+from ddim_cold_torch.ops import quant as quant_ops
+from ddim_cold_torch.ops.flash_attention import (flash_attention_qkv,
+                                                 fused_trunk_attention)
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
@@ -77,8 +95,6 @@ MODEL_CONFIGS = {
 #: constructor hooks of the JAX model that belong to later slices, with
 #: their off value and the ROADMAP.md item that ports them
 _LATER_CTOR = {
-    "quant": (None, "Queue 1 item 7 (quant codec and paths)"),
-    "fused": (False, "Queue 1 item 7 and Queue 2 items 2-4 (fused trunk)"),
     "num_experts": (1, "Queue 1 item 18 (MoE)"),
     "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
     "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
@@ -105,6 +121,12 @@ _LATER_FORWARD = {
 }
 
 
+#: JAX's block sizes off TPU: ``NS_FLASH_BLOCKS[0]`` for the fused
+#: attention's w8a8 requant rows, ``mlp_block_m``'s default for the fused Mlp
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_M = 256
+
+
 def positionalencoding1d(d_model: int, length: int) -> np.ndarray:
     """Sinusoidal 1-D positional encoding (reference ViT_draft2drawing.py:140-156)."""
     if d_model % 2 != 0:
@@ -117,8 +139,11 @@ def positionalencoding1d(d_model: int, length: int) -> np.ndarray:
     return pe
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """``lin`` in x's dtype: the float32 weight is cast at use (flax Dense)."""
+def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    """``lin`` in x's dtype: the float32 weight is cast at use (flax Dense);
+    a :class:`QuantLinear` computes in its own mode and returns x's dtype."""
+    if isinstance(lin, quant_ops.QuantLinear):
+        return lin(x)
     bias = lin.bias.to(x.dtype) if lin.bias is not None else None
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
@@ -168,17 +193,30 @@ class PatchEmbed(nn.Module):
 
 class Mlp(nn.Module):
     """2-layer exact-erf GELU MLP with dropout after each layer (reference
-    ViT.py:74-90)."""
+    ViT.py:74-90). ``quant``/``fused`` route it as the JAX module does: one
+    ``mlp_fused`` kernel when ``fused and quant != "xla"`` and the dropout
+    is inactive, else the two linears (int8 :class:`QuantLinear`s when
+    ``quant`` is set, swapped in by :class:`DiffusionViT`)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 drop: float = 0.0):
+                 drop: float = 0.0, quant: Optional[str] = None, fused: bool = False):
         super().__init__()
         self.drop = drop
+        self.quant = quant
+        self.fused = fused
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.fused and self.quant != "xla" and (generator is None or self.drop == 0.0):
+            fc1, fc2 = self.fc1, self.fc2
+            if self.quant:
+                return quant_ops.mlp_fused(
+                    x, fc1.w_int8, fc1.bias, fc2.w_int8, fc2.bias, scale1=fc1.scale,
+                    scale2=fc2.scale, mode=self.quant, block_m=DEFAULT_BLOCK_M)
+            return quant_ops.mlp_fused(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
+                                       block_m=DEFAULT_BLOCK_M)
         x = _dropout(F.gelu(_linear(x, self.fc1), approximate="none"), self.drop,
                      generator)
         return _dropout(_linear(x, self.fc2), self.drop, generator)
@@ -189,8 +227,13 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, use_flash: bool = False):
+                 proj_drop: float = 0.0, use_flash: bool = False,
+                 quant: Optional[str] = None, fused: bool = False,
+                 block_q: int = DEFAULT_BLOCK_Q):
         super().__init__()
+        self.quant = quant
+        self.fused = fused
+        self.block_q = block_q
         self.num_heads = num_heads
         self.qk_scale = qk_scale
         self.attn_drop = attn_drop
@@ -204,13 +247,23 @@ class Attention(nn.Module):
         B, N, C = x.shape
         head_dim = C // self.num_heads
         scale = self.qk_scale or head_dim**-0.5
+        weightless = generator is None or self.attn_drop == 0.0
+        if self.fused and self.quant in ("pallas", "w8a8") and weightless:
+            # one kernel: the qkv projection and the context never reach
+            # device memory (JAX vit.py:241-265); forward-only
+            qkv, proj = self.qkv, self.proj
+            out = fused_trunk_attention(
+                x, qkv.w_int8, qkv.scale, qkv.bias, proj.w_int8, proj.scale,
+                proj.bias, num_heads=self.num_heads, scale=scale,
+                block_q=self.block_q, mode=self.quant)
+            return _dropout(out, self.proj_drop, generator)
         # (B, N, 3, H, hd) unpack order, as the reference reshape; the flash
         # kernels read q, k, v as strided slices of the projection and write
         # its gradient as one buffer
         qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, head_dim)
         # the flash path never materialises the weights, so it needs
         # attention dropout inactive (JAX's weightless_ok, vit.py:231)
-        if self.use_flash and (generator is None or self.attn_drop == 0.0):
+        if self.use_flash and weightless:
             out = flash_attention_qkv(qkv, scale)
         else:
             q, k, v = qkv.unbind(2)
@@ -229,15 +282,19 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, use_flash: bool = False):
+                 drop_path: float = 0.0, use_flash: bool = False,
+                 quant: Optional[str] = None, fused: bool = False,
+                 block_q: int = DEFAULT_BLOCK_Q):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, attn_drop=attn_drop,
-                              proj_drop=drop, use_flash=use_flash)
+                              proj_drop=drop, use_flash=use_flash, quant=quant,
+                              fused=fused, block_q=block_q)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, quant=quant,
+                       fused=fused)
 
     def _residual(self, y: torch.Tensor, generator) -> torch.Tensor:
         """Per-sample stochastic depth (reference ViT.py:52-71): one
@@ -262,8 +319,10 @@ class DiffusionViT(nn.Module):
     drop rates act only in the training forward (``deterministic=False``).
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
-    CPU with the reference initializers, then moved to ``device``
-    (None means ``"cuda"``; missing CUDA raises).
+    CPU with the reference initializers (the trunk linears then quantized
+    when ``quant`` is set), then moved to ``device`` (None means ``"cuda"``;
+    missing CUDA raises). :meth:`clone` builds the same configuration with
+    some options changed (JAX ``model.clone``).
     """
 
     def __init__(self, img_size: Sequence[int] = (64, 64), patch_size: int = 8,
@@ -273,8 +332,30 @@ class DiffusionViT(nn.Module):
                  drop_rate: float = 0.1, attn_drop_rate: float = 0.1,
                  drop_path_rate: float = 0.1, total_steps: int = 2000,
                  dtype: torch.dtype = torch.float32,
-                 use_sincos_pos: bool = False, use_flash: bool = False, *,
+                 use_sincos_pos: bool = False, use_flash: bool = False,
+                 quant: Optional[str] = None, fused: bool = False,
+                 flash_blocks: Optional[tuple] = None, *,
                  device=None, seed: int = 0, **later):
+        ctor = {k: v for k, v in locals().items()
+                if k not in ("self", "later", "__class__")}
+        if quant is not None:
+            if quant not in quant_ops.QUANT_MODES:
+                raise ValueError(f"quant must be None or one of "
+                                 f"{quant_ops.QUANT_MODES}, got {quant!r}")
+            if later.get("num_experts", 1) > 1:
+                raise ValueError(
+                    "quant covers the dense trunk only — the Switch-MoE expert "
+                    "banks have no quantized path (set num_experts=1)")
+        if fused and quant == "xla":
+            raise ValueError(
+                "fused=True requests the Pallas fused trunk kernels but "
+                "quant='xla' explicitly opts out of Pallas — use "
+                "quant='pallas' or 'w8a8' (or quant=None for the float "
+                "fused Mlp alone)")
+        if flash_blocks is not None and (
+                len(flash_blocks) != 2 or any(int(b) < 1 for b in flash_blocks)):
+            raise ValueError(f"flash_blocks must be (block_q, block_kv), got "
+                             f"{flash_blocks!r}")
         refuse_later(later, _LATER_CTOR, "DiffusionViT")
         if use_flash not in (True, False):
             raise NotImplementedError(
@@ -294,6 +375,10 @@ class DiffusionViT(nn.Module):
         self.total_steps = total_steps
         self.dtype = dtype
         self.use_flash = bool(use_flash)
+        self.quant = quant
+        self.fused = bool(fused)
+        self.flash_blocks = None if flash_blocks is None else tuple(flash_blocks)
+        self._ctor = ctor
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate
         self.drop_path_rate = drop_path_rate
@@ -314,13 +399,45 @@ class DiffusionViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(E, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                   qk_scale=qk_scale, drop=drop_rate, attn_drop=attn_drop_rate,
-                  drop_path=float(dpr[i]), use_flash=self.use_flash)
+                  drop_path=float(dpr[i]), use_flash=self.use_flash, quant=quant,
+                  fused=self.fused,
+                  block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q)
             for i in range(depth))
         self.norm = nn.LayerNorm(E, eps=1e-5)
         self.head = nn.Linear(E, in_chans * patch_size**2)
         self._init_weights(torch.Generator().manual_seed(seed))
+        if quant is not None:
+            for blk in self.blocks:
+                for parent, names in quant_ops.TRUNK_LINEARS.items():
+                    mod = getattr(blk, parent)
+                    for name in names:
+                        setattr(mod, name, quant_ops.QuantLinear.from_linear(
+                            getattr(mod, name), quant))
         self.to(device)
         self.eval()
+
+    def clone(self, **overrides) -> "DiffusionViT":
+        """A new model of this configuration with ``overrides`` applied (for
+        example ``quant=``, ``fused=``), on this model's device unless
+        ``device`` is overridden. Its weights come from the seeded init: load
+        the ones to serve (a float state_dict through
+        :func:`~ddim_cold_torch.ops.quant.quantize_state_dict` for a quant
+        clone)."""
+        return DiffusionViT(**{**self._ctor, "device": self.device, **overrides})
+
+    def kernel_libraries(self) -> tuple:
+        """The kernel libraries (``csrc/<name>.cu``) an inference forward of
+        this model launches on CUDA."""
+        libs = set()
+        if self.fused and self.quant in ("pallas", "w8a8"):
+            libs.add("fused_trunk")
+        elif self.use_flash:
+            libs.add("flash_fwd")
+        if self.fused and self.quant != "xla":
+            libs.add("mlp_fused")
+        if self.quant == "pallas" and not self.fused:
+            libs.add("dequant_mm")
+        return tuple(sorted(libs))
 
     @property
     def num_patches(self) -> int:

@@ -41,6 +41,15 @@ SIGNATURES = {
         "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P],
         "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_F, _P],
     },
+    "dequant_mm": {
+        "dequant_mm": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 2 + [_P],
+    },
+    "mlp_fused": {
+        "mlp_fused": [_P] * 8 + [_I] * 8 + [_P],
+    },
+    "fused_trunk": {
+        "fused_trunk": [_P] * 8 + [_I] * 8 + [_F, _P],
+    },
 }
 
 # one lock per source: two sources build at once, one source builds once

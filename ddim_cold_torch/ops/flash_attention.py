@@ -31,7 +31,7 @@ import collections
 
 import torch
 
-from ddim_cold_torch.ops import _build
+from ddim_cold_torch.ops import _build, quant, tiling
 
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain version does not count). Reset by assigning 0.
@@ -65,14 +65,22 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o ``(B, N, H, D)`` in q's dtype, lse ``(B·H, N)`` f32."""
     _check(q, k, v)
     B, N, H, _ = q.shape
+    o, m, l = _softmax_pv(q, k, v, scale)
+    return o, (m + torch.log(l)).reshape(B * H, N)
+
+
+def _softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """softmax(q·kᵀ·scale)·v with f32 logits and softmax, p rounded to v's
+    dtype before P·V; q ``(B, Nq, H, D)``, k/v ``(B, Nk, H, D)``. Returns
+    o ``(B, Nq, H, D)`` in q's dtype and the row max and denominator,
+    ``(B, H, Nq, 1)`` f32."""
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
     o = acc / l.permute(0, 2, 1, 3)  # (B, H, N, 1) → (B, N, H, 1)
-    lse = (m + torch.log(l)).reshape(B * H, N)
-    return o.to(q.dtype), lse
+    return o.to(q.dtype), m, l
 
 
 def o_error_limit(o_ref: torch.Tensor) -> torch.Tensor:
@@ -330,3 +338,162 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward(q, k, v, scale)[0]
     _check(q, k, v)
     return flash_attention_qkv(torch.stack((q, k, v), dim=2), scale)
+
+
+# ---------------------------------------------------------------------------
+# fused quantized trunk attention: qkv projection → flash → proj projection
+# ---------------------------------------------------------------------------
+
+#: quant modes of the fused trunk attention (w8a16 and w8a8)
+FUSED_MODES = ("pallas", "w8a8")
+#: query rows of one CTA of ``csrc/fused_trunk.cu``; 8 CTAs (512 rows) form
+#: a thread-block cluster sharing each key slice's projection, and a w8a8
+#: ``block_q`` is ``block_q / FUSED_ROWS`` CTAs of one cluster
+FUSED_ROWS = 64
+FUSED_CLUSTER = 8
+
+
+def _check_fused(x, w_qkv, s_qkv, w_proj, s_proj, num_heads, mode):
+    if mode not in FUSED_MODES:
+        raise ValueError(f"fused attention mode must be 'pallas' or 'w8a8', "
+                         f"got {mode!r}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, C), got {tuple(x.shape)}")
+    C = x.shape[-1]
+    if C % num_heads:
+        raise ValueError(f"embed dim {C} must divide by heads {num_heads}")
+    if w_qkv.dtype != torch.int8 or w_proj.dtype != torch.int8:
+        raise ValueError("the fused trunk attention takes int8 weights")
+    if w_qkv.shape != (3 * C, C) or w_proj.shape != (C, C):
+        raise ValueError(f"w_qkv must be ({3 * C}, {C}) and w_proj ({C}, {C}), "
+                         f"got {tuple(w_qkv.shape)}, {tuple(w_proj.shape)}")
+    if s_qkv.shape != (3 * C,) or s_proj.shape != (C,):
+        raise ValueError("s_qkv must be (3C,) and s_proj (C,)")
+
+
+def fused_trunk_attention_reference(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj,
+                                    b_proj, *, num_heads: int, scale: float,
+                                    block_q: int = 512, mode: str = "pallas",
+                                    return_row_scale: bool = False):
+    """The plain version of ``fused_trunk``: the unfused composition with
+    the kernel's epilogues. qkv = (x @ w_qkvᵀ)·s + b in f32, rounded to x's
+    dtype; per head softmax(q·kᵀ·scale)·v as :func:`flash_forward_reference`
+    rounds it; context rounded to x's dtype; y = (ctx @ w_projᵀ)·s + b;
+    returns x's dtype.
+
+    ``w8a8``: x quantized per tensor over the whole ``(B, N, C)`` batch (so a
+    row's output depends on its batchmates, as in JAX), int8×int8 qkv with
+    the activation scale folded into ``s_qkv``; the context requantized per
+    ``legal_block(block_q, N, int8)``-row block of the zero-padded sequence
+    (the padded query rows, whose x is 0 and q the bias, count in the
+    block's amax); int8×int8 proj scaled by ``block scale · s_proj``. Only
+    ``block_q``, and only in w8a8, changes the value.
+
+    ``return_row_scale=True`` returns ``(y, row_scale)``, the context
+    requant scale of each row's block (``(B, N, 1)`` f32; None unless
+    w8a8), for ``quant.requant_flip_bound``.
+    """
+    _check_fused(x, w_qkv, s_qkv, w_proj, s_proj, num_heads, mode)
+    B, N, C = x.shape
+    H, D = num_heads, C // num_heads
+    cdt = x.dtype
+    w_q, w_kv = w_qkv[:C], w_qkv[C:]
+    b_q = b_kv = None
+    if b_qkv is not None:
+        b_q, b_kv = b_qkv.float()[:C], b_qkv.float()[C:]
+    if mode == "w8a8":
+        xi, xs = quant.quantize_act(x)
+        s_eff = s_qkv.float() * xs
+        bq = tiling.legal_block(block_q, N, torch.int8)
+        Np = tiling.round_up(N, bq)
+        xq = torch.nn.functional.pad(xi, (0, 0, 0, Np - N))
+        q = quant._epilogue(quant.int8_matmul(xq, w_q), s_eff[:C], b_q)
+        kv = quant._epilogue(quant.int8_matmul(xi, w_kv), s_eff[C:], b_kv)
+    else:
+        Np = N
+        q = quant.dequant_mm_reference(x, w_q, s_qkv[:C], b_q)
+        kv = quant.dequant_mm_reference(x, w_kv, s_qkv[C:], b_kv)
+    q = q.to(cdt).reshape(B, Np, H, D)
+    k, v = kv.to(cdt).reshape(B, N, 2, H, D).unbind(2)
+    ctx = _softmax_pv(q, k, v, scale)[0].reshape(B, Np, C)
+    if mode == "w8a8":
+        blocks = ctx.float().reshape(B, Np // bq, bq, C)
+        amax = blocks.abs().amax(dim=(2, 3), keepdim=True)
+        cs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        codes = torch.clip(torch.round(blocks / cs), -127.0, 127.0).to(torch.int8)
+        y = quant._epilogue(quant.int8_matmul(codes, w_proj), cs * s_proj.float(),
+                            b_proj).reshape(B, Np, C)[:, :N]
+        row_scale = cs.expand(-1, -1, bq, 1).reshape(B, Np, 1)[:, :N]
+    else:
+        y = quant.dequant_mm_reference(ctx, w_proj, s_proj, b_proj)
+        row_scale = None
+    return (y.to(cdt), row_scale) if return_row_scale else y.to(cdt)
+
+
+def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
+                          num_heads: int, scale: float, block_q: int = 512,
+                          mode: str = "pallas") -> torch.Tensor:
+    """Quantized trunk attention ``x → qkv → flash attention → proj`` in one
+    kernel (JAX ``fused_trunk_attention``; inference only). x ``(B, N, C)``
+    in the compute dtype; ``w_qkv`` ``(3C, C)`` and ``w_proj`` ``(C, C)``
+    int8 codes in torch's ``(out, in)`` layout with f32 per-output scales;
+    biases f32 or None. Returns ``(B, N, C)`` in x's dtype, with the proj
+    scale and bias applied; the ``(B, N, 3C)`` projection and the context
+    never reach device memory.
+
+    On CUDA one launch of ``csrc/fused_trunk.cu`` (head dim 32 or 64, C a
+    multiple of 64, float32 or bfloat16; w8a8 first quantizes x per tensor
+    with one reduction, as JAX does, and needs ``legal_block(block_q, N,
+    int8)`` to be 64, 128, 256 or 512 rows, a whole number of CTAs of one
+    cluster). On the CPU
+    :func:`fused_trunk_attention_reference`. A call that needs a gradient
+    raises.
+    """
+    _check_fused(x, w_qkv, s_qkv, w_proj, s_proj, num_heads, mode)
+    quant.refuse_grad("the fused trunk attention kernel", x, b_qkv, b_proj)
+    if x.device.type == "cpu":
+        return fused_trunk_attention_reference(
+            x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, num_heads=num_heads,
+            scale=scale, block_q=block_q, mode=mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_trunk_attention runs on CUDA (kernel) or CPU "
+                         f"(plain version), got device {x.device}")
+    B, N, C = x.shape
+    D = C // num_heads
+    if D not in KERNEL_HEAD_DIMS or C % FUSED_ROWS:
+        raise ValueError(f"the fused_trunk kernel takes head dim {KERNEL_HEAD_DIMS} "
+                         f"and C a multiple of {FUSED_ROWS}, got D={D}, C={C}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the fused_trunk kernel takes {list(KERNEL_DTYPES)}, "
+                         f"got {x.dtype}")
+    group = 1
+    rows = tiling.round_up(N, FUSED_ROWS * FUSED_CLUSTER)
+    if mode == "w8a8":
+        if C > quant.EXACT_F32_K:
+            raise ValueError(f"the w8a8 kernel sums int8 products in f32: C must "
+                             f"be <= {quant.EXACT_F32_K}")
+        bq = tiling.legal_block(block_q, N, torch.int8)
+        if bq % FUSED_ROWS or FUSED_CLUSTER % (bq // FUSED_ROWS):
+            raise ValueError(f"the w8a8 kernel takes block_q of 64, 128, 256 or "
+                             f"512 rows, got {bq}")
+        group = bq // FUSED_ROWS
+        x_in, xs = quant.quantize_act(x)
+        s_eff = (s_qkv.float() * xs).contiguous()
+    else:
+        x_in, s_eff = x, quant._f32_vec(s_qkv)
+    # every tensor the kernel reads stays referenced until it is enqueued
+    args = (x_in.contiguous(), w_qkv.contiguous(), s_eff, quant._f32_vec(b_qkv),
+            w_proj.contiguous(), quant._f32_vec(s_proj), quant._f32_vec(b_proj))
+    out = torch.empty((B, N, C), dtype=x.dtype, device=x.device)
+    lib = _build.load_library("fused_trunk")
+    with torch.cuda.device(x.device):
+        err = lib.fused_trunk(
+            *(quant._ptr(t) for t in args), out.data_ptr(),
+            B, N, num_heads, D, rows, group,
+            KERNEL_DTYPES[x.dtype], quant.QUANT_MODES.index(mode), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_trunk launch failed: cudaError_t {err} "
+                           f"(B={B}, N={N}, C={C}, H={num_heads}, {x.dtype}, {mode})")
+    LAUNCHES["fused_trunk"] += 1
+    return out

@@ -9,10 +9,20 @@ computes: PyTorch launches asynchronously, so the only host wait is each
 batch's fetch, and up to two batches stay enqueued ahead of it.
 
 A program is one warmed (config, bucket) pair: the sampler call the engine
-dispatches for that batch shape. :func:`ddim_cold_torch.serve.warmup.warmup`
-builds and loads the kernel library and runs every program once, and
-``stats["programs"]`` counts the pairs built; after warmup, serving adds
-none.
+dispatches for that batch shape, on the model variant of the config.
+:func:`ddim_cold_torch.serve.warmup.warmup` builds and loads the kernel
+libraries and runs every program once, and ``stats["programs"]`` counts the
+pairs built; after warmup, serving adds none.
+
+**Quantized and fused configs.** The engine holds one float model. A
+``SamplerConfig(quant=…, fused=…)`` runs on a variant of it, built once per
+``(quant, fused)`` pair (JAX ``_model_for``): a :meth:`DiffusionViT.clone`
+loaded with ``assign=True``, so it shares the float model's tensors rather
+than copying them. Every quant variant shares one int8 state, built from the
+float weights on the first quant config (JAX ``_params_for``);
+``stats["param_bytes"]`` and ``stats["param_bytes_quant"]`` report the two
+states' sizes. A quant or fused config is a different program: it never
+coalesces with a float one (``plan_batches`` groups by config).
 
 **Bitwise contract.** A fresh start is drawn at the request's own ``n`` from
 ``torch.Generator(device).manual_seed(seed)`` (it cannot reproduce the JAX
@@ -23,7 +33,7 @@ direct :func:`~ddim_cold_torch.ops.sampling.ddim_sample` call only AT THE
 SAME DISPATCH SHAPE (the same padded bucket batch); across buckets the
 contract is allclose.
 
-Configs outside this slice (cached, quant, fused, sequence-parallel,
+Configs outside this slice (cached, sequence-parallel,
 few-step, student, editing tasks, cold, previews, telemetry) raise
 ``NotImplementedError`` at ``submit`` naming their ROADMAP.md item. Fault
 injection, retries, bisection, deadlines, the watchdog, the metrics
@@ -42,7 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ddim_cold_torch.ops import flash_attention, sampling
+from ddim_cold_torch.ops import _build, quant, sampling
 from ddim_cold_torch.serve.batching import (BatchPlan, Request, SamplerConfig,
                                             Ticket, plan_batches)
 from ddim_cold_torch.serve.errors import RequestFailedError
@@ -59,9 +69,6 @@ def refuse_unported(config: SamplerConfig) -> None:
         (config.sampler == "cold", "sampler='cold'", "Queue 1 item 4 (cold_sample)"),
         (config.cached, f"cache_interval={config.cache_interval}",
          "Queue 1 item 8 (step cache)"),
-        (config.quant is not None, f"quant={config.quant!r}",
-         "Queue 1 item 7 (quant)"),
-        (config.fused, "fused=True", "Queue 1 item 7 and Queue 2 items 2-4"),
         (config.sp_degree > 1, f"sp_degree={config.sp_degree}",
          "Queue 1 item 14 (sequence parallelism)"),
         (config.steps > 0, f"steps={config.steps}", "Queue 1 item 9 (few-step)"),
@@ -90,8 +97,9 @@ class Engine:
         imgs = tickets[0].result()   # (3, H, W, C) numpy in [0, 1]
 
     ``params`` is an optional state_dict loaded into ``model`` (strict);
-    ``model`` must already live on ``device``. ``submit`` is thread-safe;
-    ``run`` drains the queue.
+    ``model`` must be a float, unfused model (quant and fused variants are
+    built from it per config) and must already live on ``device``.
+    ``submit`` is thread-safe; ``run`` drains the queue.
     """
 
     def __init__(self, model, params=None, buckets: Sequence[int] = (8, 32, 128),
@@ -102,6 +110,10 @@ class Engine:
                 self.device.index is not None and self.device.index != have.index):
             raise ValueError(f"model lives on {have}, engine asked for {self.device}")
         self.device = have
+        if model.quant is not None or model.fused:
+            raise ValueError("the engine serves a float, unfused model; pass "
+                             "SamplerConfig(quant=..., fused=...) to serve its "
+                             "quantized or fused variants")
         if params is not None:
             model.load_state_dict(params, strict=True)
         self.model = model
@@ -109,12 +121,16 @@ class Engine:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive, got {buckets!r}")
         self._programs: dict = {}
+        self._variants: dict = {}     # (quant, fused) -> model variant
+        self._qstate: Optional[dict] = None  # the shared int8 state
         self._lock = threading.Lock()
         self._pending: list[Request] = []               # guarded-by: _lock
         self._next_rid = 0                              # guarded-by: _lock
         self._stats = {"programs": 0, "dispatches": 0, "rows": 0,
                        "padded_rows": 0, "failed_tickets": 0,
-                       "max_queue_depth": 0}            # guarded-by: _lock
+                       "max_queue_depth": 0,
+                       "param_bytes": quant.param_bytes(model.state_dict()),
+                       "param_bytes_quant": None}      # guarded-by: _lock
         self._latencies: list[float] = []
 
     @property
@@ -175,11 +191,39 @@ class Engine:
 
     # ------------------------------------------------------------- programs
 
-    def load_kernels(self) -> None:
-        """Build and load the kernel library the model's path launches
-        (nothing to load for the dense path or on the CPU)."""
-        if self.model.use_flash and self.device.type == "cuda":
-            flash_attention.load_kernel()
+    def load_kernels(self, configs: Sequence[SamplerConfig] = ()) -> None:
+        """Build and load the kernel libraries the float model and the
+        variants of ``configs`` launch (nothing on the CPU)."""
+        if self.device.type != "cuda":
+            return
+        libs = set(self.model.kernel_libraries())
+        for config in configs:
+            libs.update(self._model_for(config).kernel_libraries())
+        for name in sorted(libs):
+            _build.load_library(name)
+
+    def _quant_state(self) -> dict:
+        """The int8 state every quant variant loads, built once."""
+        if self._qstate is None:
+            self._qstate = quant.quantize_state_dict(self.model.state_dict())
+            with self._lock:
+                self._stats["param_bytes_quant"] = quant.param_bytes(self._qstate)
+        return self._qstate
+
+    def _model_for(self, config: SamplerConfig):
+        """The model a config's programs run: the float model, or its
+        ``(quant, fused)`` variant, built once."""
+        if config.quant is None and not config.fused:
+            return self.model
+        key = (config.quant, config.fused)
+        model = self._variants.get(key)
+        if model is None:
+            model = self.model.clone(quant=config.quant, fused=config.fused)
+            state = (self._quant_state() if config.quant is not None
+                     else self.model.state_dict())
+            model.load_state_dict(state, strict=True, assign=True)
+            self._variants[key] = model
+        return model
 
     def ensure_program(self, config: SamplerConfig, bucket: int):
         """The program for one (config, bucket) pair — the only place one is
@@ -188,8 +232,9 @@ class Engine:
         prog = self._programs.get(key)
         if prog is None:
             refuse_unported(config)
-            prog = functools.partial(sampling.ddim_sample, self.model, k=config.k,
-                                     t_start=config.t_start, device=self.device)
+            prog = functools.partial(sampling.ddim_sample, self._model_for(config),
+                                     k=config.k, t_start=config.t_start,
+                                     device=self.device)
             self._programs[key] = prog
             self._count("programs")
         return prog

@@ -2,11 +2,13 @@
 
 Counterpart of ``ddim_cold_tpu/serve/warmup.py``. PyTorch runs eagerly, so
 what a first request would otherwise pay is building and loading the kernel
-library, the first launch of each kernel, and the first use of each
+libraries, building a config's model variant (the int8 state of a quant
+config), the first launch of each kernel, and the first use of each
 (config, bucket) batch shape (cuBLAS handles and workspaces, the caching
 allocator's blocks). ``warmup`` does all of it up front: it loads the
 kernels, then builds and runs every (config, bucket) program once on a zero
-batch. ``Engine.stats["programs"]`` counts the warmed pairs; serving a
+batch. The libraries loaded are those of every warmed config's variant
+(``DiffusionViT.kernel_libraries``). ``Engine.stats["programs"]`` counts the warmed pairs; serving a
 warmed set adds none (the tests pin it).
 """
 
@@ -25,7 +27,7 @@ def warmup(engine, configs: Sequence[SamplerConfig]) -> dict:
     warmed."""
     buckets = engine.buckets
     before = engine.stats["programs"]
-    engine.load_kernels()
+    engine.load_kernels(configs)
     model = engine.model
     H, W = model.img_size
     for config in configs:

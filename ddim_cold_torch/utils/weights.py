@@ -6,6 +6,11 @@ on): it takes the JAX model's parameter tree as nested dicts of numpy
 arrays — ``jax.device_get(params)`` gives exactly that — and returns float32
 tensors under the reference torch key names, which
 :class:`ddim_cold_torch.models.vit.DiffusionViT` loads with ``strict=True``.
+A tree from JAX's ``quantize_params`` carries each trunk linear as
+``w_int8`` + ``scale`` leaves; they become ``….w_int8`` (int8, transposed to
+torch's ``(out, in)``) and ``….scale`` entries, which a ``quant`` model loads:
+the same state_dict as ``quantize_state_dict(state_dict_from_flax(float
+tree))``.
 """
 
 from __future__ import annotations
@@ -73,14 +78,16 @@ def state_dict_from_flax(params, patch_size: int) -> dict:
         sd[t + "norm1.bias"] = g(b, "norm1", "bias")
         sd[t + "norm2.weight"] = g(b, "norm2", "scale")
         sd[t + "norm2.bias"] = g(b, "norm2", "bias")
-        sd[t + "attn.qkv.weight"] = g(b, "attn", "qkv", "kernel").T
-        if "bias" in params[b]["attn"]["qkv"]:
-            sd[t + "attn.qkv.bias"] = g(b, "attn", "qkv", "bias")
-        sd[t + "attn.proj.weight"] = g(b, "attn", "proj", "kernel").T
-        sd[t + "attn.proj.bias"] = g(b, "attn", "proj", "bias")
-        sd[t + "mlp.fc1.weight"] = g(b, "mlp", "fc1", "kernel").T
-        sd[t + "mlp.fc1.bias"] = g(b, "mlp", "fc1", "bias")
-        sd[t + "mlp.fc2.weight"] = g(b, "mlp", "fc2", "kernel").T
-        sd[t + "mlp.fc2.bias"] = g(b, "mlp", "fc2", "bias")
+        for parent, name in (("attn", "qkv"), ("attn", "proj"),
+                             ("mlp", "fc1"), ("mlp", "fc2")):
+            mod, key = params[b][parent][name], f"{t}{parent}.{name}."
+            if "w_int8" in mod:  # a quantize_params tree: codes (in, out) int8
+                sd[key + "w_int8"] = np.ascontiguousarray(
+                    np.asarray(mod["w_int8"], dtype=np.int8).T)
+                sd[key + "scale"] = g(b, parent, name, "scale")
+            else:
+                sd[key + "weight"] = g(b, parent, name, "kernel").T
+            if "bias" in mod:
+                sd[key + "bias"] = g(b, parent, name, "bias")
         i += 1
     return {k: torch.tensor(v) for k, v in sd.items()}

@@ -62,6 +62,14 @@ def test_training_slice_modules_are_checked():
         "train/trainer")} <= names
 
 
+def test_quant_slice_modules_are_checked():
+    """The import check walks the quantized trunk's modules too."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}.py" for m in (
+        "ops/quant", "ops/tiling", "ops/flash_attention", "models/vit",
+        "serve/engine", "utils/weights")} <= names
+
+
 def test_optional_packages_are_imported_lazily():
     """PIL, yaml, tensorboard and triton appear only inside functions."""
     lazy = ("PIL", "yaml", "tensorboard", "triton")
@@ -140,3 +148,39 @@ def test_chip_smoke_fails_without_cuda_or_without_the_port(tmp_path, where, reas
             assert not json.loads(line).get("ok")
         except (ValueError, AttributeError):
             pass
+
+
+@pytest.mark.parametrize("name", ["dequant_mm", "mlp_fused", "fused_trunk"])
+def test_quant_kernel_libraries_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _build.load_library(name)
+
+
+def _wrapper_calls(device):
+    """Each new wrapper, called on tensors of ``device``."""
+    from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.ops import quant
+
+    x = torch.zeros((1, 4, 64), device=device)
+    w = torch.zeros((64, 64), dtype=torch.int8, device=device)
+    w3 = torch.zeros((192, 64), dtype=torch.int8, device=device)
+    s, s3 = torch.ones(64, device=device), torch.ones(192, device=device)
+    return {
+        "dequant_mm": lambda: quant.dequant_mm(x[0], w, s),
+        "mlp_fused": lambda: quant.mlp_fused(x, w, s, w, s, scale1=s, scale2=s,
+                                             mode="pallas"),
+        "fused_trunk": lambda: fa.fused_trunk_attention(
+            x, w3, s3, None, w, s, None, num_heads=1, scale=1.0),
+    }
+
+
+@pytest.mark.parametrize("name", ["dequant_mm", "mlp_fused", "fused_trunk"])
+def test_quant_wrappers_never_fall_back(no_cuda, name):
+    """Off the CPU a wrapper launches its kernel or raises: a CUDA model
+    request raises without CUDA, and a tensor on another device is refused
+    rather than sent to the plain version."""
+    with pytest.raises(RuntimeError, match="cuda"):
+        DiffusionViT(**TINY, quant="pallas", fused=True)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        _wrapper_calls("meta")[name]()
+    assert _wrapper_calls("cpu")[name]().device.type == "cpu"

@@ -7,7 +7,10 @@ card and no JAX:
 
 The tests that take the ``cuda_device`` fixture need the card and skip
 without it; the others check the build's keying and placement on any
-machine. Tolerances: O element-wise within ``fa.o_error_limit`` (float32
+machine. The quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
+``fused_trunk``) are held element-wise to ``quant.mm_error_limit`` and
+``quant.trunk_error_limit``, whose docstrings give the arithmetic.
+Tolerances of the flash kernels: O element-wise within ``fa.o_error_limit`` (float32
 1e-5; bfloat16 one bf16 ulp of each element plus 2⁻⁵·mean|O|, for p rounded
 against the running row max); lse 1e-5 for both; dq, dk and dv element-wise
 within ``fa.grad_error_limit`` (float32 2⁻¹⁶·|g| + 2⁻¹³·mean|g|; bfloat16 one
@@ -22,6 +25,7 @@ import torch
 
 from ddim_cold_torch.ops import _build
 from ddim_cold_torch.ops import flash_attention as fa
+from ddim_cold_torch.ops import quant
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -150,3 +154,84 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros((1, 8, 32, 2), device=cuda_device).transpose(2, 3)
     with pytest.raises(ValueError, match="innermost"):
         fa.flash_forward(x, x, x, 1.0)
+
+
+def _codes(gen, rows, cols, device):
+    return quant.quantize_weight(torch.randn((rows, cols), generator=gen,
+                                             device=device) * 0.05)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("M,K,N", [(2501, 256, 768), (626, 384, 384), (7, 33, 50)])
+def test_dequant_mm_kernel_matches_plain(cuda_device, dtype, out_dtype, M, K, N):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((M, K), generator=gen, device=cuda_device).to(dtype)
+    w, s = _codes(gen, N, K, cuda_device)
+    bias = torch.randn(N, generator=gen, device=cuda_device)
+    before = quant.LAUNCHES["dequant_mm"]
+    y = quant.dequant_mm(x, w, s, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["dequant_mm"] == before + 1
+    ref = quant.dequant_mm_reference(x, w, s, bias).to(out_dtype)
+    assert y.dtype == out_dtype and y.shape == (M, N)
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= quant.mm_error_limit(x, w, s, ref)).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [None, "pallas", "w8a8"])
+@pytest.mark.parametrize("M,C", [(2 * 2501, 256), (626, 384), (300, 64)])
+def test_mlp_fused_kernel_matches_plain(cuda_device, dtype, mode, M, C):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((M, C), generator=gen, device=cuda_device).to(dtype)
+    b1 = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    b2 = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    flip = None
+    if mode is None:
+        w1 = torch.randn((C, C), generator=gen, device=cuda_device) * 0.05
+        w2 = torch.randn((C, C), generator=gen, device=cuda_device) * 0.05
+        kw = {}
+    else:
+        (w1, s1), (w2, s2) = _codes(gen, C, C, cuda_device), _codes(gen, C, C, cuda_device)
+        kw = dict(scale1=s1, scale2=s2, mode=mode)
+    before = quant.LAUNCHES["mlp_fused"]
+    with torch.no_grad():
+        y = quant.mlp_fused(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["mlp_fused"] == before + 1
+    ref, row_scale = quant.mlp_fused_reference(x, w1, b1, w2, b2, **kw,
+                                               return_row_scale=True)
+    if mode == "w8a8":
+        flip = quant.requant_flip_bound(row_scale, w2, s2)
+    assert y.dtype == dtype and y.shape == (M, C)
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= quant.trunk_error_limit(ref, mode, flip)).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["pallas", "w8a8"])
+@pytest.mark.parametrize("B,N,C,H,block_q", [(2, 2501, 256, 4, 512),
+                                             (2, 626, 384, 12, 512),
+                                             (1, 300, 64, 2, 128)])
+def test_fused_trunk_kernel_matches_plain(cuda_device, dtype, mode, B, N, C, H, block_q):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((B, N, C), generator=gen, device=cuda_device).to(dtype)
+    w_qkv, s_qkv = _codes(gen, 3 * C, C, cuda_device)
+    w_p, s_p = _codes(gen, C, C, cuda_device)
+    b_qkv = torch.randn(3 * C, generator=gen, device=cuda_device) * 0.1
+    b_p = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    args = (x, w_qkv, s_qkv, b_qkv, w_p, s_p, b_p)
+    kw = dict(num_heads=H, scale=(C // H) ** -0.5, block_q=block_q, mode=mode)
+    before = fa.LAUNCHES["fused_trunk"]
+    with torch.no_grad():
+        y = fa.fused_trunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fused_trunk"] == before + 1
+    ref, row_scale = fa.fused_trunk_attention_reference(*args, **kw,
+                                                        return_row_scale=True)
+    flip = quant.requant_flip_bound(row_scale, w_p, s_p) if mode == "w8a8" else None
+    assert y.dtype == dtype and y.shape == (B, N, C)
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= quant.trunk_error_limit(ref, mode, flip)).all()), err.max().item()

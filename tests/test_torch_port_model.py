@@ -125,7 +125,7 @@ def test_init_is_seeded_reference_init():
     assert wide.min().item() >= -0.5 and wide.max().item() <= 0.5
 
 
-@pytest.mark.parametrize("hook", [dict(quant="pallas"), dict(fused=True),
+@pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(seq_axis="seq"),
                                   dict(num_experts=2), dict(scan_blocks=True),
                                   dict(remat=True), dict(sp_mode="ulysses"),
                                   dict(use_flash="xla")])
@@ -146,7 +146,8 @@ def test_later_slice_forward_hooks_raise(hook):
 
 def test_unknown_and_dropped_options_are_type_errors():
     with pytest.raises(TypeError):
-        PortViT(**TINY, device="cpu", flash_blocks=(256, 512))
+        PortViT(**TINY, device="cpu", flash_block=(256, 512))
+    PortViT(**TINY, device="cpu", flash_blocks=(256, 512))  # a ported option
 
 
 # ------------------------------------------------------------------ samplers

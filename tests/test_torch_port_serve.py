@@ -163,7 +163,8 @@ def test_engine_fresh_starts_and_split_add_no_program(models, warmed):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache_interval=2), dict(quant="xla"), dict(quant="pallas", fused=True),
+    dict(cache_interval=2), dict(cache_interval=2, quant="pallas"),
+    dict(cache_interval=4, cache_mode="token", cache_tokens=3),
     dict(sp_mode="ring", sp_degree=2), dict(steps=2),
     dict(steps=2, student=True), dict(task="draft", t_start=500),
     dict(sampler="cold"), dict(preview_every=1),
