@@ -10,7 +10,12 @@ Phases, one JSON object per line:
 1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 off for the float32 comparisons;
 2. build   — compile every ``ddim_cold_torch/csrc/*.cu`` with ``nvcc`` (one
-   ``nvcc`` per source, all started together) and load them;
+   ``nvcc`` per source, all started together; each includes its
+   ``csrc/*.cuh`` headers) and load them;
+2b. sass   — ``cuobjdump -sass`` of the ``flash_fwd`` and ``fused_trunk``
+   libraries: every bfloat16 kernel function runs its products on the
+   tensor cores (HGMMA; the w8a8 one also the int8 IGMMA), no float32 one
+   does; registers, stack and spills from ``cuobjdump -res-usage``;
 3. kernel  — the flash forward kernel against its plain PyTorch version at
    the main paths' shapes (and the 200px/p8 head dim), in bfloat16 and
    float32, with CUDA-event median times of the kernel, the plain version
@@ -57,7 +62,9 @@ Phases, one JSON object per line:
    zeroed just before each drain and must read exactly depth × steps per
    kernel of the config (dequant_mm 4× that); then one more fused w8a16
    batch under ``torch.profiler``;
-14. the ``kernels`` summary line (all six kernels), then the card's
+14. the ``kernels`` summary line (all six kernels, each with its design:
+   "wgmma" on the tensor cores or "fma" on the CUDA cores, and the two
+   redesigned ones with their previous time), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
 
@@ -72,6 +79,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +125,10 @@ TRAIN_CHECK_TOL = {
     "bfloat16": {"loss": 1e-2, "grad_norm": 5e-2, "upd_rel": 0.5},
 }
 MAX_UPDATE_GAP_LR = 2.1  # max |Δp| between the paths, in units of lr
+#: the libraries whose bfloat16 kernels run on the tensor cores, and how
+#: many bfloat16 and float32 kernel functions each holds (D = 32 and 64;
+#: fused_trunk: w8a16 and w8a8 of each)
+WGMMA_LIBS = {"flash_fwd": (2, 2), "fused_trunk": (4, 4)}
 
 
 def emit(obj) -> None:
@@ -155,6 +168,56 @@ def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _sass_functions(text: str) -> dict:
+    """Per kernel function of a ``cuobjdump -sass`` listing: how many bf16
+    (HGMMA) and int8 (IGMMA ... S8) warpgroup matrix multiplies it holds."""
+    funcs = {}
+    for block in re.split(r"^\s*Function : ", text, flags=re.M)[1:]:
+        name, _, body = block.partition("\n")
+        funcs[name.strip()] = {"hgmma": len(re.findall(r"\bHGMMA\.", body)),
+                               "igmma_s8": len(re.findall(r"\bIGMMA\.\S*S8", body))}
+    return funcs
+
+
+def _res_usage(text: str) -> dict:
+    """Per kernel function of ``cuobjdump -res-usage``: registers, stack,
+    static shared and local (spill) bytes."""
+    return {m[0]: {"reg": int(m[1]), "stack": int(m[2]), "shared": int(m[3]),
+                   "local": int(m[4])}
+            for m in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
+                                r"SHARED:(\d+) LOCAL:(\d+)", text)}
+
+
+def phase_sass(libs: dict, nvcc: str) -> None:
+    """The bfloat16 kernels of flash_fwd and fused_trunk run their products
+    through wgmma (HGMMA in the SASS, and the int8 IGMMA in w8a8); the
+    float32 ones, the exact oracle route, hold none. Kernel functions are
+    told apart by name: the bfloat16 ones carry ``bf16``, the w8a8 one
+    ``w8a8``."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    rec = {"phase": "sass", "tool": tool, "libraries": {}}
+    for name, (n_bf16, n_f32) in WGMMA_LIBS.items():
+        path = libs[name]._name
+        run = lambda flag: subprocess.run([tool, flag, path], capture_output=True,
+                                          text=True, check=True, timeout=300).stdout
+        funcs, usage = _sass_functions(run("-sass")), _res_usage(run("-res-usage"))
+        rec["libraries"][name] = {fn: {**counts, **usage.get(fn, {})}
+                                  for fn, counts in funcs.items()}
+        bf16 = [fn for fn in funcs if "_bf16" in fn]
+        check(len(bf16) == n_bf16 and len(funcs) - len(bf16) == n_f32,
+              f"sass {name}: {len(bf16)} bf16 and {len(funcs) - len(bf16)} other "
+              f"kernel functions, expected {n_bf16} and {n_f32}")
+        for fn, c in funcs.items():
+            if fn in bf16:
+                check(c["hgmma"] > 0, f"sass {name}: no HGMMA in {fn}")
+                check(("_w8a8_" in fn) == (c["igmma_s8"] > 0),
+                      f"sass {name}: int8 IGMMA count {c['igmma_s8']} in {fn}")
+            else:
+                check(c["hgmma"] == 0 and c["igmma_s8"] == 0,
+                      f"sass {name}: the float32 {fn} runs on the tensor cores")
+    emit(rec)
 
 
 def flash_bound(B, N, H, D, dtype_name):
@@ -974,9 +1037,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, at once
-        libs = list(pool.map(_build.load_library, SOURCES))
-    emit({"phase": "build", "libraries": [lib._name for lib in libs],
+        libs = dict(zip(SOURCES, pool.map(_build.load_library, SOURCES)))
+    emit({"phase": "build", "libraries": [lib._name for lib in libs.values()],
           "seconds": time.perf_counter() - t0})
+    phase_sass(libs, _build._nvcc())
 
     records = phase_kernels(torch, fa)
     bwd = phase_kernels_bwd(torch, fa)
@@ -1006,7 +1070,9 @@ def main() -> int:
                                 for (q, f), n in quant_launches.items()}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-        "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]}]
+        "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+        "design": "wgmma",
+        "measured_at": "200_p4 B=16 bfloat16"}]
     for name, line in (("flash_bwd_dq", 246), ("flash_bwd_dkv", 284)):
         rec = bwd[("200_p4", "bfloat16", name)]
         lines.append({
@@ -1017,7 +1083,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             # one SDPA backward computes dq, dk and dv together
-            "library_ms": rec["library_ms"], "library_covers": "dq+dk+dv"})
+            "library_ms": rec["library_ms"], "library_covers": "dq+dk+dv",
+            "design": "fma"})
     for name, line, key in (
             ("fused_trunk", "ddim_cold_tpu/ops/flash_attention.py:495",
              ("fused_trunk", "200_p4", "bfloat16", "pallas")),
@@ -1035,7 +1102,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_covers": rec["library_covers"],
-            "measured_at": "200_p4 B=8 bfloat16 w8a16"})
+            "measured_at": "200_p4 B=8 bfloat16 w8a16",
+            "design": "wgmma" if name == "fused_trunk" else "fma"})
     emit({"kernels": lines})
     if FAILURES:
         raise SystemExit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")

@@ -16,27 +16,44 @@
 // owns 64 query rows of one (batch, head) and walks all key/value tiles
 // through shared memory, so the only device-memory traffic is q, k, v once
 // per CTA (served from L2 after the first CTA of a head) and O plus lse once.
-// This first version does its two GEMMs with f32 FMAs on the CUDA cores:
-// inputs are widened to f32 as they are staged, and a bf16·bf16 product is
-// exact in f32, so the arithmetic is faithful to the TPU kernel's
-// bf16-in/f32-accumulate dots. Its ceiling is therefore the f32 CUDA-core
-// rate (67 TFLOP/s), not the 989 TFLOP/s of the bf16 tensor cores; moving
-// the two GEMMs onto mma.sync/wgmma with TMA-fed tiles is the next step.
+// There are two instantiations, chosen by dtype only:
+//
+// * bfloat16 (flash_fwd_bf16_wgmma, the served and trained route): both
+//   GEMMs on the tensor cores through wgmma, one warpgroup per CTA. The Q
+//   tile is loaded once; K/V tiles of 64 keys arrive by cp.async into a
+//   two-stage ring of 128B- (D=64) or 64B-swizzled (D=32) shared tiles, the
+//   next tile's copy in flight while the current one is consumed; the tile
+//   step of attn_wgmma.cuh computes S = Q·Kᵀ (m64n64k16, both operands in
+//   shared memory, K read K-major as it lies), the online softmax on the
+//   accumulator fragment, P rounded to bf16 in registers as the A operand of
+//   O += P·V (m64nDk16, V read with the transpose bit). cp.async rather
+//   than TMA: the copying threads are the consuming warpgroup, the q/k/v
+//   slices of the (B, N, 3, H, D) projection are plain strided rows (no
+//   tensor map to encode on the host), and the copy's source size
+//   zero-fills the ragged tail; the wrapper refuses rows that are not 16-byte
+//   aligned. 40 KB of shared memory (D=64), so several CTAs share an SM and
+//   overlap one another's softmax with their wgmma.
+// * float32 (flash_fwd_kernel, the exact oracle route): f32 FMAs on the CUDA
+//   cores, inputs staged through shared memory. The tensor cores would give
+//   TF32 here, which breaks the f32 limits.
 //
 // Layout: q, k and v are read through their (batch, token, head) strides, so
 // the (B, N, 3, H, D) qkv projection is consumed in place with no transposed
 // or padded copy; the innermost (head-dim) stride must be 1. O is written
 // (B, N, H, D)-contiguous and lse as (B·H, N) f32.
 //
-// Thread mapping: 4 warps per CTA, 16 query rows per warp. In S = Q·Kᵀ a lane
-// owns key columns lane and lane+32 of a 64-key tile for its warp's 16 rows;
-// in P·V it owns head-dim columns lane (+32 when D=64). Q rows and P rows are
-// read as broadcast float4s from shared memory; K is staged transposed (with
-// a one-word pad so the transposing store is conflict-free) and V row-major.
+// f32 thread mapping: 4 warps per CTA, 16 query rows per warp. In S = Q·Kᵀ a
+// lane owns key columns lane and lane+32 of a 64-key tile for its warp's 16
+// rows; in P·V it owns head-dim columns lane (+32 when D=64). Q rows and P
+// rows are read as broadcast float4s from shared memory; K is staged
+// transposed (with a one-word pad so the transposing store is conflict-free)
+// and V row-major.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -48,13 +65,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;               // the TPU kernel's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // p rounded to v's dtype, back in f32 for the FMA (identity for f32)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -234,12 +247,106 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bfloat16
+
+// Q, then two stages of (K, V): five 64-row tiles, plus the alignment slack
+template <int D>
+constexpr size_t bf16_smem_bytes() { return 1024 + 5 * 64 * 2 * D; }
+
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 4)
+flash_fwd_bf16_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int N, int H, float scale_log2,
+                     int64_t sqb, int64_t sqn, int64_t sqh,
+                     int64_t skb, int64_t skn, int64_t skh,
+                     int64_t svb, int64_t svn, int64_t svh) {
+  constexpr int RB = 2 * D;     // bytes of one row of a Q, K or V tile
+  constexpr int kTile = 64 * RB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = wg::smem_u32(wg::align1024(smem_raw));
+  // ring stage s: K at qs + (1 + 2s)·kTile, V right after it
+  auto k_at = [qs](int s) { return qs + (1 + 2 * s) * kTile; };
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * 64;
+  const uint8_t* qb = reinterpret_cast<const uint8_t*>(q + b * sqb + h * sqh);
+  const uint8_t* kb = reinterpret_cast<const uint8_t*>(k + b * skb + h * skh);
+  const uint8_t* vb = reinterpret_cast<const uint8_t*>(v + b * svb + h * svh);
+  const int64_t qrow = 2 * sqn, krow = 2 * skn, vrow = 2 * svn;  // bytes per token
+
+  // Q (rows past N are zeros: computed, never stored) and the first K/V tile
+  wg::load_tile<RB>(qs, qb, qrow, q0, N);
+  wg::load_tile<RB>(k_at(0), kb, krow, 0, N);
+  wg::load_tile<RB>(k_at(0) + kTile, vb, vrow, 0, N);
+  wg::cp_async_commit();
+
+  wg::Attn<D> st;
+  wg::attn_init(st);
+  const uint64_t dq = wg::desc<RB>(qs);
+  const int tiles = (N + 63) / 64;
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {  // the next tile's copy runs under this tile's math
+      const int nxt = (t + 1) & 1, j0 = (t + 1) * 64;
+      wg::load_tile<RB>(k_at(nxt), kb, krow, j0, N);
+      wg::load_tile<RB>(k_at(nxt) + kTile, vb, vrow, j0, N);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // tile t (and Q) have landed
+    wg::fence_proxy_async();
+    __syncthreads();
+    wg::attn_step<D>(st, dq, k_at(t & 1), k_at(t & 1) + kTile, N - t * 64, scale_log2);
+    __syncthreads();  // stage t & 1 is free for tile t + 2
+  }
+
+  // O = o / l in bf16, (B, N, H, D); lse = m + log l
+  float l[2], ls[2];
+  wg::attn_finish(st, l, ls);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * r;
+    if (row >= N) continue;
+    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * N + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(st.o[4 * j + 2 * r] / l[r], st.o[4 * j + 2 * r + 1] / l[r]);
+    if ((lane & 3) == 0) lse[static_cast<int64_t>(bh) * N + row] = ls[r];
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                        int B, int N, int H, float scale, const int64_t* st,
+                        cudaStream_t stream) {
+  // cp.async moves 16-byte pieces of rows: every base and stride must keep them aligned
+  uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+                   | reinterpret_cast<uintptr_t>(v);
+  for (int i = 0; i < 9; ++i) bits |= static_cast<uintptr_t>(st[i] * 2);
+  if (bits & 15) return cudaErrorInvalidValue;
+  constexpr size_t smem = bf16_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 63) / 64, B * H);
+  flash_fwd_bf16_wgmma<D><<<grid, wg::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), N, H, scale * wg::kLog2e,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
-// (q batch, q token, q head, k batch, k token, k head, v batch, v token, v head).
-// Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream` and allocates nothing.
+// dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (wgmma; every base
+// pointer 16-byte aligned and every stride a multiple of 8). Strides are in
+// elements, in the order (q batch, q token, q head, k batch, k token, k head,
+// v batch, v token, v head). Returns the launch's cudaError_t (0 on
+// success); the kernel runs asynchronously on `stream` and allocates
+// nothing.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int N, int H, int D, int dtype,
                          long long sqb, long long sqn, long long sqh,
@@ -251,7 +358,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (B < 1 || N < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, lse, B, N, H, scale, st, s);
   if (dtype == 0 && D == 32) return launch<float, 32>(q, k, v, o, lse, B, N, H, scale, st, s);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, N, H, scale, st, s);
-  if (dtype == 1 && D == 32) return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, N, H, scale, st, s);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, o, lse, B, N, H, scale, st, s);
+  if (dtype == 1 && D == 32) return launch_bf16<32>(q, k, v, o, lse, B, N, H, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

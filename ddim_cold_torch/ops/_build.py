@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
-so a build takes seconds). Libraries land in ``build/ddim_cold_torch/`` at
-the repository root, keyed by a hash of the source and the flags, and are
+so a build takes seconds); a source may include headers from ``csrc/``
+(``#include "name.cuh"``). Libraries land in ``build/ddim_cold_torch/`` at
+the repository root, keyed by a hash of the source, the headers it
+includes and the flags, and are
 built on first use by :func:`load_library`, each source under its own lock
 (so two sources may build at once, from two threads).
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,9 +72,31 @@ def _nvcc() -> str:
                        "first use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header: the source first, then the headers sorted."""
+    source = CSRC / f"{name}.cu"
+    headers: set = set()
+    todo = [source]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / inc
+            if path.is_file() and path not in headers:
+                headers.add(path)
+                todo.append(path)
+    return [source, *sorted(headers)]
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by its source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source, the headers
+    it includes and the flags, so editing a header rebuilds every source
+    that includes it and no other."""
+    digest = hashlib.sha256()
+    for path in _inputs(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

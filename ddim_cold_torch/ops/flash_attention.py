@@ -28,6 +28,7 @@ ragged tail itself and reads q/k/v through their strides.
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 
@@ -114,6 +115,22 @@ def _check_kernel_inputs(what: str, *ts: torch.Tensor) -> None:
         raise ValueError("q, k, v need a unit innermost (head-dim) stride")
 
 
+def _check_rows_aligned(what: str, **ts: torch.Tensor) -> None:
+    """The bfloat16 kernels copy 16-byte pieces of rows (cp.async): every
+    base address and every stride but the innermost must be a multiple of
+    16 bytes. Refused rather than copied, so a layout the kernel cannot take
+    never costs a silent copy."""
+    for name, t in ts.items():
+        nbytes = t.element_size()
+        strides = [st * nbytes for st in t.stride()[:-1]]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(
+                f"the bfloat16 {what} kernel copies 16-byte row pieces: {name} "
+                f"needs a 16-byte-aligned base and strides that are multiples "
+                f"of 16 bytes, got address {t.data_ptr()} and strides "
+                f"{strides} bytes")
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused non-causal attention forward, returning ``(o, lse)``.
@@ -123,7 +140,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     without copying them). o: ``(B, N, H, D)`` contiguous in q's dtype, so
     ``o.reshape(B, N, H·D)`` is free; lse: ``(B·H, N)`` f32, the residual a
     backward pass needs. On CUDA the kernel takes D ∈ {32, 64} and float32
-    or bfloat16, and anything else raises.
+    or bfloat16 (bfloat16 on the tensor cores, which also needs 16-byte
+    aligned bases and strides, as the qkv projection's slices have), and
+    anything else raises.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -133,6 +152,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"version), got device {q.device}")
     B, N, H, D = q.shape
     _check_kernel_inputs("flash", q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned("flash", q=q, k=k, v=v)
     lib = load_kernel()
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
@@ -346,11 +367,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: quant modes of the fused trunk attention (w8a16 and w8a8)
 FUSED_MODES = ("pallas", "w8a8")
-#: query rows of one CTA of ``csrc/fused_trunk.cu``; 8 CTAs (512 rows) form
-#: a thread-block cluster sharing each key slice's projection, and a w8a8
-#: ``block_q`` is ``block_q / FUSED_ROWS`` CTAs of one cluster
+#: query rows of one unit of ``csrc/fused_trunk.cu`` (a CTA in float32, a
+#: warpgroup in bfloat16); 8 units (512 rows) form a thread-block cluster
+#: sharing each key slice's projection, and a w8a8 ``block_q`` is
+#: ``block_q / FUSED_ROWS`` units of one cluster
 FUSED_ROWS = 64
 FUSED_CLUSTER = 8
+
+
+class FusedGeometry(NamedTuple):
+    """The launch of ``csrc/fused_trunk.cu`` for one call."""
+
+    rows: int    #: query rows the grid covers: N rounded up to whole clusters
+    group: int   #: 64-row units of one w8a8 requant block (1 unless w8a8)
+
+
+def fused_geometry(B: int, N: int, C: int, num_heads: int, block_q: int,
+                   mode: str) -> FusedGeometry:
+    """Where the fused kernel's CTAs go, or a ValueError for a shape it
+    cannot take: head dim 32 or 64 and C a multiple of 64; in w8a8, C at
+    most ``quant.EXACT_F32_K`` and the requant block ``legal_block(block_q,
+    N, int8)`` (JAX's) a whole number of 64-row units inside one cluster of
+    8, i.e. 64, 128, 256 or 512 rows. The rows cover N rounded up to
+    clusters of 512 rows; the padded rows are computed (their x is 0) and
+    count in their w8a8 block's amax, but are not written."""
+    D = C // num_heads
+    if D not in KERNEL_HEAD_DIMS or C % FUSED_ROWS:
+        raise ValueError(f"the fused_trunk kernel takes head dim {KERNEL_HEAD_DIMS} "
+                         f"and C a multiple of {FUSED_ROWS}, got D={D}, C={C}")
+    group = 1
+    rows = tiling.round_up(N, FUSED_ROWS * FUSED_CLUSTER)
+    if mode == "w8a8":
+        if C > quant.EXACT_F32_K:
+            raise ValueError(f"the w8a8 kernel sums int8 products in f32: C must "
+                             f"be <= {quant.EXACT_F32_K}")
+        bq = tiling.legal_block(block_q, N, torch.int8)
+        if bq % FUSED_ROWS or FUSED_CLUSTER % (bq // FUSED_ROWS):
+            raise ValueError(f"the w8a8 kernel takes block_q of 64, 128, 256 or "
+                             f"512 rows, got {bq}")
+        group = bq // FUSED_ROWS
+    return FusedGeometry(rows, group)
 
 
 def _check_fused(x, w_qkv, s_qkv, w_proj, s_proj, num_heads, mode):
@@ -441,11 +497,11 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
     scale and bias applied; the ``(B, N, 3C)`` projection and the context
     never reach device memory.
 
-    On CUDA one launch of ``csrc/fused_trunk.cu`` (head dim 32 or 64, C a
-    multiple of 64, float32 or bfloat16; w8a8 first quantizes x per tensor
-    with one reduction, as JAX does, and needs ``legal_block(block_q, N,
-    int8)`` to be 64, 128, 256 or 512 rows, a whole number of CTAs of one
-    cluster). On the CPU
+    On CUDA one launch of ``csrc/fused_trunk.cu`` (float32 on the CUDA
+    cores, bfloat16 on the tensor cores; the shapes :func:`fused_geometry`
+    takes, and in bfloat16 C up to 256 at head dim 64 (320 in w8a8) or 384
+    at head dim 32, what its shared memory holds; w8a8 first quantizes x
+    per tensor with one reduction, as JAX does). On the CPU
     :func:`fused_trunk_attention_reference`. A call that needs a gradient
     raises.
     """
@@ -460,23 +516,11 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
                          f"(plain version), got device {x.device}")
     B, N, C = x.shape
     D = C // num_heads
-    if D not in KERNEL_HEAD_DIMS or C % FUSED_ROWS:
-        raise ValueError(f"the fused_trunk kernel takes head dim {KERNEL_HEAD_DIMS} "
-                         f"and C a multiple of {FUSED_ROWS}, got D={D}, C={C}")
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"the fused_trunk kernel takes {list(KERNEL_DTYPES)}, "
                          f"got {x.dtype}")
-    group = 1
-    rows = tiling.round_up(N, FUSED_ROWS * FUSED_CLUSTER)
+    geom = fused_geometry(B, N, C, num_heads, block_q, mode)
     if mode == "w8a8":
-        if C > quant.EXACT_F32_K:
-            raise ValueError(f"the w8a8 kernel sums int8 products in f32: C must "
-                             f"be <= {quant.EXACT_F32_K}")
-        bq = tiling.legal_block(block_q, N, torch.int8)
-        if bq % FUSED_ROWS or FUSED_CLUSTER % (bq // FUSED_ROWS):
-            raise ValueError(f"the w8a8 kernel takes block_q of 64, 128, 256 or "
-                             f"512 rows, got {bq}")
-        group = bq // FUSED_ROWS
         x_in, xs = quant.quantize_act(x)
         s_eff = (s_qkv.float() * xs).contiguous()
     else:
@@ -484,12 +528,14 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
     # every tensor the kernel reads stays referenced until it is enqueued
     args = (x_in.contiguous(), w_qkv.contiguous(), s_eff, quant._f32_vec(b_qkv),
             w_proj.contiguous(), quant._f32_vec(s_proj), quant._f32_vec(b_proj))
+    if x.dtype == torch.bfloat16:
+        _check_rows_aligned("fused_trunk", x=args[0], w_qkv=args[1], w_proj=args[4])
     out = torch.empty((B, N, C), dtype=x.dtype, device=x.device)
     lib = _build.load_library("fused_trunk")
     with torch.cuda.device(x.device):
         err = lib.fused_trunk(
             *(quant._ptr(t) for t in args), out.data_ptr(),
-            B, N, num_heads, D, rows, group,
+            B, N, num_heads, D, geom.rows, geom.group,
             KERNEL_DTYPES[x.dtype], quant.QUANT_MODES.index(mode), float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from ddim_cold_torch import serve as port_serve
+from ddim_cold_torch.models import MODEL_CONFIGS
 from ddim_cold_torch.models import DiffusionViT as PortViT
 from ddim_cold_torch.ops import flash_attention as pfa
 from ddim_cold_torch.ops import quant as pq
@@ -35,6 +36,7 @@ from ddim_cold_torch.utils.weights import state_dict_from_flax
 from ddim_cold_tpu.models import DiffusionViT
 from ddim_cold_tpu.ops import flash_attention as jfa
 from ddim_cold_tpu.ops import quant as jq
+from ddim_cold_tpu.ops import tiling as jtiling
 from ddim_cold_tpu.utils.checkpoint import flax_from_torch_state_dict
 
 TINY = dict(img_size=(16, 16), patch_size=4, embed_dim=32, depth=2,
@@ -121,6 +123,51 @@ def test_fused_trunk_refuses_bad_input(trunk_case):
     xg = _t(x).requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-only"):
         pfa.fused_trunk_attention(xg, *port_args, num_heads=4, scale=scale)
+
+
+# ------------------------------------------------- the kernel's geometry
+
+#: block_q values a caller may pass: JAX's fused_trunk_attention takes any
+#: positive one and legalizes it (``ddim_cold_tpu/ops/tiling.legal_block``)
+BLOCK_QS = (1, 16, 32, 48, 64, 96, 128, 160, 192, 256, 320, 384, 512, 640, 768,
+            1024, 2048, 4096)
+
+
+@pytest.mark.parametrize("block_q", BLOCK_QS)
+@pytest.mark.parametrize("config", sorted(MODEL_CONFIGS))
+def test_fused_geometry_covers_every_config_and_block_q(config, block_q):
+    """At every model's N and C, for every block_q: the rows cover N with
+    whole clusters and no cluster to spare; in w8a8 the requant block is the
+    one JAX cuts (``legal_block`` at int8), a whole number of CTAs inside a
+    cluster, or the call is refused with the kernel's message."""
+    cfg = MODEL_CONFIGS[config]
+    (h, w), p = cfg["img_size"], cfg["patch_size"]
+    N, C, H, B = (h // p) * (w // p) + 1, cfg["embed_dim"], cfg["num_heads"], 3
+    cluster = pfa.FUSED_ROWS * pfa.FUSED_CLUSTER
+    for mode in pfa.FUSED_MODES:
+        bq = jtiling.legal_block(block_q, N, jnp.int8)
+        if mode == "w8a8" and bq not in (64, 128, 256, 512):
+            with pytest.raises(ValueError, match=f"takes block_q of 64, 128, 256 "
+                                                 f"or 512 rows, got {bq}$"):
+                pfa.fused_geometry(B, N, C, H, block_q, mode)
+            continue
+        g = pfa.fused_geometry(B, N, C, H, block_q, mode)
+        assert g.rows >= N and g.rows % cluster == 0 and g.rows - N < cluster
+        assert pfa.FUSED_CLUSTER % g.group == 0
+        if mode == "w8a8":
+            assert g.group * pfa.FUSED_ROWS == bq and g.rows % bq == 0
+        else:
+            assert g.group == 1
+
+
+@pytest.mark.parametrize("C,H,mode", [(48, 3, "pallas"), (96, 3, "pallas"),
+                                      (256, 2, "w8a8"), (2048, 32, "w8a8")])
+def test_fused_geometry_refuses_what_the_kernel_cannot_take(C, H, mode):
+    """Head dim 16 or 128, C not a multiple of 64, and w8a8 past the exact
+    f32 sums."""
+    match = "exact|sums" if C > pq.EXACT_F32_K else "head dim"
+    with pytest.raises(ValueError, match=match):
+        pfa.fused_geometry(2, 257, C, H, 512, mode)
 
 
 # ------------------------------------------------------------ the model

@@ -12,11 +12,15 @@ machine. The quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
 ``quant.trunk_error_limit``, whose docstrings give the arithmetic.
 Tolerances of the flash kernels: O element-wise within ``fa.o_error_limit`` (float32
 1e-5; bfloat16 one bf16 ulp of each element plus 2⁻⁵·mean|O|, for p rounded
-against the running row max); lse 1e-5 for both; dq, dk and dv element-wise
-within ``fa.grad_error_limit`` (float32 2⁻¹⁶·|g| + 2⁻¹³·mean|g|; bfloat16 one
-bf16 ulp of each element plus 2⁻⁶·mean|g|).
+against the running row max); lse 1e-5 for both (and, where inputs ×8 put
+|lse| in the hundreds, 2⁻²⁰·|lse| + 1e-5: 8 f32 ulps, since one ulp there
+is already 1.5e-5); dq, dk and dv element-wise within ``fa.grad_error_limit``
+(float32 2⁻¹⁶·|g| + 2⁻¹³·mean|g|; bfloat16 one bf16 ulp of each element plus
+2⁻⁶·mean|g|).
 """
 
+import re
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -37,6 +41,23 @@ def test_build_is_keyed_by_source_and_lands_in_ignored_dir():
     assert set(_build.SIGNATURES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     ignored = subprocess.run(["git", "check-ignore", "-q", str(path)], cwd=ROOT)
     assert ignored.returncode in (0, 128)  # 128: a copy without .git
+
+
+def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
+    """Editing a csrc/ header changes the library path of every source that
+    includes it, so no stale library stays loaded, and of no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    header = csrc / "attn_wgmma.cuh"
+    includers = {p.stem for p in csrc.glob("*.cu")
+                 if '#include "attn_wgmma.cuh"' in p.read_text()}
+    assert includers == {"flash_fwd", "fused_trunk"}
+    before = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    changed = {name for name in before if before[name] != after[name]}
+    assert changed == includers
 
 
 def _ulp_up(t: torch.Tensor) -> torch.Tensor:
@@ -81,13 +102,26 @@ def cuda_device(monkeypatch):
     return torch.device("cuda")
 
 
+#: (B, N, H, D): the 200px/p4 and p8 geometries, ragged tails, one token,
+#: and N around the 64-key tile (63, 64, 65 and 129 keys: a tile one short,
+#: exact, one over, and a second tile of one key)
+FLASH_SHAPES = [(2, 2501, 4, 64), (2, 626, 12, 32), (3, 37, 2, 64), (1, 1, 1, 32),
+                (2, 63, 2, 64), (2, 64, 3, 32), (1, 65, 2, 64), (2, 129, 2, 32)]
+
+
+def _flash_inputs(device, dtype, B, N, H, D, layout, seed=0, gain=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = (torch.randn((B, N, 3, H, D), generator=gen, device=device) * gain).to(dtype)
+    if layout == "separate":
+        return tuple(t.contiguous() for t in qkv.unbind(2))
+    return qkv.unbind(2)  # strided views: the kernel reads them in place
+
+
+@pytest.mark.parametrize("layout", ["qkv", "separate"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 626, 12, 32),
-                                     (3, 37, 2, 64), (1, 1, 1, 32)])
-def test_flash_kernel_matches_plain(cuda_device, dtype, B, N, H, D):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=cuda_device).to(dtype)
-    q, k, v = qkv.unbind(2)  # strided views: the kernel reads them in place
+@pytest.mark.parametrize("B,N,H,D", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, dtype, B, N, H, D, layout):
+    q, k, v = _flash_inputs(cuda_device, dtype, B, N, H, D, layout)
     before = fa.LAUNCHES["flash_fwd"]
     o, lse = fa.flash_forward(q, k, v, D**-0.5)
     torch.cuda.synchronize()
@@ -98,6 +132,25 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, N, H, D):
     err = (o.float() - o_ref.float()).abs()
     assert bool((err <= fa.o_error_limit(o_ref)).all()), err.max().item()
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 129, 2, 32)])
+def test_flash_kernel_large_logits(cuda_device, B, N, H, D):
+    """bfloat16 inputs ×8, so logits ×64 (|logit| up to a few hundred): the
+    running max moves by far more than the softmax's range from tile to
+    tile, and the -1e30 mask must stay below every real logit. O is held to
+    the same ``o_error_limit``; lse to 8 f32 ulps of its size (a float32
+    kernel is not run here: at these logits one f32 rounding of a logit
+    moves O by more than the float32 limit's 1e-5)."""
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, B, N, H, D, "qkv", seed=6, gain=8.0)
+    o, lse = fa.flash_forward(q, k, v, D**-0.5)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, D**-0.5)
+    assert lse_ref.abs().max().item() > 100.0
+    err = (o.float() - o_ref.float()).abs()
+    assert bool((err <= fa.o_error_limit(o_ref)).all()), err.max().item()
+    lse_err = (lse - lse_ref).abs()
+    assert bool((lse_err <= 2.0**-20 * lse_ref.abs() + 1e-5).all()), lse_err.max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -153,6 +206,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_forward(x, x, x, 1.0)
     x = torch.zeros((1, 8, 32, 2), device=cuda_device).transpose(2, 3)
     with pytest.raises(ValueError, match="innermost"):
+        fa.flash_forward(x, x, x, 1.0)
+    # bfloat16 rows are copied in 16-byte pieces: an odd base or token stride is refused
+    flat = torch.zeros(1 + 8 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)
+    x = flat[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_forward(x, x, x, 1.0)
+    x = torch.zeros((1, 8, 2 * 32 + 1), device=cuda_device, dtype=torch.bfloat16)
+    x = x[:, :, :64].unflatten(2, (2, 32))
+    with pytest.raises(ValueError, match="16-byte"):
         fa.flash_forward(x, x, x, 1.0)
 
 
@@ -210,19 +272,35 @@ def test_mlp_fused_kernel_matches_plain(cuda_device, dtype, mode, M, C):
     assert bool((err <= quant.trunk_error_limit(ref, mode, flip)).all()), err.max().item()
 
 
+#: (mode, B, N, C, H, block_q): the 200px/p4 and p8 geometries, a narrow
+#: ragged one, one token, vit_tiny's 65 tokens, one row past a cluster of
+#: 512; in w8a8 also every requant block of 64 to 256 rows (one token, and
+#: 65 tokens at block_q > 64, have no block of whole CTAs: see the refusal
+#: test)
+FUSED_CASES = ([("pallas", 2, 2501, 256, 4, 512), ("pallas", 2, 626, 384, 12, 512),
+                ("pallas", 1, 300, 64, 2, 128), ("pallas", 1, 1, 256, 4, 512),
+                ("pallas", 2, 65, 384, 12, 512), ("pallas", 1, 513, 256, 4, 512)]
+               + [("w8a8", 2, 2501, 256, 4, 512), ("w8a8", 2, 626, 384, 12, 512),
+                  ("w8a8", 1, 300, 64, 2, 128), ("w8a8", 2, 65, 384, 12, 64),
+                  ("w8a8", 1, 257, 256, 4, 256)]
+               + [("w8a8", 1, 513, 256, 4, bq) for bq in (64, 128, 256, 512)])
+
+
+def _trunk_inputs(device, dtype, B, N, C):
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((B, N, C), generator=gen, device=device).to(dtype)
+    w_qkv, s_qkv = _codes(gen, 3 * C, C, device)
+    w_p, s_p = _codes(gen, C, C, device)
+    b_qkv = torch.randn(3 * C, generator=gen, device=device) * 0.1
+    b_p = torch.randn(C, generator=gen, device=device) * 0.1
+    return x, w_qkv, s_qkv, b_qkv, w_p, s_p, b_p
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["pallas", "w8a8"])
-@pytest.mark.parametrize("B,N,C,H,block_q", [(2, 2501, 256, 4, 512),
-                                             (2, 626, 384, 12, 512),
-                                             (1, 300, 64, 2, 128)])
+@pytest.mark.parametrize("mode,B,N,C,H,block_q", FUSED_CASES)
 def test_fused_trunk_kernel_matches_plain(cuda_device, dtype, mode, B, N, C, H, block_q):
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    x = torch.randn((B, N, C), generator=gen, device=cuda_device).to(dtype)
-    w_qkv, s_qkv = _codes(gen, 3 * C, C, cuda_device)
-    w_p, s_p = _codes(gen, C, C, cuda_device)
-    b_qkv = torch.randn(3 * C, generator=gen, device=cuda_device) * 0.1
-    b_p = torch.randn(C, generator=gen, device=cuda_device) * 0.1
-    args = (x, w_qkv, s_qkv, b_qkv, w_p, s_p, b_p)
+    args = _trunk_inputs(cuda_device, dtype, B, N, C)
+    w_p, s_p = args[4], args[5]
     kw = dict(num_heads=H, scale=(C // H) ** -0.5, block_q=block_q, mode=mode)
     before = fa.LAUNCHES["fused_trunk"]
     with torch.no_grad():
@@ -235,3 +313,18 @@ def test_fused_trunk_kernel_matches_plain(cuda_device, dtype, mode, B, N, C, H, 
     assert y.dtype == dtype and y.shape == (B, N, C)
     err = (y.float() - ref.float()).abs()
     assert bool((err <= quant.trunk_error_limit(ref, mode, flip)).all()), err.max().item()
+
+
+def test_fused_trunk_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A w8a8 requant block that is not whole CTAs of one cluster (one
+    token: JAX's block is 32 rows), and bfloat16 x whose rows cannot be
+    copied in 16-byte pieces, raise before any launch."""
+    args = _trunk_inputs(cuda_device, torch.bfloat16, 1, 1, 256)
+    before = fa.LAUNCHES["fused_trunk"]
+    with torch.no_grad(), pytest.raises(ValueError, match="block_q of 64, 128, 256 or 512"):
+        fa.fused_trunk_attention(*args, num_heads=4, scale=0.125, mode="w8a8")
+    flat = torch.zeros(1 + 3 * 256, device=cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match=re.escape("16-byte")):
+        fa.fused_trunk_attention(flat[1:].view(1, 3, 256), *args[1:], num_heads=4,
+                                 scale=0.125)
+    assert fa.LAUNCHES["fused_trunk"] == before
