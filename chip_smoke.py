@@ -12,10 +12,11 @@ Phases, one JSON object per line:
 2. build   — compile every ``ddim_cold_torch/csrc/*.cu`` with ``nvcc`` (one
    ``nvcc`` per source, all started together; each includes its
    ``csrc/*.cuh`` headers) and load them;
-2b. sass   — ``cuobjdump -sass`` of the ``flash_fwd`` and ``fused_trunk``
-   libraries: every bfloat16 kernel function runs its products on the
-   tensor cores (HGMMA; the w8a8 one also the int8 IGMMA), no float32 one
-   does; registers, stack and spills from ``cuobjdump -res-usage``;
+2b. sass   — ``cuobjdump -sass`` of the ``flash_fwd``, ``flash_bwd`` and
+   ``fused_trunk`` libraries: every bfloat16 kernel function runs its
+   products on the tensor cores (HGMMA; the w8a8 one also the int8 IGMMA)
+   and spills nothing, no float32 one does; registers, stack and spills
+   from ``cuobjdump -res-usage``;
 3. kernel  — the flash forward kernel against its plain PyTorch version at
    the main paths' shapes (and the 200px/p8 head dim), in bfloat16 and
    float32, with CUDA-event median times of the kernel, the plain version
@@ -25,7 +26,10 @@ Phases, one JSON object per line:
 4. kernel  — the two flash backward kernels (``flash_bwd_dq``,
    ``flash_bwd_dkv``) likewise, dq/dk/dv held element-wise to
    ``flash_attention.grad_error_limit``; the library time is one
-   ``autograd.grad`` through ``F.scaled_dot_product_attention``;
+   ``autograd.grad`` through ``F.scaled_dot_product_attention``; then the
+   bfloat16 pair at large logits (inputs ×8): finite, dv within the limit,
+   dq and dk within it plus ``flash_attention.ds_flip_bound`` (what flipped
+   bf16 roundings of dS can move them), and a 2% fault in either caught;
 5. forward — the full-width, full-depth ``oxford_flower_200_p4`` model (random
    weights from a fixed seed), flash kernel against the dense path;
 6. serve   — the serving path: a bucketed ``Engine`` over the bf16 flash
@@ -63,8 +67,7 @@ Phases, one JSON object per line:
    kernel of the config (dequant_mm 4× that); then one more fused w8a16
    batch under ``torch.profiler``;
 14. the ``kernels`` summary line (all six kernels, each with its design:
-   "wgmma" on the tensor cores or "fma" on the CUDA cores, and the two
-   redesigned ones with their previous time), then the card's
+   "wgmma" on the tensor cores or "fma" on the CUDA cores), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
 
@@ -127,8 +130,8 @@ TRAIN_CHECK_TOL = {
 MAX_UPDATE_GAP_LR = 2.1  # max |Δp| between the paths, in units of lr
 #: the libraries whose bfloat16 kernels run on the tensor cores, and how
 #: many bfloat16 and float32 kernel functions each holds (D = 32 and 64;
-#: fused_trunk: w8a16 and w8a8 of each)
-WGMMA_LIBS = {"flash_fwd": (2, 2), "fused_trunk": (4, 4)}
+#: flash_bwd: dq and dk/dv of each; fused_trunk: w8a16 and w8a8 of each)
+WGMMA_LIBS = {"flash_fwd": (2, 2), "flash_bwd": (4, 4), "fused_trunk": (4, 4)}
 
 
 def emit(obj) -> None:
@@ -191,11 +194,11 @@ def _res_usage(text: str) -> dict:
 
 
 def phase_sass(libs: dict, nvcc: str) -> None:
-    """The bfloat16 kernels of flash_fwd and fused_trunk run their products
-    through wgmma (HGMMA in the SASS, and the int8 IGMMA in w8a8); the
-    float32 ones, the exact oracle route, hold none. Kernel functions are
-    told apart by name: the bfloat16 ones carry ``bf16``, the w8a8 one
-    ``w8a8``."""
+    """The bfloat16 kernels of flash_fwd, flash_bwd and fused_trunk run
+    their products through wgmma (HGMMA in the SASS, and the int8 IGMMA in
+    w8a8) and spill no register to local memory; the float32 ones, the
+    exact oracle route, hold no wgmma. Kernel functions are told apart by
+    name: the bfloat16 ones carry ``bf16``, the w8a8 one ``w8a8``."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     rec = {"phase": "sass", "tool": tool, "libraries": {}}
     for name, (n_bf16, n_f32) in WGMMA_LIBS.items():
@@ -214,6 +217,9 @@ def phase_sass(libs: dict, nvcc: str) -> None:
                 check(c["hgmma"] > 0, f"sass {name}: no HGMMA in {fn}")
                 check(("_w8a8_" in fn) == (c["igmma_s8"] > 0),
                       f"sass {name}: int8 IGMMA count {c['igmma_s8']} in {fn}")
+                check(fn in usage, f"sass {name}: no -res-usage entry for {fn}")
+                check(usage.get(fn, {}).get("local") == 0,
+                      f"sass {name}: {fn} spills to local memory")
             else:
                 check(c["hgmma"] == 0 and c["igmma_s8"] == 0,
                       f"sass {name}: the float32 {fn} runs on the tensor cores")
@@ -383,6 +389,49 @@ def phase_kernels_bwd(torch, fa):
             del ref_dv, qt, kt, vt, out, go
             torch.cuda.empty_cache()
     return records
+
+
+def phase_bwd_large_logits(torch, fa):
+    """The bf16 backward kernels at large logits: q, k, v ×8 at 200_p4, B=2
+    (|lse| in the hundreds; the inputs of the card test
+    ``test_flash_backward_large_logits``). Softmax rows are nearly one-hot,
+    so each element of dq and dk is a difference of dS terms far larger
+    than itself, and a dS rounding that flips on an f32-level difference
+    moves it past ``grad_error_limit``: dq and dk are held to the limit plus
+    ``ds_flip_bound``, dv (P alone) to the limit. Recorded per gradient:
+    |Δ| over the bare limit and over the gate, the elements past the bare
+    limit, and whether a 2% fault fails the gate (checked)."""
+    B, N, H, D = 2, 2501, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = (torch.randn((B, N, 3, H, D), generator=gen, device="cuda") * 8.0).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    scale = D**-0.5
+    o, lse = fa.flash_forward_reference(q, k, v, scale)
+    do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    grad = fa.flash_backward(q, k, v, o, lse, do, scale)
+    ref = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
+    flips = fa.ds_flip_bound(q, k, v, do, lse, fa.backward_delta(o, do), scale)
+    rec = {"phase": "bwd-large-logits", "B": B, "N": N, "H": H, "D": D,
+           "dtype": "bfloat16", "gain": 8.0, "max_abs_lse": lse.abs().max().item()}
+    for i, g in enumerate(("dq", "dk", "dv")):
+        r = ref[:, :, i].float()
+        limit = fa.grad_error_limit(ref[:, :, i])
+        gate = limit + flips[i] if i < 2 else limit
+        err = (grad[:, :, i].float() - r).abs()
+        fault = (grad[:, :, i].float() * (1 + SCALE_FAULT) - r).abs()
+        rec[g] = {"err_over_limit": (err / limit).max().item(),
+                  "err_over_gate": (err / gate).max().item(),
+                  "past_limit": int((err > limit).sum().item()),
+                  "finite": bool(torch.isfinite(grad[:, :, i].float()).all()),
+                  "fault_past_gate": int((fault > gate).sum().item())}
+        check(rec[g]["finite"], f"large-logit {g} finite")
+        check(rec[g]["err_over_gate"] <= 1.0,
+              f"large-logit {g} {rec[g]['err_over_gate']} over its gate")
+        check(rec[g]["fault_past_gate"] > 0, f"large-logit {g}: a 2% fault passes the gate")
+    emit(rec)
+    check(rec["max_abs_lse"] > 100.0, f"large-logit lse {rec['max_abs_lse']}")
+    del qkv, q, k, v, o, lse, do, grad, ref, flips
+    torch.cuda.empty_cache()
 
 
 def phase_forward(torch, DiffusionViT, MODEL_CONFIGS):
@@ -1044,6 +1093,7 @@ def main() -> int:
 
     records = phase_kernels(torch, fa)
     bwd = phase_kernels_bwd(torch, fa)
+    phase_bwd_large_logits(torch, fa)
     qk = phase_kernels_quant(torch, fa, quant)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
     eng, config, serve_launches = phase_serve(torch, model, fa, serve)
@@ -1084,7 +1134,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             # one SDPA backward computes dq, dk and dv together
             "library_ms": rec["library_ms"], "library_covers": "dq+dk+dv",
-            "design": "fma"})
+            "design": "wgmma"})
     for name, line, key in (
             ("fused_trunk", "ddim_cold_tpu/ops/flash_attention.py:495",
              ("fused_trunk", "200_p4", "bfloat16", "pallas")),

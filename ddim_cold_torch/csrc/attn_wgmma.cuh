@@ -1,7 +1,8 @@
-// Hopper tensor-core building blocks shared by flash_fwd.cu and
-// fused_trunk.cu: swizzled shared-memory tiles, their wgmma descriptors,
-// asynchronous copies, the warpgroup matrix multiplies, and the attention
-// tile step (S = Q·Kᵀ, online softmax, O += P·V) that both kernels run.
+// Hopper tensor-core building blocks shared by flash_fwd.cu, fused_trunk.cu
+// and flash_bwd.cu: swizzled shared-memory tiles, their wgmma descriptors,
+// asynchronous copies, the warpgroup matrix multiplies, whole-tile products
+// over an m64n64 fragment, and the attention tile step (S = Q·Kᵀ, online
+// softmax, O += P·V) that the two forward kernels run.
 //
 // Everything here works on one warpgroup (128 threads, 4 warps) that owns
 // 64 query rows. A wgmma m64nN accumulator gives thread t (warp w, lane l)
@@ -259,6 +260,53 @@ __device__ __forceinline__ void mma_s8_ss(int32_t (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// ---------------------------------------------------------------------------
+// Whole-tile products over an m64n64 fragment (the backward kernels)
+// ---------------------------------------------------------------------------
+
+// 4-byte cp.async (through L1, for rows of f32 vectors that are not 16-byte
+// aligned); bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// row and column (0..63) of register i of this thread's m64n64 fragment
+__device__ __forceinline__ int frag_row(int i) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// d(64×64) += A·Bᵀ over the head dim D: A and B are 64-row K-major tiles
+// of D bf16, given by their descriptors (d is zeroed by the caller, before
+// the wgmma fence)
+template <int D>
+__device__ __forceinline__ void mma_tile_nt(float (&d)[32], uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) mma_bf16_ss(d, da + 2 * kk, db + 2 * kk, 1);
+}
+
+// the bf16 A operands of the four k16 steps over an m64n64 fragment's 64
+// columns (round to nearest even, as torch's .to(bfloat16))
+__device__ __forceinline__ void to_a_frags(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// acc(64×D) += A·B over 64 rows of B: A the four k16 register operands, B a
+// 64-row tile of D bf16 at shared address `b_tile` whose rows are the
+// reduction dimension, read MN-major through the transpose bit (as V in P·V)
+template <int D>
+__device__ __forceinline__ void mma_tile_rs(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                            uint32_t b_tile) {
+  const uint64_t db = desc<2 * D>(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_bf16_rs(acc, a[kk], db + kk * 2 * D, 1);
+}
 
 // ---------------------------------------------------------------------------
 // The attention tile step

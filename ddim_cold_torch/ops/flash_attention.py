@@ -115,20 +115,26 @@ def _check_kernel_inputs(what: str, *ts: torch.Tensor) -> None:
         raise ValueError("q, k, v need a unit innermost (head-dim) stride")
 
 
+def _row_strides(t: torch.Tensor) -> list[int]:
+    return [st * t.element_size() for st in t.stride()[:-1]]
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and not any(st % 16 for st in _row_strides(t))
+
+
 def _check_rows_aligned(what: str, **ts: torch.Tensor) -> None:
     """The bfloat16 kernels copy 16-byte pieces of rows (cp.async): every
     base address and every stride but the innermost must be a multiple of
     16 bytes. Refused rather than copied, so a layout the kernel cannot take
     never costs a silent copy."""
     for name, t in ts.items():
-        nbytes = t.element_size()
-        strides = [st * nbytes for st in t.stride()[:-1]]
-        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+        if not _rows_aligned(t):
             raise ValueError(
                 f"the bfloat16 {what} kernel copies 16-byte row pieces: {name} "
                 f"needs a 16-byte-aligned base and strides that are multiples "
                 f"of 16 bytes, got address {t.data_ptr()} and strides "
-                f"{strides} bytes")
+                f"{_row_strides(t)} bytes")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,6 +201,45 @@ def grad_error_limit(g_ref: torch.Tensor) -> torch.Tensor:
     return 2.0**-7 * ref + 2.0**-6 * ref.mean()
 
 
+def ds_flip_bound(q, k, v, do, lse, delta, scale: float):
+    """How far bfloat16 rounding flips of dS can move dq and dk: ``(dq_flip,
+    dk_flip)``, each ``(B, N, H, D)`` f32, added to :func:`grad_error_limit`
+    where softmax rows are nearly one-hot (large logits).
+
+    There dS holds a few large terms that cancel (each row sums to zero),
+    and dq and dk are differences of terms far larger than themselves, so
+    one dS rounding that lands on the other side of a bf16 boundary moves an
+    element by more than the limit allows, whichever side is right. Two f32
+    computations of dS_ij = P_ij·(dP_ij − δ_i) differ by at most
+    ``e = P·(2⁻²²·D·(scale·A·|dP − δ| + G) + 2⁻²⁰·(1 + |S|·scale + |lse|)·|dP − δ|)``
+    with A = |q|·|k|ᵀ and G = |dO|·|v|ᵀ: each side's dot products of D terms
+    err by at most D·2⁻²³ of their absolute sums (a rounding or a tensor
+    core's truncation per step), and the logit, the exponential and dS's
+    own product by a few 2⁻²⁴ of the logit. Where the plain version's dS lies
+    within ``e`` of a bf16 rounding boundary, the two sides may round it to
+    neighbouring values one bf16 step apart, which moves dq_i by
+    scale·step·|k_j| and dk_j by scale·step·|q_i|; the bound sums those
+    moves over every such (i, j).
+    """
+    B, N, H, D = q.shape
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    lse4, delta4 = lse.reshape(B, H, N, 1), delta.reshape(B, H, N, 1)
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf)
+    p = torch.exp(s * scale - lse4)
+    dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
+    ds = p * (dp - delta4)
+    w = (dp - delta4).abs()
+    a = torch.einsum("bnhd,bmhd->bhnm", qf.abs(), kf.abs())
+    g = torch.einsum("bnhd,bmhd->bhnm", gf.abs(), vf.abs())
+    e = p * (2.0**-22 * D * (scale * a * w + g)
+             + 2.0**-20 * (1 + s.abs() * scale + lse4.abs()) * w)
+    step = quant.bf16_ulp(ds)
+    near = step / 2 - (ds - ds.to(torch.bfloat16).float()).abs() <= e
+    moved = near * step
+    return (scale * torch.einsum("bhnm,bmhd->bnhd", moved, kf.abs()),
+            scale * torch.einsum("bhnm,bnhd->bmhd", moved, qf.abs()))
+
+
 def _check_backward(q, k, v, o, lse, do) -> None:
     _check(q, k, v)
     B, N, H, _ = q.shape
@@ -258,17 +303,21 @@ def flash_backward_reference(q, k, v, o, lse, do, scale: float) -> torch.Tensor:
                        dim=2)
 
 
-def _launch(symbol: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
-    """Launch one backward kernel on the current stream; count it."""
+def _launch(symbol: str, q, k, v, do, lse, delta, outs: dict, scale: float) -> None:
+    """Launch one backward kernel on the current stream; count it. ``outs``
+    names the gradient outputs, in the kernel's order."""
     B, N, H, D = q.shape
-    _check_kernel_inputs("flash backward", q, k, v, do, *outs)
+    _check_kernel_inputs("flash backward", q, k, v, do, *outs.values())
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned("flash backward", q=q, k=k, v=v, dO=do, **outs)
     lib = _build.load_library("flash_bwd")
-    strides = [s for t in (q, k, v, do, outs[0]) for s in t.stride()[:3]]
+    first = next(iter(outs.values()))
+    strides = [s for t in (q, k, v, do, first) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs.values()),
             B, N, H, D, KERNEL_DTYPES[q.dtype], *strides, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err} "
@@ -278,17 +327,20 @@ def _launch(symbol: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
 
 def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float) -> None:
     """Launch the dq kernel, writing ``dq`` (``(B, N, H, D)``, any strides
-    with a unit innermost one); lse and δ ``(B·H, N)`` f32 contiguous.
-    CUDA tensors only: the CPU route is :func:`flash_backward`'s."""
-    _launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)
+    with a unit innermost one); lse and δ ``(B·H, N)`` f32 contiguous. In
+    bfloat16 (the tensor-core kernel) q, k, v, dO and dq need 16-byte
+    aligned bases and row strides, else ValueError before any build or
+    launch. CUDA tensors only: the CPU route is :func:`flash_backward`'s."""
+    _launch("flash_bwd_dq", q, k, v, do, lse, delta, {"dq": dq}, scale)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
     """Launch the dk/dv kernel, writing ``dk`` and ``dv`` (two slices with
-    the same strides). CUDA tensors only."""
+    the same strides; in bfloat16 16-byte aligned, as for
+    :func:`flash_bwd_dq`). CUDA tensors only."""
     if dk.stride() != dv.stride():
         raise ValueError("dk and dv must share their strides")
-    _launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale)
+    _launch("flash_bwd_dkv", q, k, v, do, lse, delta, {"dk": dk, "dv": dv}, scale)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,7 +354,11 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype holding dq, dk, dv as its three slices, the gradient of the qkv
     projection as autograd wants it. On CUDA it launches ``flash_bwd_dq``
     and ``flash_bwd_dkv`` (D ∈ {32, 64}, float32 or bfloat16; anything else
-    raises); on the CPU it is :func:`flash_backward_reference`.
+    raises; bfloat16 q/k/v need 16-byte aligned rows, as the projection's
+    slices have); on the CPU it is :func:`flash_backward_reference`. A dO
+    the kernels cannot read in place (a non-unit innermost stride, or in
+    bfloat16 rows that are not 16-byte aligned) costs one ``(B, N, H, D)``
+    copy, so a training step is never refused for dO's layout.
     """
     _check_backward(q, k, v, o, lse, do)
     if q.device.type == "cpu":
@@ -311,8 +367,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_backward runs on CUDA (kernels) or CPU (plain "
                          f"version), got device {q.device}")
     B, N, H, D = q.shape
-    if do.stride(3) != 1:
-        do = do.contiguous()
+    if do.stride(3) != 1 or (do.dtype == torch.bfloat16 and not _rows_aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     delta = backward_delta(o, do)
     lse = lse.contiguous()
     grad = torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device)

@@ -142,3 +142,74 @@ def test_backward_refuses_devices_it_has_no_route_for():
     lse = torch.empty((2, 5), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         port.flash_backward(x, x, x, x, lse, x, 1.0)
+
+
+def _misaligned(kind):
+    """A bfloat16 (1, 8, 2, 32) view whose rows cannot be copied in 16-byte
+    pieces: a base 2 bytes off, or a token stride of 65 elements."""
+    if kind == "base":
+        return torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16)[1:].view(1, 8, 2, 32)
+    return torch.zeros((1, 8, 2 * 32 + 1), dtype=torch.bfloat16)[:, :, :64].unflatten(2, (2, 32))
+
+
+@pytest.mark.parametrize("kernel,arg,kind", [
+    ("dq", "q", "base"), ("dq", "do", "stride"), ("dq", "dq", "stride"),
+    ("dkv", "k", "stride"), ("dkv", "do", "base"), ("dkv", "dv", "base")])
+def test_bf16_backward_refuses_misaligned_rows_before_loading(monkeypatch, kernel, arg, kind):
+    """The bf16 backward kernels copy 16-byte pieces of rows: a misaligned
+    input or output raises the alignment ValueError before the library is
+    built or loaded."""
+    def no_load(name):
+        raise AssertionError(f"load_library({name!r}) reached")
+
+    monkeypatch.setattr(port._build, "load_library", no_load)
+    t = {name: torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16)
+         for name in ("q", "k", "v", "do", "dq", "dk", "dv")}
+    t[arg] = _misaligned(kind)
+    lse, delta = torch.zeros((2, 8)), torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="16-byte"):
+        if kernel == "dq":
+            port.flash_bwd_dq(t["q"], t["k"], t["v"], t["do"], lse, delta, t["dq"], 1.0)
+        else:
+            port.flash_bwd_dkv(t["q"], t["k"], t["v"], t["do"], lse, delta, t["dk"],
+                               t["dv"], 1.0)
+
+
+def _float64_backward(q, k, v, do, lse, delta, scale):
+    """dq and dk under the kernels' rounding contract with float64 logits,
+    dP and products: P and dS rounded to f32, then dS to bf16."""
+    B, N, H, _ = q.shape
+    q6, k6, v6, g6 = (t.double() for t in (q, k, v, do))
+    logits = torch.einsum("bnhd,bmhd->bhnm", q6, k6) * scale
+    p = torch.exp(logits - lse.double().reshape(B, H, N, 1)).float()
+    dp = torch.einsum("bnhd,bmhd->bhnm", g6, v6)
+    ds = (p.double() * (dp - delta.double().reshape(B, H, N, 1))).float()
+    ds = ds.to(torch.bfloat16).double()
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k6) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q6) * scale
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 129, 2, 32), (2, 257, 2, 64)])
+def test_ds_flip_bound_holds_an_exact_backward_and_catches_a_fault(B, N, H, D):
+    """At large logits (bf16 inputs ×8) a float64-exact backward under the
+    same rounding contract lies within ``grad_error_limit + ds_flip_bound``
+    of the plain version in dq and dk, and a dq or dk 2% too large does not."""
+    gen = torch.Generator().manual_seed(6)
+    qkv = (torch.randn((B, N, 3, H, D), generator=gen) * 8.0).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    scale = D**-0.5
+    o, lse = port.flash_forward_reference(q, k, v, scale)
+    do = torch.randn((B, N, H, D), generator=gen).to(torch.bfloat16)
+    assert lse.abs().max().item() > 100.0
+    want = port.flash_backward_reference(q, k, v, o, lse, do, scale)
+    delta = port.backward_delta(o, do)
+    exact = _float64_backward(q, k, v, do, lse, delta, scale)
+    flips = port.ds_flip_bound(q, k, v, do, lse, delta, scale)
+    for i, name in enumerate("qk"):
+        ref_g = want[:, :, i]
+        limit = port.grad_error_limit(ref_g) + flips[i]
+        err = (exact[i].float() - ref_g.float()).abs()
+        assert bool((err <= limit).all()), (name, (err / limit).max().item())
+        fault = (ref_g.float() * 1.02).to(torch.bfloat16).float()
+        assert bool(((fault - ref_g.float()).abs() > limit).any()), name

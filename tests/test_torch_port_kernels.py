@@ -52,7 +52,7 @@ def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
     header = csrc / "attn_wgmma.cuh"
     includers = {p.stem for p in csrc.glob("*.cu")
                  if '#include "attn_wgmma.cuh"' in p.read_text()}
-    assert includers == {"flash_fwd", "fused_trunk"}
+    assert includers == {"flash_fwd", "flash_bwd", "fused_trunk"}
     before = {name: _build.library_path(name) for name in _build.SIGNATURES}
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SIGNATURES}
@@ -153,18 +153,21 @@ def test_flash_kernel_large_logits(cuda_device, B, N, H, D):
     assert bool((lse_err <= 2.0**-20 * lse_ref.abs() + 1e-5).all()), lse_err.max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 626, 12, 32),
-                                     (3, 37, 2, 64), (1, 1, 1, 32)])
-def test_flash_backward_kernels_match_plain(cuda_device, dtype, B, N, H, D):
-    """dq, dk, dv from the two kernels against the plain version on the
-    same inputs and the same lse, written into one (B, N, 3, H, D) buffer."""
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=cuda_device).to(dtype)
+def _flash_backward(device, dtype, B, N, H, D, seed=1, gain=1.0, do_view=False):
+    """dq, dk, dv from the two kernels (one launch each) and from the plain
+    version on the same inputs and the same lse, each as one (B, N, 3, H, D)
+    buffer; the lse; and the inputs (q, k, v, o, dO). ``do_view``: dO is the second slice of a
+    (B, N, 2, H, D) buffer, a non-contiguous view with 16-byte rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = (torch.randn((B, N, 3, H, D), generator=gen, device=device) * gain).to(dtype)
     q, k, v = qkv.unbind(2)
     scale = D**-0.5
     o, lse = fa.flash_forward_reference(q, k, v, scale)
-    do = torch.randn((B, N, H, D), generator=gen, device=cuda_device).to(dtype)
+    if do_view:
+        do = torch.randn((B, N, 2, H, D), generator=gen, device=device).to(dtype)[:, :, 1]
+        assert not do.is_contiguous()
+    else:
+        do = torch.randn((B, N, H, D), generator=gen, device=device).to(dtype)
     before = (fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"])
     grad = fa.flash_backward(q, k, v, o, lse, do, scale)
     torch.cuda.synchronize()
@@ -172,10 +175,91 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, B, N, H, D):
         before[0] + 1, before[1] + 1)
     ref = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
     assert grad.shape == (B, N, 3, H, D) and grad.dtype == dtype
-    for i, name in enumerate("qkv"):
+    assert bool(torch.isfinite(grad.float()).all())
+    return grad, ref, lse, (q, k, v, o, do)
+
+
+def _assert_within_limit(grad, ref, names="qkv"):
+    for name in names:
+        i = "qkv".index(name)
         err = (grad[:, :, i].float() - ref[:, :, i].float()).abs()
         limit = fa.grad_error_limit(ref[:, :, i])
-        assert bool((err <= limit).all()), (name, err.max().item())
+        assert bool((err <= limit).all()), (name, err.max().item(),
+                                            (err / limit).max().item())
+
+
+#: (B, N, H, D): the 200px/p4 and p8 geometries, a ragged tail, one token,
+#: and one row or key in the last 64-row tile (65, 129, 257)
+FLASH_BWD_SHAPES = [(2, 2501, 4, 64), (2, 626, 12, 32), (3, 37, 2, 64), (1, 1, 1, 32),
+                    (1, 65, 2, 64), (2, 129, 2, 32), (1, 257, 3, 64), (2, 257, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D", FLASH_BWD_SHAPES)
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, B, N, H, D):
+    """dq, dk, dv from the two kernels against the plain version on the
+    same inputs and the same lse, written into one (B, N, 3, H, D) buffer."""
+    _assert_within_limit(*_flash_backward(cuda_device, dtype, B, N, H, D)[:2])
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 129, 2, 32)])
+def test_flash_backward_large_logits(cuda_device, B, N, H, D):
+    """bfloat16 inputs ×8, so logits ×64 (|lse| in the hundreds): P is
+    rebuilt from an lse far from zero and the masked tails must stay zero,
+    or dq, dk and dv would not be finite. dv = Pᵀ·dO, the product of P
+    alone, is held to ``grad_error_limit``; dq and dk to it plus
+    ``ds_flip_bound``, since their nearly one-hot softmax rows make each
+    element a difference of dS terms far larger than itself, and one dS
+    rounding that flips moves it past the bare limit, whichever side is
+    right. A dq or dk 2% too large fails that gate."""
+    grad, ref, lse, (q, k, v, o, do) = _flash_backward(cuda_device, torch.bfloat16, B, N, H,
+                                                       D, seed=6, gain=8.0)
+    assert lse.abs().max().item() > 100.0
+    _assert_within_limit(grad, ref, names="v")
+    flips = fa.ds_flip_bound(q, k, v, do, lse, fa.backward_delta(o, do), D**-0.5)
+    for i, name in enumerate("qk"):
+        limit = fa.grad_error_limit(ref[:, :, i]) + flips[i]
+        err = (grad[:, :, i].float() - ref[:, :, i].float()).abs()
+        assert bool((err <= limit).all()), (name, (err / limit).max().item())
+        fault = (grad[:, :, i].float() * 1.02 - ref[:, :, i].float()).abs()
+        assert bool((fault > limit).any()), name
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 129, 2, 32)])
+def test_flash_backward_reads_a_strided_do_view(cuda_device, B, N, H, D):
+    """A non-contiguous bfloat16 dO whose rows are 16-byte aligned is read
+    in place by the tensor-core kernels."""
+    _assert_within_limit(*_flash_backward(cuda_device, torch.bfloat16, B, N, H, D, seed=7,
+                                          do_view=True)[:2])
+
+
+def test_flash_backward_refuses_misaligned_bf16_rows(cuda_device):
+    """The bf16 backward kernels refuse a misaligned q or dO with ValueError
+    before any launch; ``flash_backward`` copies a misaligned dO once (so a
+    training step is never refused for it) and matches the plain version."""
+    B, N, H, D = 1, 70, 2, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o, lse = fa.flash_forward_reference(q, k, v, D**-0.5)
+    delta = torch.zeros((B * H, N), device=cuda_device)
+    flat = torch.randn(1 + B * N * H * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    bad = flat[1:].view(B, N, H, D)  # base 2 bytes off
+    grad = torch.empty((B, N, 3, H, D), dtype=torch.bfloat16, device=cuda_device)
+    dq, dk, dv = grad.unbind(2)
+    before = dict(fa.LAUNCHES)
+    for args in ((bad, k, v, q), (q, k, v, bad)):  # a misaligned q, then dO
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_bwd_dq(*args, lse, delta, dq, 1.0)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_bwd_dkv(*args, lse, delta, dk, dv, 1.0)
+    assert dict(fa.LAUNCHES) == before
+    got = fa.flash_backward(q, k, v, o, lse, bad, D**-0.5)
+    torch.cuda.synchronize()
+    ref = fa.flash_backward_reference(q, k, v, o, lse, bad, D**-0.5)
+    for i in range(3):
+        err = (got[:, :, i].float() - ref[:, :, i].float()).abs()
+        assert bool((err <= fa.grad_error_limit(ref[:, :, i])).all()), (i, err.max().item())
 
 
 def test_flash_autograd_runs_the_kernels(cuda_device):
