@@ -12,24 +12,25 @@ Phases, one JSON object per line:
 2. build   — compile every ``ddim_cold_torch/csrc/*.cu`` with ``nvcc`` (one
    ``nvcc`` per source, all started together; each includes its
    ``csrc/*.cuh`` headers) and load them;
-2b. sass   — ``cuobjdump -sass`` of the ``flash_fwd``, ``flash_bwd`` and
-   ``fused_trunk`` libraries: every bfloat16 kernel function runs its
-   products on the tensor cores (HGMMA; the w8a8 one also the int8 IGMMA)
-   and spills nothing, no float32 one does; registers, stack and spills
-   from ``cuobjdump -res-usage``;
+2b. sass   — ``cuobjdump -sass`` of all five libraries: every bfloat16
+   kernel function runs its products on the tensor cores (HGMMA; the w8a8
+   ones also the int8 IGMMA) and spills nothing, no float32 one does;
+   registers, stack and spills from ``cuobjdump -res-usage``;
 3. kernel  — the flash forward kernel against its plain PyTorch version at
    the main paths' shapes (and the 200px/p8 head dim), in bfloat16 and
    float32, with CUDA-event median times of the kernel, the plain version
    and the one PyTorch call that computes the same function (timed only,
-   never used by the port), beside the card's least possible time for the
-   same work;
+   never used by the port; every timed call queued behind a device spin, so
+   the times are the device's), beside the card's least possible time for
+   the same work;
 4. kernel  — the two flash backward kernels (``flash_bwd_dq``,
    ``flash_bwd_dkv``) likewise, dq/dk/dv held element-wise to
    ``flash_attention.grad_error_limit``; the library time is one
    ``autograd.grad`` through ``F.scaled_dot_product_attention``; then the
    bfloat16 pair at large logits (inputs ×8): finite, dv within the limit,
    dq and dk within it plus ``flash_attention.ds_flip_bound`` (what flipped
-   bf16 roundings of dS can move them), and a 2% fault in either caught;
+   bf16 roundings of dS can move them), a 2% fault in either caught, and
+   the smallest uniform scale fault of 0.1%–2% that the gate catches;
 5. forward — the full-width, full-depth ``oxford_flower_200_p4`` model (random
    weights from a fixed seed), flash kernel against the dense path;
 6. serve   — the serving path: a bucketed ``Engine`` over the bf16 flash
@@ -54,7 +55,9 @@ Phases, one JSON object per line:
 11. kernel — the quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
    ``fused_trunk``) against their plain versions at the 200px/p4 serve
    shape (B=8) and at 200px/p8, in float32 and bfloat16, w8a16 and w8a8
-   (and the float Mlp): element-wise within ``quant.mm_error_limit`` /
+   (and the float Mlp; dequant_mm at the qkv shape N = 3C and at N = C,
+   the shape of proj, fc1 and fc2): element-wise within
+   ``quant.mm_error_limit`` /
    ``quant.trunk_error_limit``, a 2% fault caught, CUDA-event medians of
    kernel, plain version and library yardstick, and the bound;
 12. quant-forward — the full-width model in float32 and bfloat16: each
@@ -64,10 +67,11 @@ Phases, one JSON object per line:
    request under each of ``quant="pallas"``, ``quant="pallas", fused=True``,
    ``quant="w8a8", fused=True`` and ``fused=True``; the launch counters are
    zeroed just before each drain and must read exactly depth × steps per
-   kernel of the config (dequant_mm 4× that); then one more fused w8a16
-   batch under ``torch.profiler``;
+   kernel of the config (dequant_mm 4× that); then one more
+   ``quant="pallas"`` batch and one more fused w8a16 batch under
+   ``torch.profiler``, each with its launch counts checked;
 14. the ``kernels`` summary line (all six kernels, each with its design:
-   "wgmma" on the tensor cores or "fma" on the CUDA cores), then the card's
+   "wgmma", the bfloat16 route on the tensor cores), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
 
@@ -130,8 +134,18 @@ TRAIN_CHECK_TOL = {
 MAX_UPDATE_GAP_LR = 2.1  # max |Δp| between the paths, in units of lr
 #: the libraries whose bfloat16 kernels run on the tensor cores, and how
 #: many bfloat16 and float32 kernel functions each holds (D = 32 and 64;
-#: flash_bwd: dq and dk/dv of each; fused_trunk: w8a16 and w8a8 of each)
-WGMMA_LIBS = {"flash_fwd": (2, 2), "flash_bwd": (4, 4), "fused_trunk": (4, 4)}
+#: flash_bwd: dq and dk/dv of each; fused_trunk: w8a16 and w8a8 of each;
+#: dequant_mm: bfloat16 with an f32 or a bf16 out, and the f32 one;
+#: mlp_fused: float, w8a16 and w8a8 weights in each dtype)
+WGMMA_LIBS = {"flash_fwd": (2, 2), "flash_bwd": (4, 4), "fused_trunk": (4, 4),
+              "dequant_mm": (2, 1), "mlp_fused": (3, 3)}
+#: device spin ahead of each timed call, in clock cycles (about 1 ms)
+SPIN_CYCLES = 2_000_000
+#: bfloat16 kernel functions whose products are all int8 x int8 (IGMMA and
+#: no HGMMA): the w8a8 Mlp multiplies int8 x codes and int8 hidden codes
+INT8_ONLY = ("mlp_fused_w8a8_bf16",)
+#: the uniform scale faults the large-logit gate is probed with: 0.1% to 2%
+GATE_FAULTS = tuple(round(0.001 * i, 4) for i in range(1, 21))
 
 
 def emit(obj) -> None:
@@ -157,7 +171,14 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
-    """Median of ``reps`` CUDA-event-timed calls, after ``warm`` calls."""
+    """Median of ``reps`` CUDA-event-timed calls, after ``warm`` calls.
+
+    Each timed call is queued behind about a millisecond of device spin
+    (``torch.cuda._sleep``), so the host has enqueued the call's launches
+    before the device reaches the start event: the events time the device's
+    work, not the Python wrapper's launch overhead, which for a kernel of
+    tens of microseconds is as long as the kernel (the serve phases measure
+    the host's share end to end)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -165,6 +186,7 @@ def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -194,11 +216,12 @@ def _res_usage(text: str) -> dict:
 
 
 def phase_sass(libs: dict, nvcc: str) -> None:
-    """The bfloat16 kernels of flash_fwd, flash_bwd and fused_trunk run
-    their products through wgmma (HGMMA in the SASS, and the int8 IGMMA in
-    w8a8) and spill no register to local memory; the float32 ones, the
-    exact oracle route, hold no wgmma. Kernel functions are told apart by
-    name: the bfloat16 ones carry ``bf16``, the w8a8 one ``w8a8``."""
+    """The bfloat16 kernels of every library run their products through
+    wgmma (HGMMA in the SASS, and the int8 IGMMA in w8a8) and spill no
+    register to local memory; the float32 ones, the exact oracle route,
+    hold no wgmma. Kernel functions are told apart by name: the bfloat16
+    ones carry ``_bf16``, the w8a8 ones ``_w8a8_``; the w8a8 Mlp
+    (``INT8_ONLY``) has no bf16 product, so it holds IGMMA and no HGMMA."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     rec = {"phase": "sass", "tool": tool, "libraries": {}}
     for name, (n_bf16, n_f32) in WGMMA_LIBS.items():
@@ -214,7 +237,9 @@ def phase_sass(libs: dict, nvcc: str) -> None:
               f"kernel functions, expected {n_bf16} and {n_f32}")
         for fn, c in funcs.items():
             if fn in bf16:
-                check(c["hgmma"] > 0, f"sass {name}: no HGMMA in {fn}")
+                int8_only = any(k in fn for k in INT8_ONLY)
+                check((c["hgmma"] > 0) != int8_only,
+                      f"sass {name}: HGMMA count {c['hgmma']} in {fn}")
                 check(("_w8a8_" in fn) == (c["igmma_s8"] > 0),
                       f"sass {name}: int8 IGMMA count {c['igmma_s8']} in {fn}")
                 check(fn in usage, f"sass {name}: no -res-usage entry for {fn}")
@@ -400,7 +425,9 @@ def phase_bwd_large_logits(torch, fa):
     moves it past ``grad_error_limit``: dq and dk are held to the limit plus
     ``ds_flip_bound``, dv (P alone) to the limit. Recorded per gradient:
     |Δ| over the bare limit and over the gate, the elements past the bare
-    limit, and whether a 2% fault fails the gate (checked)."""
+    limit, whether a 2% fault fails the gate (checked), and the smallest of
+    the uniform scale faults 0.1%, 0.2%, ..., 2% of the kernel's output
+    that the gate catches (how much slack it leaves)."""
     B, N, H, D = 2, 2501, 4, 64
     gen = torch.Generator(device="cuda").manual_seed(6)
     qkv = (torch.randn((B, N, 3, H, D), generator=gen, device="cuda") * 8.0).to(torch.bfloat16)
@@ -419,11 +446,15 @@ def phase_bwd_large_logits(torch, fa):
         gate = limit + flips[i] if i < 2 else limit
         err = (grad[:, :, i].float() - r).abs()
         fault = (grad[:, :, i].float() * (1 + SCALE_FAULT) - r).abs()
+        caught = [f for f in GATE_FAULTS
+                  if bool(((grad[:, :, i].float() * (1 + f) - r).abs() > gate).any())]
         rec[g] = {"err_over_limit": (err / limit).max().item(),
                   "err_over_gate": (err / gate).max().item(),
                   "past_limit": int((err > limit).sum().item()),
                   "finite": bool(torch.isfinite(grad[:, :, i].float()).all()),
-                  "fault_past_gate": int((fault > gate).sum().item())}
+                  "fault_past_gate": int((fault > gate).sum().item()),
+                  # the smallest scanned uniform scale fault the gate catches
+                  "smallest_caught_fault": min(caught) if caught else None}
         check(rec[g]["finite"], f"large-logit {g} finite")
         check(rec[g]["err_over_gate"] <= 1.0,
               f"large-logit {g} {rec[g]['err_over_gate']} over its gate")
@@ -826,26 +857,29 @@ def phase_kernels_quant(torch, fa, quant):
                  for n, wt in w.items()}
             deq = {n: quant.dequantize_weight(*wt, dtype) for n, wt in w.items()}
 
-            # dequant_mm: the qkv projection of the unfused w8a16 path
-            codes, scale = w["qkv"]
-            run = lambda: quant.dequant_mm(x2, codes, scale, b["qkv"], dtype)
-            y = run()
-            torch.cuda.synchronize()
-            ref = quant.dequant_mm_reference(x2, codes, scale, b["qkv"]).to(dtype)
-            rec = {"phase": "kernel", "kernel": "dequant_mm", "geometry": geom,
-                   "M": M, "K": C, "N": 3 * C, "dtype": name, "out_dtype": name,
-                   **_held(torch, y, ref, quant.mm_error_limit(x2, codes, scale, ref)),
-                   "ms": time_ms(torch, run),
-                   "plain_ms": time_ms(torch, lambda: quant.dequant_mm_reference(
-                       x2, codes, scale, b["qkv"]), reps=10),
-                   "library_ms": time_ms(torch, lambda: F.linear(
-                       x2, deq["qkv"], b["qkv"].to(dtype))),
-                   "library_covers": "F.linear on the weight dequantized beforehand"}
-            rec["bound_ms"], rec["bound_by"] = _bound(
-                {name: 2.0 * M * 3 * C * C}, M * C * elem + 3 * C * C + M * 3 * C * elem)
-            emit(rec)
-            _check_held(rec, f"dequant_mm {geom} {name}")
-            records[("dequant_mm", geom, name, "pallas")] = rec
+            # dequant_mm: the qkv projection of the unfused w8a16 path (N =
+            # 3C), and proj's shape (N = C; fc1 and fc2 have it too)
+            for lin, key in (("qkv", "pallas"), ("proj", "pallas_n_c")):
+                codes, scale = w[lin]
+                N_out = codes.shape[0]
+                run = lambda: quant.dequant_mm(x2, codes, scale, b[lin], dtype)
+                y = run()
+                torch.cuda.synchronize()
+                ref = quant.dequant_mm_reference(x2, codes, scale, b[lin]).to(dtype)
+                rec = {"phase": "kernel", "kernel": "dequant_mm", "geometry": geom,
+                       "M": M, "K": C, "N": N_out, "dtype": name, "out_dtype": name,
+                       **_held(torch, y, ref, quant.mm_error_limit(x2, codes, scale, ref)),
+                       "ms": time_ms(torch, run),
+                       "plain_ms": time_ms(torch, lambda: quant.dequant_mm_reference(
+                           x2, codes, scale, b[lin]), reps=10),
+                       "library_ms": time_ms(torch, lambda: F.linear(
+                           x2, deq[lin], b[lin].to(dtype))),
+                       "library_covers": "F.linear on the weight dequantized beforehand"}
+                rec["bound_ms"], rec["bound_by"] = _bound(
+                    {name: 2.0 * M * N_out * C}, M * C * elem + N_out * C + M * N_out * elem)
+                emit(rec)
+                _check_held(rec, f"dequant_mm {geom} {name} N={N_out}")
+                records[("dequant_mm", geom, name, key)] = rec
 
             # mlp_fused: float, w8a16, w8a8
             for mode in (None, "pallas", "w8a8"):
@@ -1029,9 +1063,11 @@ def _kind_of(name: str, kinds) -> str:
     return "gemm" if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet")) else "other"
 
 
-def phase_profile_quant(torch, eng, config, model):
-    """One more fused w8a16 batch under torch.profiler: device time by
-    kernel and the device's idle share."""
+def phase_profile_quant(torch, eng, config, per_layer, model):
+    """One more batch of a quantized config under torch.profiler: device
+    time by kernel and the device's idle share; each of the config's
+    kernels (``per_layer``: launches a layer-forward) launched exactly
+    depth × steps times that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1059,8 +1095,9 @@ def phase_profile_quant(torch, eng, config, model):
         rec[f"{kind}_launches"] = len(ivs)
     emit(rec)
     steps = len(range(model.total_steps - 1, 0, -K))
-    check(rec["fused_trunk_launches"] == model.depth * steps,
-          f"profiled fused_trunk launches {rec['fused_trunk_launches']}")
+    for name, n in per_layer.items():
+        check(rec[f"{name}_launches"] == n * model.depth * steps,
+              f"profiled {rec['config']}: {name} launches {rec[f'{name}_launches']}")
 
 
 def main() -> int:
@@ -1101,7 +1138,8 @@ def main() -> int:
     del eng
     phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant)
     eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
-    phase_profile_quant(torch, eng, qconfigs[1], model)
+    for config, (_, per_layer) in list(zip(qconfigs, SERVE_QUANT))[:2]:  # pallas, fused w8a16
+        phase_profile_quant(torch, eng, config, per_layer, model)
     del eng, model
     torch.cuda.empty_cache()
     phase_train_check(torch, fa)
@@ -1153,7 +1191,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_covers": rec["library_covers"],
             "measured_at": "200_p4 B=8 bfloat16 w8a16",
-            "design": "wgmma" if name == "fused_trunk" else "fma"})
+            "design": "wgmma"})
     emit({"kernels": lines})
     if FAILURES:
         raise SystemExit(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")

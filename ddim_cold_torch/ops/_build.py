@@ -48,7 +48,7 @@ SIGNATURES = {
         "dequant_mm": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 2 + [_P],
     },
     "mlp_fused": {
-        "mlp_fused": [_P] * 8 + [_I] * 8 + [_P],
+        "mlp_fused": [_P] * 8 + [_I] * 9 + [_P],
     },
     "fused_trunk": {
         "fused_trunk": [_P] * 8 + [_I] * 8 + [_F, _P],

@@ -26,6 +26,10 @@ keeps ``(in, out)``; a JAX code matrix is this one transposed.
   and w8a8 weights.
 * :class:`QuantLinear`, the trunk linear over int8 codes.
 
+Both kernels run their bfloat16 forms on the tensor cores (wgmma, through
+``csrc/gemm_wgmma.cuh``) and their float32 forms with f32 FMAs on the CUDA
+cores.
+
 Each wrapper launches its kernel on a CUDA tensor and takes the plain
 version only for a CPU tensor; a CUDA call that cannot launch raises. Each
 launch adds one to :data:`LAUNCHES`.
@@ -34,6 +38,7 @@ launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import collections
+import math
 from typing import Optional
 
 import torch
@@ -222,18 +227,41 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
+def bf16_row_layout(K: int, row_stride: int, data_ptr: int) -> tuple[int, bool]:
+    """How the bfloat16 ``dequant_mm`` kernel reads an ``(M, K)`` x: it
+    copies x rows and code rows in 16-byte pieces (8 bf16, 16 codes), so it
+    takes K a multiple of 16 and x rows on 16-byte boundaries. Returns
+    ``(Kp, copy)``: K rounded up to 16, and whether x (row stride
+    ``row_stride`` elements, base address ``data_ptr``) must first be
+    copied into a zero-padded ``(M, Kp)`` buffer. The codes are padded to
+    Kp too when ``Kp != K``; zeros change no sum."""
+    Kp = tiling.round_up(K, 16)
+    return Kp, Kp != K or row_stride % 8 != 0 or data_ptr % 16 != 0
+
+
+def _zero_pad_cols(t: torch.Tensor, cols: int) -> torch.Tensor:
+    out = t.new_zeros((t.shape[0], cols))
+    out[:, :t.shape[1]] = t
+    return out
+
+
 def dequant_mm(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ (w_int8·scale)ᵀ + bias`` over a 2-D ``(M, K)`` x, f32
     accumulation, ``(M, out)`` in ``out_dtype``.
 
-    On CUDA one launch of ``csrc/dequant_mm.cu``: x float32 or bfloat16 with
-    a unit inner stride, and the kernel writes ``out_dtype`` (float32, or
-    x's dtype, cast in-register from the f32 value: the same value as
-    casting the f32 output). On the CPU the plain version
-    :func:`dequant_mm_reference`, cast to ``out_dtype``. Forward only, as
-    the TPU kernel: a call that needs a gradient raises.
+    On CUDA one launch of ``csrc/dequant_mm.cu``: x float32 (f32 FMAs) or
+    bfloat16 (wgmma on the tensor cores) with a unit inner stride, and the
+    kernel writes ``out_dtype`` (float32, or x's dtype, cast in-register
+    from the f32 value: the same value as casting the f32 output). A
+    bfloat16 x whose K is not a multiple of 16, or whose rows are not
+    16-byte aligned, is copied once into a zero-padded K first, and the
+    codes with it (:func:`bf16_row_layout`); the bfloat16 kernel holds a
+    CTA's 128 x rows whole, so it takes K up to 448 for a float32 out and
+    640 for bfloat16 (beyond, the launch fails and this raises). On the CPU
+    the plain version :func:`dequant_mm_reference`, cast to ``out_dtype``.
+    Forward only, as the TPU kernel: a call that needs a gradient raises.
     """
     if x.dim() != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
@@ -251,6 +279,12 @@ def dequant_mm(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
         x = x.contiguous()
     N = w_int8.shape[0]
     w = w_int8.contiguous()
+    if x.dtype == torch.bfloat16:
+        Kp, copy = bf16_row_layout(K, x.stride(0), x.data_ptr())
+        if copy:
+            x = _zero_pad_cols(x, Kp)
+        if Kp != K:
+            w, K = _zero_pad_cols(w, Kp), Kp
     s, b = _f32_vec(scale), _f32_vec(bias)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     lib = _build.load_library("dequant_mm")
@@ -334,9 +368,22 @@ def refuse_grad(what: str, *ts: Optional[torch.Tensor]) -> None:
 # ------------------------------------------------------------ fused Mlp
 
 MLP_MODES = (None, "pallas", "w8a8")
-#: rows of one CTA of the fused Mlp kernel; a w8a8 ``block_m`` is covered by
-#: a thread-block cluster of ``block_m / MLP_ROWS`` CTAs (at most 8)
-MLP_ROWS = 32
+#: rows of one CTA of the fused Mlp kernel, by compute dtype: 32 in the
+#: float32 route, two warpgroups of 64 in the bfloat16 one
+MLP_ROWS = {torch.float32: 32, torch.bfloat16: 128}
+#: the w8a8 kernel takes a legalised ``block_m`` that is a multiple of this,
+#: up to 8 times it
+MLP_BLOCK_UNIT = 32
+
+
+def mlp_geometry(M: int, block_m: int, cta_rows: int) -> tuple[int, int]:
+    """Launch geometry of the w8a8 fused Mlp: ``(rows, cluster)``. The CTAs
+    of one thread-block cluster cover ``lcm(block_m, cta_rows)`` rows, so
+    that every requant tile of ``block_m`` rows lies inside one cluster;
+    the grid covers M rounded up to whole clusters (rows past M's last tile
+    form tiles of their own, whose outputs are not written)."""
+    span = math.lcm(block_m, cta_rows)
+    return tiling.round_up(M, span), span // cta_rows
 
 
 def _gelu_rounded(y: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -478,12 +525,16 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     dtype) or int8 codes with f32 per-output scales (``"pallas"`` w8a16,
     ``"w8a8"``). Returns x's dtype.
 
-    On CUDA one launch of ``csrc/mlp_fused.cu`` (w8a8 first quantizes x per
-    tensor with one reduction over the whole activation, as JAX does; the
-    kernel then requantizes the hidden activation per ``block_m`` rows
-    with a thread-block cluster, so ``block_m`` must be a multiple of 32 of
-    at most 256 after legalisation). On the CPU :func:`mlp_fused_reference`.
-    Forward only: a call that needs a gradient raises.
+    On CUDA one launch of ``csrc/mlp_fused.cu``: f32 FMAs for float32,
+    wgmma on the tensor cores for bfloat16 (K and hidden multiples of 16;
+    K + hidden up to 768 for float and w8a16 weights, whose shared memory
+    holds a CTA's 128 rows of x and of the hidden activation). w8a8 first
+    quantizes x per tensor with one reduction over the whole activation, as
+    JAX does; the kernel then requantizes the hidden activation per
+    ``block_m`` rows with a thread-block cluster (:func:`mlp_geometry`), so
+    ``block_m`` must be a multiple of 32 of at most 256 after legalisation.
+    On the CPU :func:`mlp_fused_reference`. Forward only: a call that needs
+    a gradient raises.
     """
     _check_mlp(x, w1, b1, w2, b2, scale1, scale2, mode)
     refuse_grad("the fused Mlp kernel", x, w1, b1, w2, b2)
@@ -497,7 +548,10 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     Hf, Nout = w1.shape[0], w2.shape[0]
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    cluster = 1
+    if cdt == torch.bfloat16 and (K % 16 or Hf % 16):
+        raise ValueError(f"the bfloat16 mlp_fused kernel takes K and hidden "
+                         f"multiples of 16, got {K} and {Hf}")
+    rows, cluster, bm = M, 1, 0
     if mode == "w8a8":
         if max(K, Hf) > EXACT_F32_K:
             raise ValueError(f"the w8a8 kernel sums int8 products in f32: K and "
@@ -505,14 +559,13 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         x2, xs = quantize_act(x2)
         s1 = (scale1.float() * xs).contiguous()
         bm = tiling.legal_block(block_m, M, torch.int8)
-        if bm % MLP_ROWS or bm // MLP_ROWS > 8:
+        if bm % MLP_BLOCK_UNIT or bm > 8 * MLP_BLOCK_UNIT:
             raise ValueError(f"the w8a8 kernel takes block_m a multiple of "
-                             f"{MLP_ROWS} up to {8 * MLP_ROWS}, got {bm}")
-        cluster = bm // MLP_ROWS
-        rows = tiling.round_up(M, bm)  # the padded rows count in the amax
+                             f"{MLP_BLOCK_UNIT} up to {8 * MLP_BLOCK_UNIT}, got {bm}")
+        # the padded rows of M's last tile count in its amax
+        rows, cluster = mlp_geometry(M, bm, MLP_ROWS[cdt])
     else:
         s1 = _f32_vec(scale1)
-        rows = M
         if mode is None:
             w1, w2 = w1.to(cdt), w2.to(cdt)
     # every tensor the kernel reads stays referenced until it is enqueued
@@ -523,7 +576,7 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.mlp_fused(
             *(_ptr(t) for t in args), out.data_ptr(), M, rows, K, Hf, Nout, cluster,
-            KERNEL_DTYPES[cdt], MLP_MODES.index(mode),
+            bm, KERNEL_DTYPES[cdt], MLP_MODES.index(mode),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, f"mlp_fused (M={M}, K={K}, hidden={Hf}, out={Nout}, "
                    f"{cdt}, mode={mode})")

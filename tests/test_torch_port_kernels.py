@@ -43,16 +43,26 @@ def test_build_is_keyed_by_source_and_lands_in_ignored_dir():
     assert ignored.returncode in (0, 128)  # 128: a copy without .git
 
 
-def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
+#: per csrc/ header, the sources that include it, directly or through
+#: another header (gemm_wgmma.cuh includes attn_wgmma.cuh)
+HEADER_INCLUDERS = {
+    "attn_wgmma.cuh": {"flash_fwd", "flash_bwd", "fused_trunk", "dequant_mm", "mlp_fused"},
+    "gemm_wgmma.cuh": {"dequant_mm", "mlp_fused"},
+}
+
+
+@pytest.mark.parametrize("header_name", sorted(HEADER_INCLUDERS))
+def test_build_key_follows_the_included_headers(tmp_path, monkeypatch, header_name):
     """Editing a csrc/ header changes the library path of every source that
-    includes it, so no stale library stays loaded, and of no other."""
+    includes it, directly or through another header, so no stale library
+    stays loaded, and of no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    header = csrc / "attn_wgmma.cuh"
-    includers = {p.stem for p in csrc.glob("*.cu")
-                 if '#include "attn_wgmma.cuh"' in p.read_text()}
-    assert includers == {"flash_fwd", "flash_bwd", "fused_trunk"}
+    header = csrc / header_name
+    includers = HEADER_INCLUDERS[header_name]
+    assert includers == {name for name in _build.SIGNATURES
+                         if header in _build._inputs(name)}
     before = {name: _build.library_path(name) for name in _build.SIGNATURES}
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SIGNATURES}
@@ -310,7 +320,8 @@ def _codes(gen, rows, cols, device):
 @pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
                                              (torch.bfloat16, torch.float32),
                                              (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("M,K,N", [(2501, 256, 768), (626, 384, 384), (7, 33, 50)])
+@pytest.mark.parametrize("M,K,N", [(2501, 256, 768), (2501, 256, 256), (626, 384, 384),
+                                   (7, 33, 50)])
 def test_dequant_mm_kernel_matches_plain(cuda_device, dtype, out_dtype, M, K, N):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn((M, K), generator=gen, device=cuda_device).to(dtype)
@@ -354,6 +365,61 @@ def test_mlp_fused_kernel_matches_plain(cuda_device, dtype, mode, M, C):
     assert y.dtype == dtype and y.shape == (M, C)
     err = (y.float() - ref.float()).abs()
     assert bool((err <= quant.trunk_error_limit(ref, mode, flip)).all()), err.max().item()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,stride", [(33, 33), (256, 260), (40, 44)])
+def test_dequant_mm_bf16_copies_what_it_cannot_read_in_place(cuda_device, out_dtype, K,
+                                                             stride):
+    """A bfloat16 x with K not a multiple of 16, or rows not 16-byte aligned
+    (a column slice of a wider buffer), is copied once into a zero-padded K
+    (the codes too) and still takes one launch of the wgmma kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    wide = torch.randn((300, stride), generator=gen, device=cuda_device).to(torch.bfloat16)
+    x = wide[:, :K]
+    w, s = _codes(gen, 96, K, cuda_device)
+    bias = torch.randn(96, generator=gen, device=cuda_device)
+    Kp, copy = quant.bf16_row_layout(K, x.stride(0), x.data_ptr())
+    assert copy and Kp == -(-K // 16) * 16
+    before = quant.LAUNCHES["dequant_mm"]
+    y = quant.dequant_mm(x, w, s, bias, out_dtype)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["dequant_mm"] == before + 1
+    ref = quant.dequant_mm_reference(x, w, s, bias).to(out_dtype)
+    err = (y.float() - ref.float()).abs()
+    limit = quant.mm_error_limit(x, w, s, ref)
+    assert bool((err <= limit).all()), err.max().item()
+    assert bool(((y.float() * 1.02 - ref.float()).abs() > limit).any())
+
+
+#: (M, block_m): w8a8 requant tiles that are not whole 128-row CTAs of the
+#: bfloat16 kernel: M = 90 legalises block_m 256 to 96 rows (a cluster of 3
+#: CTAs covers 4 tiles); 96-row tiles over 300 rows; 160-row tiles (clusters
+#: of 5)
+MLP_ODD_BLOCKS = [(90, 256), (300, 96), (626, 160)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,block_m", MLP_ODD_BLOCKS)
+def test_mlp_fused_w8a8_block_not_a_multiple_of_64(cuda_device, dtype, M, block_m):
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    C = 256
+    x = torch.randn((M, C), generator=gen, device=cuda_device).to(dtype)
+    b1 = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    b2 = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    (w1, s1), (w2, s2) = _codes(gen, C, C, cuda_device), _codes(gen, C, C, cuda_device)
+    kw = dict(scale1=s1, scale2=s2, mode="w8a8", block_m=block_m)
+    before = quant.LAUNCHES["mlp_fused"]
+    with torch.no_grad():
+        y = quant.mlp_fused(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["mlp_fused"] == before + 1
+    ref, row_scale = quant.mlp_fused_reference(x, w1, b1, w2, b2, **kw,
+                                               return_row_scale=True)
+    limit = quant.trunk_error_limit(ref, "w8a8", quant.requant_flip_bound(row_scale, w2, s2))
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= limit).all()), err.max().item()
+    assert bool(((y.float() * 1.02 - ref.float()).abs() > limit).any())
 
 
 #: (mode, B, N, C, H, block_q): the 200px/p4 and p8 geometries, a narrow

@@ -160,6 +160,29 @@ def test_dequant_matmul_validation_and_int_exactness():
     assert pq.int8_matmul(a, a).item() == 2048 * 127 * 127
 
 
+@pytest.mark.parametrize("K,stride,ptr,want", [
+    (256, 256, 0, (256, False)), (256, 768, 512, (256, False)),  # rows in place
+    (33, 33, 0, (48, True)), (40, 40, 0, (48, True)),            # ragged K
+    (250, 256, 0, (256, True)),
+    (256, 260, 0, (256, True)), (256, 256, 2, (256, True))])     # misaligned rows
+def test_bf16_row_layout(K, stride, ptr, want):
+    """The bfloat16 dequant_mm kernel reads x in place only when K is a
+    multiple of 16 and its rows start on 16-byte boundaries; otherwise the
+    wrapper copies x into a zero-padded K."""
+    assert pq.bf16_row_layout(K, stride, ptr) == want
+
+
+def test_zero_padded_k_leaves_the_dequant_matmul():
+    """The padding route: x and the codes with zero columns appended give
+    the same product (zeros change no sum), within the kernel limit."""
+    rs = np.random.RandomState(11)
+    x = _t(rs.randn(7, 33).astype(np.float32)).to(torch.bfloat16)
+    w, s = pq.quantize_weight(_t(rs.randn(50, 33).astype(np.float32)))
+    ref = pq.dequant_mm_reference(x, w, s)
+    padded = pq.dequant_mm_reference(pq._zero_pad_cols(x, 48), pq._zero_pad_cols(w, 48), s)
+    assert bool(((padded - ref).abs() <= pq.mm_error_limit(x, w, s, ref)).all())
+
+
 def test_quant_linear_grad_rule():
     lin = torch.nn.Linear(8, 4)
     q = pq.QuantLinear.from_linear(lin, "pallas")
@@ -232,6 +255,38 @@ def test_mlp_fused_w8a8_pads_and_tiles():
     w8a16 = pq.mlp_fused(_t(x), c1, _t(b1), c2, _t(b2), scale1=s1, scale2=s2,
                          mode="pallas")
     assert (full - w8a16).abs().max() < 0.05 * w8a16.abs().max()
+
+
+@pytest.mark.parametrize("cta_rows", [32, 128])
+@pytest.mark.parametrize("block_m", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_mlp_geometry_covers_whole_requant_tiles(cta_rows, block_m):
+    """Every legal w8a8 block_m (a multiple of 32 up to 256) against the
+    float32 route's 32-row CTAs and the bfloat16 route's 128-row ones: a
+    cluster of at most 8 CTAs covers whole tiles and whole CTAs, the grid
+    covers M's padded last tile, and the 32-row geometry is block_m / 32
+    CTAs over M rounded up to block_m."""
+    for M in (1, 20, 90, 300, 2501, 20008):
+        rows, cluster = pq.mlp_geometry(M, block_m, cta_rows)
+        span = cluster * cta_rows
+        assert 1 <= cluster <= 8
+        assert span % block_m == 0 and rows % span == 0
+        assert ptiling.round_up(M, block_m) <= rows < ptiling.round_up(M, block_m) + span
+        if cta_rows == 32:
+            assert (rows, cluster) == (ptiling.round_up(M, block_m), block_m // 32)
+
+
+def test_mlp_fused_w8a8_odd_block_matches_jax():
+    """M = 90 legalises block_m 256 to 96 rows, a requant tile that is not a
+    multiple of 64 rows: the port's tiles match JAX's."""
+    x, w1, b1, w2, b2 = _mlp_case(seed=5, M=90)
+    c1, s1 = jq.quantize_weight(jnp.asarray(w1))
+    c2, s2 = jq.quantize_weight(jnp.asarray(w2))
+    assert ptiling.legal_block(256, 90, torch.int8) == 96
+    want = jq.mlp_pallas(jnp.asarray(x), c1, jnp.asarray(b1), c2, jnp.asarray(b2),
+                         scale1=s1, scale2=s2, mode="w8a8", block_m=256)
+    got = pq.mlp_fused(_t(x), _t(c1).T.contiguous(), _t(b1), _t(c2).T.contiguous(),
+                       _t(b2), scale1=_t(s1), scale2=_t(s2), mode="w8a8", block_m=256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_mlp_fused_validation():
