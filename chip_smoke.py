@@ -31,6 +31,11 @@ Phases, one JSON object per line:
    dq and dk within it plus ``flash_attention.ds_flip_bound`` (what flipped
    bf16 roundings of dS can move them), a 2% fault in either caught, and
    the smallest uniform scale fault of 0.1%–2% that the gate catches;
+   then the same pair against the JAX package's own backward at the
+   fault's case, (2, 129, 2, 32) seed 6 ×8 (``tools/data/bwd_large_logits.npz``:
+   the inputs, which must be what the CUDA generator draws, and JAX's O,
+   lse, dq, dk, dv): kernel and plain version over the limit of JAX's
+   result, the kernel within the same gate;
 5. forward — the full-width, full-depth ``oxford_flower_200_p4`` model (random
    weights from a fixed seed), flash kernel against the dense path;
 6. serve   — the serving path: a bucketed ``Engine`` over the bf16 flash
@@ -70,7 +75,20 @@ Phases, one JSON object per line:
    kernel of the config (dequant_mm 4× that); then one more
    ``quant="pallas"`` batch and one more fused w8a16 batch under
    ``torch.profiler``, each with its launch counts checked;
-14. the ``kernels`` summary line (all six kernels, each with its design:
+14. serve-edit — one engine (buckets 4, 8) over the bf16 model and a
+   seed-1 student weight set, warmed with eight configs: cold (7 levels),
+   superres (cold, 3 levels, ``quant="pallas"``, a 25×25 input), inpaint
+   (k=20, the left half known) float and ``quant="pallas", fused=True``,
+   draft (t_start 1800, k=20, previews every 10 steps), interp (t_start
+   1800, k=20), few-step (4 steps) and its student. One 8-row request each,
+   with the launch counters zeroed just before each drain: depth × forwards
+   per kernel, exactly (the forwards computed from the schedules: 7, 3,
+   100, 100, 90, 90, 4, 4); wall and img/s per config; then every result
+   bit for bit equal to the direct ``workloads.*`` / ``sampling.*`` call at
+   the same 8-row shape (the draft's previews to its trajectory), known
+   inpaint pixels exact, the superres result consistent with its input
+   after ``superres_project``;
+15. the ``kernels`` summary line (all six kernels, each with its design:
    "wgmma", the bfloat16 route on the tensor cores), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
@@ -428,13 +446,12 @@ def phase_bwd_large_logits(torch, fa):
     limit, whether a 2% fault fails the gate (checked), and the smallest of
     the uniform scale faults 0.1%, 0.2%, ..., 2% of the kernel's output
     that the gate catches (how much slack it leaves)."""
+    from ddim_cold_torch.tools import bwd_fixture
+
     B, N, H, D = 2, 2501, 4, 64
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    qkv = (torch.randn((B, N, 3, H, D), generator=gen, device="cuda") * 8.0).to(torch.bfloat16)
-    q, k, v = qkv.unbind(2)
+    q, k, v, do = bwd_fixture.large_logit_inputs("cuda", B, N, H, D, seed=6, gain=8.0)
     scale = D**-0.5
     o, lse = fa.flash_forward_reference(q, k, v, scale)
-    do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     grad = fa.flash_backward(q, k, v, o, lse, do, scale)
     ref = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
     flips = fa.ds_flip_bound(q, k, v, do, lse, fa.backward_delta(o, do), scale)
@@ -461,8 +478,52 @@ def phase_bwd_large_logits(torch, fa):
         check(rec[g]["fault_past_gate"] > 0, f"large-logit {g}: a 2% fault passes the gate")
     emit(rec)
     check(rec["max_abs_lse"] > 100.0, f"large-logit lse {rec['max_abs_lse']}")
-    del qkv, q, k, v, o, lse, do, grad, ref, flips
+    del q, k, v, o, lse, do, grad, ref, flips
     torch.cuda.empty_cache()
+    phase_bwd_against_jax(torch, fa, bwd_fixture)
+
+
+def phase_bwd_against_jax(torch, fa, bwd_fixture):
+    """The bf16 backward kernels against the JAX package's own backward at
+    the large-logit case of ROADMAP.md Queue 3, (2, 129, 2, 32) seed 6 ×8:
+    ``tools/data/bwd_large_logits.npz`` holds the inputs the CUDA generator
+    draws there and JAX's O, lse, dq, dk and dv (interpret mode, on the
+    CPU; pinned by tests/test_torch_port_bwd_fixture.py). Both the kernels
+    and the plain version get JAX's O and lse. Recorded per gradient: |Δ|
+    over ``grad_error_limit`` of JAX's result for the kernel and for the
+    plain version, and the kernel's over the gate (dq, dk: the limit plus
+    ``ds_flip_bound``; dv: the limit), which it must meet, a 2% fault
+    failing it."""
+    t = bwd_fixture.load("cuda")
+    drawn = bwd_fixture.large_logit_inputs("cuda", **bwd_fixture.CASE)
+    same = all(torch.equal(x.view(torch.int16), t[n].view(torch.int16))
+               for n, x in zip(bwd_fixture.INPUTS, drawn))
+    scale = bwd_fixture.CASE["D"] ** -0.5
+    args = (t["q"], t["k"], t["v"], t["o"], t["lse"], t["do"], scale)
+    grad = fa.flash_backward(*args)
+    plain = fa.flash_backward_reference(*args)
+    flips = fa.ds_flip_bound(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                             fa.backward_delta(t["o"], t["do"]), scale)
+    rec = {"phase": "bwd-large-logits", "against": "jax", **bwd_fixture.CASE,
+           "dtype": "bfloat16", "inputs_match_generator": same}
+    for i, g in enumerate(("dq", "dk", "dv")):
+        ref = t[g].float()
+        limit = fa.grad_error_limit(t[g])
+        gate = limit + flips[i] if i < 2 else limit
+        err = (grad[:, :, i].float() - ref).abs()
+        fault = (grad[:, :, i].float() * (1 + SCALE_FAULT) - ref).abs()
+        rec[g] = {"kernel_err_over_limit": (err / limit).max().item(),
+                  "plain_err_over_limit": ((plain[:, :, i].float() - ref).abs()
+                                           / limit).max().item(),
+                  "kernel_err_over_gate": (err / gate).max().item(),
+                  "kernel_past_limit": int((err > limit).sum().item()),
+                  "fault_past_gate": int((fault > gate).sum().item())}
+        check(bool(torch.isfinite(grad[:, :, i].float()).all()), f"jax-fixture {g} finite")
+        check(rec[g]["kernel_err_over_gate"] <= 1.0,
+              f"jax-fixture {g} {rec[g]['kernel_err_over_gate']} over its gate")
+        check(rec[g]["fault_past_gate"] > 0, f"jax-fixture {g}: a 2% fault passes the gate")
+    emit(rec)
+    check(same, "the fixture's inputs are not what the CUDA generator draws")
 
 
 def phase_forward(torch, DiffusionViT, MODEL_CONFIGS):
@@ -1055,6 +1116,166 @@ def phase_serve_quant(torch, model, fa, quant, serve):
     return eng, configs, launches
 
 
+#: the serve-edit phase: the start level of the draft and interp tasks, the
+#: draft's preview stride, and the cold levels (the 200px YAML's diff_step)
+EDIT_T_START, EDIT_PREVIEW, EDIT_LEVELS = 1800, 10, 7
+
+
+def edit_cases(serve):
+    """(label, config, kernels one layer-forward launches, with how many
+    times) of the serve-edit phase."""
+    C = serve.SamplerConfig
+    flash = {"flash_fwd": 1}
+    return (
+        ("cold", C(sampler="cold", levels=EDIT_LEVELS), flash),
+        ("superres", C(task="superres", sampler="cold", levels=3, quant="pallas"),
+         {"flash_fwd": 1, "dequant_mm": 4}),
+        ("inpaint", C(task="inpaint", k=K), flash),
+        ("inpaint fused", C(task="inpaint", k=K, quant="pallas", fused=True),
+         {"fused_trunk": 1, "mlp_fused": 1}),
+        ("draft", C(task="draft", t_start=EDIT_T_START, k=K, preview_every=EDIT_PREVIEW),
+         flash),
+        ("interp", C(task="interp", t_start=EDIT_T_START, k=K), flash),
+        ("fewstep", C(steps=4), flash),
+        ("student", C(steps=4, student=True), flash),
+    )
+
+
+def _forwards(config, total_steps: int) -> int:
+    """Model forwards of one batch of ``config``."""
+    from ddim_cold_torch.ops import schedule
+
+    if config.sampler == "cold":
+        return config.levels
+    if config.steps:
+        return config.steps
+    return len(schedule.ddim_time_sequence(total_steps, config.k, config.t_start))
+
+
+def phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT, MODEL_CONFIGS):
+    """The cold, few-step, student and editing paths, served: one engine
+    (buckets 4, 8) over the bf16 model with a second, seed-1 weight set as
+    the student, warmed with every config of ``edit_cases``, serves one
+    8-row request of each. The launch counters are zeroed just before each
+    drain and must read exactly depth × forwards per kernel of the config.
+    Then each request is held to the direct ``workloads.*`` or
+    ``sampling.*`` call at the same 8-row shape, on models built apart from
+    the engine with the config's weights: bit for bit, the draft's previews
+    too (the direct call's trajectory at ``preview_indices``, the result its
+    last frame); inpaint's known pixels are (known + 1) / 2 bit for bit, and
+    ``superres_project`` makes the nearest-downsampled result the input."""
+    import numpy as np
+
+    from ddim_cold_torch import workloads
+    from ddim_cold_torch.data.resize import nearest_indices
+    from ddim_cold_torch.ops import sampling
+
+    cfg = MODEL_CONFIGS[MODEL]
+    H, W = model.img_size
+    student = DiffusionViT(**cfg, dtype=torch.bfloat16, use_flash=True, seed=SEED + 1)
+    eng = serve.Engine(model, buckets=BUCKETS, student_params=student.state_dict())
+    cases = edit_cases(serve)
+    t0 = time.perf_counter()
+    warm = serve.warmup(eng, [c for _, c, _ in cases])
+    warm_s = time.perf_counter() - t0
+    programs = eng.stats["programs"]
+    check(programs == len(cases) * len(BUCKETS), f"serve-edit warmed {programs} programs")
+
+    rs = np.random.RandomState(SEED)
+    imgs = rs.uniform(-1, 1, (8, H, W, 3)).astype(np.float32)
+    mask = np.zeros((H, W), np.float32)
+    mask[:, :W // 2] = 1.0                                   # the left half known
+    low = rs.uniform(-1, 1, (8, H >> 3, W >> 3, 3)).astype(np.float32)   # 25×25, level 3
+    pair = imgs[:2]
+    submit = {
+        "cold": dict(seed=40, n=8), "superres": dict(x_init=workloads.superres_init(low, H)),
+        "inpaint": dict(seed=42, x_init=imgs, mask=mask),
+        "inpaint fused": dict(seed=43, x_init=imgs, mask=mask),
+        "draft": dict(seed=44, x_init=imgs), "interp": dict(seed=45, n=8, x_init=pair),
+        "fewstep": dict(seed=46, n=8), "student": dict(seed=47, n=8)}
+    served, launches = {}, {}
+    for label, config, per_layer in cases:
+        _zero((fa.LAUNCHES, quant.LAUNCHES))          # this path starts here
+        ticket = eng.submit(config=config, **submit[label])
+        report = eng.run()
+        torch.cuda.synchronize()
+        got = {k: fa.LAUNCHES[k] + quant.LAUNCHES[k] for k in QUANT_KERNELS}  # ... ends
+        forwards = _forwards(config, model.total_steps)
+        want = {k: per_layer.get(k, 0) * model.depth * forwards for k in QUANT_KERNELS}
+        img = ticket.result(timeout=900)
+        previews = list(ticket.previews(timeout=60))
+        served[label], launches[label] = (img, previews), got
+        emit({"phase": "serve-edit", "model": MODEL, "dtype": "bfloat16", "config": label,
+              "sampler_config": {k: v for k, v in vars(config).items()
+                                 if v != getattr(serve.SamplerConfig, k)},
+              "forwards": forwards, "rows": report["rows"], "batches": report["batches"],
+              "wall_s": report["wall_s"], "img_per_sec": report["img_per_sec"],
+              "programs_after_warmup": report["programs"], "launches": got,
+              "expected_launches": want, "preview_frames": len(previews),
+              "warmup_s": warm_s, "warmed_programs": warm["programs"]})
+        check(img.shape == (8, H, W, 3) and bool(np.isfinite(img).all()),
+              f"serve-edit {label} output")
+        check(bool(((img >= 0.0) & (img <= 1.0)).all()), f"serve-edit {label} in [0, 1]")
+        check(report["failed_tickets"] == 0 and report["programs"] == 0
+              and eng.stats["programs"] == programs, f"serve-edit {label} programs")
+        check(got == want, f"serve-edit {label} launches {got}, expected {want}")
+    check(_forwards(cases[4][1], model.total_steps) == 90, "draft forwards")
+    del eng
+
+    # the direct calls, on models built apart from the engine
+    def variant(q, fused):
+        m = model.clone(quant=q, fused=fused)
+        m.load_state_dict(quant.quantize_state_dict(model.state_dict()), strict=True)
+        return m
+
+    gen = lambda label: torch.Generator(device="cuda").manual_seed(submit[label]["seed"])  # noqa: E731
+    direct = {
+        "cold": lambda: sampling.cold_sample(model, gen("cold"), n=8, levels=EDIT_LEVELS),
+        "superres": lambda: workloads.super_resolve(variant("pallas", False), low, level=3),
+        "inpaint": lambda: workloads.inpaint(model, gen("inpaint"), imgs, mask, k=K),
+        "inpaint fused": lambda: workloads.inpaint(variant("pallas", True),
+                                                   gen("inpaint fused"), imgs, mask, k=K),
+        "draft": lambda: workloads.draft_to_drawing(model, gen("draft"), imgs,
+                                                    t_start=EDIT_T_START, k=K,
+                                                    return_sequence=True),
+        "interp": lambda: workloads.interpolate(model, gen("interp"), pair[0], pair[1],
+                                                n_interp=8, t_start=EDIT_T_START, k=K),
+        "fewstep": lambda: sampling.ddim_sample_fewstep(model, gen("fewstep"), steps=4, n=8),
+        "student": lambda: sampling.ddim_sample_fewstep(student, gen("student"), steps=4,
+                                                        n=8),
+    }
+    rec = {"phase": "serve-edit-direct"}
+    for label, call in direct.items():
+        want = call().cpu().numpy()
+        img, previews = served[label]
+        if label == "draft":
+            idx = workloads.preview_indices(want.shape[0] - 1, EDIT_PREVIEW)
+            ok_prev = ([s for s, _ in previews] == idx and
+                       all(np.array_equal(f, want[s]) for s, f in previews))
+            rec["draft_preview_steps"] = [s for s, _ in previews]
+            check(ok_prev and len(idx) == 8, "serve-edit draft previews are not the "
+                  "direct trajectory's frames")
+            want = want[-1]
+        rec[label] = {"bitwise": bool(np.array_equal(img, want)),
+                      "max_abs_diff": float(np.abs(img - want).max())}
+        check(rec[label]["bitwise"], f"serve-edit {label} differs from the direct call")
+    sel = mask.astype(bool)
+    for label in ("inpaint", "inpaint fused"):
+        known_ok = bool(np.array_equal(served[label][0][:, sel], (imgs[:, sel] + 1.0) / 2.0))
+        rec[f"{label} known pixels exact"] = known_ok
+        check(known_ok, f"serve-edit {label}: known pixels moved")
+    projected = workloads.superres_project(served["superres"][0], low)
+    iy = nearest_indices(low.shape[1], H)
+    ix = nearest_indices(low.shape[2], W)
+    rec["superres projected exact"] = bool(np.array_equal(
+        projected[:, iy[:, None], ix[None, :]], (low + 1.0) / 2.0))
+    check(rec["superres projected exact"], "serve-edit superres projection")
+    emit(rec)
+    del student
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kind_of(name: str, kinds) -> str:
     name = name.lower()
     hit = next((k for k in kinds if k in name), None)
@@ -1140,7 +1361,10 @@ def main() -> int:
     eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
     for config, (_, per_layer) in list(zip(qconfigs, SERVE_QUANT))[:2]:  # pallas, fused w8a16
         phase_profile_quant(torch, eng, config, per_layer, model)
-    del eng, model
+    del eng
+    edit_launches = phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT,
+                                     MODEL_CONFIGS)
+    del model
     torch.cuda.empty_cache()
     phase_train_check(torch, fa)
     train_model, state, step, batch, gen, train_launches = phase_train(torch, fa)
@@ -1155,7 +1379,9 @@ def main() -> int:
         "launches_by_path": {"train": train_launches["flash_fwd"],
                              "serve": serve_launches,
                              **{f"serve quant={q},fused={f}": n["flash_fwd"]
-                                for (q, f), n in quant_launches.items()}},
+                                for (q, f), n in quant_launches.items()},
+                             **{f"serve-edit {label}": n["flash_fwd"]
+                                for label, n in edit_launches.items() if n["flash_fwd"]}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -1183,6 +1409,8 @@ def main() -> int:
         rec = qk[key]
         by_path = {f"serve quant={q},fused={f}": n[name]
                    for (q, f), n in quant_launches.items()}
+        by_path.update({f"serve-edit {label}": n[name]
+                        for label, n in edit_launches.items() if n[name]})
         lines.append({
             "name": name, "route": "cuda", "source": f"ddim_cold_torch/csrc/{name}.cu",
             "replaces": line, "launches": sum(by_path.values()),

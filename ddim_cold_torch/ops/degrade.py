@@ -49,6 +49,27 @@ def cold_degrade(imgs: torch.Tensor, t: torch.Tensor, *, size: int,
     return torch.gather(rows, 2, idx[:, None, :, None].expand(B, size, size, C))
 
 
+def upsample_nearest(imgs, size: int) -> torch.Tensor:
+    """Nearest-upsample (B, h, w, C) → (B, size, size, C), torch convention;
+    an (h, w, C) image gains a batch axis. Arrays become float32 tensors on
+    the CPU; tensors keep their device.
+
+    The "up" half of the cold degradation on its own: for a low-res image
+    ``lo = nearest-downsample(x, level)``, ``upsample_nearest(lo, size)`` IS
+    ``cold_degrade(x, level)``, the degraded full-size state the cold
+    sampler starts from. The super-resolution workload
+    (``ddim_cold_torch.workloads``) lifts a user's low-res input into the
+    sampler's state space with it; a constant-colour 1×1 input reproduces
+    ``cold_sample``'s broadcast init exactly.
+    """
+    imgs = torch.as_tensor(imgs, dtype=torch.float32)
+    if imgs.ndim == 3:
+        imgs = imgs[None]
+    iy = torch.from_numpy(nearest_indices(size, imgs.shape[1])).to(imgs.device)
+    ix = torch.from_numpy(nearest_indices(size, imgs.shape[2])).to(imgs.device)
+    return imgs[:, iy][:, :, ix]
+
+
 def normalize_base(base: torch.Tensor) -> torch.Tensor:
     """Raw base image → float32 in [−1, 1] with the host pipeline's exact op
     order (÷255 then ·2−1, datasets._load_base) so a uint8-shipped batch is

@@ -1,23 +1,32 @@
-"""Samplers: the k-strided DDIM loop and its guided entry points.
+"""Samplers: the k-strided DDIM loop, the few-step, cold and inpaint loops,
+and their guided entry points.
 
-Counterpart of the deterministic core of ``ddim_cold_tpu/ops/sampling.py``:
+Counterpart of the uncached samplers of ``ddim_cold_tpu/ops/sampling.py``:
 
 * ``ddim_sample``      ← reference ``sampler`` (ViT.py:220-237)
 * ``ddim_sample(..., return_sequence=True)`` ← ``diffusion_sequence`` (ViT.py:239-256)
+* ``cold_sample``      ← ``cold_sampler`` (ViT_draft2drawing.py:259-309)
+* ``ddim_sample_fewstep`` ← the JAX package's few-step (distilled-student) sampler
+* ``ddim_inpaint``     ← the JAX package's inpainting loop (``_ddim_inpaint_impl``)
 * ``sample_from``      ← the draft2drawing inner loop (ViT_draft2drawing.py:394-408)
+* ``slerp`` / ``interp_states`` / ``slerp_interpolate`` ← the interpolation
+  app (ViT_draft2drawing.py:422-476)
 * ``forward_noise``    ← ``√(1−ᾱ)·ε + √ᾱ·x`` (ViT_draft2drawing.py:395-396)
 
 Each reverse step is affine in (x, x̂0) with coefficients precomputed on the
-host (:mod:`ddim_cold_torch.ops.schedule`), so the step body is one model
-forward, a clamp and two multiply-adds, with no host synchronisation inside
-the loop (no ``.item()``, no copies to the host): the whole loop enqueues
+host (:mod:`ddim_cold_torch.ops.schedule`), so a step is one model forward,
+a clamp and elementwise torch work, with no host synchronisation inside the
+loop (no ``.item()``, no copies to the host): the whole loop enqueues
 asynchronously on the device and can later be captured in a CUDA graph. It
 runs under ``torch.inference_mode()``: no autograd history is recorded.
 
-Randomness comes from an explicit ``torch.Generator`` living on the
-sampling device; it cannot reproduce JAX's bits, so parity with the JAX
-package runs through ``x_init``. The cached, few-step, cold, inpaint and
-telemetry variants belong to later slices and raise ``NotImplementedError``.
+Randomness comes from explicit ``torch.Generator``s living on the sampling
+device; they cannot reproduce JAX's bits, so parity with the JAX package
+runs through ``x_init``. A sampler draws its fresh start from ``generator``
+and the per-step noise of η > 0 from a second stream,
+``fold_in(generator, NOISE_STREAM)``, as JAX folds its key. The step-cached
+and telemetry variants belong to a later slice and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,13 +34,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ddim_cold_torch.ops import schedule
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
-#: sampler options of the JAX ``ddim_sample`` that belong to later slices
+#: sampler options of the JAX samplers that belong to later slices
 _LATER = {
     "mesh": (None, "Queue 1 item 14 (data-parallel sampling)"),
     "cache_interval": (1, "Queue 1 item 8 (step cache)"),
@@ -40,6 +50,23 @@ _LATER = {
     "cache_tokens": (None, "Queue 1 item 8 (token cache)"),
     "telemetry": (False, "Queue 1 item 8 (step telemetry)"),
 }
+#: the same, for the samplers that have no telemetry option in JAX
+_LATER_CACHE = {k: v for k, v in _LATER.items() if k != "telemetry"}
+
+#: the stream η > 0 draws its per-step noise from (JAX ``fold_in(rng, 0xD1F)``)
+NOISE_STREAM = 0xD1F
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on ``generator``'s device whose seed is a function of
+    ``generator``'s seed and ``data`` alone (splitmix64 of the pair), so two
+    streams folded from one request seed are independent and reproducible,
+    like ``jax.random.fold_in``. The given generator is not advanced."""
+    z = (generator.initial_seed() * 0x9E3779B97F4A7C15 + int(data) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return torch.Generator(device=generator.device).manual_seed(z ^ (z >> 31))
 
 
 def _sampling_device(model, device) -> torch.device:
@@ -50,15 +77,63 @@ def _sampling_device(model, device) -> torch.device:
     return have
 
 
-def forward_noise(generator: torch.Generator, img: torch.Tensor, t_start: int,
-                  total_steps: int = 2000) -> torch.Tensor:
-    """Encode a clean image to noise level ``t_start``; ᾱ = 1 − √(t_start/T)
-    (no +1, matching the draft2drawing app). ``generator`` lives on img's
-    device."""
-    alpha = schedule.forward_noise_alpha(t_start, total_steps)
-    eps = torch.randn(img.shape, generator=generator, device=img.device,
-                      dtype=img.dtype)
-    return math.sqrt(alpha) * img + math.sqrt(1.0 - alpha) * eps
+def as_batch(x, dev) -> torch.Tensor:
+    """A private float32 copy of an (n, H, W, C) or (H, W, C) array or
+    tensor on ``dev``, as a batch: the caller's array survives the call."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=dev, dtype=torch.float32, copy=True)
+    else:
+        x = torch.from_numpy(np.array(x, np.float32)).to(dev)
+    return x[None] if x.ndim == 3 else x
+
+
+def fresh_start(model, generator: Optional[torch.Generator], n: int, device,
+                what: str = "ddim_sample") -> torch.Tensor:
+    """A fresh N(0, 1) start of ``n`` images drawn from ``generator`` on
+    ``device``: the plain, few-step and inpaint samplers' start, and the
+    engine's for a seeded request (one definition for both paths)."""
+    if generator is None:
+        raise ValueError(f"{what} needs either generator or x_init")
+    H, W = model.img_size
+    return torch.randn((n, H, W, model.in_chans), generator=generator,
+                       device=device, dtype=torch.float32)
+
+
+def _x0(model, x: torch.Tensor, t: int) -> torch.Tensor:
+    """One model evaluation at level ``t``, clamped to [−1, 1]."""
+    return model(x, torch.full((x.shape[0],), t, dtype=torch.long,
+                               device=x.device)).clamp(-1.0, 1.0)
+
+
+def _images(x0: Optional[torch.Tensor], frames: Optional[list]) -> torch.Tensor:
+    """[−1, 1] → [0, 1]: the last x̂0, or the whole trajectory."""
+    if frames is not None:
+        return (torch.stack(frames) + 1.0) / 2.0
+    return (x0 + 1.0) / 2.0
+
+
+def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
+               sequence: bool, known=None, mask=None):
+    """The affine DDIM steps of ``coeffs`` from ``x``; with ``mask``, the
+    known pixels of each clamped x̂0 are re-projected from ``known`` before
+    the update (``x̂0 ← m·known + (1−m)·x̂0``). Returns the last state, the
+    last x̂0 (None for an empty schedule) and, with ``sequence``, the frames:
+    the start, then every x̂0."""
+    frames = [x] if sequence else None
+    x0 = None
+    for t, c1, c2, cz in zip(coeffs.t_seq.tolist(), coeffs.cx.tolist(),
+                             coeffs.cx0.tolist(), coeffs.cz.tolist()):
+        x0 = _x0(model, x, t)
+        if mask is not None:
+            x0 = mask * known + (1.0 - mask) * x0
+        x_next = c1 * x + c2 * x0
+        if cz:
+            x_next = x_next + cz * torch.randn(x.shape, generator=noise,
+                                               device=x.device, dtype=x.dtype)
+        x = x_next
+        if sequence:
+            frames.append(x0)
+    return x, x0, frames
 
 
 @torch.inference_mode()
@@ -72,46 +147,141 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
     ViT.py:224) or ``x_init`` (an (n, H, W, C) encoded start, array or
     tensor; never modified). ``return_sequence=True`` returns the
     (n_steps+1, n, H, W, C) trajectory: the start, then every x̂0. ``eta`` >
-    0 is stochastic DDIM and draws per-step noise from ``generator``, which
-    it then requires. ``device`` (None means ``"cuda"``) must be the
-    model's device.
+    0 is stochastic DDIM and draws per-step noise from
+    ``fold_in(generator, NOISE_STREAM)``, so it requires ``generator``.
+    ``device`` (None means ``"cuda"``) must be the model's device.
     """
     refuse_later(later, _LATER, "ddim_sample")
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
-    if x_init is None:
-        if generator is None:
-            raise ValueError("ddim_sample needs either generator or x_init")
-        H, W = model.img_size
-        x = torch.randn((n, H, W, model.in_chans), generator=generator,
-                        device=dev, dtype=torch.float32)
-    else:
-        # a private float32 copy on the device: the caller's start survives
-        x = torch.as_tensor(x_init).to(device=dev, dtype=torch.float32,
-                                       copy=True)
+    x = (fresh_start(model, generator, n, dev) if x_init is None
+         else as_batch(x_init, dev))
     coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
-    frames = [x] if return_sequence else None
-    x0 = None
-    for t, c1, c2, cz in zip(coeffs.t_seq.tolist(), coeffs.cx.tolist(),
-                             coeffs.cx0.tolist(), coeffs.cz.tolist()):
-        x0 = model(x, torch.full((x.shape[0],), t, dtype=torch.long,
-                                 device=dev)).clamp(-1.0, 1.0)
-        x_next = c1 * x + c2 * x0
-        if eta:
-            z = torch.randn(x.shape, generator=generator, device=dev,
-                            dtype=x.dtype)
-            x_next = x_next + cz * z
-        x = x_next
-        if return_sequence:
-            frames.append(x0)
-    if return_sequence:
-        return (torch.stack(frames) + 1.0) / 2.0
+    noise = fold_in(generator, NOISE_STREAM) if eta else None
+    _, x0, frames = _ddim_loop(model, x, coeffs, noise, return_sequence)
     if x0 is None:
         raise ValueError(f"empty schedule: total_steps={model.total_steps}, "
                          f"k={k}, t_start={t_start}")
     # the sample is the LAST x̂0 prediction (reference ViT.py:236)
-    return (x0 + 1.0) / 2.0
+    return _images(x0, frames)
+
+
+@torch.inference_mode()
+def ddim_inpaint(model, x_init, known, mask, *, k: int = 10,
+                 t_start: Optional[int] = None, eta: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 return_sequence: bool = False, device=None) -> torch.Tensor:
+    """DDIM from ``x_init`` with the known pixels re-projected after every
+    clamp (JAX ``_ddim_inpaint_impl``): ``known`` is the reference image in
+    [−1, 1], ``mask`` an (n, H, W, 1) batch of {0, 1} (1 = known). The
+    output is the LAST projected x̂0, so its known pixels are
+    ``(known + 1) / 2`` bit for bit; the projection is per row, and a padding
+    row (mask 0) passes through it untouched. ``return_sequence`` returns the
+    start and every projected x̂0. ``eta`` > 0 draws its per-step noise from
+    ``generator`` itself (the caller's noise stream)."""
+    dev = _sampling_device(model, device)
+    if eta and generator is None:
+        raise ValueError("eta > 0 draws per-step noise — pass generator")
+    x = as_batch(x_init, dev)
+    known = torch.as_tensor(known).to(device=dev, dtype=torch.float32)
+    mask = torch.as_tensor(mask).to(device=dev, dtype=torch.float32)
+    coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
+    _, x0, frames = _ddim_loop(model, x, coeffs, generator, return_sequence,
+                               known, mask)
+    if x0 is None:
+        raise ValueError(f"empty schedule: total_steps={model.total_steps}, "
+                         f"k={k}, t_start={t_start}")
+    return _images(x0, frames)
+
+
+@torch.inference_mode()
+def ddim_sample_fewstep(model, generator: Optional[torch.Generator] = None, *,
+                        steps: int, n: int = 128, x_init=None,
+                        t_start: Optional[int] = None,
+                        return_sequence: bool = False, eta: float = 0.0,
+                        device=None, **later) -> torch.Tensor:
+    """Few-step DDIM sampling: exactly ``steps`` model evaluations along the
+    proportional ``schedule.fewstep_time_sequence`` (the distilled-student
+    serving path, k ∈ {1, 2, 4}); returns images in [0, 1].
+
+    The last jump targets the clean image, where the update is x' = x̂0
+    exactly (``schedule.fewstep_coefficients``), so the final evaluation
+    runs outside the loop as a bare forward and ``steps=1`` is one forward.
+    ``generator``/``x_init``/``t_start``/``return_sequence``/``eta`` behave
+    as in :func:`ddim_sample`.
+    """
+    refuse_later(later, _LATER_CACHE, "ddim_sample_fewstep")
+    dev = _sampling_device(model, device)
+    if eta and generator is None:
+        raise ValueError("eta > 0 draws per-step noise — pass generator")
+    x = (fresh_start(model, generator, n, dev,
+                     "ddim_sample_fewstep") if x_init is None
+         else as_batch(x_init, dev))
+    coeffs = schedule.fewstep_coefficients(model.total_steps, steps, t_start, eta)
+    head = schedule.DDIMCoefficients(*(a[:-1] for a in coeffs))
+    noise = fold_in(generator, NOISE_STREAM) if eta else None
+    x, _, frames = _ddim_loop(model, x, head, noise, return_sequence)
+    x0 = _x0(model, x, int(coeffs.t_seq[-1]))  # the jump to the clean image
+    if frames is not None:
+        frames.append(x0)
+    return _images(x0, frames)
+
+
+@torch.inference_mode()
+def cold_sample(model, generator: Optional[torch.Generator] = None, *,
+                n: int = 49, levels: int = 6, x_init=None,
+                return_sequence: bool = False, device=None,
+                **later) -> torch.Tensor:
+    """Cold-diffusion sampling (naive Algorithm 1): x ← clamp(f(x, t)) for
+    t = levels, …, 1; returns images in [0, 1].
+
+    The default start is one N(0, 1) colour per sample broadcast over the
+    image (reference ViT_draft2drawing.py:264, the fully downsampled state);
+    ``levels`` defaults to 6 = log2(64). ``x_init`` starts from a
+    caller-provided degraded state at level ``levels`` instead (the
+    super-resolution workload's upsampled low-res input).
+    ``return_sequence`` returns the start and every prediction.
+    """
+    refuse_later(later, _LATER_CACHE, "cold_sample")
+    dev = _sampling_device(model, device)
+    if levels < 1:
+        raise ValueError(f"levels must be >= 1, got {levels}")
+    if x_init is None:
+        x = cold_init(model, generator, n, dev)
+    else:
+        x = as_batch(x_init, dev)
+    frames = [x] if return_sequence else None
+    for t in schedule.cold_time_sequence(levels).tolist():
+        # the reference's DDIM-style correction is present upstream only as
+        # commented-out code (ViT_draft2drawing.py:275-285)
+        x = _x0(model, x, t)
+        if return_sequence:
+            frames.append(x)
+    return _images(x, frames)
+
+
+def cold_init(model, generator: Optional[torch.Generator], n: int,
+              device) -> torch.Tensor:
+    """``cold_sample``'s default start: one N(0, 1) colour per sample,
+    drawn as an (n, 1, 1, C) batch and broadcast over the image."""
+    if generator is None:
+        raise ValueError("cold_sample needs either generator or x_init")
+    H, W = model.img_size
+    color = torch.randn((n, 1, 1, model.in_chans), generator=generator,
+                        device=device, dtype=torch.float32)
+    return color.expand(n, H, W, model.in_chans).contiguous()
+
+
+def forward_noise(generator: torch.Generator, img: torch.Tensor, t_start: int,
+                  total_steps: int = 2000) -> torch.Tensor:
+    """Encode a clean image to noise level ``t_start``; ᾱ = 1 − √(t_start/T)
+    (no +1, matching the draft2drawing app). ``generator`` lives on img's
+    device."""
+    alpha = schedule.forward_noise_alpha(t_start, total_steps)
+    eps = torch.randn(img.shape, generator=generator, device=img.device,
+                      dtype=img.dtype)
+    return math.sqrt(alpha) * img + math.sqrt(1.0 - alpha) * eps
 
 
 def sample_from(model, x_init, t_start: int, k: int = 10, eta: float = 0.0,
@@ -125,12 +295,56 @@ def sample_from(model, x_init, t_start: int, k: int = 10, eta: float = 0.0,
                        **later)
 
 
-def cold_sample(*args, **kwargs):
-    """Cold-diffusion sampling: not ported yet."""
-    raise NotImplementedError("cold_sample is ROADMAP.md Queue 1 item 4 "
-                              "(what is left of the deterministic core)")
+def slerp(a: torch.Tensor, b: torch.Tensor, frac) -> torch.Tensor:
+    """Spherical interpolation between two (batches of) latents; ``frac``
+    broadcasts against the leading axes, so a (F, 1, 1, 1, 1) fraction
+    vector against (N, H, W, C) endpoints gives all F interpolants at once.
+    The sin denominator is guarded, and parallel endpoints fall back to the
+    linear mix."""
+    frac = torch.as_tensor(frac, dtype=a.dtype, device=a.device)
+    flat_a = a.reshape(a.shape[0], -1) if a.ndim > 1 else a[None]
+    flat_b = b.reshape(b.shape[0], -1) if b.ndim > 1 else b[None]
+    cos = (flat_a * flat_b).sum(-1) / (
+        torch.linalg.vector_norm(flat_a, dim=-1) * torch.linalg.vector_norm(flat_b, dim=-1))
+    theta_shape = (a.shape[:1] + (1,) * (a.ndim - 1)) if a.ndim > 1 else ()
+    theta = torch.arccos(cos.clamp(-1.0, 1.0)).reshape(theta_shape)
+    sin = torch.sin(theta)
+    # the untaken branch must carry no 0/0 near parallel endpoints
+    safe_sin = torch.where(sin < 1e-6, torch.ones_like(sin), sin)
+    wa = torch.sin((1.0 - frac) * theta) / safe_sin
+    wb = torch.sin(frac * theta) / safe_sin
+    lin = (1.0 - frac) * a + frac * b
+    return torch.where(sin < 1e-6, lin, wa * a + wb * b)
 
 
-def ddim_sample_fewstep(*args, **kwargs):
-    """Few-step (distilled-student) sampling: not ported yet."""
-    raise NotImplementedError("ddim_sample_fewstep is ROADMAP.md Queue 1 item 9")
+def interp_states(generator: torch.Generator, img_a, img_b, n_interp: int,
+                  t_start: int, total_steps: int = 2000) -> torch.Tensor:
+    """The slerp-mixed encodings :func:`slerp_interpolate` decodes: both
+    endpoints forward-noised to ``t_start`` in one draw from ``generator``
+    (independent noise per endpoint, as the reference's two draws,
+    ViT_draft2drawing.py:442-443), then ``n_interp`` great-circle fractions
+    between the two encodings, on ``generator``'s device. Row i depends only
+    on (seed, endpoints, n_interp), never on its batchmates."""
+    dev = generator.device
+    batch = torch.stack([torch.as_tensor(img, dtype=torch.float32).to(dev)
+                         for img in (img_a, img_b)])
+    noisy = forward_noise(generator, batch, t_start, total_steps)
+    frac = torch.linspace(0.0, 1.0, n_interp, device=dev).reshape(-1, 1, 1, 1, 1)
+    return slerp(noisy[0][None], noisy[1][None], frac)[:, 0]
+
+
+def slerp_interpolate(model, generator: torch.Generator, img_a, img_b, *,
+                      n_interp: int = 8, t_start: int = 1800, k: int = 10,
+                      eta: float = 0.0, return_sequence: bool = False,
+                      device=None) -> torch.Tensor:
+    """Latent interpolation: encode both images to ``t_start``, slerp
+    ``n_interp`` fractions between the encodings and DDIM-decode each;
+    returns (n_interp, H, W, C) in [0, 1]. η > 0 decodes stochastically from
+    ``fold_in(generator, 1)``, so the encoding and decoding noise stay
+    independent (JAX ``fold_in(rng, 1)``)."""
+    _sampling_device(model, device)
+    mixed = interp_states(generator, img_a, img_b, n_interp, t_start,
+                          model.total_steps)
+    return sample_from(model, mixed, t_start=t_start, k=k, eta=eta,
+                       generator=fold_in(generator, 1),
+                       return_sequence=return_sequence, device=device)

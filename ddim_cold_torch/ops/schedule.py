@@ -1,7 +1,8 @@
 """Diffusion schedules (numpy, host-side): the port's own copy.
 
 Counterpart of ``ddim_cold_tpu/ops/schedule.py``, copied for the functions
-the DDIM sampler uses, so the port never imports the JAX package. The tables
+the DDIM, few-step and cold samplers use, so the port never imports the JAX
+package. The tables
 are byte-for-byte the JAX package's (tests pin it).
 
 The reference's signal-level schedule is
@@ -95,3 +96,86 @@ def ddim_coefficients(total_steps: int, k: int, t_start: int | None = None,
         cx0=cx0.astype(np.float32),
         cz=cz.astype(np.float32),
     )
+
+
+def fewstep_time_sequence(total_steps: int, steps: int,
+                          t_start: int | None = None) -> np.ndarray:
+    """Visit order for a ``steps``-evaluation few-step sampler: the
+    evenly-spaced levels t_j = round(t_start · (steps − j) / steps),
+    j = 0..steps−1 (t_start defaults to T−1, the full-noise start).
+
+    Unlike :func:`ddim_time_sequence` (a fixed stride k whose step COUNT
+    falls out of T), here the step COUNT is the knob — k∈{1,2,4} distilled
+    students run exactly ``steps`` model evaluations. The proportional
+    construction makes halving self-consistent: every other entry of the
+    2s-step sequence IS the s-step sequence (round(t·(2s−2j)/(2s)) =
+    round(t·(s−j)/s)), which is what lets progressive distillation
+    (the JAX package's train/distill.py) target "two teacher steps = one student step"
+    without schedule drift across halvings.
+    """
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if t_start is None:
+        t_start = total_steps - 1
+    if not 1 <= t_start < total_steps:
+        raise ValueError(
+            f"t_start must be in [1, {total_steps - 1}], got {t_start}")
+    if t_start < steps:
+        raise ValueError(
+            f"t_start={t_start} < steps={steps}: the rounded levels would "
+            "collide — fewer steps or a later start")
+    t_seq = np.array([round(t_start * (steps - j) / steps)
+                      for j in range(steps)], dtype=np.int64)
+    return t_seq
+
+
+def fewstep_coefficients(total_steps: int, steps: int,
+                         t_start: int | None = None,
+                         eta: float = 0.0) -> DDIMCoefficients:
+    """Affine update coefficients along a :func:`fewstep_time_sequence`.
+
+    Step j jumps t_j → t_{j+1} (the NEXT visited level, not t_j − k), with
+    the reference's exact per-step arithmetic and ALPHA_EPS asymmetry; the
+    FINAL step jumps to the clean image (ᾱ = 1), where the update
+    degenerates to x' = x̂₀ identically — so its row is pinned to
+    (cx, cx0, cz) = (0, 1, 0) exactly rather than computed through the
+    affine form, whose algebraic cancellation (1/√a_t − 1/√a_t) is exact
+    on paper but not in float. The sampler (ops/sampling.py
+    ``ddim_sample_fewstep``) exploits exactly this: the last model
+    evaluation runs OUTSIDE the loop as a bare forward.
+    """
+    t_seq = fewstep_time_sequence(total_steps, steps, t_start)
+    T = float(total_steps)
+    cx = np.zeros(steps, dtype=np.float64)
+    cx0 = np.zeros(steps, dtype=np.float64)
+    cz = np.zeros(steps, dtype=np.float64)
+    for j, t in enumerate(t_seq):
+        a_t = 1.0 - math.sqrt((t + 1.0) / T) + ALPHA_EPS
+        if j == steps - 1:
+            cx[j], cx0[j], cz[j] = 0.0, 1.0, 0.0  # jump-to-clean: x' = x̂₀
+            continue
+        a_tk = 1.0 - math.sqrt((t_seq[j + 1] + 1.0) / T)
+        if eta == 0.0:
+            d = math.sqrt((1.0 - a_tk) / a_tk) - math.sqrt((1.0 - a_t) / a_t)
+            s = math.sqrt(a_tk)
+            cx[j] = s / math.sqrt(a_t) + s * d / math.sqrt(1.0 - a_t)
+            cx0[j] = -s * d * math.sqrt(a_t) / math.sqrt(1.0 - a_t)
+        else:
+            sigma = eta * math.sqrt((1.0 - a_tk) / (1.0 - a_t)) * math.sqrt(
+                max(1.0 - a_t / a_tk, 0.0))
+            ce = math.sqrt(max(1.0 - a_tk - sigma * sigma, 0.0)) / math.sqrt(
+                1.0 - a_t)
+            cx[j] = ce
+            cx0[j] = math.sqrt(a_tk) - ce * math.sqrt(a_t)
+            cz[j] = sigma
+    return DDIMCoefficients(
+        t_seq=t_seq.astype(np.int32),
+        cx=cx.astype(np.float32),
+        cx0=cx0.astype(np.float32),
+        cz=cz.astype(np.float32),
+    )
+
+
+def cold_time_sequence(levels: int = 6) -> np.ndarray:
+    """Cold-diffusion visit order t = levels..1 (reference ViT_draft2drawing.py:271)."""
+    return np.arange(levels, 0, -1, dtype=np.int32)

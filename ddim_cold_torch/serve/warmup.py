@@ -28,13 +28,9 @@ def warmup(engine, configs: Sequence[SamplerConfig]) -> dict:
     buckets = engine.buckets
     before = engine.stats["programs"]
     engine.load_kernels(configs)
-    model = engine.model
-    H, W = model.img_size
     for config in configs:
         for bucket in buckets:
-            prog = engine.ensure_program(config, bucket)
-            prog(x_init=torch.zeros((bucket, H, W, model.in_chans),
-                                    device=engine.device))
+            engine.ensure_program(config, bucket)(*engine.zero_inputs(config, bucket))
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     programs = engine.stats["programs"]

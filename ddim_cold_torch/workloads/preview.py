@@ -1,0 +1,25 @@
+"""Streaming-preview frame selection, shared by the engine and its tests.
+
+The port's verbatim copy of ``ddim_cold_tpu/workloads/preview.py``. A
+preview-enabled config (``SamplerConfig(preview_every=m)``) makes the engine
+dispatch the SEQUENCE variant of the config's sampler, which returns the
+(steps+1, N, H, W, C) trajectory: frame 0 is the init state, frame j the x̂0
+prediction after step j, frame ``steps`` the final result. The engine
+delivers every ``m``-th intermediate prediction through
+``Ticket.previews()`` before the final rows land; this module pins WHICH
+frames those are. Host-only (plain ints): the selection runs on the
+delivery path of every preview batch.
+"""
+
+from __future__ import annotations
+
+
+def preview_indices(n_steps: int, every: int) -> list[int]:
+    """Trajectory-frame indices streamed as previews: every ``every``-th x̂0
+    prediction, EXCLUDING frame 0 (the init state is the caller's input, not
+    a prediction) and frame ``n_steps`` (the final result, delivered through
+    ``Ticket.result()``). ``every <= 0`` or ``every >= n_steps`` yields no
+    previews (a 1-step loop has no intermediate frame to stream)."""
+    if every <= 0:
+        return []
+    return list(range(every, n_steps, every))

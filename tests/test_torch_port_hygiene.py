@@ -70,6 +70,41 @@ def test_quant_slice_modules_are_checked():
         "serve/engine", "utils/weights")} <= names
 
 
+def test_editing_slice_modules_are_checked():
+    """The import check walks the samplers, the workloads and the backward
+    fixture's tool too."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}.py" for m in (
+        "ops/sampling", "ops/schedule", "workloads/__init__", "workloads/tasks",
+        "workloads/preview", "serve/warmup", "tools/bwd_fixture")} <= names
+
+
+def _edit_entry_points():
+    from ddim_cold_torch import workloads
+
+    x, m = np.zeros((1, 16, 16, 3)), np.ones((16, 16))
+    g = torch.Generator()
+    return {
+        "cold_sample": lambda model: sampling.cold_sample(model, x_init=x, levels=2),
+        "ddim_sample_fewstep": lambda model: sampling.ddim_sample_fewstep(
+            model, x_init=x, steps=2),
+        "ddim_inpaint": lambda model: sampling.ddim_inpaint(model, x, x, m[None, ..., None]),
+        "inpaint": lambda model: workloads.inpaint(model, g, x, m),
+        "super_resolve": lambda model: workloads.super_resolve(model, x[:, :4, :4], level=2),
+        "draft_to_drawing": lambda model: workloads.draft_to_drawing(model, g, x),
+        "interpolate": lambda model: workloads.interpolate(model, g, x[0], x[0]),
+    }
+
+
+@pytest.mark.parametrize("name", ["cold_sample", "ddim_sample_fewstep", "ddim_inpaint",
+                                  "inpaint", "super_resolve", "draft_to_drawing",
+                                  "interpolate"])
+def test_edit_entry_points_need_cuda_unless_told(no_cuda, name):
+    model = DiffusionViT(**TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _edit_entry_points()[name](model)
+
+
 def test_optional_packages_are_imported_lazily():
     """PIL, yaml, tensorboard and triton appear only inside functions."""
     lazy = ("PIL", "yaml", "tensorboard", "triton")

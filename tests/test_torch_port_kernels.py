@@ -235,6 +235,35 @@ def test_flash_backward_large_logits(cuda_device, B, N, H, D):
         assert bool((fault > limit).any()), name
 
 
+def test_flash_backward_large_logits_against_jax(cuda_device):
+    """The bf16 backward kernels against the JAX package's own backward at
+    the large-logit case of ROADMAP.md Queue 3 (``tools/bwd_fixture.py``):
+    the fixture's inputs are what the CUDA generator draws for the case, and
+    the kernels, fed the JAX forward's O and lse, are held to the gate of
+    :func:`test_flash_backward_large_logits` around JAX's dq, dk and dv: dv
+    within ``grad_error_limit``, dq and dk within it plus ``ds_flip_bound``,
+    and a 2% fault of dq or dk fails that gate."""
+    from ddim_cold_torch.tools import bwd_fixture
+
+    t = bwd_fixture.load(cuda_device)
+    drawn = bwd_fixture.large_logit_inputs(cuda_device, **bwd_fixture.CASE)
+    for name, x in zip(bwd_fixture.INPUTS, drawn):
+        assert torch.equal(x.view(torch.int16), t[name].view(torch.int16)), name
+    scale = bwd_fixture.CASE["D"] ** -0.5
+    grad = fa.flash_backward(t["q"], t["k"], t["v"], t["o"], t["lse"], t["do"], scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(grad.float()).all())
+    flips = fa.ds_flip_bound(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                             fa.backward_delta(t["o"], t["do"]), scale)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        ref = t[name].float()
+        limit = fa.grad_error_limit(t[name]) + (flips[i] if i < 2 else 0.0)
+        err = (grad[:, :, i].float() - ref).abs()
+        assert bool((err <= limit).all()), (name, (err / limit).max().item())
+        if i < 2:
+            assert bool(((grad[:, :, i].float() * 1.02 - ref).abs() > limit).any()), name
+
+
 @pytest.mark.parametrize("B,N,H,D", [(2, 2501, 4, 64), (2, 129, 2, 32)])
 def test_flash_backward_reads_a_strided_do_view(cuda_device, B, N, H, D):
     """A non-contiguous bfloat16 dO whose rows are 16-byte aligned is read

@@ -208,6 +208,3 @@ def test_later_slice_sampler_options_raise(jax_params, later):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_sampling.ddim_sample(_port(jax_params), x_init=np.zeros((1, 16, 16, 3)),
                                   k=K, device="cpu", **later)
-    for fn in (port_sampling.cold_sample, port_sampling.ddim_sample_fewstep):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()

@@ -165,14 +165,38 @@ def test_engine_fresh_starts_and_split_add_no_program(models, warmed):
 @pytest.mark.parametrize("kw", [
     dict(cache_interval=2), dict(cache_interval=2, quant="pallas"),
     dict(cache_interval=4, cache_mode="token", cache_tokens=3),
-    dict(sp_mode="ring", sp_degree=2), dict(steps=2),
-    dict(steps=2, student=True), dict(task="draft", t_start=500),
-    dict(sampler="cold"), dict(preview_every=1),
+    dict(sp_mode="ring", sp_degree=2),
     dict(cache_interval=2, telemetry=True)])
 def test_out_of_slice_configs_raise_at_submit(warmed, kw):
     eng, _ = warmed
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.submit(seed=0, n=1, k=K, **kw)
+    assert eng.queue_depth() == 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(steps=2), dict(task="draft", t_start=500), dict(sampler="cold"),
+    dict(preview_every=1)])
+def test_formerly_refused_configs_are_served(models, kw):
+    """Few-step, draft, cold and preview configs, refused before their
+    slice, now serve: two 2-row requests of one seed share a bucket-4 batch
+    and come back finite, in [0, 1] and equal."""
+    eng = port_serve.Engine(models[2], buckets=(4, 8), device="cpu")
+    x = np.random.RandomState(2).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    extra = dict(x_init=x) if kw.get("task") == "draft" else dict(n=2)
+    tickets = [eng.submit(seed=3, k=K, **extra, **kw) for _ in range(2)]
+    report = eng.run()
+    assert (report["batches"], report["programs"], report["failed_tickets"]) == (1, 1, 0)
+    got = tickets[0].result(timeout=5)
+    assert got.shape == (2, 16, 16, 3) and np.isfinite(got).all()
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    np.testing.assert_array_equal(tickets[1].result(timeout=5), got)
+
+
+def test_student_without_a_student_tree_raises_at_submit(warmed):
+    eng, _ = warmed
+    with pytest.raises(ValueError, match="no student tree"):
+        eng.submit(seed=0, n=1, k=K, steps=2, student=True)
     assert eng.queue_depth() == 0
 
 
