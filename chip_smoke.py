@@ -17,7 +17,8 @@ Phases, one JSON object per line:
    ones also the int8 IGMMA) and spills nothing, no float32 one does;
    registers, stack and spills from ``cuobjdump -res-usage``;
 3. kernel  — the flash forward kernel against its plain PyTorch version at
-   the main paths' shapes (and the 200px/p8 head dim), in bfloat16 and
+   the main paths' shapes (the token cache's 626 tokens and the 200px/p8
+   head dim too), in bfloat16 and
    float32, with CUDA-event median times of the kernel, the plain version
    and the one PyTorch call that computes the same function (timed only,
    never used by the port; every timed call queued behind a device spin, so
@@ -88,7 +89,25 @@ Phases, one JSON object per line:
    the same 8-row shape (the draft's previews to its trajectory), known
    inpaint pixels exact, the superres result consistent with its input
    after ``superres_project``;
-15. the ``kernels`` summary line (all six kernels, each with its design:
+15. serve-cache — the step cache, served: one engine (buckets 4, 8) over
+   the bf16 model, warmed with the uncached DDIM config and nine cached
+   ones (k=20 unless said): delta, full, adaptive (interval 4, τ 0.05,
+   telemetry), token (⌈(N+1)/4⌉ = 626 live tokens) at interval 2; delta
+   on ``quant="pallas", fused=True`` and on ``quant="pallas"``; inpaint,
+   cold (7 levels) and few-step (4 steps) at interval 2. One 8-row
+   request each, three times: exact launches per kernel (and the adaptive
+   gate's host reads) from the branch table, or from the telemetry's
+   branches for adaptive, ``memory_allocated`` flat over the second
+   batch, the third profiled (device kernels, busy time, idle share);
+   each config and its uncached twin drained in turns for the speed-up;
+   then every row
+   bit for bit its direct call, a 3-row adaptive request in bucket 4
+   (row-0 replica padding) its direct call on the padded batch with the
+   unpadded call's gate, and the collapses τ = 0, ``cache_tokens`` = N+1
+   and ``cache_interval=1`` (the uncached batch), τ = ∞ (the delta batch),
+   telemetry off (telemetry on); the speed-up over the uncached batch
+   beside ``flops_saved_fraction`` and |cached − uncached|;
+16. the ``kernels`` summary line (all six kernels, each with its design:
    "wgmma", the bfloat16 route on the tensor cores), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
@@ -292,6 +311,8 @@ def phase_kernels(torch, fa):
             ("200_p4_b16", (16, 2501, 4, 64), (torch.bfloat16,)),
             ("200_p4", (8, 2501, 4, 64), (torch.float32, torch.bfloat16)),
             ("200_p4_b4", (4, 2501, 4, 64), (torch.bfloat16,)),
+            # the token cache's reuse steps: a quarter of 200_p4's tokens
+            ("200_p4_tok", (8, 626, 4, 64), (torch.bfloat16,)),
             ("200_p8", (8, 626, 12, 32), (torch.float32, torch.bfloat16))):
         for dtype in dtypes:
             name = str(dtype).split(".")[-1]
@@ -1276,6 +1297,326 @@ def phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT, MODEL_CONFIGS
     return launches
 
 
+#: serve-cache: the adaptive config's drift gate (bench.py:991-992) and the
+#: token config's live share, the "liveliest quarter" (bench.py:1115-1117)
+CACHE_TAU, TOKEN_SHARE = 0.05, 4
+
+
+def cache_cases(serve, n_tokens: int):
+    """(label, config, kernels one layer-forward launches) of the
+    serve-cache phase; ``n_tokens`` is the model's N+1."""
+    C = serve.SamplerConfig
+    flash = {"flash_fwd": 1}
+    k_tok = -(-n_tokens // TOKEN_SHARE)
+    return (
+        ("delta i2", C(k=K, cache_interval=2), flash),
+        ("full i2", C(k=K, cache_interval=2, cache_mode="full"), flash),
+        ("adaptive i4", C(k=K, cache_interval=4, cache_mode="adaptive",
+                          cache_threshold=CACHE_TAU, telemetry=True), flash),
+        (f"token i2 k{k_tok}", C(k=K, cache_interval=2, cache_mode="token",
+                                 cache_tokens=k_tok), flash),
+        ("fused w8a16 delta i2", C(k=K, cache_interval=2, quant="pallas", fused=True),
+         {"fused_trunk": 1, "mlp_fused": 1}),
+        ("pallas delta i2", C(k=K, cache_interval=2, quant="pallas"),
+         {"dequant_mm": 4, "flash_fwd": 1}),
+        ("inpaint delta i2", C(task="inpaint", k=K, cache_interval=2), flash),
+        ("cold delta i2", C(sampler="cold", levels=EDIT_LEVELS, cache_interval=2), flash),
+        ("fewstep delta i2", C(steps=4, cache_interval=2), flash),
+    )
+
+
+def _uncached(config):
+    """The same config with the step cache off."""
+    import dataclasses
+
+    return dataclasses.replace(config, cache_interval=1, cache_mode="delta",
+                               cache_threshold=None, cache_tokens=0, telemetry=False)
+
+
+def _cache_plan(model, config, taken=None):
+    """(spec, branches taken, blocks run) of one batch of a cached config:
+    the static table, or for adaptive the branches its telemetry read."""
+    from ddim_cold_torch.ops import sampling, step_cache
+
+    spec = sampling._cached_spec(model, _forwards(config, model.total_steps),
+                                 config.cache_interval, config.cache_mode,
+                                 config.cache_threshold, config.cache_tokens or None)
+    branches = list(spec.branches if taken is None else taken)
+    return spec, branches, sum(step_cache.blocks_run(spec, b) for b in branches)
+
+
+def _device_launches(torch, fn):
+    """Every kernel the device ran during ``fn()`` (torch.profiler): their
+    count, the device's idle share over their window and its busy seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    window = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) if spans else 0.0
+    busy = _union_us(spans)
+    return len(spans), (1.0 - busy / window) if window else None, busy / 1e6
+
+
+def phase_serve_cache(torch, model, fa, quant, serve):
+    """The step cache, served: one engine (buckets 4, 8) over the bf16
+    model, warmed with every config of ``cache_cases`` and their uncached
+    twins, serves one 8-row request of each cached config and of the
+    uncached DDIM config three times: the first drain timed, the second
+    with ``torch.cuda.memory_allocated`` read before and after (the
+    spare-cache pool keeps it flat), the third under torch.profiler (every
+    device kernel counted, busy time, the idle share); then each cached
+    config and its twin are drained in turns (twin, cached, cached, twin)
+    for the speed-up, as the host's pace drifts between drains. The launch
+    counters (and the adaptive gate's host reads, ``step_cache.GATE_SYNCS``)
+    are zeroed just before the first two drains and must read exactly what
+    the branch table says (for adaptive, the branches its telemetry took):
+    blocks run × launches per block. Then every served row is held bit for
+    bit to its direct ``sampling.*`` / ``workloads.*`` call at the same
+    8-row shape; a 3-row adaptive request in bucket 4 (row-0 replica
+    padding) to the direct call on the same padded batch, and its gate to
+    the unpadded call's; and the collapses: τ = 0 and ``cache_tokens`` = N+1
+    are the uncached batch, τ = ∞ is the delta batch, telemetry off is
+    telemetry on, ``cache_interval=1`` is the uncached batch. Reported:
+    wall and img/s, the speed-up over the uncached batch beside
+    ``flops_saved_fraction``, max and mean |cached − uncached| at the same
+    seed, device launches per wall second."""
+    import numpy as np
+
+    from ddim_cold_torch import workloads
+    from ddim_cold_torch.ops import sampling, step_cache
+
+    H, W = model.img_size
+    n_tokens = model.num_patches + 1
+    cases = cache_cases(serve, n_tokens)
+    plain = serve.SamplerConfig(k=K)
+    # each cached config's uncached twin, the speed-up's baseline
+    twins = {label: _uncached(config) for label, config, _ in cases}
+    warmed = list(dict.fromkeys([plain] + [c for _, c, _ in cases] + list(twins.values())))
+    eng = serve.Engine(model, buckets=BUCKETS)
+    t0 = time.perf_counter()
+    warm = serve.warmup(eng, warmed)
+    warm_s = time.perf_counter() - t0
+    programs = eng.stats["programs"]
+    check(programs == len(warmed) * len(BUCKETS), f"serve-cache warmed {programs}")
+
+    rs = np.random.RandomState(SEED + 30)
+    imgs = rs.uniform(-1, 1, (8, H, W, 3)).astype(np.float32)
+    mask = np.zeros((H, W), np.float32)
+    mask[:, :W // 2] = 1.0                                   # the left half known
+    seed = SEED + 31
+
+    def submit(config, s=seed, n=8):
+        if config.task == "inpaint":
+            return eng.submit(config=config, seed=s, x_init=imgs[:n], mask=mask)
+        return eng.submit(config=config, seed=s, n=n)
+
+    def drain(config, s=seed, n=8):
+        ticket = submit(config, s, n)
+        report = eng.run()
+        torch.cuda.synchronize()
+        return ticket, report
+
+    served, recs = {}, {}
+    for label, config, per_layer in [("uncached", plain, {"flash_fwd": 1})] + list(cases):
+        shapes: dict = {}
+        orig = fa.flash_forward
+
+        def recording(q, k, v, scale):
+            shapes[q.shape[1]] = shapes.get(q.shape[1], 0) + 1
+            return orig(q, k, v, scale)
+
+        fa.flash_forward = recording
+        try:
+            walls, counts = [], []
+            for batch in range(2):
+                shapes.clear()
+                before = torch.cuda.memory_allocated()
+                _zero((fa.LAUNCHES, quant.LAUNCHES, step_cache.GATE_SYNCS))  # starts here
+                ticket, report = drain(config, seed + batch)
+                got = {k: fa.LAUNCHES[k] + quant.LAUNCHES[k] for k in QUANT_KERNELS}  # ends
+                syncs = step_cache.GATE_SYNCS["adaptive_gate"]
+                after = torch.cuda.memory_allocated()
+                img = ticket.result(timeout=900)
+                walls.append(report["wall_s"])
+                tel = ticket.telemetry
+                if config.cached:
+                    spec, taken, blocks = _cache_plan(model, config,
+                                                      tel["branch"] if tel else None)
+                else:
+                    spec, taken, blocks = None, None, model.depth * _forwards(
+                        config, model.total_steps)
+                want = {k: per_layer.get(k, 0) * blocks for k in QUANT_KERNELS}
+                want_syncs = (sum(b != 0 for b in spec.branches)
+                              if config.cache_mode == "adaptive" and config.cached else 0)
+                counts.append((got, want, syncs, want_syncs, before, after, taken))
+                if batch == 0:
+                    served[label] = (config, img, tel)
+                    by_tokens = {str(n): c for n, c in sorted(shapes.items())}
+                check(img.shape == (8, H, W, 3) and bool(np.isfinite(img).all()),
+                      f"serve-cache {label} output")
+                check(bool(((img >= 0.0) & (img <= 1.0)).all()),
+                      f"serve-cache {label} in [0, 1]")
+                check(report["failed_tickets"] == 0 and report["programs"] == 0
+                      and eng.stats["programs"] == programs, f"serve-cache {label} programs")
+                check(got == want, f"serve-cache {label} batch {batch} launches {got}, "
+                      f"expected {want}")
+                check(syncs == want_syncs, f"serve-cache {label} gate syncs {syncs}, "
+                      f"expected {want_syncs}")
+                if batch == 1:
+                    check(after == before, f"serve-cache {label}: memory_allocated "
+                          f"{before} -> {after} over a second batch")
+        finally:
+            fa.flash_forward = orig
+        device_kernels, idle, busy = _device_launches(torch, lambda: drain(config, seed + 2))
+        got, want, syncs, want_syncs, before, after, taken = counts[0]
+        rec = {"phase": "serve-cache", "model": MODEL, "dtype": "bfloat16", "config": label,
+               "sampler_config": {k: v for k, v in vars(config).items()
+                                  if v != getattr(serve.SamplerConfig, k)},
+               "forwards": _forwards(config, model.total_steps),
+               "wall_s": walls, "img_per_sec": 8 / walls[0],
+               "launches": got, "expected_launches": want,
+               "flash_fwd_by_tokens": by_tokens,
+               "gate_syncs": syncs, "expected_gate_syncs": want_syncs,
+               "memory_allocated_second_batch": [counts[1][4], counts[1][5]],
+               "device_kernels": device_kernels, "idle_share": idle, "device_busy_s": busy,
+               "wall_per_device_kernel_us": walls[0] / device_kernels * 1e6
+               if device_kernels else None,
+               "warmup_s": warm_s, "warmed_programs": warm["programs"]}
+        if config.cached:
+            rec["branches"] = "".join(str(b) for b in taken)
+            rec["refreshes"] = sum(b == 0 for b in taken)
+            rec["flops_saved_fraction"] = step_cache.flops_saved_fraction(spec)
+            if served[label][2]:
+                rec["telemetry"] = {k: v for k, v in served[label][2].items()
+                                    if k not in ("branch", "drift")}
+        recs[label] = rec
+    # the speed-up: each cached config and its uncached twin drained in
+    # turns (twin, cached, cached, twin), as the host's pace drifts
+    for label, config, _ in cases:
+        pair = {"cached": [], "uncached": []}
+        for kind in ("uncached", "cached", "cached", "uncached"):
+            pair[kind].append(drain(config if kind == "cached" else twins[label],
+                                    seed + 3)[1]["wall_s"])
+        recs[label].update({"paired_wall_s": pair["cached"],
+                            "paired_uncached_wall_s": pair["uncached"],
+                            "speedup_vs_uncached": statistics.mean(pair["uncached"])
+                            / statistics.mean(pair["cached"])})
+
+    token_label, token_cfg, _ = cases[3]
+    _, taken, _ = _cache_plan(model, token_cfg)
+    refresh = sum(b == 0 for b in taken)
+    want_tok = {str(n_tokens): refresh * model.depth,
+                str(token_cfg.cache_tokens): (len(taken) - refresh) * model.depth}
+    check(recs[token_label]["flash_fwd_by_tokens"] == want_tok,
+          f"serve-cache token flash_fwd by tokens "
+          f"{recs[token_label]['flash_fwd_by_tokens']}, expected {want_tok}")
+
+    # a 3-row adaptive request in bucket 4: padded with a replica of row 0
+    adaptive = cases[2][1]
+    _zero((fa.LAUNCHES, quant.LAUNCHES))
+    ticket3, report3 = drain(adaptive, seed, 3)
+    launches3 = fa.LAUNCHES["flash_fwd"]
+    img3 = ticket3.result(timeout=900)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the direct calls, on models built apart from the engine
+    def variant(q, fused):
+        m = model.clone(quant=q, fused=fused)
+        m.load_state_dict(quant.quantize_state_dict(model.state_dict()), strict=True)
+        return m
+
+    def cache_kw(config):
+        return dict(cache_interval=config.cache_interval, cache_mode=config.cache_mode,
+                    cache_threshold=config.cache_threshold,
+                    cache_tokens=config.cache_tokens or None)
+
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+
+    def direct(config, **kw):
+        kw = {**cache_kw(config), **kw}
+        m = variant(config.quant, config.fused) if config.quant else model
+        if config.task == "inpaint":
+            return workloads.inpaint(m, gen(), imgs, mask, k=K, **kw)
+        if config.sampler == "cold":
+            return sampling.cold_sample(m, gen(), n=8, levels=config.levels, **kw)
+        if config.steps:
+            return sampling.ddim_sample_fewstep(m, gen(), steps=config.steps, n=8, **kw)
+        return sampling.ddim_sample(m, gen(), n=8, k=K, **kw)
+
+    out = {"phase": "serve-cache-direct"}
+    check(np.array_equal(served["uncached"][1], direct(plain).cpu().numpy()),
+          "serve-cache uncached differs from the direct call")
+    for label, config, _ in cases:
+        _, img, tel = served[label]
+        if config.telemetry:
+            want, want_tel = direct(config, telemetry=True)
+            want = want.cpu().numpy()
+            off = direct(config).cpu().numpy()
+            out["telemetry off bitwise on"] = bool(np.array_equal(off, want))
+            check(out["telemetry off bitwise on"], "serve-cache telemetry off vs on")
+            check(list(want_tel.branch) == tel["branch"],
+                  f"serve-cache {label}: served branches are not the direct call's")
+        else:
+            want = direct(config).cpu().numpy()
+        base = (served["uncached"][1] if config.task == "sample" and not config.steps
+                and config.sampler == "ddim" and not config.quant
+                else direct(_uncached(config)).cpu().numpy())
+        diff = np.abs(img - base)
+        rec = recs[label]
+        rec.update({"bitwise_direct": bool(np.array_equal(img, want)),
+                    "max_abs_vs_uncached": float(diff.max()),
+                    "mean_abs_vs_uncached": float(diff.mean())})
+        check(rec["bitwise_direct"], f"serve-cache {label} differs from the direct call")
+        emit(rec)
+    emit(recs["uncached"])
+
+    # the collapses, at the delta batch's seed and shape
+    delta_cfg, full_base = cases[0][1], served["uncached"][1]
+    collapses = {
+        "adaptive tau=0 == uncached": (dict(cache_interval=2, cache_mode="adaptive",
+                                            cache_threshold=0.0), full_base),
+        f"token k={n_tokens} == uncached": (dict(cache_interval=2, cache_mode="token",
+                                                 cache_tokens=n_tokens), full_base),
+        "adaptive tau=inf == delta": (dict(cache_interval=2, cache_mode="adaptive",
+                                           cache_threshold=float("inf")),
+                                      served[cases[0][0]][1]),
+        "cache_interval=1 == uncached": (dict(cache_interval=1), full_base),
+    }
+    for name, (kw, want) in collapses.items():
+        got = sampling.ddim_sample(model, gen(), n=8, k=K, **kw).cpu().numpy()
+        out[name] = bool(np.array_equal(got, want))
+        check(out[name], f"serve-cache collapse {name}")
+    check(delta_cfg.cache_mode == "delta", "serve-cache case 0 is delta")
+
+    # the 3-row adaptive request against the direct call on the same padded
+    # batch, and its gate against the unpadded call's
+    kw = cache_kw(adaptive)
+    x3 = sampling.fresh_start(model, gen(), 3, "cuda")
+    padded = sampling.ddim_sample(model, x_init=torch.cat([x3, x3[:1]]), k=K,
+                                  **kw)[:3].cpu().numpy()
+    unpadded, unpadded_tel = sampling.ddim_sample(model, gen(), n=3, k=K,
+                                                  telemetry=True, **kw)
+    _, _, blocks = _cache_plan(model, adaptive, ticket3.telemetry["branch"])
+    rec3 = out["adaptive 3 rows in bucket 4"] = {
+        "padded_rows": report3["padded_rows"], "flash_fwd": launches3,
+        "expected_flash_fwd": blocks,
+        "bitwise_direct_on_padded_batch": bool(np.array_equal(img3, padded)),
+        "branches_equal_unpadded": list(unpadded_tel.branch) == ticket3.telemetry["branch"],
+        "max_abs_vs_unpadded": float(np.abs(img3 - unpadded.cpu().numpy()).max())}
+    check(report3["padded_rows"] == 1 and launches3 == blocks,
+          f"serve-cache adaptive 3 rows: {rec3}")
+    check(rec3["bitwise_direct_on_padded_batch"], "serve-cache adaptive replica padding")
+    check(rec3["branches_equal_unpadded"], "serve-cache adaptive padding moved the gate")
+    emit(out)
+    torch.cuda.empty_cache()
+    return {label: rec["launches"] for label, rec in recs.items()}
+
+
 def _kind_of(name: str, kinds) -> str:
     name = name.lower()
     hit = next((k for k in kinds if k in name), None)
@@ -1364,6 +1705,7 @@ def main() -> int:
     del eng
     edit_launches = phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT,
                                      MODEL_CONFIGS)
+    cache_launches = phase_serve_cache(torch, model, fa, quant, serve)
     del model
     torch.cuda.empty_cache()
     phase_train_check(torch, fa)
@@ -1381,7 +1723,9 @@ def main() -> int:
                              **{f"serve quant={q},fused={f}": n["flash_fwd"]
                                 for (q, f), n in quant_launches.items()},
                              **{f"serve-edit {label}": n["flash_fwd"]
-                                for label, n in edit_launches.items() if n["flash_fwd"]}},
+                                for label, n in edit_launches.items() if n["flash_fwd"]},
+                             **{f"serve-cache {label}": n["flash_fwd"]
+                                for label, n in cache_launches.items() if n["flash_fwd"]}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -1411,6 +1755,8 @@ def main() -> int:
                    for (q, f), n in quant_launches.items()}
         by_path.update({f"serve-edit {label}": n[name]
                         for label, n in edit_launches.items() if n[name]})
+        by_path.update({f"serve-cache {label}": n[name]
+                        for label, n in cache_launches.items() if n[name]})
         lines.append({
             "name": name, "route": "cuda", "source": f"ddim_cold_torch/csrc/{name}.cu",
             "replaces": line, "launches": sum(by_path.values()),

@@ -49,10 +49,13 @@ every block, a (B, 1, 1) mask at the rates ``linspace(0, drop_path_rate,
 depth)``. The bits differ from JAX's: the distributions are the same.
 
 The forward records autograd history like any module; the samplers and the
-serving engine run it under ``torch.inference_mode()``. The later slices'
-hooks (MoE, sequence parallelism, scan_blocks, remat, the step
-and token caches, pipeline stages, the attention probe) raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+serving engine run it under ``torch.inference_mode()``. The step-cache
+hooks of the JAX forward (``capture_split``, ``skip_blocks`` +
+``block_delta``, ``capture_tokens``, ``token_cache`` + ``token_k``) are
+ported on every route above; see :meth:`DiffusionViT.forward`. The later
+slices' hooks (MoE, sequence parallelism, scan_blocks, remat, pipeline
+stages, the attention probe) raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -112,12 +115,6 @@ _LATER_FORWARD = {
     "return_attention_layer": (None, "Queue 1 item 3 (attention probe)"),
     "stage": ("full", "Queue 1 item 14 (pipeline stages)"),
     "tokens": (None, "Queue 1 item 14 (pipeline stages)"),
-    "skip_blocks": (None, "Queue 1 item 8 (step cache)"),
-    "block_delta": (None, "Queue 1 item 8 (step cache)"),
-    "capture_split": (None, "Queue 1 item 8 (step cache)"),
-    "capture_tokens": (False, "Queue 1 item 8 (token cache)"),
-    "token_cache": (None, "Queue 1 item 8 (token cache)"),
-    "token_k": (None, "Queue 1 item 8 (token cache)"),
 }
 
 
@@ -169,6 +166,18 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     (flax LayerNorm with a reduced compute dtype)."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(x.dtype)
+
+
+def _live_tokens(tokens: torch.Tensor, ref_in: torch.Tensor, k: int) -> torch.Tensor:
+    """The (B, k) indices of the k tokens of each row that changed most
+    against ``ref_in``, in position order: squared change summed in float32
+    (the difference taken in the model dtype, as JAX does), CLS forced live
+    with the float32 maximum, ties taken lower index first as
+    ``jax.lax.top_k`` takes them (a stable descending sort)."""
+    scores = (tokens - ref_in).float().square().sum(-1)
+    scores[:, 0] = torch.finfo(torch.float32).max
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[:, :k].sort(dim=-1).values
 
 
 class PatchEmbed(nn.Module):
@@ -469,11 +478,45 @@ class DiffusionViT(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None,
-                **later) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, *,
+                skip_blocks: Optional[tuple] = None,
+                block_delta: Optional[torch.Tensor] = None,
+                capture_split: Optional[int] = None,
+                capture_tokens: bool = False,
+                token_cache: Optional[tuple] = None,
+                token_k: Optional[int] = None,
+                **later):
         """``deterministic=False`` is the training forward and needs
-        ``generator`` (on the model's device) for its dropout masks."""
+        ``generator`` (on the model's device) for its dropout masks.
+
+        Step-cache hooks (:mod:`ddim_cold_torch.ops.step_cache`, JAX
+        vit.py:650-968), each a Python-level decision that launches nothing
+        for the blocks it skips:
+
+        * ``capture_split=s`` (1 ≤ s < depth) — a refresh forward: run every
+          block and also return the cumulative deltas of the front (blocks
+          [0, s)) and rear ([s, depth)) trunk halves, ``(x̂0, (delta_front,
+          delta_rear))``, each (B, N+1, E) in the model dtype;
+        * ``skip_blocks=(lo, hi)`` + ``block_delta`` — a reuse forward:
+          blocks [lo, hi) do not run, and their cached delta is added to the
+          token stream where block ``lo`` would have run;
+        * ``capture_tokens=True`` — a token refresh: returns ``(x̂0, (ref_in,
+          trunk_delta))``, the post-embed stream and the trunk's displacement
+          ``trunk_out − ref_in``;
+        * ``token_cache=(ref_in, trunk_delta)`` + ``token_k=k`` — a token
+          reuse: rank the tokens by their squared change against ``ref_in``
+          (float32 sums; CLS forced live), run the trunk on the top k only
+          (taken in position order; k = N+1 takes every token with no gather
+          and is the plain forward), and scatter the results into the cached
+          stream ``tokens + trunk_delta``. The live rows of both cache
+          tensors are overwritten IN PLACE, and the pair is returned:
+          ``(x̂0, (ref_in, trunk_delta))``.
+
+        The block-delta and token families exclude each other, and so do a
+        family's refresh and reuse hooks."""
         refuse_later(later, _LATER_FORWARD, "DiffusionViT.forward")
+        self._check_cache_hooks(skip_blocks, block_delta, capture_split,
+                                capture_tokens, token_cache, token_k)
         if deterministic:
             generator = None
         elif generator is None:
@@ -491,10 +534,83 @@ class DiffusionViT(nn.Module):
         pos = self.pos_embed if self.pos_embed is not None else self.pos_table
         tokens = tokens + pos.to(self.dtype) + time
         tokens = _dropout(tokens, self.drop_rate, generator)  # pos_drop
-        for blk in self.blocks:
+
+        stream_in = tokens  # post-embed stream: the token cache's reference
+        live = None
+        if token_cache is not None:
+            ref_in, trunk_delta = token_cache
+            if token_k < tokens.shape[1]:
+                live = _live_tokens(tokens, ref_in, token_k)
+                tokens = tokens.gather(1, live[:, :, None].expand(-1, -1, self.embed_dim))
+            sub_in = tokens  # the trunk below runs at sequence length k
+        lo, hi = skip_blocks if skip_blocks is not None else (0, 0)
+        tokens_in, tokens_mid = tokens, None
+        for i, blk in enumerate(self.blocks):
+            if lo <= i < hi:
+                if i == lo:
+                    tokens = tokens + block_delta.to(self.dtype)
+                continue
             tokens = blk(tokens, generator)
+            if capture_split is not None and i == capture_split - 1:
+                tokens_mid = tokens
+
+        cache = None
+        if token_cache is not None:
+            sub_out = tokens
+            if live is None:  # k = N+1: every row is live, a full overwrite
+                ref_in.copy_(sub_in)
+                trunk_delta.copy_(sub_out - sub_in)
+            else:
+                # stale tokens: last trunk output ≈ the current embedding plus
+                # the cached displacement; live rows take this step's output
+                rows = torch.arange(B, device=live.device)[:, None]
+                tokens = stream_in + trunk_delta.to(self.dtype)
+                tokens[rows, live] = sub_out
+                ref_in[rows, live] = sub_in
+                trunk_delta[rows, live] = (sub_out - sub_in).to(trunk_delta.dtype)
+            cache = (ref_in, trunk_delta)
+        elif capture_split is not None:
+            cache = (tokens_mid - tokens_in, tokens - tokens_mid)
+        elif capture_tokens:
+            cache = (stream_in, tokens - stream_in)
         tokens = _linear(_layer_norm(tokens, self.norm), self.head)
-        return self.unpatchify(tokens[:, 1:, :]).float()
+        out = self.unpatchify(tokens[:, 1:, :]).float()
+        return out if cache is None else (out, cache)
+
+    def _check_cache_hooks(self, skip_blocks, block_delta, capture_split,
+                           capture_tokens, token_cache, token_k) -> None:
+        """The JAX model's validation of the step-cache hooks (vit.py:724-773)."""
+        if skip_blocks is not None and capture_split is not None:
+            raise ValueError(
+                "skip_blocks (reuse step) and capture_split (refresh step) "
+                "are distinct cache branches — pass one or the other")
+        if skip_blocks is not None:
+            lo, hi = skip_blocks
+            if not (0 <= lo < hi <= self.depth):
+                raise ValueError(f"skip_blocks {skip_blocks} outside "
+                                 f"[0, {self.depth})")
+            if block_delta is None:
+                raise ValueError("skip_blocks requires the cached block_delta")
+        if capture_split is not None and not (1 <= capture_split < self.depth):
+            raise ValueError(f"capture_split {capture_split} must split "
+                             f"depth {self.depth} into two non-empty halves")
+        if (capture_tokens or token_cache is not None) and (
+                skip_blocks is not None or capture_split is not None):
+            raise ValueError(
+                "token caching (capture_tokens/token_cache) and block-"
+                "delta caching (skip_blocks/capture_split) are distinct "
+                "cache families — pass one or the other")
+        if capture_tokens and token_cache is not None:
+            raise ValueError(
+                "capture_tokens (refresh step) and token_cache (reuse step) "
+                "are distinct cache branches — pass one or the other")
+        if token_cache is not None:
+            if token_k is None or not (1 <= token_k <= self.num_patches + 1):
+                raise ValueError(
+                    f"token_cache requires static token_k in "
+                    f"[1, {self.num_patches + 1}], got {token_k!r}")
+        elif token_k is not None:
+            raise ValueError("token_k only applies with token_cache")
 
     def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
         """(B, N, p²C) → (B, H, W, C): pixel (i·p+a, j·p+b, c) ← feature

@@ -1,7 +1,8 @@
 """Samplers: the k-strided DDIM loop, the few-step, cold and inpaint loops,
 and their guided entry points.
 
-Counterpart of the uncached samplers of ``ddim_cold_tpu/ops/sampling.py``:
+Counterpart of the samplers of ``ddim_cold_tpu/ops/sampling.py``, uncached
+and step-cached:
 
 * ``ddim_sample``      ← reference ``sampler`` (ViT.py:220-237)
 * ``ddim_sample(..., return_sequence=True)`` ← ``diffusion_sequence`` (ViT.py:239-256)
@@ -16,17 +17,26 @@ Counterpart of the uncached samplers of ``ddim_cold_tpu/ops/sampling.py``:
 Each reverse step is affine in (x, x̂0) with coefficients precomputed on the
 host (:mod:`ddim_cold_torch.ops.schedule`), so a step is one model forward,
 a clamp and elementwise torch work, with no host synchronisation inside the
-loop (no ``.item()``, no copies to the host): the whole loop enqueues
-asynchronously on the device and can later be captured in a CUDA graph. It
-runs under ``torch.inference_mode()``: no autograd history is recorded.
+loop (no ``.item()``, no copies to the host; the adaptive cache's gate is
+the one exception, below): the whole loop enqueues asynchronously on the
+device and can later be captured in a CUDA graph. It runs under
+``torch.inference_mode()``: no autograd history is recorded.
 
 Randomness comes from explicit ``torch.Generator``s living on the sampling
 device; they cannot reproduce JAX's bits, so parity with the JAX package
 runs through ``x_init``. A sampler draws its fresh start from ``generator``
 and the per-step noise of η > 0 from a second stream,
-``fold_in(generator, NOISE_STREAM)``, as JAX folds its key. The step-cached
-and telemetry variants belong to a later slice and raise
-``NotImplementedError``.
+``fold_in(generator, NOISE_STREAM)``, as JAX folds its key.
+
+``cache_interval`` > 1 runs a sampler through the step cache
+(:mod:`ddim_cold_torch.ops.step_cache`): each step's model evaluation takes
+its branch of the static refresh/reuse table, and the cache tensors are
+updated in place. The static modes add no host synchronisation; adaptive
+mode reads its gate once per reuse step. The ``_*_cached_impl`` functions
+take the cache as an argument and return ``(images, cache)``, so a serving
+loop can hand one allocation from batch to batch; the public samplers make
+a zero cache per call. ``cache_interval=1`` runs the plain loop, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -37,21 +47,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ddim_cold_torch.ops import schedule
+from ddim_cold_torch.obs.device import StepTelemetry
+from ddim_cold_torch.ops import schedule, step_cache
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
 #: sampler options of the JAX samplers that belong to later slices
 _LATER = {
     "mesh": (None, "Queue 1 item 14 (data-parallel sampling)"),
-    "cache_interval": (1, "Queue 1 item 8 (step cache)"),
-    "cache_mode": ("delta", "Queue 1 item 8 (step cache)"),
-    "cache_threshold": (None, "Queue 1 item 8 (adaptive cache)"),
-    "cache_tokens": (None, "Queue 1 item 8 (token cache)"),
-    "telemetry": (False, "Queue 1 item 8 (step telemetry)"),
 }
-#: the same, for the samplers that have no telemetry option in JAX
-_LATER_CACHE = {k: v for k, v in _LATER.items() if k != "telemetry"}
 
 #: the stream η > 0 draws its per-step noise from (JAX ``fold_in(rng, 0xD1F)``)
 NOISE_STREAM = 0xD1F
@@ -101,8 +105,11 @@ def fresh_start(model, generator: Optional[torch.Generator], n: int, device,
 
 def _x0(model, x: torch.Tensor, t: int) -> torch.Tensor:
     """One model evaluation at level ``t``, clamped to [−1, 1]."""
-    return model(x, torch.full((x.shape[0],), t, dtype=torch.long,
-                               device=x.device)).clamp(-1.0, 1.0)
+    return model(x, _t_vec(x, t)).clamp(-1.0, 1.0)
+
+
+def _t_vec(x: torch.Tensor, t: int) -> torch.Tensor:
+    return torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
 
 
 def _images(x0: Optional[torch.Tensor], frames: Optional[list]) -> torch.Tensor:
@@ -112,18 +119,54 @@ def _images(x0: Optional[torch.Tensor], frames: Optional[list]) -> torch.Tensor:
     return (x0 + 1.0) / 2.0
 
 
+class _Cached:
+    """The x̂0 of step i through the step cache: ``spec``'s branch i, the
+    cache updated in place; with ``telemetry``, each step's branch as taken
+    and the gate's drift are kept (JAX's scanned ``(idx, drift)`` aux)."""
+
+    def __init__(self, model, spec: step_cache.CacheSpec, cache, telemetry: bool = False):
+        self.model, self.spec, self.cache = model, spec, cache
+        self.taken = [] if telemetry else None
+        self.drift = []
+
+    def __call__(self, x: torch.Tensor, t: int, i: int) -> torch.Tensor:
+        args = (self.model, x, _t_vec(x, t), self.spec.branches[i], self.cache, self.spec)
+        if self.taken is None:
+            x0, self.cache = step_cache.apply_step(*args)
+        else:
+            x0, self.cache, idx, drift = step_cache.apply_step_tel(*args)
+            self.taken.append(idx)
+            self.drift.append(drift)
+        return x0.clamp(-1.0, 1.0)
+
+    def telemetry(self) -> StepTelemetry:
+        """The run's aux: ``branch`` an int32 numpy array (the host knows
+        it), ``drift`` a float32 tensor on the sampling device."""
+        return StepTelemetry(branch=np.asarray(self.taken, dtype=np.int32),
+                             drift=torch.stack(self.drift))
+
+
+def _evaluator(model, cached: Optional[_Cached]):
+    """The x̂0 of step i: the plain clamped forward, or the cached one."""
+    if cached is not None:
+        return cached
+    return lambda x, t, i: _x0(model, x, t)
+
+
 def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
-               sequence: bool, known=None, mask=None):
+               sequence: bool, known=None, mask=None, cached: Optional[_Cached] = None):
     """The affine DDIM steps of ``coeffs`` from ``x``; with ``mask``, the
     known pixels of each clamped x̂0 are re-projected from ``known`` before
-    the update (``x̂0 ← m·known + (1−m)·x̂0``). Returns the last state, the
-    last x̂0 (None for an empty schedule) and, with ``sequence``, the frames:
-    the start, then every x̂0."""
+    the update (``x̂0 ← m·known + (1−m)·x̂0``); with ``cached``, step i's
+    x̂0 comes through the step cache. Returns the last state, the last x̂0
+    (None for an empty schedule) and, with ``sequence``, the frames: the
+    start, then every x̂0."""
+    evaluate = _evaluator(model, cached)
     frames = [x] if sequence else None
     x0 = None
-    for t, c1, c2, cz in zip(coeffs.t_seq.tolist(), coeffs.cx.tolist(),
-                             coeffs.cx0.tolist(), coeffs.cz.tolist()):
-        x0 = _x0(model, x, t)
+    for i, (t, c1, c2, cz) in enumerate(zip(coeffs.t_seq.tolist(), coeffs.cx.tolist(),
+                                            coeffs.cx0.tolist(), coeffs.cz.tolist())):
+        x0 = evaluate(x, t, i)
         if mask is not None:
             x0 = mask * known + (1.0 - mask) * x0
         x_next = c1 * x + c2 * x0
@@ -136,11 +179,63 @@ def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
     return x, x0, frames
 
 
+def _cached_spec(model, n_steps: int, cache_interval: int, cache_mode: str,
+                 cache_threshold, cache_tokens) -> step_cache.CacheSpec:
+    """The one place a sampler builds its spec: the model supplies the token
+    count of ``"token"`` mode, and ``step_cache.cache_spec`` validates the
+    knobs of each mode."""
+    return step_cache.cache_spec(
+        model.depth, n_steps, cache_interval, cache_mode,
+        threshold=cache_threshold, token_k=cache_tokens,
+        n_tokens=(model.num_patches + 1) if cache_mode == "token" else None)
+
+
+def _make_cache(model, x_init: torch.Tensor, mode: str = "delta") -> step_cache.Cache:
+    """A zero cache for a batch like ``x_init``, on its device."""
+    return step_cache.init_cache(x_init.shape[0], model.num_patches + 1,
+                                 model.embed_dim, model.dtype, mode=mode,
+                                 img_shape=tuple(x_init.shape[1:]),
+                                 device=x_init.device)
+
+
+def _check_schedule(x0, model, k, t_start) -> None:
+    if x0 is None:
+        raise ValueError(f"empty schedule: total_steps={model.total_steps}, "
+                         f"k={k}, t_start={t_start}")
+
+
+@torch.inference_mode()
+def _ddim_cached_impl(model, x_init: torch.Tensor, noise: Optional[torch.Generator],
+                      cache0: step_cache.Cache, *, k: int, t_start: Optional[int],
+                      eta: float, cache_interval: int, cache_mode: str,
+                      cache_threshold=None, cache_tokens=None, sequence: bool,
+                      known=None, mask=None, telemetry: bool = False):
+    """The step-cached DDIM loop: JAX's ``_ddim_cached_impl``; with
+    ``known`` and ``mask`` its ``_ddim_inpaint_cached_impl`` (the projection
+    applied to the clamped x̂0 after the cache branch); with ``telemetry``
+    its ``_ddim_cached_tel_impl``. ``x_init`` is the loop's own start (not
+    copied) and ``noise`` the η > 0 noise stream. Returns ``(images,
+    cache)``, with ``telemetry`` ``(images, cache, StepTelemetry)``."""
+    coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
+    spec = _cached_spec(model, len(coeffs.t_seq), cache_interval, cache_mode,
+                        cache_threshold, cache_tokens)
+    cached = _Cached(model, spec, cache0, telemetry)
+    _, x0, frames = _ddim_loop(model, x_init, coeffs, noise, sequence, known, mask,
+                               cached)
+    _check_schedule(x0, model, k, t_start)
+    if telemetry:
+        return _images(x0, frames), cached.cache, cached.telemetry()
+    return _images(x0, frames), cached.cache
+
+
 @torch.inference_mode()
 def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
                 k: int = 10, n: int = 128, x_init=None,
                 t_start: Optional[int] = None, return_sequence: bool = False,
-                eta: float = 0.0, device=None, **later) -> torch.Tensor:
+                eta: float = 0.0, device=None, cache_interval: int = 1,
+                cache_mode: str = "delta", cache_threshold: Optional[float] = None,
+                cache_tokens: Optional[int] = None, telemetry: bool = False,
+                **later):
     """k-strided DDIM sampling; returns images in [0, 1], NHWC float32.
 
     Pass ``generator`` (a fresh N(0, 1) start of ``n`` images, reference
@@ -150,19 +245,41 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
     0 is stochastic DDIM and draws per-step noise from
     ``fold_in(generator, NOISE_STREAM)``, so it requires ``generator``.
     ``device`` (None means ``"cuda"``) must be the model's device.
+
+    ``cache_interval`` > 1 samples through the step cache: every
+    ``cache_interval``-th step refreshes it, the steps between reuse it as
+    ``cache_mode`` says ("delta", "full", "adaptive" with the drift gate
+    ``cache_threshold``, "token" with ``cache_tokens`` live tokens; see
+    :mod:`~ddim_cold_torch.ops.step_cache`). ``telemetry=True`` (cached and
+    last-only) returns ``(images, StepTelemetry)``: per step, the branch
+    taken and the adaptive gate's drift; the images are those of
+    ``telemetry=False``, bit for bit.
     """
     refuse_later(later, _LATER, "ddim_sample")
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
+    if telemetry:
+        if return_sequence:
+            raise ValueError("telemetry=True is last-only — previews and "
+                             "telemetry are separate products")
+        if not step_cache.enabled(cache_interval):
+            raise ValueError("telemetry=True needs the cached sampler "
+                             "(cache_interval > 1)")
     x = (fresh_start(model, generator, n, dev) if x_init is None
          else as_batch(x_init, dev))
-    coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
     noise = fold_in(generator, NOISE_STREAM) if eta else None
+    if step_cache.enabled(cache_interval):
+        out = _ddim_cached_impl(
+            model, x, noise, _make_cache(model, x, cache_mode), k=k,
+            t_start=t_start, eta=eta, cache_interval=cache_interval,
+            cache_mode=cache_mode, cache_threshold=cache_threshold,
+            cache_tokens=cache_tokens, sequence=return_sequence,
+            telemetry=telemetry)
+        return (out[0], out[2]) if telemetry else out[0]
+    coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
     _, x0, frames = _ddim_loop(model, x, coeffs, noise, return_sequence)
-    if x0 is None:
-        raise ValueError(f"empty schedule: total_steps={model.total_steps}, "
-                         f"k={k}, t_start={t_start}")
+    _check_schedule(x0, model, k, t_start)
     # the sample is the LAST x̂0 prediction (reference ViT.py:236)
     return _images(x0, frames)
 
@@ -171,28 +288,62 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
 def ddim_inpaint(model, x_init, known, mask, *, k: int = 10,
                  t_start: Optional[int] = None, eta: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 return_sequence: bool = False, device=None) -> torch.Tensor:
+                 return_sequence: bool = False, device=None,
+                 cache_interval: int = 1, cache_mode: str = "delta",
+                 cache_threshold: Optional[float] = None,
+                 cache_tokens: Optional[int] = None) -> torch.Tensor:
     """DDIM from ``x_init`` with the known pixels re-projected after every
     clamp (JAX ``_ddim_inpaint_impl``): ``known`` is the reference image in
     [−1, 1], ``mask`` an (n, H, W, 1) batch of {0, 1} (1 = known). The
     output is the LAST projected x̂0, so its known pixels are
-    ``(known + 1) / 2`` bit for bit; the projection is per row, and a padding
-    row (mask 0) passes through it untouched. ``return_sequence`` returns the
+    ``(known + 1) / 2`` bit for bit, at every cache setting (the projection
+    follows the cache branch); the projection is per row, and a padding row
+    (mask 0) passes through it untouched. ``return_sequence`` returns the
     start and every projected x̂0. ``eta`` > 0 draws its per-step noise from
-    ``generator`` itself (the caller's noise stream)."""
+    ``generator`` itself (the caller's noise stream). The ``cache_*``
+    options are :func:`ddim_sample`'s."""
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
     x = as_batch(x_init, dev)
     known = torch.as_tensor(known).to(device=dev, dtype=torch.float32)
     mask = torch.as_tensor(mask).to(device=dev, dtype=torch.float32)
+    if step_cache.enabled(cache_interval):
+        return _ddim_cached_impl(
+            model, x, generator, _make_cache(model, x, cache_mode), k=k,
+            t_start=t_start, eta=eta, cache_interval=cache_interval,
+            cache_mode=cache_mode, cache_threshold=cache_threshold,
+            cache_tokens=cache_tokens, sequence=return_sequence, known=known,
+            mask=mask)[0]
     coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
     _, x0, frames = _ddim_loop(model, x, coeffs, generator, return_sequence,
                                known, mask)
-    if x0 is None:
-        raise ValueError(f"empty schedule: total_steps={model.total_steps}, "
-                         f"k={k}, t_start={t_start}")
+    _check_schedule(x0, model, k, t_start)
     return _images(x0, frames)
+
+
+@torch.inference_mode()
+def _fewstep_cached_impl(model, x_init: torch.Tensor, noise: Optional[torch.Generator],
+                         cache0, *, steps: int, t_start: Optional[int], eta: float,
+                         cache_interval: int = 1, cache_mode: str = "delta",
+                         cache_threshold=None, cache_tokens=None, sequence: bool):
+    """The few-step loop (JAX ``_fewstep_impl``), through the step cache
+    when ``cache0`` is given (``_fewstep_cached_impl``): the first steps−1
+    evaluations take branches 0..steps−2 of the table, the final bare
+    forward its last. Returns ``(images, cache)``; ``cache0=None`` is the
+    plain loop (cache None)."""
+    coeffs = schedule.fewstep_coefficients(model.total_steps, steps, t_start, eta)
+    cached = None
+    if cache0 is not None:
+        cached = _Cached(model, _cached_spec(model, steps, cache_interval, cache_mode,
+                                             cache_threshold, cache_tokens), cache0)
+    head = schedule.DDIMCoefficients(*(a[:-1] for a in coeffs))
+    x, _, frames = _ddim_loop(model, x_init, head, noise, sequence, cached=cached)
+    # the jump to the clean image
+    x0 = _evaluator(model, cached)(x, int(coeffs.t_seq[-1]), steps - 1)
+    if frames is not None:
+        frames.append(x0)
+    return _images(x0, frames), (cached.cache if cached else None)
 
 
 @torch.inference_mode()
@@ -200,7 +351,11 @@ def ddim_sample_fewstep(model, generator: Optional[torch.Generator] = None, *,
                         steps: int, n: int = 128, x_init=None,
                         t_start: Optional[int] = None,
                         return_sequence: bool = False, eta: float = 0.0,
-                        device=None, **later) -> torch.Tensor:
+                        device=None, cache_interval: int = 1,
+                        cache_mode: str = "delta",
+                        cache_threshold: Optional[float] = None,
+                        cache_tokens: Optional[int] = None,
+                        **later) -> torch.Tensor:
     """Few-step DDIM sampling: exactly ``steps`` model evaluations along the
     proportional ``schedule.fewstep_time_sequence`` (the distilled-student
     serving path, k ∈ {1, 2, 4}); returns images in [0, 1].
@@ -208,31 +363,57 @@ def ddim_sample_fewstep(model, generator: Optional[torch.Generator] = None, *,
     The last jump targets the clean image, where the update is x' = x̂0
     exactly (``schedule.fewstep_coefficients``), so the final evaluation
     runs outside the loop as a bare forward and ``steps=1`` is one forward.
-    ``generator``/``x_init``/``t_start``/``return_sequence``/``eta`` behave
-    as in :func:`ddim_sample`.
+    ``generator``/``x_init``/``t_start``/``return_sequence``/``eta`` and the
+    ``cache_*`` options behave as in :func:`ddim_sample`.
     """
-    refuse_later(later, _LATER_CACHE, "ddim_sample_fewstep")
+    refuse_later(later, _LATER, "ddim_sample_fewstep")
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
     x = (fresh_start(model, generator, n, dev,
                      "ddim_sample_fewstep") if x_init is None
          else as_batch(x_init, dev))
-    coeffs = schedule.fewstep_coefficients(model.total_steps, steps, t_start, eta)
-    head = schedule.DDIMCoefficients(*(a[:-1] for a in coeffs))
     noise = fold_in(generator, NOISE_STREAM) if eta else None
-    x, _, frames = _ddim_loop(model, x, head, noise, return_sequence)
-    x0 = _x0(model, x, int(coeffs.t_seq[-1]))  # the jump to the clean image
-    if frames is not None:
-        frames.append(x0)
-    return _images(x0, frames)
+    cache0 = (_make_cache(model, x, cache_mode)
+              if step_cache.enabled(cache_interval) else None)
+    return _fewstep_cached_impl(
+        model, x, noise, cache0, steps=steps, t_start=t_start, eta=eta,
+        cache_interval=cache_interval, cache_mode=cache_mode,
+        cache_threshold=cache_threshold, cache_tokens=cache_tokens,
+        sequence=return_sequence)[0]
+
+
+@torch.inference_mode()
+def _cold_cached_impl(model, x_init: torch.Tensor, cache0, *, levels: int,
+                      return_sequence: bool, cache_interval: int = 1,
+                      cache_mode: str = "delta", cache_threshold=None,
+                      cache_tokens=None):
+    """The cold loop (naive Algorithm 1, x ← clamp(f(x, t)) for t = levels,
+    …, 1), through the step cache when ``cache0`` is given (JAX
+    ``_cold_cached_impl``). Returns ``(images, cache)``."""
+    cached = None
+    if cache0 is not None:
+        cached = _Cached(model, _cached_spec(model, levels, cache_interval, cache_mode,
+                                             cache_threshold, cache_tokens), cache0)
+    evaluate = _evaluator(model, cached)
+    x = x_init
+    frames = [x] if return_sequence else None
+    for i, t in enumerate(schedule.cold_time_sequence(levels).tolist()):
+        # the reference's DDIM-style correction is present upstream only as
+        # commented-out code (ViT_draft2drawing.py:275-285)
+        x = evaluate(x, t, i)
+        if return_sequence:
+            frames.append(x)
+    return _images(x, frames), (cached.cache if cached else None)
 
 
 @torch.inference_mode()
 def cold_sample(model, generator: Optional[torch.Generator] = None, *,
                 n: int = 49, levels: int = 6, x_init=None,
                 return_sequence: bool = False, device=None,
-                **later) -> torch.Tensor:
+                cache_interval: int = 1, cache_mode: str = "delta",
+                cache_threshold: Optional[float] = None,
+                cache_tokens: Optional[int] = None, **later) -> torch.Tensor:
     """Cold-diffusion sampling (naive Algorithm 1): x ← clamp(f(x, t)) for
     t = levels, …, 1; returns images in [0, 1].
 
@@ -241,9 +422,10 @@ def cold_sample(model, generator: Optional[torch.Generator] = None, *,
     ``levels`` defaults to 6 = log2(64). ``x_init`` starts from a
     caller-provided degraded state at level ``levels`` instead (the
     super-resolution workload's upsampled low-res input).
-    ``return_sequence`` returns the start and every prediction.
+    ``return_sequence`` returns the start and every prediction; the
+    ``cache_*`` options are :func:`ddim_sample`'s.
     """
-    refuse_later(later, _LATER_CACHE, "cold_sample")
+    refuse_later(later, _LATER, "cold_sample")
     dev = _sampling_device(model, device)
     if levels < 1:
         raise ValueError(f"levels must be >= 1, got {levels}")
@@ -251,14 +433,13 @@ def cold_sample(model, generator: Optional[torch.Generator] = None, *,
         x = cold_init(model, generator, n, dev)
     else:
         x = as_batch(x_init, dev)
-    frames = [x] if return_sequence else None
-    for t in schedule.cold_time_sequence(levels).tolist():
-        # the reference's DDIM-style correction is present upstream only as
-        # commented-out code (ViT_draft2drawing.py:275-285)
-        x = _x0(model, x, t)
-        if return_sequence:
-            frames.append(x)
-    return _images(x, frames)
+    cache0 = (_make_cache(model, x, cache_mode)
+              if step_cache.enabled(cache_interval) else None)
+    return _cold_cached_impl(model, x, cache0, levels=levels,
+                             return_sequence=return_sequence,
+                             cache_interval=cache_interval, cache_mode=cache_mode,
+                             cache_threshold=cache_threshold,
+                             cache_tokens=cache_tokens)[0]
 
 
 def cold_init(model, generator: Optional[torch.Generator], n: int,
@@ -287,11 +468,15 @@ def forward_noise(generator: torch.Generator, img: torch.Tensor, t_start: int,
 def sample_from(model, x_init, t_start: int, k: int = 10, eta: float = 0.0,
                 generator: Optional[torch.Generator] = None,
                 return_sequence: bool = False, device=None,
-                **later) -> torch.Tensor:
+                cache_interval: int = 1, cache_mode: str = "delta",
+                cache_threshold: Optional[float] = None,
+                cache_tokens: Optional[int] = None, **later) -> torch.Tensor:
     """Guided sampling: DDIM-denoise an encoded image from level ``t_start``
-    (a prefix-truncated :func:`ddim_sample`)."""
+    (a prefix-truncated :func:`ddim_sample`, its ``cache_*`` options too)."""
     return ddim_sample(model, generator, x_init=x_init, t_start=t_start, k=k,
                        eta=eta, return_sequence=return_sequence, device=device,
+                       cache_interval=cache_interval, cache_mode=cache_mode,
+                       cache_threshold=cache_threshold, cache_tokens=cache_tokens,
                        **later)
 
 

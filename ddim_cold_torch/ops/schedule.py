@@ -1,9 +1,9 @@
 """Diffusion schedules (numpy, host-side): the port's own copy.
 
 Counterpart of ``ddim_cold_tpu/ops/schedule.py``, copied for the functions
-the DDIM, few-step and cold samplers use, so the port never imports the JAX
-package. The tables
-are byte-for-byte the JAX package's (tests pin it).
+the DDIM, few-step and cold samplers and the step cache use, so the port
+never imports the JAX package. The tables are byte-for-byte the JAX
+package's (tests pin it).
 
 The reference's signal-level schedule is
 
@@ -179,3 +179,53 @@ def fewstep_coefficients(total_steps: int, steps: int,
 def cold_time_sequence(levels: int = 6) -> np.ndarray:
     """Cold-diffusion visit order t = levels..1 (reference ViT_draft2drawing.py:271)."""
     return np.arange(levels, 0, -1, dtype=np.int32)
+
+
+#: step-cache branch ids (ops/step_cache.py): one per reverse step, computed
+#: on the host like the DDIM coefficients above; the refresh/reuse pattern is
+#: static, so a sampler branches on it in Python with no device sync
+CACHE_REFRESH = 0  # full forward, (re)populate the block-delta cache
+CACHE_REUSE_REAR = 1  # skip the REAR trunk half, apply its cached delta
+CACHE_REUSE_FRONT = 2  # skip the FRONT trunk half, apply its cached delta
+CACHE_REUSE_ALL = 1  # ("full" mode) skip the whole trunk, apply both deltas
+CACHE_REUSE_TOKEN = 1  # ("token" mode) recompute only the top-k changed tokens
+
+
+def cache_branch_sequence(n_steps: int, cache_interval: int,
+                          cache_mode: str = "delta") -> np.ndarray:
+    """Per-step refresh/reuse branch ids for the step-cached samplers.
+
+    Step i refreshes iff ``i % cache_interval == 0`` (step 0 always: the
+    cache starts empty); every other step reuses. ``cache_mode`` picks what
+    a reuse step skips:
+
+    * ``"delta"`` — the Δ-DiT front/rear split (arXiv:2406.01125): reuse
+      steps of the early (high-noise) half skip the rear trunk half
+      (CACHE_REUSE_REAR), those of the late half the front (CACHE_REUSE_FRONT);
+    * ``"full"`` — reuse steps skip the whole trunk (CACHE_REUSE_ALL);
+    * ``"adaptive"`` — the same array as ``"delta"``: the static worst case
+      of the error-gated sampler, whose drift gate may turn a reuse step
+      back into a refresh (ops/step_cache.py);
+    * ``"token"`` — reuse steps recompute only the top-k changed tokens
+      (CACHE_REUSE_TOKEN, JiT arXiv:2603.10744).
+
+    ``cache_interval <= 1`` returns all-refresh (caching off; the samplers
+    then bypass the cache entirely)."""
+    if cache_mode not in ("delta", "full", "adaptive", "token"):
+        raise ValueError(
+            "cache_mode must be one of 'delta', 'full', 'adaptive', 'token', "
+            f"got {cache_mode!r}")
+    branch = np.zeros(n_steps, dtype=np.int32)
+    if cache_interval <= 1:
+        return branch
+    idx = np.arange(n_steps)
+    reuse = (idx % cache_interval) != 0
+    if cache_mode == "full":
+        branch[reuse] = CACHE_REUSE_ALL
+    elif cache_mode == "token":
+        branch[reuse] = CACHE_REUSE_TOKEN
+    else:  # "delta" and its error-gated form "adaptive" share the pattern
+        early = idx < (n_steps + 1) // 2
+        branch[reuse & early] = CACHE_REUSE_REAR
+        branch[reuse & ~early] = CACHE_REUSE_FRONT
+    return branch

@@ -1,7 +1,8 @@
 """Bucketed sampler server: the core plan → assemble → dispatch → fetch loop.
 
 Counterpart of ``ddim_cold_tpu/serve/engine.py`` (its core loop, the
-sampler families, the editing tasks, previews and the student weight set).
+sampler families, the step cache and its telemetry, the editing tasks,
+previews and the student weight set).
 Requests queue through :meth:`Engine.submit`; :meth:`Engine.run` coalesces
 them per :class:`~ddim_cold_torch.serve.batching.SamplerConfig` into the
 static bucket sizes (``plan_batches``), builds each padded batch, enqueues
@@ -39,6 +40,20 @@ its float weights on the first quant config that needs it;
 ``stats["param_bytes"]`` and ``stats["param_bytes_quant"]`` report the
 teacher's two states. Configs never coalesce across variants.
 
+**Step cache** (``SamplerConfig(cache_interval > 1)``, every sampler and
+task): a cached program takes its cache as an argument and hands it back
+(``sampling._*_cached_impl``). The engine keeps one spare cache per
+(bucket, kind), ``"pair"`` for delta, full and token, ``"adaptive"`` for the
+three-tensor adaptive cache (JAX ``_cache_kind``): a batch takes it, the
+sampler overwrites it in place, and it goes back to the pool, so serving
+allocates no cache after warmup (``prewarm_cache``). The schedule's step 0
+always refreshes, so the contents a batch finds are never read. An
+adaptive batch is coupled (its gate reduces over the batch with a max):
+its request rides alone and its padding rows are replicas of its row 0,
+which leave the max unchanged. A telemetry config's step aux is decoded
+once per batch (``obs.device.summarize``) into ``Ticket.telemetry``
+before the rows are delivered.
+
 **Bitwise contract.** A seeded request's randomness is drawn at its own
 ``n`` from ``torch.Generator(device).manual_seed(seed)`` (it cannot
 reproduce the JAX package's bits; parity with JAX runs through ``x_init``).
@@ -48,7 +63,7 @@ bitwise equal to the direct sampler or ``workloads.*`` call only AT THE SAME
 DISPATCH SHAPE (the same padded bucket batch); across buckets the contract
 is allclose.
 
-Configs outside this slice (cached, sequence-parallel, telemetry) raise
+Sequence-parallel configs (``sp_degree > 1``) raise
 ``NotImplementedError`` at ``submit`` naming their ROADMAP.md item. Fault
 injection, retries, bisection, deadlines, the watchdog, the metrics
 registry, spans and the prefetch thread come with the robustness and
@@ -66,7 +81,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ddim_cold_torch.ops import _build, quant, sampling
+from ddim_cold_torch.obs import device as obs_device
+from ddim_cold_torch.ops import _build, quant, sampling, step_cache
 from ddim_cold_torch.serve.batching import (BatchPlan, Request, SamplerConfig,
                                             Ticket, plan_batches)
 from ddim_cold_torch.serve.errors import RequestFailedError
@@ -94,18 +110,11 @@ def _need_seed(seed) -> int:
 
 
 def refuse_unported(config: SamplerConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice."""
-    later = [
-        (config.cached, f"cache_interval={config.cache_interval}",
-         "Queue 1 item 8 (step cache)"),
-        (config.sp_degree > 1, f"sp_degree={config.sp_degree}",
-         "Queue 1 item 14 (sequence parallelism)"),
-        (config.telemetry, "telemetry=True", "Queue 1 item 8 (telemetry)"),
-    ]
-    for hit, what, item in later:
-        if hit:
-            raise NotImplementedError(
-                f"SamplerConfig({what}) is not ported yet: ROADMAP.md {item}")
+    """Raise ``NotImplementedError`` for a config outside the port so far."""
+    if config.sp_degree > 1:
+        raise NotImplementedError(
+            f"SamplerConfig(sp_degree={config.sp_degree}) is not ported yet: "
+            "ROADMAP.md Queue 1 item 14 (sequence parallelism)")
 
 
 class Engine:
@@ -151,6 +160,7 @@ class Engine:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive, got {buckets!r}")
         self._programs: dict = {}
+        self._spare_caches: dict = {}  # (bucket, kind) -> a step cache
         self._variants: dict = {}     # (quant, fused, student) -> model variant
         self._qstates: dict = {}      # student -> that weight set's int8 state
         self._lock = threading.Lock()
@@ -318,9 +328,13 @@ class Engine:
 
     def _build_program(self, config: SamplerConfig):
         """The sampler call of a config, taking the batch's inputs in
-        assembly order: x, then the task's extras."""
+        assembly order: x, then the task's extras, then (cached configs)
+        the cache, which it returns beside the images."""
         model = self._model_for(config)
-        kw = dict(return_sequence=config.preview_every > 0, device=self.device)
+        seq = config.preview_every > 0
+        if config.cached:
+            return self._build_cached_program(model, config, seq)
+        kw = dict(return_sequence=seq, device=self.device)
         if config.task == "inpaint":
             return functools.partial(sampling.ddim_inpaint, model, k=config.k,
                                      t_start=config.t_start, **kw)
@@ -334,6 +348,29 @@ class Engine:
             fn = functools.partial(sampling.ddim_sample, model, k=config.k,
                                    t_start=config.t_start, **kw)
         return lambda x: fn(x_init=x)
+
+    @staticmethod
+    def _build_cached_program(model, config: SamplerConfig, seq: bool):
+        """The cached loop of a config (JAX ``_ddim_cached_spec``,
+        ``_ddim_cached_tel_spec``, ``_fewstep_cached_spec``,
+        ``_cold_cached_spec``, ``_inpaint_cached_spec``), taking the batch's
+        inputs and its cache."""
+        kw = dict(cache_interval=config.cache_interval, cache_mode=config.cache_mode,
+                  cache_threshold=config.cache_threshold,
+                  cache_tokens=config.cache_tokens or None)
+        ddim = dict(k=config.k, t_start=config.t_start, eta=0.0, **kw)
+        if config.task == "inpaint":
+            return lambda x, known, mask, cache: sampling._ddim_cached_impl(
+                model, x, None, cache, sequence=seq, known=known, mask=mask, **ddim)
+        if config.sampler == "cold":
+            return lambda x, cache: sampling._cold_cached_impl(
+                model, x, cache, levels=config.levels, return_sequence=seq, **kw)
+        if config.steps > 0:
+            return lambda x, cache: sampling._fewstep_cached_impl(
+                model, x, None, cache, steps=config.steps, t_start=config.t_start,
+                eta=0.0, sequence=seq, **kw)
+        return lambda x, cache: sampling._ddim_cached_impl(
+            model, x, None, cache, sequence=seq, telemetry=config.telemetry, **ddim)
 
     def ensure_program(self, config: SamplerConfig, bucket: int):
         """The program for one (config, bucket) pair — the only place one is
@@ -354,6 +391,50 @@ class Engine:
         if config.task != "inpaint":
             return (x,)
         return x, torch.zeros_like(x), torch.zeros((bucket, H, W, 1), device=self.device)
+
+    def run_program(self, config: SamplerConfig, bucket: int, xs: tuple):
+        """Run the (config, bucket) program on a batch's inputs. A cached
+        program takes the spare cache of its (bucket, kind) and gives it
+        back. Returns the images, or ``(images, StepTelemetry)`` for a
+        telemetry config."""
+        prog = self.ensure_program(config, bucket)
+        if not config.cached:
+            return prog(*xs)
+        out = prog(*xs, self._take_cache(bucket, config))
+        self._recycle_cache(bucket, config, out[1])
+        return (out[0], out[2]) if config.telemetry else out[0]
+
+    # ---------------------------------------------------------- cache pool
+
+    @staticmethod
+    def _cache_kind(config: SamplerConfig) -> str:
+        """Pool key suffix: delta, full and token share the two-tensor
+        (B, N+1, E) cache ("pair"; every schedule refreshes at step 0
+        before it reads one), adaptive adds ``x_ref`` and has its own."""
+        return "adaptive" if config.cache_mode == "adaptive" else "pair"
+
+    def _take_cache(self, bucket: int, config: SamplerConfig):
+        cache = self._spare_caches.pop((bucket, self._cache_kind(config)), None)
+        if cache is None:
+            H, W = self.model.img_size
+            cache = step_cache.init_cache(
+                bucket, self.model.num_patches + 1, self.model.embed_dim,
+                self.model.dtype, mode=config.cache_mode,
+                img_shape=(H, W, self.model.in_chans), device=self.device)
+        return cache
+
+    def _recycle_cache(self, bucket: int, config: SamplerConfig, cache) -> None:
+        self._spare_caches[(bucket, self._cache_kind(config))] = cache
+
+    def prewarm_cache(self, config: SamplerConfig, bucket: int) -> None:
+        """Allocate the spare cache of a cached (config, bucket) now, so no
+        dispatch pays for it (warmup calls this); a no-op for an uncached
+        config or when the pool already holds one of the kind."""
+        if not config.cached:
+            return
+        key = (bucket, self._cache_kind(config))
+        if key not in self._spare_caches:
+            self._spare_caches[key] = self._take_cache(bucket, config)
 
     # -------------------------------------------------------------- stages
 
@@ -390,34 +471,51 @@ class Engine:
     def _assemble(self, plan: BatchPlan) -> tuple:
         """The padded bucket batch: x first, then the task's extras, each
         request's rows sliced in and zero rows appended (a padding row's
-        mask is 0, so the inpaint projection leaves it alone)."""
+        mask is 0, so the inpaint projection leaves it alone). A
+        batch-coupled (adaptive) plan pads with replicas of its row 0
+        instead: they evolve as row 0 does, so the gate's batch max is the
+        unpadded batch's (JAX engine.py:731)."""
         inputs = [[self._request_init(req)[lo:hi] for req, lo, hi, _ in plan.entries]]
         for name in _EXTRA_INPUTS.get(plan.config.task, ()):
             inputs.append([req.extras[name][lo:hi] for req, lo, hi, _ in plan.entries])
         out = []
         for parts in inputs:
             if plan.padded_rows:
-                parts.append(torch.zeros((plan.padded_rows,) + parts[0].shape[1:],
-                                         dtype=torch.float32, device=self.device))
+                pad = (plan.padded_rows,) + parts[0].shape[1:]
+                parts.append(parts[0][:1].expand(pad) if plan.config.batch_coupled
+                             else torch.zeros(pad, dtype=torch.float32,
+                                              device=self.device))
             out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=0))
         return tuple(out)
 
-    def _dispatch(self, plan: BatchPlan) -> torch.Tensor:
-        prog = self.ensure_program(plan.config, plan.bucket)
-        out = prog(*self._assemble(plan))
+    def _dispatch(self, plan: BatchPlan):
+        out = self.run_program(plan.config, plan.bucket, self._assemble(plan))
         with self._lock:
             self._stats["dispatches"] += 1
             self._stats["rows"] += plan.rows
             self._stats["padded_rows"] += plan.padded_rows
         return out
 
-    def _finish(self, plan: BatchPlan, out: torch.Tensor) -> None:
+    def _finish(self, plan: BatchPlan, out) -> None:
         """One blocking device → host copy per batch; rows land in each
         ticket, padding rows are never read. A preview config's output is
         the trajectory: its scheduled intermediate frames go to each
-        ticket's previews first, then the last frame is the result."""
+        ticket's previews first, then the last frame is the result. A
+        telemetry config's step aux is summarised once and set on every
+        ticket of the batch before its rows are delivered."""
+        config = plan.config
+        if config.telemetry:
+            out, tel = out
         host = out.cpu().numpy()
-        every = plan.config.preview_every
+        if config.telemetry:
+            summary = obs_device.summarize(
+                obs_device.StepTelemetry(tel.branch, tel.drift.cpu().numpy()),
+                cache_interval=config.cache_interval, cache_mode=config.cache_mode,
+                cache_threshold=config.cache_threshold or 0.0,
+                cache_tokens=config.cache_tokens)
+            for req in {id(r): r for r, *_ in plan.entries}.values():
+                req.ticket.telemetry = summary
+        every = config.preview_every
         if every:
             for j in workload_preview.preview_indices(host.shape[0] - 1, every):
                 for req, lo, hi, offset in plan.entries:
@@ -478,7 +576,7 @@ class Engine:
             "failed_tickets": s1["failed_tickets"] - s0["failed_tickets"],
         }
 
-    def _finish_safe(self, plan: BatchPlan, out: torch.Tensor) -> None:
+    def _finish_safe(self, plan: BatchPlan, out) -> None:
         try:
             self._finish(plan, out)
         except Exception as exc:  # noqa: BLE001 — fails this batch only

@@ -25,8 +25,8 @@ functions and ``serve/engine.py``'s ``_request_init`` call the same code.
 
 The JAX functions take ``params`` and a ``jax.random`` key; here the model
 holds its weights and a ``torch.Generator`` on the model's device takes the
-key's place. The step-cache options raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 8).
+key's place. Every task takes the step-cache options (``cache_interval``,
+``cache_mode``, ``cache_threshold``, ``cache_tokens``) of its sampler.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ import torch
 
 from ddim_cold_torch.data.resize import nearest_indices
 from ddim_cold_torch.ops import degrade, sampling
-from ddim_cold_torch.utils.slices import refuse_later
 
 #: the served editing tasks; "sample" (plain generation) completes the
 #: SamplerConfig ``task`` domain (serve/batching.py keeps its own literals)
@@ -131,16 +130,18 @@ def superres_project(outputs, low_res) -> np.ndarray:
 
 def inpaint(model, generator: torch.Generator, known, mask, *, k: int = 10,
             t_start: Optional[int] = None, eta: float = 0.0,
-            return_sequence: bool = False, device=None, **later) -> torch.Tensor:
+            cache_interval: int = 1, cache_mode: str = "delta",
+            cache_threshold: Optional[float] = None,
+            cache_tokens: Optional[int] = None,
+            return_sequence: bool = False, device=None) -> torch.Tensor:
     """Training-free inpainting: DDIM from fresh noise (drawn from
     ``generator`` at the known image's n) with per-step re-projection of the
     known pixels (``sampling.ddim_inpaint``). ``known`` is the reference image
     in [−1, 1]; ``mask`` selects the pixels to preserve (see
     :func:`normalize_mask`). The known pixels of the result are
-    ``(known + 1) / 2`` bit for bit. η > 0 draws its noise from
-    ``fold_in(generator, NOISE_STREAM)``. Served form:
+    ``(known + 1) / 2`` bit for bit, at every cache setting. η > 0 draws
+    its noise from ``fold_in(generator, NOISE_STREAM)``. Served form:
     ``SamplerConfig(task="inpaint")`` + ``submit(seed=, x_init=known, mask=)``."""
-    refuse_later(later, sampling._LATER_CACHE, "inpaint")
     dev = sampling._sampling_device(model, device)
     known = sampling.as_batch(known, dev)
     n = known.shape[0]
@@ -149,7 +150,10 @@ def inpaint(model, generator: torch.Generator, known, mask, *, k: int = 10,
     noise = sampling.fold_in(generator, sampling.NOISE_STREAM) if eta else None
     return sampling.ddim_inpaint(model, x_init, known, m, k=k, t_start=t_start,
                                  eta=eta, generator=noise,
-                                 return_sequence=return_sequence, device=device)
+                                 return_sequence=return_sequence, device=device,
+                                 cache_interval=cache_interval, cache_mode=cache_mode,
+                                 cache_threshold=cache_threshold,
+                                 cache_tokens=cache_tokens)
 
 
 def super_resolve(model, low_res, *, level: int, return_sequence: bool = False,

@@ -13,7 +13,12 @@ reads them from the file; this file pins the file to the reference:
   recomputed here from the stored inputs, equal the stored arrays bit for
   bit;
 * the port's plain version, on the CPU at the same inputs, O and lse, lies
-  within ``grad_error_limit`` of the JAX gradients.
+  within ``grad_error_limit`` of the JAX gradients;
+* the diagnosis of the Queue 3 fault, in float64 from the stored inputs,
+  lse and O: the dS element the kernel rounds the other way lies closer to
+  its bf16 rounding boundary than float32 can resolve, so no float32
+  ordering is held to JAX's side of it, and a dS carried unrounded moves dq
+  further from JAX's, not closer.
 
 Run as a script on the CPU to (re)write the fixture from the inputs the
 card wrote::
@@ -98,6 +103,61 @@ def test_plain_version_is_within_the_limit_of_jax(stored):
         err = (grad[:, :, i].float() - ref.float()).abs()
         limit = fa.grad_error_limit(ref)
         assert bool((err <= limit).all()), (name, (err / limit).max().item())
+
+
+#: the element of dS whose bf16 rounding the kernel flips: (b, h, row, key)
+FLIP = (0, 1, 56, 83)
+
+
+def test_queue3_flip_lies_inside_f32_rounding_noise():
+    """ROADMAP.md Queue 3, recorded. In float64 from the fixture's bf16
+    inputs and JAX's lse and O (P = exp(S·scale − lse), δ = rowsum(dO∘O),
+    dS = P∘(dP − δ)): the flipped element of dS lies 5.94e-6 of itself above
+    its bf16 rounding boundary, while rounding its exponent argument S·scale
+    (140.80) to float32 alone moves P by 7.63e-6 relative, and the dot
+    products' ordering error may move it by 4.2e-4: which side a float32
+    computation lands on depends on its summation order. With dS
+    rounded to bf16 as the kernels round it, dq reads ≤ 0.01× the limit of
+    JAX's dq (0.0059×); with dS unrounded (what a hi/lo bf16 split of dS
+    would compute) 11.19×, past it at 33 elements: a more precise dS moves
+    the port away from JAX."""
+    t = {n: a.double() for n, a in bwd_fixture.load("cpu").items()}
+    c = bwd_fixture.CASE
+    B, N, H, D = c["B"], c["N"], c["H"], c["D"]
+    scale = D**-0.5
+    arg = torch.einsum("bnhd,bmhd->bhnm", t["q"], t["k"]) * scale
+    p = torch.exp(arg - t["lse"].reshape(B, H, N, 1))
+    dp = torch.einsum("bnhd,bmhd->bhnm", t["do"], t["v"])
+    delta = (t["do"] * t["o"]).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+
+    exact = ds[FLIP].item()
+    lo = np.float32(exact).view(np.int32) & ~0xFFFF  # the bf16 value below
+    boundary = (np.int32(lo).view(np.float32)
+                + np.int32(lo + 0x10000).view(np.float32)) / 2.0
+    rel = (exact - float(boundary)) / exact
+    half_ulp = float(np.spacing(np.float32(arg[FLIP].item()))) / 2.0
+    assert abs(exact - 2.8984547) < 1e-6 and float(boundary) == 2.8984375
+    assert 5.9e-6 < rel < 6.0e-6, rel
+    assert abs(arg[FLIP].item() - 140.80) < 0.01
+    # rounding the argument of exp to f32 moves P (relatively) by more
+    # than dS's distance to its boundary, and an f32 dot product's ordering
+    # error, D·2⁻²⁴·scale·Σ|q||k|, by far more again
+    assert abs(half_ulp - 7.63e-6) < 1e-8 and half_ulp > rel
+    b, h, row, key = FLIP
+    order = D * 2.0**-24 * scale * (t["q"][b, row, h].abs() @ t["k"][b, key, h].abs()).item()
+    assert abs(order - 4.2e-4) < 1e-5 and order > half_ulp
+
+    ref = bwd_fixture.load("cpu")["dq"]
+    limit = fa.grad_error_limit(ref).double()
+    ratios = {}
+    for name, d in (("rounded", ds.to(torch.bfloat16).double()), ("unrounded", ds)):
+        dq = (scale * torch.einsum("bhnm,bmhd->bnhd", d, t["k"])).to(torch.bfloat16)
+        ratios[name] = ((dq.double() - ref.double()).abs() / limit)
+    assert ratios["rounded"].max().item() <= 0.01, ratios["rounded"].max().item()
+    assert ratios["unrounded"].max().item() > 1.0
+    assert abs(ratios["unrounded"].max().item() - 11.19) < 0.01
+    assert int((ratios["unrounded"] > 1.0).sum()) == 33
 
 
 def main(argv) -> int:

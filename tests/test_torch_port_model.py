@@ -134,14 +134,44 @@ def test_later_slice_ctor_hooks_raise(hook):
         PortViT(**TINY, device="cpu", **hook)
 
 
-@pytest.mark.parametrize("hook", [dict(capture_split=1), dict(stage="embed"),
-                                  dict(return_attention_layer=0),
-                                  dict(token_k=3), dict(skip_blocks=(0, 1))])
+@pytest.mark.parametrize("hook", [dict(stage="embed"), dict(return_attention_layer=0)])
 def test_later_slice_forward_hooks_raise(hook):
     model = PortViT(**TINY, device="cpu")
     x, t = _inputs()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model(torch.from_numpy(x), torch.from_numpy(t), **hook)
+
+
+@pytest.mark.parametrize("hook", [dict(capture_split=1), dict(token_k=3),
+                                  dict(skip_blocks=(0, 1))])
+def test_cache_forward_hooks_match_jax(jax_params, hook):
+    """The step-cache hooks this slice refused before: each one's x̂0 and
+    cache against JAX's (the reuse hooks fed a JAX refresh at another
+    level), at the float32 forward's tolerance
+    (tests/test_torch_port_cache.py holds every hook on every route)."""
+    x, t = _inputs()
+    xp, tp = _inputs(3)
+    model = DiffusionViT(**TINY)
+    apply = lambda xx, tt, **kw: model.apply({"params": jax_params}, jnp.asarray(xx),  # noqa: E731
+                                             jnp.asarray(tt), **kw)
+    if "token_k" in hook:
+        cache = [np.asarray(a) for a in apply(xp, tp, capture_tokens=True)[1]]
+        jkw = dict(hook, token_cache=tuple(jnp.asarray(a) for a in cache))
+        pkw = dict(hook, token_cache=tuple(torch.from_numpy(a.copy()) for a in cache))
+    elif "skip_blocks" in hook:
+        delta = np.asarray(apply(xp, tp, capture_split=1)[1][0])
+        jkw, pkw = (dict(hook, block_delta=jnp.asarray(delta)),
+                    dict(hook, block_delta=torch.from_numpy(delta.copy())))
+    else:
+        jkw = pkw = hook
+    want = apply(x, t, **jkw)
+    with torch.no_grad():
+        got = _port(jax_params)(torch.from_numpy(x), torch.from_numpy(t), **pkw)
+    if isinstance(want, tuple):
+        for g, w in zip(got[1], want[1]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+        got, want = got[0], want[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
 
 
 def test_unknown_and_dropped_options_are_type_errors():
@@ -202,9 +232,19 @@ def test_forward_noise_formula():
     torch.testing.assert_close(got, np.sqrt(a) * img + np.sqrt(1 - a) * eps)
 
 
-@pytest.mark.parametrize("later", [dict(cache_interval=2), dict(telemetry=True),
-                                   dict(cache_mode="token")])
-def test_later_slice_sampler_options_raise(jax_params, later):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_sampling.ddim_sample(_port(jax_params), x_init=np.zeros((1, 16, 16, 3)),
-                                  k=K, device="cpu", **later)
+@pytest.mark.parametrize("options", [
+    dict(cache_interval=2), dict(cache_interval=2, telemetry=True),
+    dict(cache_interval=2, cache_mode="token", cache_tokens=5)])
+def test_cache_sampler_options_match_jax(jax_params, options):
+    """The step-cache options this slice refused before, run: the cached
+    DDIM sampler against JAX's from JAX's start (atol 1e-4), its telemetry
+    the same branch sequence."""
+    x = np.random.RandomState(8).randn(2, 16, 16, 3).astype(np.float32)
+    want = sampling.ddim_sample(DiffusionViT(**TINY), jax_params, x_init=jnp.asarray(x),
+                                k=K, **options)
+    got = port_sampling.ddim_sample(_port(jax_params), x_init=x, k=K, device="cpu",
+                                    **options)
+    if options.get("telemetry"):
+        (got, got_tel), (want, want_tel) = got, want
+        assert list(got_tel.branch) == list(np.asarray(want_tel.branch))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)

@@ -209,12 +209,18 @@ def test_fold_in_streams_are_reproducible_and_distinct():
 
 
 @pytest.mark.parametrize("fn,kw", [
-    ("cold_sample", dict(x_init=np.zeros((1, 16, 16, 3)), levels=2)),
-    ("ddim_sample_fewstep", dict(x_init=np.zeros((1, 16, 16, 3)), steps=2))])
-@pytest.mark.parametrize("later", [dict(cache_interval=2), dict(cache_mode="token")])
-def test_later_slice_options_raise(models, fn, kw, later):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(port_sampling, fn)(models[2], device="cpu", **kw, **later)
+    ("cold_sample", dict(levels=3)), ("ddim_sample_fewstep", dict(steps=3))])
+@pytest.mark.parametrize("options", [
+    dict(cache_interval=2), dict(cache_interval=2, cache_mode="token", cache_tokens=9)])
+def test_cached_cold_and_fewstep_match_jax(models, fn, kw, options):
+    """The step-cache options this slice refused before, run: the cached
+    cold and few-step samplers against JAX's from JAX's start."""
+    jmodel, params, pmodel = models
+    x = np.random.RandomState(21).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    want = getattr(sampling, fn)(jmodel, params, x_init=jnp.asarray(x), **kw, **options)
+    got = getattr(port_sampling, fn)(pmodel, x_init=x, device="cpu", **kw, **options)
+    assert got.shape == want.shape
+    _close(got, want)
 
 
 # ---------------------------------------------------------- interpolation

@@ -163,15 +163,44 @@ def test_engine_fresh_starts_and_split_add_no_program(models, warmed):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache_interval=2), dict(cache_interval=2, quant="pallas"),
-    dict(cache_interval=4, cache_mode="token", cache_tokens=3),
     dict(sp_mode="ring", sp_degree=2),
-    dict(cache_interval=2, telemetry=True)])
+    dict(sp_mode="ring", sp_degree=2, cache_interval=2)])
 def test_out_of_slice_configs_raise_at_submit(warmed, kw):
     eng, _ = warmed
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         eng.submit(seed=0, n=1, k=K, **kw)
     assert eng.queue_depth() == 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cache_interval=2), dict(cache_interval=2, quant="pallas"),
+    dict(cache_interval=4, cache_mode="token", cache_tokens=3),
+    dict(cache_interval=2, telemetry=True)])
+def test_cached_configs_are_served(models, kw):
+    """The cached configs this slice refused before, served: two 2-row
+    requests share a bucket-4 batch, the rows equal the direct cached
+    sampler on that batch and, for the float configs, JAX's cached sampler
+    on the same start (atol 1e-4); telemetry reaches the tickets."""
+    jmodel, params, pmodel = models
+    eng = port_serve.Engine(pmodel, buckets=(4, 8), device="cpu")
+    config = port_serve.SamplerConfig(k=K, **kw)
+    x = np.random.RandomState(4).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    tickets = [eng.submit(x_init=x, config=config) for _ in range(2)]
+    report = eng.run()
+    assert (report["batches"], report["failed_tickets"]) == (1, 0)
+    options = {k: v for k, v in kw.items() if k != "quant"}
+    want = port_sampling.ddim_sample(eng._model_for(config), x_init=np.concatenate([x, x]),
+                                     k=K, device="cpu", **options)
+    if config.telemetry:
+        want, tel = want
+        assert tickets[0].telemetry["branch"] == list(tel.branch)
+    for ticket in tickets:
+        np.testing.assert_array_equal(ticket.result(timeout=5), want[:2].numpy())
+    if not config.quant:
+        jwant = sampling.ddim_sample(jmodel, params, x_init=jnp.asarray(x), k=K, **options)
+        jwant = jwant[0] if config.telemetry else jwant
+        np.testing.assert_allclose(tickets[0].result(timeout=5), np.asarray(jwant),
+                                   rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("kw", [
