@@ -107,7 +107,23 @@ Phases, one JSON object per line:
    and ``cache_interval=1`` (the uncached batch), τ = ∞ (the delta batch),
    telemetry off (telemetry on); the speed-up over the uncached batch
    beside ``flops_saved_fraction`` and |cached − uncached|;
-16. the ``kernels`` summary line (all six kernels, each with its design:
+16. fid — FID and the four quality guards on the card: the seeded proxy
+   extractor at 200 px against its CPU float32 output on 2 images (rtol
+   2e-3, atol 2e-4) with its device time for 32 images and its peak
+   memory; then at k=20 over 32 samples in 8-row batches
+   ``cached_sampler_guard`` at ``cache_interval=1`` (exactly 0), full i2
+   and inpaint delta i2, ``quantized_sampler_guard`` with
+   ``quant="pallas"`` and with ``quant="w8a8"`` on the float fused model,
+   and ``superres_consistency_guard`` on a served superres batch after
+   ``superres_project`` (bit-exact); exact launches per guard, distances
+   recorded with no limit;
+17. distill — progressive distillation of the same model, 4 → 2 → 1,
+   ``ddim`` and ``cold``, at batch 16: exact launches over the run and
+   over 10 timed updates (depth × 3 flash_fwd and depth × each backward
+   kernel an update), ms/step, peak memory, every loss finite; a restart
+   resuming ``live/`` at its iteration; ``distilled_sampler_guard`` of the
+   k=1 student; the k=1 student served, bit for bit its direct call;
+18. the ``kernels`` summary line (all six kernels, each with its design:
    "wgmma", the bfloat16 route on the tensor cores), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
@@ -1617,6 +1633,331 @@ def phase_serve_cache(torch, model, fa, quant, serve):
     return {label: rec["launches"] for label, rec in recs.items()}
 
 
+#: the fid phase: the guards' samples (n_samples 32 in 8-row batches, so 4
+#: sampler batches a stream), the extractor's card-vs-CPU tolerance (JAX's
+#: own framework-parity tolerance, tests/test_inception_parity.py:232) and
+#: its timed batch
+FID_SAMPLES, FID_BATCH = 32, 8
+FID_RTOL, FID_ATOL = 2e-3, 2e-4
+EXTRACTOR_BATCH = 32
+#: the distill phase: rounds 4 → 2 → 1 of DISTILL_ITERS updates at the
+#: training batch, a live checkpoint every 2 updates; cold over 8 levels
+#: (8 | 2·4); then DISTILL_REPS timed updates of the first round's step
+DISTILL_ITERS, DISTILL_BATCH, DISTILL_LR, DISTILL_LEVELS = 4, 16, 1e-4, 8
+DISTILL_WARM, DISTILL_REPS = 2, 10
+#: the kernels whose launches the fid and distill phases count
+PATH_KERNELS = QUANT_KERNELS + ("flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _counts(fa, quant) -> dict:
+    return {k: fa.LAUNCHES[k] + quant.LAUNCHES[k] for k in PATH_KERNELS}
+
+
+def phase_fid(torch, model, fa, quant, serve):
+    """FID and the four quality guards on the card. The extractor (the
+    seeded proxy, ``inception.init_variables(0)``) at 200 px against the
+    same module's CPU float32 output on 2 images, element-wise within
+    ``FID_ATOL + FID_RTOL·|cpu|`` (TF32 off); its device time for a batch
+    of ``EXTRACTOR_BATCH`` and its peak memory. Then, at k=20 over
+    ``FID_SAMPLES`` samples in ``FID_BATCH``-row batches:
+    ``cached_sampler_guard`` at ``cache_interval=1`` (exactly 0.0 and max
+    |Δ| 0: the two streams are one program), full i2, and the inpaint task
+    at delta i2; ``quantized_sampler_guard`` with ``quant="pallas"``
+    (dequant_mm) and with ``quant="w8a8"`` on ``model.clone(fused=True)``
+    (fused_trunk, mlp_fused); ``superres_consistency_guard`` on a served
+    superres batch after ``workloads.superres_project`` (bit-exact), and on
+    the raw batch (reported). The launch counters are zeroed just before
+    each guard and read just after: exactly blocks run × launches a block,
+    from the branch tables. The distances are recorded with no limit: the
+    JAX package sets none, and the proxy's absolute scale means nothing."""
+    import numpy as np
+
+    from ddim_cold_torch import workloads
+    from ddim_cold_torch.eval import fid, inception
+
+    t_phase = time.perf_counter()
+    H, W = model.img_size
+    rs = np.random.RandomState(SEED + 40)
+    _, proxy = inception.init_variables(0)
+    fn_cpu, _ = fid.make_feature_fn(variables=proxy, device="cpu")
+    fn, dim = fid.make_feature_fn(variables=proxy)
+    imgs = rs.rand(2, H, W, 3).astype(np.float32)
+    want = fn_cpu(imgs).numpy()
+    got = fn(imgs).cpu().numpy()
+    err = np.abs(got - want)
+    over = err / (FID_ATOL + FID_RTOL * np.abs(want))
+    batch = torch.rand((EXTRACTOR_BATCH, H, W, 3), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 41))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: fn(batch), reps=5, warm=2)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "fid", "what": "extractor", "input_px": H, "dim": dim,
+          "max_abs_err_vs_cpu": float(err.max()), "max_err_over_tol": float(over.max()),
+          "rtol": FID_RTOL, "atol": FID_ATOL, "feature_std": float(want.std()),
+          "batch": EXTRACTOR_BATCH, "ms": ms, "img_per_sec": EXTRACTOR_BATCH / ms * 1e3,
+          "peak_mem_gib": peak / 2**30, "peak_above_resident_gib": (peak - base) / 2**30})
+    check(got.shape == (2, dim) and bool(np.isfinite(got).all()), "fid extractor output")
+    check(float(over.max()) <= 1.0, f"fid extractor card vs CPU: {float(over.max())} "
+          "of the tolerance")
+    del fn_cpu, fn, batch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    common = dict(generator=gen, n_samples=FID_SAMPLES, sample_batch=FID_BATCH, k=K)
+    n_batches = -(-FID_SAMPLES // FID_BATCH)
+    plain = model.depth * _forwards(serve.SamplerConfig(k=K), model.total_steps)
+    full = _cache_plan(model, serve.SamplerConfig(k=K, cache_interval=2,
+                                                  cache_mode="full"))[2]
+    delta = _cache_plan(model, serve.SamplerConfig(task="inpaint", k=K,
+                                                   cache_interval=2))[2]
+    fused = model.clone(fused=True)
+    fused.load_state_dict(model.state_dict(), strict=True)
+    guards = (
+        ("fid cached i1", "fid_exact_vs_cached",
+         lambda: fid.cached_sampler_guard(model, cache_interval=1, **common),
+         {"flash_fwd": 2 * plain}),
+        ("fid cached full i2", "fid_exact_vs_cached",
+         lambda: fid.cached_sampler_guard(model, cache_interval=2, cache_mode="full",
+                                          **common),
+         {"flash_fwd": plain + full}),
+        ("fid inpaint delta i2", "fid_exact_vs_cached",
+         lambda: fid.cached_sampler_guard(model, cache_interval=2, cache_mode="delta",
+                                          task="inpaint", **common),
+         {"flash_fwd": plain + delta}),
+        ("fid quant pallas", "fid_exact_vs_quant",
+         lambda: fid.quantized_sampler_guard(model, quant="pallas", **common),
+         {"flash_fwd": 2 * plain, "dequant_mm": 4 * plain}),
+        ("fid quant w8a8 fused", "fid_exact_vs_quant",
+         lambda: fid.quantized_sampler_guard(fused, quant="w8a8", **common),
+         {"flash_fwd": plain, "mlp_fused": 2 * plain, "fused_trunk": plain}),
+    )
+    launches, reports = {}, {}
+    for label, key, run, per_batch in guards:
+        _zero((fa.LAUNCHES, quant.LAUNCHES))          # this path starts here
+        t0 = time.perf_counter()
+        report = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts(fa, quant)                      # ... and ends here
+        want = {k: per_batch.get(k, 0) * n_batches for k in PATH_KERNELS}
+        launches[label], reports[label] = got, report
+        emit({"phase": "fid", "what": label, "model": MODEL, "dtype": "bfloat16",
+              "report": report, "wall_s": wall, "launches": got,
+              "expected_launches": want})
+        check(math.isfinite(report[key]) and math.isfinite(report["max_abs_pixel_delta"]),
+              f"{label}: distance {report[key]}")
+        check(got == want, f"{label} launches {got}, expected {want}")
+    i1 = reports["fid cached i1"]
+    check(i1["fid_exact_vs_cached"] == 0.0 and i1["max_abs_pixel_delta"] == 0.0,
+          f"fid cached i1 is not exactly 0: {i1}")
+    del fused
+    torch.cuda.empty_cache()
+
+    # the superres guard on a served batch (3 levels: 25×25 → 200×200)
+    low = rs.uniform(-1, 1, (8, H >> 3, W >> 3, 3)).astype(np.float32)
+    config = serve.SamplerConfig(task="superres", sampler="cold", levels=3)
+    eng = serve.Engine(model, buckets=(8,))
+    serve.warmup(eng, [config])
+    _zero((fa.LAUNCHES, quant.LAUNCHES))              # this path starts here
+    ticket = eng.submit(x_init=workloads.superres_init(low, H), config=config)
+    report = eng.run()
+    torch.cuda.synchronize()
+    got = _counts(fa, quant)                          # ... and ends here
+    want = {k: (model.depth * 3 if k == "flash_fwd" else 0) for k in PATH_KERNELS}
+    out = ticket.result(timeout=900)
+    del eng
+    projected = fid.superres_consistency_guard(workloads.superres_project(out, low), low)
+    raw = fid.superres_consistency_guard(out, low)
+    launches["fid superres served"] = got
+    emit({"phase": "fid", "what": "superres served", "levels": 3, "rows": report["rows"],
+          "projected": projected, "raw": raw, "launches": got, "expected_launches": want})
+    check(projected["bit_exact"], f"superres guard on the projected batch: {projected}")
+    check(got == want, f"fid superres served launches {got}, expected {want}")
+    emit({"phase": "fid", "what": "phase", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_distill(torch, model, fa, quant, serve):
+    """Progressive distillation of the bf16 200_p4 model (its seeded
+    weights; synthetic 4×4-tile batches of ``DISTILL_BATCH``; rounds 4 → 2
+    → 1 of ``DISTILL_ITERS`` updates, ``save_every`` 2), ``ddim`` and
+    ``cold``. The student's forward is the evaluation forward, so even at
+    ``attn_drop_rate`` 0.1 it takes the flash route: every update launches
+    depth × 3 flash_fwd (the teacher's two sub-steps and the student) and
+    depth × one of each backward kernel, counted over the whole run and
+    over ``DISTILL_REPS`` timed updates of the first round's step (ms/step,
+    peak memory). Every logged loss finite. For ``ddim``: a run stopped in
+    round k=2 after its live save restarts, restores the finished k=4
+    student and resumes at iteration 2 (the result against the
+    uninterrupted run's, reported); ``distilled_sampler_guard`` of the k=1
+    student against the teacher at k=20; the k=1 student served through
+    ``Engine(student_params=...)`` with ``SamplerConfig(steps=1,
+    student=True)``, bit for bit the direct ``ddim_sample_fewstep`` of the
+    same seed and batch."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from ddim_cold_torch.eval import fid
+    from ddim_cold_torch.ops import sampling
+    from ddim_cold_torch.train import distill
+
+    t_phase = time.perf_counter()
+    H, W = model.img_size
+    per_step = {"flash_fwd": 3 * model.depth, "flash_bwd_dq": model.depth,
+                "flash_bwd_dkv": model.depth}
+    expect = lambda n: {k: per_step.get(k, 0) * n for k in PATH_KERNELS}  # noqa: E731
+    launches, students = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("ddim", "cold"):
+            cfg = distill.DistillConfig(
+                start_steps=4, target_steps=1, iters=DISTILL_ITERS,
+                batch_size=DISTILL_BATCH, lr=DISTILL_LR, variant=variant,
+                cold_levels=DISTILL_LEVELS, log_every=1, save_every=2,
+                checkpoint_dir=os.path.join(tmp, variant), seed=SEED)
+            n_updates = len(cfg.round_steps()) * cfg.iters
+            _zero((fa.LAUNCHES, quant.LAUNCHES))      # this path starts here
+            t0 = time.perf_counter()
+            out = distill.distill(model, cfg, log=os.path.join(tmp, f"{variant}.log"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _counts(fa, quant)                  # ... and ends here
+            launches[f"distill {variant}"] = got
+            history = {str(k): v for k, v in out["history"].items()}
+            finite = all(len(v) == cfg.iters and all(map(math.isfinite, v))
+                         for v in out["history"].values())
+
+            # the first round's step, timed
+            state = distill.make_student_state(model, cfg.lr, DISTILL_WARM + DISTILL_REPS)
+            step = distill.make_distill_step(model, steps=4, variant=variant,
+                                             cold_levels=DISTILL_LEVELS)
+            g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+            x0 = distill.synthetic_batch(g, DISTILL_BATCH, (H, W), 3)
+            rec = torch.zeros((), device="cuda")
+            for _ in range(DISTILL_WARM):
+                state, loss, rec = step(state, model, x0, g, rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero((fa.LAUNCHES, quant.LAUNCHES))      # this path starts here
+            t0 = time.perf_counter()
+            for _ in range(DISTILL_REPS):
+                state, loss, rec = step(state, model, x0, g, rec)
+            torch.cuda.synchronize()
+            step_wall = time.perf_counter() - t0
+            step_got = _counts(fa, quant)             # ... and ends here
+            peak = torch.cuda.max_memory_allocated()
+            emit({"phase": "distill", "variant": variant, "model": MODEL,
+                  "dtype": "bfloat16", "attn_drop_rate": model.attn_drop_rate,
+                  "batch": DISTILL_BATCH, "rounds": cfg.round_steps(), "iters": cfg.iters,
+                  "cold_levels": DISTILL_LEVELS if variant == "cold" else None,
+                  "wall_s": wall, "updates": n_updates, "history": history,
+                  "launches": got, "expected_launches": expect(n_updates),
+                  "timed_updates": DISTILL_REPS, "ms_per_step": step_wall / DISTILL_REPS * 1e3,
+                  "peak_mem_gib": peak / 2**30, "timed_launches": step_got,
+                  "expected_timed_launches": expect(DISTILL_REPS),
+                  "timed_final_loss": loss.item()})
+            check(finite, f"distill {variant}: losses {history}")
+            check(math.isfinite(loss.item()), f"distill {variant} timed loss {loss.item()}")
+            check(got == expect(n_updates),
+                  f"distill {variant} launches {got}, expected {expect(n_updates)}")
+            check(step_got == expect(DISTILL_REPS),
+                  f"distill {variant} timed launches {step_got}")
+            del state, step
+            if variant == "ddim":
+                students, ddim_cfg = out["students"], cfg
+            torch.cuda.empty_cache()
+
+        # a restart: stopped in round k=2 after its live save at iteration 2
+        class Stopped(Exception):
+            pass
+
+        calls = []
+
+        def stopping(generator):
+            calls.append(1)
+            if len(calls) == ddim_cfg.iters + 3:
+                raise Stopped
+            return distill.synthetic_batch(generator, DISTILL_BATCH, (H, W), 3)
+
+        cfg = dataclasses.replace(ddim_cfg, checkpoint_dir=os.path.join(tmp, "restart"))
+        try:
+            distill.distill(model, cfg, batches=stopping)
+            stopped = False
+        except Stopped:
+            stopped = True
+        log = os.path.join(tmp, "restart.log")
+        again = distill.distill(model, cfg, log=log)
+        with open(log) as f:
+            text = f.read()
+        diffs = {str(n): max(float((again["students"][n][k].float() - v.float()).abs().max())
+                             for k, v in sd.items()) for n, sd in students.items()}
+        rec = {"phase": "distill", "what": "restart", "stopped": stopped,
+               "restored_k4": "(k=4): restored finished student" in text,
+               "resumed_k2_at_2": "(k=2): resumed at iter 2" in text,
+               "history_lengths": {str(k): len(v) for k, v in again["history"].items()},
+               "max_abs_vs_uninterrupted": diffs,
+               "bitwise_uninterrupted": all(d == 0.0 for d in diffs.values())}
+        emit(rec)
+        check(stopped and rec["restored_k4"] and rec["resumed_k2_at_2"]
+              and rec["history_lengths"] == {"4": 0, "2": DISTILL_ITERS - 2,
+                                             "1": DISTILL_ITERS},
+              f"distill restart: {rec}")
+
+    # the k=1 student: its guard against the teacher, and served
+    student = model.clone()
+    student.load_state_dict(students[1], strict=True)
+    _zero((fa.LAUNCHES, quant.LAUNCHES))              # this path starts here
+    t0 = time.perf_counter()
+    report = fid.distilled_sampler_guard(
+        model, student, generator=torch.Generator(device="cuda").manual_seed(SEED + 51),
+        steps=1, n_samples=FID_SAMPLES, sample_batch=FID_BATCH, k=K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts(fa, quant)                          # ... and ends here
+    n_batches = -(-FID_SAMPLES // FID_BATCH)
+    want = {k: (model.depth * (_forwards(serve.SamplerConfig(k=K), model.total_steps) + 1)
+                * n_batches if k == "flash_fwd" else 0) for k in PATH_KERNELS}
+    launches["fid distilled k1"] = got
+    emit({"phase": "distill", "what": "fid distilled k1", "report": report,
+          "wall_s": wall, "launches": got, "expected_launches": want})
+    check(math.isfinite(report["fid_teacher_vs_student"]),
+          f"distilled guard {report['fid_teacher_vs_student']}")
+    check(got == want, f"fid distilled k1 launches {got}, expected {want}")
+
+    config = serve.SamplerConfig(steps=1, student=True)
+    eng = serve.Engine(model, buckets=(8,), student_params=students[1])
+    serve.warmup(eng, [config])
+    seed = SEED + 52
+    _zero((fa.LAUNCHES, quant.LAUNCHES))              # this path starts here
+    ticket = eng.submit(seed=seed, n=8, config=config)
+    served = eng.run()
+    torch.cuda.synchronize()
+    got = _counts(fa, quant)                          # ... and ends here
+    img = ticket.result(timeout=900)
+    del eng
+    direct = sampling.ddim_sample_fewstep(
+        student, torch.Generator(device="cuda").manual_seed(seed), steps=1, n=8)
+    direct = direct.cpu().numpy()
+    want = {k: (model.depth if k == "flash_fwd" else 0) for k in PATH_KERNELS}
+    launches["serve student k1"] = got
+    rec = {"phase": "distill", "what": "serve student k1", "rows": served["rows"],
+           "wall_s": served["wall_s"], "img_per_sec": served["img_per_sec"],
+           "bitwise_direct": bool(np.array_equal(img, direct)),
+           "max_abs_vs_direct": float(np.abs(img - direct).max()),
+           "launches": got, "expected_launches": want}
+    emit(rec)
+    check(img.shape == (8, H, W, 3) and bool(np.isfinite(img).all()),
+          "served k=1 student output")
+    check(rec["bitwise_direct"], "served k=1 student differs from the direct call")
+    check(got == want, f"serve student k1 launches {got}, expected {want}")
+    del student
+    torch.cuda.empty_cache()
+    emit({"phase": "distill", "what": "phase", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def _kind_of(name: str, kinds) -> str:
     name = name.lower()
     hit = next((k for k in kinds if k in name), None)
@@ -1706,6 +2047,8 @@ def main() -> int:
     edit_launches = phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT,
                                      MODEL_CONFIGS)
     cache_launches = phase_serve_cache(torch, model, fa, quant, serve)
+    new_paths = {**phase_fid(torch, model, fa, quant, serve),
+                 **phase_distill(torch, model, fa, quant, serve)}
     del model
     torch.cuda.empty_cache()
     phase_train_check(torch, fa)
@@ -1725,7 +2068,9 @@ def main() -> int:
                              **{f"serve-edit {label}": n["flash_fwd"]
                                 for label, n in edit_launches.items() if n["flash_fwd"]},
                              **{f"serve-cache {label}": n["flash_fwd"]
-                                for label, n in cache_launches.items() if n["flash_fwd"]}},
+                                for label, n in cache_launches.items() if n["flash_fwd"]},
+                             **{label: n["flash_fwd"]
+                                for label, n in new_paths.items() if n["flash_fwd"]}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -1737,7 +2082,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "ddim_cold_torch/csrc/flash_bwd.cu",
             "replaces": f"ddim_cold_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": train_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 **{label: n[name] for label, n in new_paths.items()
+                                    if n[name]}},
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             # one SDPA backward computes dq, dk and dv together
@@ -1757,6 +2106,7 @@ def main() -> int:
                         for label, n in edit_launches.items() if n[name]})
         by_path.update({f"serve-cache {label}": n[name]
                         for label, n in cache_launches.items() if n[name]})
+        by_path.update({label: n[name] for label, n in new_paths.items() if n[name]})
         lines.append({
             "name": name, "route": "cuda", "source": f"ddim_cold_torch/csrc/{name}.cu",
             "replaces": line, "launches": sum(by_path.values()),

@@ -110,7 +110,7 @@ def fewstep_time_sequence(total_steps: int, steps: int,
     construction makes halving self-consistent: every other entry of the
     2s-step sequence IS the s-step sequence (round(t·(2s−2j)/(2s)) =
     round(t·(s−j)/s)), which is what lets progressive distillation
-    (the JAX package's train/distill.py) target "two teacher steps = one student step"
+    (:mod:`ddim_cold_torch.train.distill`) target "two teacher steps = one student step"
     without schedule drift across halvings.
     """
     if steps < 1:

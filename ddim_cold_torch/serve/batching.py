@@ -72,7 +72,7 @@ class SamplerConfig:
     quant: Optional[str] = None    # None = float params; "xla" | "pallas" =
     # the w8a16 trunk (ops/quant.py) over the engine's int8 param tree;
     # "w8a8" additionally feeds int8 activations (per-tensor dynamic scale)
-    # — FID-guard gated (eval/fid.quantized_sampler_guard)
+    # — FID-guard gated (the port's eval/fid.py quantized_sampler_guard)
     fused: bool = False            # fused sampler-trunk megakernels
     # (models/vit.py fused=True): qkv-dequant → flash → proj as one Pallas
     # kernel plus the fused Mlp kernel. Same param tree as unfused — but a

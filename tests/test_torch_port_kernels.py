@@ -320,6 +320,48 @@ def test_flash_autograd_runs_the_kernels(cuda_device):
     assert bool(((g - ref).abs() <= fa.grad_error_limit(ref)).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["ddim", "cold"])
+def test_distill_student_backward_runs_the_kernels(cuda_device, monkeypatch, dtype,
+                                                   variant):
+    """One distillation step of a small flash model (32 px, patch 4: 65
+    tokens, 2 heads of 64): the teacher's two forwards and the student's
+    one launch depth × 3 flash forwards, the student's backward depth × one
+    of each backward kernel, and every backward call's dq, dk and dv lie
+    within ``fa.grad_error_limit`` of the plain version on the same
+    inputs."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.train import distill
+
+    model = DiffusionViT(img_size=(32, 32), patch_size=4, embed_dim=128, depth=2,
+                         num_heads=2, dtype=dtype, use_flash=True, seed=1,
+                         device=cuda_device)
+    calls = []
+    backward = fa.flash_backward
+
+    def recording(q, k, v, o, lse, do, scale):
+        grad = backward(q, k, v, o, lse, do, scale)
+        calls.append((q, k, v, o, lse, do, scale, grad))
+        return grad
+
+    monkeypatch.setattr(fa, "flash_backward", recording)
+    state = distill.make_student_state(model, 1e-3, 4)
+    step = distill.make_distill_step(model, steps=2, variant=variant, cold_levels=4)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x0 = distill.synthetic_batch(gen, 4, (32, 32), 3)
+    before = dict(fa.LAUNCHES)
+    _, loss, _ = step(state, model, x0, gen, torch.zeros((), device=cuda_device))
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before.get(k, 0)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    assert launched == {"flash_fwd": 3 * model.depth, "flash_bwd_dq": model.depth,
+                        "flash_bwd_dkv": model.depth}
+    assert len(calls) == model.depth and bool(torch.isfinite(loss))
+    for q, k, v, o, lse, do, scale, grad in calls:
+        ref = fa.flash_backward_reference(q, k, v, o, lse, do, scale)
+        _assert_within_limit(grad, ref)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros((1, 8, 2, 16), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
