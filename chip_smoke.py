@@ -45,6 +45,20 @@ Phases, one JSON object per line:
    after;
 7. profile — one more drain (a single 8-row batch) under ``torch.profiler``:
    device time by kernel kind and the device's idle share;
+7b. serve-chaos — the engine's robustness layer on the serve engine (its
+   defaults: 2 batches assembled ahead on a side stream, 2 in flight, the
+   stall watchdog at 900 s): ten requests (41 rows) disarmed, every row bit
+   for bit the direct ``ddim_sample`` on its bucket batch and depth × steps
+   flash_fwd launches per batch; the same requests under chaos (transient
+   dispatch faults, a permanent one on one request, one assembly and one
+   fetch fault): every ticket resolves, the poisoned request quarantined,
+   the survivors bitwise at their dispatch shape, retries equal to the
+   transient fires, launches exact; a fetch hung 3 s under a 1 s stall
+   budget fails the open tickets while the process lives and a new engine
+   serves; ``QueueFullError``, ``DeadlineExceeded``, ``EngineClosedError``;
+   then, the phase returned, device memory is back where it stood before
+   it and a garbage collection frees none (no failed ticket pins its batch
+   in a reference cycle, no watchdog thread its engine);
 8. train-check — one optimizer step of the full-width model with every drop
    rate 0, the flash path (the kernels) against the dense path on the same
    weights and batch, float32 and bfloat16: loss, gradient norm and the
@@ -137,6 +151,7 @@ fails) and when CUDA is unavailable.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -622,7 +637,233 @@ def phase_serve(torch, model, fa, serve):
           "no program added after warmup")
     check(launches == expected,
           f"flash_fwd launched {launches} times, expected {expected}")
-    return eng, config, launches
+    return eng, config, launches, report
+
+
+def _chaos_starts(torch, model, sampling, reqs):
+    return {s: sampling.fresh_start(model, torch.Generator(device="cuda").manual_seed(s),
+                                    n, "cuda") for s, n in reqs}
+
+
+def _rows_bitwise(torch, model, sampling, reqs, plans) -> dict:
+    """Each completed request's rows against the direct ``ddim_sample`` on
+    the bucket batch it was dispatched in (its rows of its own start at its
+    offset, zero padding): {seed: bitwise}, for the requests that completed."""
+    starts = _chaos_starts(torch, model, sampling, reqs)
+    H, W = model.img_size
+    out: dict = {}
+    for plan in plans:
+        live = [e for e in plan.entries if not e[0].ticket.failed]
+        if not live:
+            continue
+        x = torch.zeros((plan.bucket, H, W, 3), device="cuda")
+        for req, lo, hi, off in plan.entries:
+            x[off:off + hi - lo] = starts[int(req.key)][lo:hi]
+        want = sampling.ddim_sample(model, x_init=x, k=K).cpu().numpy()
+        for req, lo, hi, off in live:
+            got = req.ticket.result(timeout=60)[lo:hi]
+            same = bool((got == want[off:off + hi - lo]).all())
+            out[int(req.key)] = out.get(int(req.key), True) and same
+    return out
+
+
+def _lone_plan(serve, config, seed: int, n: int, ticket):
+    """The bucket-4 plan a lone request of n ≤ 4 rows is served in."""
+    return serve.BatchPlan(config, 4, ((serve.Request(config, n, key=seed, ticket=ticket),
+                                        0, n, 0),), n)
+
+
+#: serve-chaos: ten requests (seed, n) of 41 rows, planned into five 8-row
+#: batches and one of 4; (a) serves seeds 200–209, (b) seeds 300–309
+CHAOS_NS = (3, 5, 2, 8, 1, 4, 6, 2, 7, 3)
+#: (b)'s outcome on those plans (the same schedule the CPU test
+#: ``test_chaos_schedule_and_outcomes_match_jax[chip-serve-chaos]`` holds to
+#: the JAX engine's): the first fetch fails 300 and 301, the assembly of
+#: the batch of 308 and 309 fails, 304 is quarantined, the rest complete
+CHAOS_FAILED = {300: "RequestFailedError", 301: "RequestFailedError",
+                304: "RequestQuarantinedError", 308: "RequestFailedError",
+                309: "RequestFailedError"}
+
+
+def phase_serve_chaos(torch, model, fa, serve, eng, config, serve_report):
+    """The engine's robustness layer on the north-star model: (a) disarmed
+    on the serve phase's engine (the new defaults: prefetch 2, in flight 2,
+    the watchdog at its CUDA default), every row bitwise its direct call at
+    its bucket batch, exact launches, no program added; (b) chaos on the
+    same engine: transient dispatch faults (rate 0.3, seed 11) retried, a
+    permanent dispatch fault on the request of seed 304 bisected out and
+    quarantined, one permanent assembly fault (the request of seed 309's
+    first batch), one permanent fetch fault; every ticket resolves, the
+    survivors are bitwise at their dispatch shape, retries equal the
+    transient fires, launches equal depth × steps × dispatched batches,
+    then a clean drain; (c) a fetch that hangs 3 s under a 1 s stall budget
+    fails the open tickets with EngineStalledError while the process lives,
+    and a new engine serves; then the bounded queue, the plan-time deadline
+    and drain's closed engine."""
+    from ddim_cold_torch.ops import sampling
+    from ddim_cold_torch.serve.batching import plan_batches
+    from ddim_cold_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    steps = len(range(model.total_steps - 1, 0, -K))
+    per_batch = model.depth * steps
+    programs = eng.stats["programs"]
+    check((eng.prefetch_depth, eng.inflight, eng.stall_s) == (2, 2, 900.0),
+          f"serve-chaos engine defaults {(eng.prefetch_depth, eng.inflight, eng.stall_s)}")
+    rec: dict = {"phase": "serve-chaos", "model": MODEL, "dtype": "bfloat16",
+                 "buckets": list(BUCKETS), "k": K, "requests": list(CHAOS_NS),
+                 "serve_img_per_sec": serve_report["img_per_sec"],
+                 "serve_p50_latency_s": serve_report["latency"]["p50_s"]}
+
+    # (a) disarmed
+    reqs = tuple(zip(range(200, 210), CHAOS_NS))
+    fa.LAUNCHES["flash_fwd"] = 0          # path (a) starts here
+    tickets = {s: eng.submit(seed=s, n=n, config=config) for s, n in reqs}
+    report = eng.run()
+    torch.cuda.synchronize()
+    launches_a = fa.LAUNCHES["flash_fwd"]  # ... and ends here
+    pending = [serve.Request(config=config, n=n, key=s, ticket=tickets[s]) for s, n in reqs]
+    bitwise = _rows_bitwise(torch, model, sampling, reqs, plan_batches(pending, BUCKETS))
+    rec["disarmed"] = {
+        "batches": report["batches"], "rows": report["rows"],
+        "padded_rows": report["padded_rows"], "wall_s": report["wall_s"],
+        "img_per_sec": report["img_per_sec"],
+        "p50_latency_s": report["latency"]["p50_s"],
+        "flash_fwd_launches": launches_a,
+        "expected_launches": per_batch * report["batches"],
+        "programs_after_warmup": eng.stats["programs"] - programs,
+        "rows_bitwise": sum(bitwise.values()), "requests": len(reqs)}
+    check(launches_a == per_batch * report["batches"],
+          f"serve-chaos (a): flash_fwd launched {launches_a}")
+    check(report["failed_tickets"] == 0 and len(bitwise) == len(reqs)
+          and all(bitwise.values()), f"serve-chaos (a): rows bitwise {bitwise}")
+
+    # (b) chaos on the same engine
+    reqs = tuple(zip(range(300, 310), CHAOS_NS))
+    base = eng._next_rid
+    specs = (faults.FaultSpec("serve.dispatch", "transient", rate=0.3, seed=11),
+             faults.FaultSpec("serve.dispatch", "permanent", match=f"req:{base + 4}|"),
+             faults.FaultSpec("serve.assemble", "permanent", match=f"req:{base + 9}|",
+                              max_fires=1),
+             faults.FaultSpec("serve.fetch", "permanent", max_fires=1, seed=4))
+    finished = []
+    eng._finish = lambda plan, out, f=type(eng)._finish: (finished.append(plan),
+                                                         f(eng, plan, out))
+    try:
+        fa.LAUNCHES["flash_fwd"] = 0      # path (b) starts here
+        with faults.inject(*specs) as plan:
+            tickets = {s: eng.submit(seed=s, n=n, config=config) for s, n in reqs}
+            report = eng.run()
+            torch.cuda.synchronize()
+            launches_b = fa.LAUNCHES["flash_fwd"]  # ... and ends here
+            realized = list(plan.realized)
+            by_site = plan.by_site()
+    finally:
+        del eng._finish
+    failed, typed = {}, True
+    for s, _ in reqs:
+        exc = tickets[s].exception(timeout=60)   # TimeoutError: a hung ticket
+        if exc is not None:
+            failed[s] = type(exc).__name__
+            typed &= (isinstance(exc, serve.RequestFailedError)
+                      and isinstance(exc.__cause__, faults.FaultError))
+    q = tickets[304].exception()
+    bitwise = _rows_bitwise(torch, model, sampling, reqs, finished)
+    transient = sum(1 for r in realized if r["kind"] == "transient")
+    rec["chaos"] = {
+        "by_site": by_site, "transient_fires": transient,
+        "retries": report["retries"], "quarantined": report["quarantined"],
+        "failed": {str(k): v for k, v in failed.items()},
+        "batches": report["batches"], "rows": report["rows"],
+        "wall_s": report["wall_s"], "flash_fwd_launches": launches_b,
+        "expected_launches": per_batch * report["batches"],
+        "survivors_bitwise": sum(bitwise.values()),
+        "survivors": len(reqs) - len(failed),
+        "programs_after_warmup": eng.stats["programs"] - programs}
+    check(failed == CHAOS_FAILED, f"serve-chaos (b): failed {failed}")
+    check(typed, "serve-chaos (b): every failure a RequestFailedError caused by a fault")
+    check(isinstance(q, serve.RequestQuarantinedError)
+          and isinstance(q.__cause__, faults.PermanentFault),
+          f"serve-chaos (b): seed 304 quarantined ({q!r})")
+    check(report["retries"] == transient and transient > 0,
+          f"serve-chaos (b): retries {report['retries']} vs transient fires {transient}")
+    check(launches_b == per_batch * report["batches"],
+          f"serve-chaos (b): flash_fwd launched {launches_b}")
+    check(set(bitwise) == set(dict(reqs)) - set(failed) and all(bitwise.values()),
+          f"serve-chaos (b): survivors bitwise {bitwise}")
+    t = eng.submit(seed=399, n=3, config=config)   # the scope closed: clean
+    eng.run()
+    clean = _rows_bitwise(torch, model, sampling, ((399, 3),),
+                          [_lone_plan(serve, config, 399, 3, t)])
+    check(clean == {399: True}, "serve-chaos (b): clean follow-up drain bitwise")
+    check(eng.stats["programs"] == programs, "serve-chaos: no program added")
+
+    # (c) a wedged fetch under a 1 s stall budget
+    stalled_eng = serve.Engine(model, buckets=BUCKETS, stall_s=1.0)
+    serve.warmup(stalled_eng, [config])
+    open_tickets = [stalled_eng.submit(seed=s, n=n, config=config)
+                    for s, n in ((320, 3), (321, 6))]
+    with faults.inject(faults.FaultSpec("serve.fetch", "hang", hang_s=3.0,
+                                        max_fires=1)) as plan:
+        report = stalled_eng.run()
+        hangs = plan.by_site()
+    errors = [type(t.exception(timeout=60)).__name__ for t in open_tickets]
+    health = stalled_eng.health()
+    fresh = serve.Engine(model, buckets=(4,))
+    serve.warmup(fresh, [config])
+    t = fresh.submit(seed=330, n=2, config=config)
+    fresh.run()
+    after = _rows_bitwise(torch, model, sampling, ((330, 2),),
+                          [_lone_plan(serve, config, 330, 2, t)])
+    rec["stall"] = {"wall_s": report["wall_s"], "stalled": report["stalled"],
+                    "errors": errors, "stalls": health["stalls"], "hang_by_site": hangs,
+                    "new_engine_bitwise": after == {330: True}}
+    check(report["stalled"] and health["stalled"] and health["stalls"] == 1,
+          f"serve-chaos (c): stall flagged {report['stalled']}, {health['stalls']}")
+    check(errors == ["EngineStalledError"] * 2, f"serve-chaos (c): tickets {errors}")
+    check(hangs == {"serve.fetch": 1}, f"serve-chaos (c): hang fired {hangs}")
+    check(after == {330: True}, "serve-chaos (c): a new engine serves bitwise")
+
+    # admission: the bounded queue, the plan-time deadline, a drained engine
+    bounded = serve.Engine(model, buckets=(4,), max_queue=2)
+    queued = [bounded.submit(seed=s, n=1, config=config) for s in (340, 341)]
+    try:
+        bounded.submit(seed=342, n=1, config=config)
+        rec["queue_full"] = False
+    except serve.QueueFullError:
+        rec["queue_full"] = True
+    bounded.drain(timeout=5)
+    late = fresh.submit(seed=343, n=1, config=config, deadline_s=0.0)
+    fresh.run()
+    rec["deadline"] = type(late.exception(timeout=60)).__name__
+    fresh.drain(timeout=60)
+    try:
+        fresh.submit(seed=344, n=1, config=config)
+        rec["closed"] = False
+    except serve.EngineClosedError:
+        rec["closed"] = True
+    check(rec["queue_full"], "serve-chaos: the third submit at max_queue=2 is refused")
+    check(all(isinstance(t.exception(timeout=5), serve.EngineClosedError) for t in queued),
+          "serve-chaos: drain fails the queued tickets")
+    check(rec["deadline"] == "DeadlineExceeded", f"serve-chaos: deadline {rec['deadline']}")
+    check(rec["closed"], "serve-chaos: a drained engine refuses submit")
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return {"serve-chaos disarmed": launches_a, "serve-chaos chaos": launches_b}
+
+
+def check_released(torch, what: str, before: int) -> None:
+    """A phase that has returned holds no device memory: what it allocated
+    is freed by the time it returns (``before`` is ``memory_allocated``
+    just before it), and a garbage collection then frees nothing. Memory
+    held by a reference cycle or by a thread that outlives the phase would
+    be freed later, in the middle of whatever phase follows."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    check(held == after, f"{what}: the collector freed {held - after} bytes of device memory")
+    check(after == before, f"{what}: {after - before} bytes of device memory outlived it")
 
 
 def _union_us(intervals) -> float:
@@ -2036,8 +2277,12 @@ def main() -> int:
     phase_bwd_large_logits(torch, fa)
     qk = phase_kernels_quant(torch, fa, quant)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
-    eng, config, serve_launches = phase_serve(torch, model, fa, serve)
+    eng, config, serve_launches, serve_report = phase_serve(torch, model, fa, serve)
     phase_profile(torch, eng, config)
+    gc.collect()  # what the earlier phases left to the collector is not serve-chaos's
+    before = torch.cuda.memory_allocated()
+    chaos_launches = phase_serve_chaos(torch, model, fa, serve, eng, config, serve_report)
+    check_released(torch, "serve-chaos", before)
     del eng
     phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant)
     eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
@@ -2062,7 +2307,7 @@ def main() -> int:
         "replaces": "ddim_cold_tpu/ops/flash_attention.py:79",
         "launches": train_launches["flash_fwd"],
         "launches_by_path": {"train": train_launches["flash_fwd"],
-                             "serve": serve_launches,
+                             "serve": serve_launches, **chaos_launches,
                              **{f"serve quant={q},fused={f}": n["flash_fwd"]
                                 for (q, f), n in quant_launches.items()},
                              **{f"serve-edit {label}": n["flash_fwd"]

@@ -93,15 +93,17 @@ class ShardedLoader:
                 yield self._make_batch(b)
             return
         with ThreadPoolExecutor(self.num_threads) as pool:
-            yield from _background_map(
+            yield from background_map(
                 batches, lambda b: self._make_batch(b, pool), self.prefetch)
 
 
-def _background_map(items, fn, depth: int):
+def background_map(items, fn, depth: int):
     """Yield ``fn(item)`` with the mapping running ``depth`` items ahead in a
-    producer thread (bounded queue). Exceptions from ``fn`` or the iterator
-    surface at the consuming ``next()``; abandoning the generator (break,
-    close) stops the producer within one item."""
+    producer thread (bounded queue; counterpart of the JAX loader's
+    ``_background_map``). Exceptions from ``fn`` or the iterator surface at
+    the consuming ``next()``; abandoning the generator (break, close) stops
+    the producer within one item. Shared by the decode pipeline
+    (:class:`ShardedLoader`) and the serving engine's batch assembly."""
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 

@@ -1,0 +1,233 @@
+"""Process-local metrics registry: the single source of the serving counters.
+
+Counterpart of ``ddim_cold_tpu/obs/metrics.py`` (stdlib only, as there).
+Every serving-layer counter, gauge and histogram lives here instead of in
+hand-maintained per-object dicts: the engine, warmup and the
+fault-injection registry emit into named series, and ``Engine.stats`` /
+``Engine.health()`` are rendered from the registry (read-only views).
+
+One name differs from the JAX catalog: the JAX engine counts XLA programs
+compiled (``engine.compiles``, ``warmup.new_compiles``); the port compiles
+nothing at serve time and counts the (config, bucket) programs it builds
+instead (``engine.programs``, ``warmup.new_programs``), the name its
+``stats["programs"]`` already used. The router, fleet, remote and
+autoscaler series come with the fleet (ROADMAP.md Queue 1 item 15), the
+attribution and trend series with the rest of the observability layer
+(item 16).
+
+Contracts (checked statically by ``tests/test_torch_port_hygiene.py``):
+
+* every emit site (``Scope.inc`` / ``Scope.gauge`` / ``Scope.observe``)
+  passes a **literal** metric name,
+* the name is **registered** in :data:`METRICS` below,
+* each ``(name, key)`` pair appears at **one** emit site in the package (a
+  second site for the same name carries a distinct literal ``key=``).
+
+Scopes separate instances sharing a process: each ``Engine`` gets its own
+scope (``engine#0``, ``engine#1``, …) so two engines' counters never alias;
+a scope id is deterministic in construction order.
+
+Host-only: no torch import, so a process without a device (the fleet's
+router) can import it.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Optional
+
+#: The full metric registry: ``(name, kind, help)``. Emit sites may only use
+#: names listed here; kinds are checked at emit time too, so a gauge can
+#: never silently become a counter.
+METRICS = (
+    # -- engine (one scope per Engine instance) ---------------------------
+    ("engine.programs", "counter", "(config, bucket) programs built (ensure_program)"),
+    ("engine.dispatches", "counter", "batches dispatched to the device"),
+    ("engine.rows", "counter", "request rows served"),
+    ("engine.padded_rows", "counter", "pad rows shipped for bucket alignment"),
+    ("engine.max_queue_depth", "gauge", "high-water admission queue depth"),
+    ("engine.preview_frames", "counter", "streamed x̂0 preview frames"),
+    ("engine.latency_s", "hist", "per-ticket submit→deliver latency"),
+    ("engine.param_bytes", "gauge", "resident float param bytes"),
+    ("engine.param_bytes_quant", "gauge", "resident int8 param bytes"),
+    ("engine.retries", "counter", "transient dispatch retries"),
+    ("engine.failed_batches", "counter", "batches failed (key: dispatch|plan)"),
+    ("engine.failed_tickets", "counter", "tickets resolved with an error"),
+    ("engine.quarantined", "counter", "requests quarantined by bisection"),
+    ("engine.deadline_expired", "counter",
+     "deadlines expired (key: dispatch|plan)"),
+    ("engine.rejected", "counter", "submissions rejected (queue full)"),
+    ("engine.skipped_batches", "counter", "planned batches skipped"),
+    ("engine.stalls", "counter", "soft-watchdog stall events"),
+    ("engine.cache_refresh_steps", "counter",
+     "device-telemetry: adaptive-gate refresh steps observed"),
+    ("engine.cache_reuse_steps", "counter",
+     "device-telemetry: adaptive-gate reuse steps observed"),
+    # -- warmup (emitted under the warmed engine's scope) -----------------
+    ("warmup.new_programs", "counter", "programs built during warmup"),
+    ("warmup.programs", "gauge", "resident programs after warmup"),
+    # -- fault injection --------------------------------------------------
+    ("faults.injected", "counter", "realized fault injections (key: site)"),
+)
+
+_KINDS = {name: kind for name, kind, _ in METRICS}
+
+
+class _Series:
+    """One (scope, name) series: a monotonic counter (optionally subdivided
+    by a dynamic key), a last-value gauge, or a raw-sample histogram."""
+
+    __slots__ = ("kind", "value", "by_key", "samples")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.value = 0
+        self.by_key: dict = {}
+        self.samples: list = []
+
+    @property
+    def total(self):
+        return self.value + sum(self.by_key.values())
+
+
+class Scope:
+    """A named emit handle: all series it touches are keyed by its id, so
+    two engines in one process never share a counter."""
+
+    def __init__(self, registry: "Registry", sid: str):
+        self._reg = registry
+        self.sid = sid
+
+    # -- emit (the statically checked surface: literal name first) --------
+    def inc(self, name: str, value=1, key: Optional[str] = None) -> None:
+        self._reg._emit(self.sid, name, "counter", value, key)
+
+    def gauge(self, name: str, value) -> None:
+        self._reg._emit(self.sid, name, "gauge", value, None)
+
+    def observe(self, name: str, value) -> None:
+        self._reg._emit(self.sid, name, "hist", value, None)
+
+    # -- read -------------------------------------------------------------
+    def value(self, name: str, default=0):
+        s = self._reg._get(self.sid, name)
+        if s is None:
+            return default
+        return s.total if s.kind == "counter" else s.value
+
+    def raw(self, name: str):
+        """Gauge value, or None when the gauge was never set (the
+        ``stats["param_bytes_quant"] = None`` initial state)."""
+        s = self._reg._get(self.sid, name)
+        return None if s is None else s.value
+
+    def by_key(self, name: str) -> dict:
+        s = self._reg._get(self.sid, name)
+        return dict(s.by_key) if s is not None else {}
+
+    def samples(self, name: str) -> list:
+        s = self._reg._get(self.sid, name)
+        return list(s.samples) if s is not None else []
+
+    def count(self, name: str) -> int:
+        s = self._reg._get(self.sid, name)
+        return len(s.samples) if s is not None else 0
+
+    def snapshot(self) -> dict:
+        return self._reg.snapshot().get(self.sid, {})
+
+
+class Registry:
+    def __init__(self):
+        self._lock = threading.Lock()
+        # (sid, name) -> _Series. The lock guards the dict AND the mutable
+        # innards of every series in it (by_key / samples): emit mutates
+        # them, so every read surface copies them out under the lock too.
+        self._series: dict = {}                         # guarded-by: _lock
+        self._scope_ids = itertools.count()
+
+    def scope(self, name: str) -> Scope:
+        with self._lock:
+            sid = f"{name}#{next(self._scope_ids)}"
+        return Scope(self, sid)
+
+    def _emit(self, sid, name, kind, value, key):
+        want = _KINDS.get(name)
+        if want is None:
+            raise ValueError(f"unregistered metric {name!r} — add it to "
+                             "obs.metrics.METRICS")
+        if want != kind:
+            raise ValueError(f"metric {name!r} is a {want}, emitted as {kind}")
+        with self._lock:
+            s = self._series.get((sid, name))
+            if s is None:
+                s = self._series[(sid, name)] = _Series(kind)
+            if kind == "counter":
+                if key is None:
+                    s.value += value
+                else:
+                    s.by_key[key] = s.by_key.get(key, 0) + value
+            elif kind == "gauge":
+                s.value = value
+            else:
+                s.samples.append(value)
+
+    def _get(self, sid, name) -> Optional[_Series]:
+        """A point-in-time COPY of the series, taken under the lock, so a
+        reader racing an emit never iterates a dict mid-resize."""
+        with self._lock:
+            s = self._series.get((sid, name))
+            if s is None:
+                return None
+            c = _Series(s.kind)
+            c.value = s.value
+            c.by_key = dict(s.by_key)
+            c.samples = list(s.samples)
+            return c
+
+    def snapshot(self) -> dict:
+        """{scope_id: {name: value | {key: value} | [samples]}} — counters
+        render their total (keyed subdivisions under ``name + "/by_key"``),
+        gauges their last value, histograms their raw sample list. Rendered
+        entirely under the lock: a snapshot taken mid-request never shows a
+        counter without its by_key breakdown."""
+        out: dict = {}
+        with self._lock:
+            for (sid, name), s in self._series.items():
+                dst = out.setdefault(sid, {})
+                if s.kind == "counter":
+                    dst[name] = s.total
+                    if s.by_key:
+                        dst[name + "/by_key"] = dict(s.by_key)
+                elif s.kind == "gauge":
+                    dst[name] = s.value
+                else:
+                    dst[name] = list(s.samples)
+        return out
+
+    def reset(self) -> None:
+        """Drop every series (tests). Scope ids keep counting up, so scopes
+        created before a reset never alias ones created after."""
+        with self._lock:
+            self._series.clear()
+
+
+_REG = Registry()
+
+
+def registry() -> Registry:
+    return _REG
+
+
+def scope(name: str) -> Scope:
+    """A fresh uniquely-identified emit scope on the process registry."""
+    return _REG.scope(name)
+
+
+def snapshot() -> dict:
+    return _REG.snapshot()
+
+
+def reset() -> None:
+    _REG.reset()

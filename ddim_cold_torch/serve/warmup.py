@@ -11,7 +11,9 @@ every (config, bucket) allocates the spare cache (``Engine.prewarm_cache``)
 and builds and runs the program once on a zero batch. The libraries loaded
 are those of every warmed config's variant
 (``DiffusionViT.kernel_libraries``). ``Engine.stats["programs"]`` counts
-the warmed pairs; serving a warmed set adds none (the tests pin it).
+the warmed pairs; serving a warmed set adds none (the tests pin it). A
+program that fails to warm raises, or with ``tolerate_errors=True`` is
+recorded and skipped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,23 +25,39 @@ import torch
 from ddim_cold_torch.serve.batching import SamplerConfig
 
 
-def warmup(engine, configs: Sequence[SamplerConfig]) -> dict:
+def warmup(engine, configs: Sequence[SamplerConfig], *,
+           tolerate_errors: bool = False) -> dict:
     """Load the kernels and run every (config, engine bucket) program once.
-    Returns the number of programs this call added, the total, and what was
-    warmed."""
+    Returns the number of programs this call added, the total, what was
+    warmed, and ``errors``: ``{(config, bucket): exception}``.
+
+    ``tolerate_errors=True`` keeps warming the remaining programs when one
+    fails (degraded startup beats no startup: a config whose program is
+    broken fails at its own dispatch instead of taking the deployment
+    down); by default the first failure raises. The counts are emitted as
+    ``warmup.*`` under the engine's metrics scope."""
     buckets = engine.buckets
     before = engine.stats["programs"]
+    errors: dict = {}
     engine.load_kernels(configs)
     for config in configs:
         for bucket in buckets:
-            engine.prewarm_cache(config, bucket)
-            engine.run_program(config, bucket, engine.zero_inputs(config, bucket))
+            try:
+                engine.prewarm_cache(config, bucket)
+                engine.run_program(config, bucket, engine.zero_inputs(config, bucket))
+            except Exception as exc:  # noqa: BLE001 — optionally isolated
+                if not tolerate_errors:
+                    raise
+                errors[(config, bucket)] = exc
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     programs = engine.stats["programs"]
+    engine.metrics.inc("warmup.new_programs", programs - before)
+    engine.metrics.gauge("warmup.programs", programs)
     return {
         "new_programs": programs - before,
         "programs": programs,
         "buckets": buckets,
         "configs": len(set(configs)),
+        "errors": errors,
     }

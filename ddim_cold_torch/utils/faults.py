@@ -1,0 +1,363 @@
+"""Deterministic, seeded fault injection: the chaos half of the serving
+robustness layer.
+
+Counterpart of ``ddim_cold_tpu/utils/faults.py``: the same specs, sites,
+kinds, grammar and env var, so the same specs on the same call sequence
+realize the same plan in both packages. The port's serving engine
+(``serve/engine.py``) calls :func:`fire` at its ``serve.*`` sites. With
+nothing armed, ``fire`` is a flag check and a list read: the fast path
+launches exactly the kernels it launches without this module. Armed (a
+scoped :func:`inject` context or the ``DDIM_COLD_FAULTS`` env var, read
+lazily by the first ``fire``), each matching spec draws from its OWN seeded
+``numpy.random.RandomState`` on a per-site call counter, so a chaos run's
+injection sequence is a pure function of (specs, call order); a site fired
+from one deterministic thread (the engine's dispatch and fetch loop)
+replays exactly.
+
+Every realized injection is recorded in the active :class:`FaultPlan`;
+``plan.replay()`` converts the record into ``at=`` specs that re-fire at
+exactly the same (site, call-index) points (corrupt element choice is
+re-drawn from the spec seed on replay; the schedule is exact).
+
+Spec grammar (env var / :func:`parse_specs`), specs joined by ``;``::
+
+    site:kind[:key=value[,key=value...]]
+    DDIM_COLD_FAULTS="serve.dispatch:transient:rate=0.2,seed=7;serve.fetch:latency:latency_s=0.05"
+
+Kinds: ``transient`` raises :class:`TransientFault` (the retryable
+transfer class: the engine backs off and retries), ``permanent`` raises
+:class:`PermanentFault` (deterministic: the engine bisects the batch and
+quarantines the poisoned request), ``latency`` sleeps ``latency_s``,
+``corrupt`` flips one element of the call's numpy payload (NaN for float
+dtypes) chosen by the spec's RNG, ``hang`` sleeps ``hang_s`` (default
+effectively forever: a wedge, which the engine's stall watchdog catches),
+``kill`` SIGKILLs the calling process (the fleet's crash case).
+
+The sites beyond ``serve.*`` (``ckpt.save``, ``data.next``, the router,
+replica and RPC sites) stay registered so that a spec written for the JAX
+package parses here; the port fires them once the modules that own them
+are ported (ROADMAP.md Queue 1 items 11 and 15).
+
+Host-only: numpy and the port's ``obs.metrics``, no torch.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ddim_cold_torch.obs import metrics as _obs_metrics
+
+ENV_VAR = "DDIM_COLD_FAULTS"
+
+#: realized injections land in the obs registry keyed by site, so a chaos
+#: run's fault pressure shows up next to the serving counters it perturbs
+_METRICS = _obs_metrics.scope("faults")
+
+#: the named fault sites (typo guard for specs; ``fire`` itself accepts any
+#: string so a site can be added where it is fired before it is listed here)
+SITES = ("serve.assemble", "serve.dispatch", "serve.fetch", "serve.compile",
+         "serve.preview",
+         "ckpt.save", "data.next",
+         "router.place", "router.failover", "replica.spawn",
+         # the process boundary (serve/remote.py + serve/replica_main.py):
+         # fired server-side per work request (kill/hang) and client-side
+         # around every RPC frame (drop/latency)
+         "replica.kill", "replica.hang", "rpc.drop", "rpc.latency")
+KINDS = ("transient", "permanent", "latency", "corrupt", "kill", "hang")
+
+
+class FaultError(Exception):
+    """Base class of every injected fault."""
+
+
+class TransientFault(FaultError):
+    """Injected retryable fault (the transfer/RPC failure class)."""
+
+
+class PermanentFault(FaultError):
+    """Injected deterministic fault (fails every retry the same way)."""
+
+
+#: What each raising kind throws (``latency``/``corrupt`` never raise).
+#: serve/errors.py derives RETRYABLE_EXCEPTIONS from TRANSIENT_EXCEPTIONS so
+#: a new retryable kind added here cannot silently become non-retryable.
+KIND_EXCEPTIONS: dict = {"transient": TransientFault,
+                         "permanent": PermanentFault}
+
+#: The transient (retry-recoverable) fault classes this module can raise.
+TRANSIENT_EXCEPTIONS: tuple = (TransientFault,)
+
+
+@dataclass(frozen=True)
+class FaultSpec:
+    """One armed fault: where, what, and on which seeded schedule.
+
+    ``rate`` is the per-eligible-call injection probability drawn from a
+    ``RandomState(seed)`` private to this spec; ``at`` overrides the dice
+    with explicit site call indices (the replay path). ``match`` restricts
+    eligibility to calls whose tag contains the substring (tags use
+    ``|``-separated ``key:value`` fields — e.g. ``req:3|`` targets one
+    request). ``max_fires`` caps total injections.
+    """
+
+    site: str
+    kind: str = "transient"
+    rate: float = 1.0
+    seed: int = 0
+    latency_s: float = 0.05
+    #: ``hang`` kind only: how long the hung call sleeps. The default is
+    #: "longer than any heartbeat budget" — a hang is a wedge, not a blip.
+    hang_s: float = 3600.0
+    max_fires: Optional[int] = None
+    match: Optional[str] = None
+    at: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.site not in SITES:
+            raise ValueError(f"unknown fault site {self.site!r} "
+                             f"(known: {SITES})")
+        if self.kind not in KINDS:
+            raise ValueError(f"kind must be one of {KINDS}, got {self.kind!r}")
+        if not 0.0 <= self.rate <= 1.0:
+            raise ValueError(f"rate must be in [0, 1], got {self.rate}")
+        if self.at is not None:
+            object.__setattr__(self, "at", tuple(int(i) for i in self.at))
+
+
+class FaultPlan:
+    """The realized injections of one armed scope.
+
+    ``realized`` is a list of JSON-able dicts ``{site, call, tag, kind,
+    spec}`` in injection order (``spec`` indexes the plan's spec table);
+    :meth:`replay` turns it back into specs that re-fire identically.
+    """
+
+    def __init__(self):
+        self._specs: list[FaultSpec] = []
+        self.realized: list[dict] = []
+
+    def _record(self, site, call, tag, spec, detail=None):
+        try:
+            idx = next(i for i, s in enumerate(self._specs) if s is spec)
+        except StopIteration:
+            self._specs.append(spec)
+            idx = len(self._specs) - 1
+        entry = {"site": site, "call": call, "tag": tag,
+                 "kind": spec.kind, "spec": idx}
+        if detail:
+            entry["detail"] = detail
+        self.realized.append(entry)
+
+    def by_site(self) -> dict:
+        out: dict[str, int] = {}
+        for r in self.realized:
+            out[r["site"]] = out.get(r["site"], 0) + 1
+        return out
+
+    def replay(self) -> tuple:
+        """Specs that reproduce this plan's schedule exactly: every fired
+        (site, call) becomes an ``at=`` entry; the dice are retired."""
+        calls: dict[int, list] = {}
+        for r in self.realized:
+            calls.setdefault(r["spec"], []).append(r["call"])
+        return tuple(
+            replace(self._specs[i], at=tuple(sorted(set(cs))),
+                    rate=1.0, match=None, max_fires=None)
+            for i, cs in sorted(calls.items()))
+
+
+class _Armed:
+    """Per-spec live state: the private RNG and the fire count."""
+
+    __slots__ = ("spec", "rng", "fires")
+
+    def __init__(self, spec: FaultSpec):
+        self.spec = spec
+        self.rng = np.random.RandomState(spec.seed)
+        self.fires = 0
+
+
+_lock = threading.RLock()
+_armed: list = []                                       # guarded-by: _lock
+_calls: dict = {}                                       # guarded-by: _lock
+_plan: Optional[FaultPlan] = None                       # guarded-by: _lock
+_env_checked = False                                    # guarded-by: _lock
+
+
+def active() -> bool:
+    return bool(_armed)
+
+
+def current_plan() -> Optional[FaultPlan]:
+    return _plan
+
+
+def snapshot() -> dict:
+    """Health-report view: armed spec count and realized injections by site
+    (what engine.health() surfaces as ``faults_by_site``)."""
+    with _lock:
+        plan = _plan
+        return {
+            "armed": len(_armed),
+            "injected": len(plan.realized) if plan else 0,
+            "by_site": plan.by_site() if plan else {},
+        }
+
+
+def _arm(specs: Sequence[FaultSpec]):
+    global _plan
+    with _lock:
+        if _plan is None:
+            _plan = FaultPlan()
+            _calls.clear()
+        handles = [_Armed(s) for s in specs]
+        _armed.extend(handles)
+        return handles, _plan
+
+
+def _disarm(handles) -> None:
+    global _plan
+    with _lock:
+        for h in handles:
+            _armed.remove(h)
+        if not _armed:
+            _plan = None
+            _calls.clear()
+
+
+@contextmanager
+def inject(*specs: FaultSpec):
+    """Arm ``specs`` for the scope; yields the live :class:`FaultPlan`.
+    Scopes stack (an inner scope adds specs); call counters and the plan
+    reset only when the LAST scope exits, so nested determinism holds."""
+    handles, plan = _arm(specs)
+    try:
+        yield plan
+    finally:
+        _disarm(handles)
+
+
+def arm_from_env() -> Optional[FaultPlan]:
+    """Arm the ``DDIM_COLD_FAULTS`` specs for the process lifetime (no
+    scope). Called lazily by the first :func:`fire`; safe to call directly.
+    Returns the plan, or None when the env var is unset/empty."""
+    global _env_checked
+    with _lock:
+        if _env_checked:
+            return _plan
+        _env_checked = True
+    text = os.environ.get(ENV_VAR, "").strip()
+    if not text:
+        return None
+    _, plan = _arm(parse_specs(text))
+    return plan
+
+
+def fire(site: str, tag: str = "", payload=None):
+    """The fault point. Returns ``payload`` (possibly corrupted); may sleep
+    or raise per the armed specs. Near-free when disarmed."""
+    if not _env_checked:
+        arm_from_env()
+    if not _armed:
+        return payload
+    return _fire(site, tag, payload)
+
+
+def _fire(site: str, tag: str, payload):
+    fired = []
+    with _lock:
+        call = _calls.get(site, 0)
+        _calls[site] = call + 1
+        plan = _plan
+        for armed in _armed:
+            spec = armed.spec
+            if spec.site != site:
+                continue
+            if spec.match is not None and spec.match not in tag:
+                continue
+            if spec.at is not None:
+                hit = call in spec.at
+            else:
+                hit = bool(armed.rng.random_sample() < spec.rate)
+            if not hit:
+                continue
+            if spec.max_fires is not None and armed.fires >= spec.max_fires:
+                continue
+            armed.fires += 1
+            detail = None
+            if spec.kind == "corrupt" and isinstance(payload, np.ndarray) \
+                    and payload.size:
+                idx = int(armed.rng.randint(payload.size))
+                payload = np.array(payload)  # never corrupt the caller's copy
+                flat = payload.reshape(-1)
+                if np.issubdtype(payload.dtype, np.floating):
+                    flat[idx] = np.nan
+                elif payload.dtype != np.bool_:
+                    flat[idx] = np.iinfo(payload.dtype).max
+                else:
+                    flat[idx] = not flat[idx]
+                detail = {"index": idx}
+            plan._record(site, call, tag, spec, detail)
+            fired.append((spec, call))
+    if fired:
+        _METRICS.inc("faults.injected", len(fired), key=site)
+    for spec, _ in fired:
+        if spec.kind == "latency":
+            time.sleep(spec.latency_s)
+    for spec, _ in fired:
+        if spec.kind == "hang":
+            time.sleep(spec.hang_s)
+    for spec, _ in fired:
+        if spec.kind == "kill":
+            # the no-warning crash: the process dies HERE, mid-request —
+            # nothing after this line runs, no socket close, no drain
+            os.kill(os.getpid(), signal.SIGKILL)
+    for spec, at_call in fired:
+        if spec.kind == "transient":
+            raise TransientFault(
+                f"injected transient fault at {site}[{at_call}] "
+                f"(seed={spec.seed}, tag={tag!r})")
+    for spec, at_call in fired:
+        if spec.kind == "permanent":
+            raise PermanentFault(
+                f"injected permanent fault at {site}[{at_call}] "
+                f"(seed={spec.seed}, tag={tag!r})")
+    return payload
+
+
+def parse_specs(text: str) -> tuple:
+    """Parse the ``site:kind[:k=v,...]`` grammar (``;``-joined specs) —
+    the env-var form of :class:`FaultSpec`."""
+    specs = []
+    for part in text.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        bits = part.split(":", 2)
+        if len(bits) < 2:
+            raise ValueError(f"fault spec needs site:kind, got {part!r}")
+        kw: dict = {"site": bits[0].strip(), "kind": bits[1].strip()}
+        if len(bits) == 3 and bits[2].strip():
+            for item in bits[2].split(","):
+                k, _, v = item.partition("=")
+                k, v = k.strip(), v.strip()
+                if k in ("rate", "latency_s", "hang_s"):
+                    kw[k] = float(v)
+                elif k in ("seed", "max_fires"):
+                    kw[k] = int(v)
+                elif k == "match":
+                    kw[k] = v
+                elif k == "at":
+                    kw[k] = tuple(int(x) for x in v.split("+"))
+                else:
+                    raise ValueError(f"unknown fault spec key {k!r} in {part!r}")
+        specs.append(FaultSpec(**kw))
+    return tuple(specs)

@@ -1,8 +1,12 @@
-"""Latency order statistics (counterpart of ``latency_summary`` in
-``ddim_cold_tpu/utils/profiling.py``; profiler scopes come with the
-observability slice, ROADMAP.md Queue 1 item 16)."""
+"""Latency order statistics and span-keyed profiler traces (counterparts of
+``latency_summary`` and ``span_trace`` in ``ddim_cold_tpu/utils/profiling.py``;
+the ``record_function``/NVTX scopes come with the rest of the observability
+layer, ROADMAP.md Queue 1 item 16)."""
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 
@@ -23,3 +27,25 @@ def latency_summary(samples_s) -> dict:
         "mean_s": float(arr.mean()),
         "max_s": float(arr.max()),
     }
+
+
+@contextlib.contextmanager
+def span_trace(log_dir: str, span=None):
+    """A ``torch.profiler`` session keyed to an ``obs.spans`` span: the
+    Chrome trace lands in ``log_dir/trace_<trace_id>_<span_id>/trace.json``
+    (``log_dir/trace.json`` when no span, or tracing is disabled), so a slow
+    request's profiler timeline is findable from its span ids. Records the
+    CPU, and CUDA where the card is present. Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = getattr(span, "ctx", None)
+    if ctx is not None:
+        log_dir = os.path.join(log_dir, f"trace_{ctx.trace_id}_{ctx.span_id}")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -219,3 +219,114 @@ def test_quant_wrappers_never_fall_back(no_cuda, name):
     with pytest.raises(ValueError, match="runs on CUDA"):
         _wrapper_calls("meta")[name]()
     assert _wrapper_calls("cpu")[name]().device.type == "cpu"
+
+
+# ------------------------------------------- fault sites and metric emits
+
+#: the robustness layer's host-only modules: the fleet imports them from a
+#: process that has no device
+HOST_ONLY = ("obs/metrics.py", "obs/spans.py", "utils/faults.py",
+             "utils/watchdog.py", "serve/errors.py")
+
+
+def _dotted(node):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return None
+
+
+def _package_calls(attrs):
+    """Every ``<obj>.<attr>(...)`` call in the package whose attribute is in
+    ``attrs``: (relative path, line, attribute, first argument, key=)."""
+    for f in sorted((ROOT / "ddim_cold_torch").rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            name = _dotted(node.func) or ""
+            if "." not in name or name.split(".")[-1] not in attrs:
+                continue
+            first = node.args[0] if node.args else None
+            key = next((kw.value for kw in node.keywords if kw.arg == "key"), None)
+            yield (str(f.relative_to(ROOT)), node.lineno, name, first, key)
+
+
+def test_fault_sites_are_registered_literals():
+    """Every ``faults.fire`` site is a string literal in ``faults.SITES``,
+    and the engine fires each of the five ``serve.*`` sites."""
+    from ddim_cold_torch.utils import faults
+
+    fired = []
+    for rel, line, name, site, _ in _package_calls({"fire"}):
+        if not name.endswith("faults.fire"):
+            continue
+        assert isinstance(site, ast.Constant) and isinstance(site.value, str), (rel, line)
+        assert site.value in faults.SITES, (rel, line, site.value)
+        fired.append(site.value)
+    assert sorted(fired) == sorted(("serve.assemble", "serve.compile", "serve.dispatch",
+                                    "serve.fetch", "serve.preview"))
+
+
+def test_metric_emits_are_registered_literals_at_one_site():
+    """Every ``Scope.inc`` / ``gauge`` / ``observe`` passes a literal name
+    registered in ``METRICS``; each (name, literal key) is emitted at one
+    site (a dynamic key subdivides its one site); every registered name is
+    emitted somewhere."""
+    from ddim_cold_torch.obs import metrics
+
+    registered = {name for name, _, _ in metrics.METRICS}
+    assert len(registered) == len(metrics.METRICS)
+    seen: dict = {}
+    for rel, line, _, metric, key in _package_calls({"inc", "gauge", "observe"}):
+        where = f"{rel}:{line}"
+        assert isinstance(metric, ast.Constant) and isinstance(metric.value, str), where
+        assert metric.value in registered, (where, metric.value)
+        if key is not None and not isinstance(key, ast.Constant):
+            pair = (metric.value, "<dynamic>")
+        else:
+            pair = (metric.value, None if key is None else key.value)
+        assert pair not in seen, f"{pair} emitted at {seen.get(pair)} and {where}"
+        seen[pair] = where
+    assert {name for name, _ in seen} == registered
+
+
+def test_host_only_modules_import_no_torch():
+    """The five modules import no torch at module level, and importing the
+    four below ``serve/`` loads no torch at all."""
+    for rel in HOST_ONLY:
+        tree = ast.parse((ROOT / "ddim_cold_torch" / rel).read_text())
+        for node in tree.body:
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                    [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                    else [])
+            assert not [m for m in mods if m.split(".")[0] == "torch"], rel
+    code = ("import sys\nsys.path.insert(0, %r)\n" % str(ROOT)
+            + "".join(f"import ddim_cold_torch.{rel[:-3].replace('/', '.')}\n"
+                      for rel in HOST_ONLY if not rel.startswith("serve/"))
+            + "print('torch' in sys.modules)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+
+
+def test_robustness_slice_modules_are_checked():
+    """The import checks walk the robustness layer's modules too."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}" for m in HOST_ONLY} <= names
+
+
+def test_engine_robustness_defaults_need_cuda(no_cuda, monkeypatch):
+    """The new engine knobs keep ``device=None`` on the card: the engine
+    raises without CUDA whatever they are set to."""
+    monkeypatch.delenv("DDIM_COLD_SERVE_STALL_S", raising=False)
+    model = DiffusionViT(**TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.Engine(model, buckets=(2,), max_queue=4, stall_s=0.0, prefetch_depth=1)
+    eng = serve.Engine(model, buckets=(2,), device="cpu")
+    assert eng.stall_s == 0.0 and eng.inflight == 2 and eng.prefetch_depth == 2
