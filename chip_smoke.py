@@ -59,6 +59,26 @@ Phases, one JSON object per line:
    then, the phase returned, device memory is back where it stood before
    it and a garbage collection frees none (no failed ticket pins its batch
    in a reference cycle, no watchdog thread its engine);
+7c. serve-fleet — the fleet over the same bf16 model, one bucket (8,),
+   k=20: (a) a ``Router`` over two in-process replicas (tenants web 2,
+   batch 1, ``max_pending`` 24) answers eight requests of 31 rows, every
+   row bit for bit the direct ``ddim_sample`` over an 8-row batch holding
+   its start, flash_fwd launches 600 × the batches both engines
+   dispatched, no program after warmup; then 12 one-row ``batch``
+   requests in a tight loop admit at most its share of 8, the rest
+   ``QueueFullError``, a ``web`` request still admitted; then eight more
+   under the fleet chaos schedule (r0's dispatch dead, assembly
+   transients, placement transients on r1): every ticket resolves, each
+   failure a ``ServeError`` naming its replica, the survivors bitwise, r0
+   retired and replaced, no program after warmup on any of the three; (b)
+   a ``Router`` over two subprocess replicas
+   (``python -m ddim_cold_torch.serve.replica_main`` on the card, the
+   same seeded weights), r0 SIGKILLed at its second work request: the
+   crash detected, its tickets failed over, every row bitwise the
+   parent's direct call, a third replica spawned and warmed, no program
+   after warmup; spawn and crash-detection seconds, img/s and p50
+   reported; every child gone when the phase returns, and the parent's
+   device memory back where it stood;
 8. train-check — one optimizer step of the full-width model with every drop
    rate 0, the flash path (the kernels) against the dense path on the same
    weights and batch, float32 and bfloat16: loss, gradient norm and the
@@ -852,6 +872,256 @@ def phase_serve_chaos(torch, model, fa, serve, eng, config, serve_report):
     return {"serve-chaos disarmed": launches_a, "serve-chaos chaos": launches_b}
 
 
+#: serve-fleet: eight requests of 31 rows, tenants alternating web, batch;
+#: (a) seeds 400–407 disarmed, 430–441 and 450 the admission check, 410–417
+#: under chaos, (b) 420–427 over subprocess replicas
+FLEET_NS = (3, 5, 2, 8, 1, 4, 6, 2)
+FLEET_BUCKETS = (8,)
+FLEET_TENANTS = ("web", "batch")
+#: (b)'s child-side schedule: r0 SIGKILLs itself at its second work request
+FLEET_KILL = "replica.kill:kill:at=1,match=replica:r0|"
+
+
+def _fleet_direct(torch, model, sampling, seed: int, n: int):
+    """The direct ``ddim_sample`` of a request's rows over an 8-row batch
+    holding its start in rows 0..n-1 and zero padding: the batch shape the
+    fleet serves it at, whatever its batchmates there."""
+    H, W = model.img_size
+    x = torch.zeros((FLEET_BUCKETS[0], H, W, 3), device="cuda")
+    x[:n] = sampling.fresh_start(model, torch.Generator(device="cuda").manual_seed(seed),
+                                 n, "cuda")
+    return sampling.ddim_sample(model, x_init=x, k=K)[:n].cpu().numpy()
+
+
+def _poll(pred, timeout_s: float) -> bool:
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _healed(router) -> bool:
+    """r0 retired and the fleet back at two active replicas."""
+    h = router.health()
+    return h["retired_replicas"] >= 1 and h["active_replicas"] == 2
+
+
+def _fleet_dispatches(health: dict) -> int:
+    """Batches dispatched by every engine of a fleet, active and retired."""
+    return sum(r.get("dispatches", 0) for r in health["replicas"].values())
+
+
+def phase_serve_fleet(torch, model, fa, serve, MODEL_CONFIGS):
+    """The fleet on the card (see the module docstring, 7c): (a) two
+    in-process replicas over the serve model, disarmed, the tenant shares,
+    then the fleet chaos schedule; (b) two subprocess replicas with the same
+    seeded weights, r0 SIGKILLed at its second work request and replaced."""
+    from ddim_cold_torch.ops import sampling
+    from ddim_cold_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    config = serve.SamplerConfig(k=K)
+    per_batch = model.depth * len(range(model.total_steps - 1, 0, -K))
+    rec: dict = {"phase": "serve-fleet", "model": MODEL, "dtype": "bfloat16",
+                 "buckets": list(FLEET_BUCKETS), "k": K, "requests": list(FLEET_NS)}
+
+    def run(router, seeds):
+        """The eight requests; every ticket waited for (a TimeoutError is a
+        ticket that never resolved). Returns tickets, outcomes and wall."""
+        t0 = time.perf_counter()
+        tickets = {s: router.submit(seed=s, n=n, config=config,
+                                    tenant=FLEET_TENANTS[i % 2])
+                   for i, (s, n) in enumerate(zip(seeds, FLEET_NS))}
+        outcomes = {s: t.exception(timeout=900) for s, t in tickets.items()}
+        return tickets, outcomes, time.perf_counter() - t0
+
+    def bitwise(tickets, outcomes) -> dict:
+        return {s: bool((t.result(0) == _fleet_direct(torch, model, sampling, s, t.n)).all())
+                for s, t in tickets.items() if outcomes[s] is None}
+
+    def served(tickets, wall) -> dict:
+        return {"wall_s": wall, "img_per_sec": sum(FLEET_NS) / wall,
+                "p50_latency_s": statistics.median(t.latency_s for t in tickets.values()
+                                                   if t.latency_s is not None)}
+
+    # (a) two in-process replicas over the shared model
+    t0 = time.perf_counter()
+    router = serve.Router(serve.local_factory(model, buckets=FLEET_BUCKETS), replicas=2,
+                          configs=[config], tenants={"web": 2, "batch": 1},
+                          max_pending=24, max_hedges=2, drain_timeout_s=120)
+    up_s = time.perf_counter() - t0
+    d0 = _fleet_dispatches(router.health())
+    fa.LAUNCHES["flash_fwd"] = 0                  # path (a) starts here
+    tickets, outcomes, wall = run(router, range(400, 408))
+    torch.cuda.synchronize()
+    launches_a = fa.LAUNCHES["flash_fwd"]         # ... and ends here
+    h = router.health()
+    batches = _fleet_dispatches(h) - d0
+    bw = bitwise(tickets, outcomes)
+    rec["in_process"] = {
+        "fleet_up_s": up_s, "batches": batches,
+        "batches_by_replica": {rid: r["dispatches"] for rid, r in h["replicas"].items()},
+        "flash_fwd_launches": launches_a, "expected_launches": per_batch * batches,
+        "rows_bitwise": sum(t.n for s, t in tickets.items() if bw.get(s)),
+        "programs_after_warmup": h["programs_after_warmup"], **served(tickets, wall)}
+    check(all(e is None for e in outcomes.values()),
+          f"serve-fleet (a): failed {[repr(e) for e in outcomes.values() if e]}")
+    check(len(bw) == len(FLEET_NS) and all(bw.values()), f"serve-fleet (a): bitwise {bw}")
+    check(batches > 0 and launches_a == per_batch * batches,
+          f"serve-fleet (a): flash_fwd launched {launches_a} for {batches} batches")
+    check(h["programs_after_warmup"] == 0
+          and all(r["programs_after_warmup"] == 0 for r in h["replicas"].values()),
+          "serve-fleet (a): no program after warmup")
+    check(not model.training, "serve-fleet (a): the shared model stays in eval mode")
+
+    # the tenant share: batch holds 24 · 1 // 3 = 8 admitted-unresolved
+    admitted, rejected = [], 0
+    for s in range(430, 442):
+        try:
+            admitted.append((s, router.submit(seed=s, n=1, config=config, tenant="batch")))
+        except serve.QueueFullError:
+            rejected += 1
+    n_batch = len(admitted)
+    try:
+        admitted.append((450, router.submit(seed=450, n=1, config=config, tenant="web")))
+        web_ok = True
+    except serve.QueueFullError:
+        web_ok = False
+    adm = {s: t.exception(timeout=900) is None
+           and bool((t.result(0) == _fleet_direct(torch, model, sampling, s, 1)).all())
+           for s, t in admitted}
+    rec["admission"] = {"batch_admitted": n_batch, "batch_rejected": rejected,
+                        "web_admitted": web_ok, "rows_bitwise": sum(adm.values()),
+                        "rejected_by_tenant": router.stats["rejected_by_tenant"]}
+    check(1 <= n_batch <= 8 and rejected == 12 - n_batch,
+          f"serve-fleet (a): batch admitted {n_batch}, rejected {rejected}")
+    check(web_ok, "serve-fleet (a): web admitted beside a batch flood")
+    check(all(adm.values()), f"serve-fleet (a): admitted rows bitwise {adm}")
+
+    # (a) under the fleet chaos schedule (tests/test_fleet.py:178-186)
+    schedule = (
+        faults.FaultSpec("serve.dispatch", "permanent", rate=1.0, match="replica:r0|"),
+        faults.FaultSpec("serve.assemble", "transient", rate=0.25, seed=11),
+        faults.FaultSpec("router.place", "transient", rate=0.2, seed=12,
+                         match="replica:r1|"))
+    h0 = router.health()
+    fa.LAUNCHES["flash_fwd"] = 0                  # path (a, chaos) starts here
+    with faults.inject(*schedule) as plan:
+        tickets, outcomes, wall = run(router, range(410, 418))
+        healed = _poll(lambda: _healed(router), 300)
+        by_site = plan.by_site()
+    torch.cuda.synchronize()
+    launches_c = fa.LAUNCHES["flash_fwd"]         # ... and ends here
+    h = router.health()
+    batches = _fleet_dispatches(h) - _fleet_dispatches(h0)
+    spawned = h["replicas_spawned"] - h0["replicas_spawned"]
+    bw = bitwise(tickets, outcomes)
+    failed = {s: repr(e) for s, e in outcomes.items() if e is not None}
+    named = all(isinstance(e, serve.ServeError) and "replica 'r" in str(e)
+                for e in outcomes.values() if e is not None)
+    rec["chaos"] = {
+        "by_site": by_site, "failed": {str(s): e for s, e in failed.items()},
+        "survivors_bitwise": sum(bw.values()), "survivors": len(bw),
+        "hedges": h["hedges"] - h0["hedges"], "failovers": h["failovers"] - h0["failovers"],
+        "replicas_spawned": spawned, "healed": healed,
+        "states": {rid: r.get("state") for rid, r in h["replicas"].items()},
+        "batches": batches, "flash_fwd_launches": launches_c,
+        # a replacement's warmup runs its one (config, bucket) batch
+        "expected_launches": per_batch * (batches + spawned),
+        "programs_after_warmup": {rid: r.get("programs_after_warmup")
+                                  for rid, r in h["replicas"].items()},
+        "wall_s": wall}
+    check(named, f"serve-fleet (a) chaos: every failure typed and naming its replica {failed}")
+    check(len(bw) >= 1 and all(bw.values()), f"serve-fleet (a) chaos: survivors bitwise {bw}")
+    check("serve.dispatch" in by_site, f"serve-fleet (a) chaos: fired {by_site}")
+    check(healed and h["replicas"].get("r0", {}).get("state") == "closed" and spawned == 1
+          and h["active_replicas"] == 2, f"serve-fleet (a) chaos: r0 replaced {rec['chaos']}")
+    check(len(h["replicas"]) == 3 and h["programs_after_warmup"] == 0
+          and all(r.get("programs_after_warmup") == 0 for r in h["replicas"].values()),
+          "serve-fleet (a) chaos: no program after warmup on any of the three replicas")
+    check(launches_c == per_batch * (batches + spawned),
+          f"serve-fleet (a) chaos: flash_fwd launched {launches_c}")
+    router.drain(timeout=120)
+    del router, tickets, outcomes, admitted
+
+    # (b) two subprocess replicas on the card, r0 killed at its second work request
+    cfg = MODEL_CONFIGS[MODEL]
+    spec = {"backend": "engine",
+            "model": dict(cfg, img_size=list(cfg["img_size"]), dtype="bfloat16",
+                          use_flash=True),
+            "init_seed": SEED, "engine": {"buckets": list(FLEET_BUCKETS)}}
+    factory = serve.remote_factory(spec, env={"DDIM_COLD_FAULTS": FLEET_KILL},
+                                   heartbeat_s=1.0, miss_budget=5, spawn_timeout_s=300,
+                                   rpc_timeout_s=60, warm_timeout_s=600)
+    children, submits = [], {}
+
+    def tracking(rid):
+        rep = factory(rid)
+        children.append(rep)
+        submit = rep.submit
+
+        def timed(*args, **kwargs):     # when each submit left: the kill's time
+            submits.setdefault(rid, []).append(time.perf_counter())
+            return submit(*args, **kwargs)
+        rep.submit = timed
+        return rep
+
+    try:
+        t0 = time.perf_counter()
+        router = serve.Router(tracking, replicas=2, configs=[config], drain_timeout_s=120)
+        up_s = time.perf_counter() - t0
+        tickets, outcomes, wall = run(router, range(420, 428))
+        healed = _poll(lambda: _healed(router), 600)
+        h = router.health()
+        bw = bitwise(tickets, outcomes)
+        dense = model.clone(use_flash=False)
+        dense.load_state_dict(model.state_dict(), assign=True)
+        x = torch.zeros((8, *model.img_size, 3), device="cuda")
+        x[:3] = sampling.fresh_start(model, torch.Generator(device="cuda").manual_seed(420),
+                                     3, "cuda")
+        dense_rows = sampling.ddim_sample(dense, x_init=x, k=K)[:3].cpu().numpy()
+        not_dense = bool((tickets[420].result(0) != dense_rows).any())
+        del dense
+        r0 = children[0]
+        kill_t = submits.get("r0", [None, None])[1:2]
+        detect_s = (r0.crashed_at - kill_t[0]) if kill_t and r0.crashed_at else None
+        rec["subprocess"] = {
+            "fleet_up_s": up_s,
+            "spawn_s": {rep.replica_id: rep.spawn_s for rep in children},
+            "warm_s": {rep.replica_id: rep.warm_s for rep in children},
+            "crash_reason": r0.crash_reason, "crash_detect_s": detect_s,
+            "failovers": h["failovers"], "hedges": h["hedges"],
+            "replicas_spawned": h["replicas_spawned"], "healed": healed,
+            "rows_bitwise": sum(t.n for s, t in tickets.items() if bw.get(s)),
+            "rows_differ_from_dense": not_dense,
+            "programs_after_warmup": h["programs_after_warmup"], **served(tickets, wall)}
+        check(r0.replica_id == "r0" and r0.crash_reason is not None,
+              f"serve-fleet (b): r0's crash seen ({r0.crash_reason})")
+        check(all(e is None for e in outcomes.values()),
+              f"serve-fleet (b): failed {[repr(e) for e in outcomes.values() if e]}")
+        check(len(bw) == len(FLEET_NS) and all(bw.values()),
+              f"serve-fleet (b): rows bitwise the parent's direct call {bw}")
+        check(not_dense, "serve-fleet (b): rows are the kernel route's, not the dense one's")
+        check(h["failovers"] >= 1, f"serve-fleet (b): failovers {h['failovers']}")
+        check(healed and h["replicas_spawned"] == 3 and children[-1].warm_s is not None,
+              f"serve-fleet (b): a third replica spawned and warmed ({h['replicas_spawned']})")
+        check(h["programs_after_warmup"] == 0, "serve-fleet (b): no program after warmup")
+        router.drain(timeout=120)
+    finally:
+        left = [rep.replica_id for rep in children if rep._proc.poll() is None]
+        for rep in children:             # stop every process this phase started
+            if rep._proc.poll() is None:
+                rep._proc.kill()
+                rep._proc.wait(timeout=60)
+    rec.setdefault("subprocess", {})["children_left"] = left
+    check(not left, f"serve-fleet (b): children still running after drain: {left}")
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return {"serve-fleet in-process": launches_a, "serve-fleet chaos": launches_c}
+
+
 def check_released(torch, what: str, before: int) -> None:
     """A phase that has returned holds no device memory: what it allocated
     is freed by the time it returns (``before`` is ``memory_allocated``
@@ -864,6 +1134,19 @@ def check_released(torch, what: str, before: int) -> None:
     after = torch.cuda.memory_allocated()
     check(held == after, f"{what}: the collector freed {held - after} bytes of device memory")
     check(after == before, f"{what}: {after - before} bytes of device memory outlived it")
+
+
+def drop_cublas_workspaces(torch) -> None:
+    """Free the cuBLAS workspaces PyTorch keeps in the caching allocator,
+    one per (cuBLAS handle, stream). A thread's first GEMM takes a handle
+    from PyTorch's pool and allocates its workspace; when the thread ends,
+    the handle and its workspace stay in the pool for the next thread. The
+    fleet's replica worker threads leave theirs behind when they end: a
+    bounded cache, not memory of the phase's data, so serve-fleet's release
+    check reads ``memory_allocated`` with all workspaces dropped, before and
+    after (the next GEMM on a thread allocates its workspace again)."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
 
 
 def _union_us(intervals) -> float:
@@ -2284,6 +2567,12 @@ def main() -> int:
     chaos_launches = phase_serve_chaos(torch, model, fa, serve, eng, config, serve_report)
     check_released(torch, "serve-chaos", before)
     del eng
+    gc.collect()
+    drop_cublas_workspaces(torch)
+    before = torch.cuda.memory_allocated()
+    fleet_launches = phase_serve_fleet(torch, model, fa, serve, MODEL_CONFIGS)
+    drop_cublas_workspaces(torch)
+    check_released(torch, "serve-fleet", before)
     phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant)
     eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
     for config, (_, per_layer) in list(zip(qconfigs, SERVE_QUANT))[:2]:  # pallas, fused w8a16
@@ -2308,6 +2597,7 @@ def main() -> int:
         "launches": train_launches["flash_fwd"],
         "launches_by_path": {"train": train_launches["flash_fwd"],
                              "serve": serve_launches, **chaos_launches,
+                             **fleet_launches,
                              **{f"serve quant={q},fused={f}": n["flash_fwd"]
                                 for (q, f), n in quant_launches.items()},
                              **{f"serve-edit {label}": n["flash_fwd"]

@@ -11,9 +11,9 @@ compiled (``engine.compiles``, ``warmup.new_compiles``); the port compiles
 nothing at serve time and counts the (config, bucket) programs it builds
 instead (``engine.programs``, ``warmup.new_programs``), the name its
 ``stats["programs"]`` already used. The router, fleet, remote and
-autoscaler series come with the fleet (ROADMAP.md Queue 1 item 15), the
-attribution and trend series with the rest of the observability layer
-(item 16).
+autoscaler series are the JAX catalog's rows; the attribution and trend
+series come with the rest of the observability layer (ROADMAP.md Queue 1
+item 16).
 
 Contracts (checked statically by ``tests/test_torch_port_hygiene.py``):
 
@@ -67,6 +67,35 @@ METRICS = (
     # -- warmup (emitted under the warmed engine's scope) -----------------
     ("warmup.new_programs", "counter", "programs built during warmup"),
     ("warmup.programs", "gauge", "resident programs after warmup"),
+    # -- router -----------------------------------------------------------
+    ("router.submitted", "counter", "fleet requests admitted"),
+    ("router.completed", "counter", "fleet requests completed"),
+    ("router.failed", "counter", "fleet requests failed terminally"),
+    ("router.rejected", "counter", "fleet requests rejected at admission"),
+    ("router.rejected_by_tenant", "counter",
+     "admission rejections per tenant (key: tenant)"),
+    ("router.placements", "counter", "ticket placements onto replicas"),
+    ("router.hedges", "counter", "hedged re-placements"),
+    ("router.failovers", "counter", "failovers off evicted replicas"),
+    ("router.replicas_spawned", "counter", "replicas spawned"),
+    ("router.replicas_retired", "counter", "replicas retired"),
+    ("router.spawn_failures", "counter", "replica spawn failures"),
+    ("router.loop_errors", "counter", "supervision-loop errors"),
+    # -- fleet ------------------------------------------------------------
+    ("fleet.replica_transitions", "counter",
+     "replica lifecycle transitions (key: state)"),
+    # -- remote replicas (serve/remote.py, one scope per handle) ----------
+    ("remote.rpc_calls", "counter", "RPC round trips issued (key: method)"),
+    ("remote.crashes", "counter",
+     "replica process deaths detected (exit or heartbeat loss)"),
+    ("remote.heartbeat_misses", "counter", "heartbeat pings that timed out"),
+    ("remote.protocol_errors", "counter",
+     "server-pushed protocol_error events (a frame the replica refused)"),
+    # -- autoscaler (serve/autoscale.py) ----------------------------------
+    ("autoscale.ticks", "counter", "control-loop decisions evaluated"),
+    ("autoscale.scale_ups", "counter", "target increments issued"),
+    ("autoscale.scale_downs", "counter", "target decrements issued"),
+    ("autoscale.target", "gauge", "router replica target after last tick"),
     # -- fault injection --------------------------------------------------
     ("faults.injected", "counter", "realized fault injections (key: site)"),
 )

@@ -28,6 +28,7 @@ ragged tail itself and reads q/k/v through their strides.
 from __future__ import annotations
 
 import collections
+import threading
 from typing import NamedTuple
 
 import torch
@@ -37,6 +38,15 @@ from ddim_cold_torch.ops import _build, quant, tiling
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain version does not count). Reset by assigning 0.
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES`, under a lock:
+    ``Counter[name] += 1`` is a read and a write, and several threads (the
+    fleet's in-process replicas) launch at once."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -173,7 +183,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err} "
                            f"(B={B}, N={N}, H={H}, D={D}, {q.dtype})")
-    LAUNCHES["flash_fwd"] += 1
+    count_launch("flash_fwd")
     return o, lse
 
 
@@ -322,7 +332,7 @@ def _launch(symbol: str, q, k, v, do, lse, delta, outs: dict, scale: float) -> N
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError_t {err} "
                            f"(B={B}, N={N}, H={H}, D={D}, {q.dtype})")
-    LAUNCHES[symbol] += 1
+    count_launch(symbol)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float) -> None:
@@ -597,5 +607,5 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
     if err != 0:
         raise RuntimeError(f"fused_trunk launch failed: cudaError_t {err} "
                            f"(B={B}, N={N}, C={C}, H={num_heads}, {x.dtype}, {mode})")
-    LAUNCHES["fused_trunk"] += 1
+    count_launch("fused_trunk")
     return out

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -61,6 +62,15 @@ TRUNK_LINEARS = {"attn": ("qkv", "proj"), "mlp": ("fc1", "fc2")}
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain versions do not count). Reset by assigning 0.
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES`, under a lock:
+    ``Counter[name] += 1`` is a read and a write, and several threads (the
+    fleet's in-process replicas) launch at once."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 #: the compute types the kernels take on CUDA, and their code in the C
 #: interface
@@ -294,7 +304,7 @@ def dequant_mm(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
                              KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[out_dtype],
                              torch.cuda.current_stream().cuda_stream)
     _raise_on(err, f"dequant_mm (M={M}, N={N}, K={K}, {x.dtype})")
-    LAUNCHES["dequant_mm"] += 1
+    count_launch("dequant_mm")
     return out
 
 
@@ -580,6 +590,6 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, f"mlp_fused (M={M}, K={K}, hidden={Hf}, out={Nout}, "
                    f"{cdt}, mode={mode})")
-    LAUNCHES["mlp_fused"] += 1
+    count_launch("mlp_fused")
     return out.reshape(*lead, Nout)
 

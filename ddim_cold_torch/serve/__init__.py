@@ -1,7 +1,9 @@
 """Sampler serving: bucketed batching over the port's samplers, with the
 robustness layer (bounded queue, deadlines, retries, bisection, drain, the
 stall watchdog, fault injection) and the metrics registry and spans it
-reports through.
+reports through, and the fleet over it: replica handles in process
+(``LocalReplica``) or in subprocesses over a socket RPC
+(``RemoteReplica``), the health-aware ``Router`` and the ``Autoscaler``.
 
 Quickstart::
 
@@ -16,9 +18,20 @@ Chaos: ``with serve.faults.inject(serve.faults.FaultSpec("serve.dispatch",
 "transient", rate=0.3, seed=11)): ...``; counters: ``eng.stats``,
 ``eng.health()``, ``serve.metrics.snapshot()``; traces: ``with
 serve.spans.tracing(): ...``.
+
+Fleet::
+
+    router = serve.Router(serve.local_factory(model, buckets=(8,)),
+                          replicas=2, configs=[serve.SamplerConfig(k=20)])
+    imgs = router.submit(seed=0, n=5, config=serve.SamplerConfig(k=20)).result()
+    router.drain()
+
+``serve.remote_factory(spec)`` in place of ``local_factory`` runs each
+replica in its own process (``python -m ddim_cold_torch.serve.replica_main``).
 """
 
 from ddim_cold_torch.obs import metrics, spans
+from ddim_cold_torch.serve.autoscale import Autoscaler
 from ddim_cold_torch.serve.batching import (BatchPlan, Request, SamplerConfig,
                                             SeqParallelConfigError, Ticket,
                                             cover_rows, plan_batches,
@@ -26,15 +39,26 @@ from ddim_cold_torch.serve.batching import (BatchPlan, Request, SamplerConfig,
 from ddim_cold_torch.serve.engine import Engine
 from ddim_cold_torch.serve.errors import (RETRYABLE_EXCEPTIONS, DeadlineExceeded,
                                           EngineClosedError, EngineStalledError,
-                                          QueueFullError, RequestFailedError,
+                                          QueueFullError, RemoteRPCError,
+                                          ReplicaCrashedError,
+                                          ReplicaUnreachableError,
+                                          RequestFailedError,
                                           RequestQuarantinedError, ServeError)
+from ddim_cold_torch.serve.fleet import LocalReplica, ReplicaHandle, local_factory
+from ddim_cold_torch.serve.remote import (RemoteReplica, remote_factory,
+                                          save_params_npz)
+from ddim_cold_torch.serve.router import Router
 from ddim_cold_torch.serve.warmup import warmup
 from ddim_cold_torch.utils import faults
 
 __all__ = [
-    "BatchPlan", "DeadlineExceeded", "Engine", "EngineClosedError",
-    "EngineStalledError", "QueueFullError", "RETRYABLE_EXCEPTIONS", "Request",
-    "RequestFailedError", "RequestQuarantinedError", "SamplerConfig",
+    "Autoscaler", "BatchPlan", "DeadlineExceeded", "Engine",
+    "EngineClosedError", "EngineStalledError", "LocalReplica",
+    "QueueFullError", "RETRYABLE_EXCEPTIONS", "RemoteRPCError",
+    "RemoteReplica", "ReplicaCrashedError", "ReplicaHandle",
+    "ReplicaUnreachableError", "Request", "RequestFailedError",
+    "RequestQuarantinedError", "Router", "SamplerConfig",
     "SeqParallelConfigError", "ServeError", "Ticket", "cover_rows", "faults",
-    "metrics", "plan_batches", "select_bucket", "spans", "warmup",
+    "local_factory", "metrics", "plan_batches", "remote_factory",
+    "save_params_npz", "select_bucket", "spans", "warmup",
 ]

@@ -1,0 +1,749 @@
+"""Out-of-process replicas — crash isolation behind the ReplicaHandle surface.
+
+Counterpart of ``ddim_cold_tpu/serve/remote.py``, with the same wire format
+byte for byte. :class:`RemoteReplica` drives a replica server living in its
+OWN OS process (``python -m ddim_cold_torch.serve.replica_main``) over a
+length-prefixed
+socket RPC, so a replica dying — SIGKILL, OOM, a wedged backend — is an
+event the fleet *observes* instead of one it shares. The handle speaks the
+exact :class:`~ddim_cold_torch.serve.fleet.ReplicaHandle` surface the router
+already places onto; nothing above this module knows which side of a
+process boundary a replica lives on.
+
+Wire protocol (one frame = one message)::
+
+    [4B big-endian frame length]
+    [4B big-endian header length][UTF-8 JSON header][raw array buffers...]
+
+The JSON header carries the message tree with every numpy array replaced by
+an ``{"__nd__": i}`` marker plus a parallel ``arrays`` list of
+``{shape, dtype}`` descriptors; the buffers follow in marker order. Arrays
+therefore cross the boundary at memcpy cost — no base64, no pickling, and
+nothing executable on the wire (JSON + raw bytes only).
+
+Failure taxonomy (serve/errors.py, serialized with
+``encode_exception``/``decode_exception``):
+
+* a typed failure raised server-side crosses back AS ITS TYPE — an injected
+  :class:`~ddim_cold_torch.utils.faults.TransientFault` stays retryable, a
+  :class:`~ddim_cold_torch.serve.errors.DeadlineExceeded` stays a deadline;
+* an RPC that cannot complete (socket gone, dropped frame, per-call
+  deadline) raises :class:`~ddim_cold_torch.serve.errors.ReplicaUnreachableError`
+  (retryable by construction — try another replica);
+* a process death (exit observed, or ``miss_budget`` consecutive heartbeat
+  misses) transitions the handle to ``closed`` and fails every open ticket
+  with :class:`~ddim_cold_torch.serve.errors.ReplicaCrashedError` naming the
+  replica — the router's failover path re-places them onto survivors,
+  whose rows are the same bits because placement never changes sampling
+  math (same weights, same library, same batch shape).
+
+Chaos sites (utils/faults.py): the client fires ``rpc.drop`` (arm kind
+``transient`` — the frame is silently not sent and the call times out) and
+``rpc.latency`` around every frame send; the server fires ``replica.kill``
+/ ``replica.hang`` per work request. Tags are ``replica:<id>|method:<m>|``
+so a schedule can target one replica's n-th submit exactly.
+
+Host-only (no torch import): model and engine construction for the child
+process live in serve/backend.py, which only the CHILD imports. The wire
+format is the JAX package's, so :func:`save_params_npz` trees written by
+either package load in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import socket
+import struct
+import subprocess
+import sys
+import threading
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from ddim_cold_torch.obs import metrics
+from ddim_cold_torch.serve import fleet
+from ddim_cold_torch.serve.batching import SamplerConfig, Ticket
+from ddim_cold_torch.serve.errors import (RemoteRPCError, ReplicaCrashedError,
+                                          ReplicaUnreachableError,
+                                          decode_exception)
+from ddim_cold_torch.utils import faults
+
+#: hard ceiling on one frame (a corrupt length prefix must not look like a
+#: 4 GiB allocation request)
+MAX_FRAME_BYTES = 1 << 30
+
+#: client→server RPC method kinds on the wire — one entry per ``_call``
+#: method literal below; set-equal to the server's
+#: ``replica_main.SERVER_METHODS`` (a method sent with no handler, or a
+#: handler no client can reach, is a protocol-drift bug; the tests check
+#: both tables against the code).
+CLIENT_METHODS = ("ping", "health", "start", "submit", "warm", "drain",
+                  "close")
+
+#: server-push event kinds the client has a dispatch arm for (``_dispatch``
+#: plus the factory's hello validation). Every event the server can emit
+#: (``replica_main.SERVER_EVENTS``) lands in one of these arms — an
+#: unmatched event kind would be silently dropped on the floor.
+CLIENT_EVENT_ARMS = ("hello", "ticket", "preview", "protocol_error")
+
+
+# ---------------------------------------------------------------------------
+# framing
+# ---------------------------------------------------------------------------
+
+def encode_payload(msg: dict) -> bytes:
+    """Message dict → header + raw array buffers (see module docstring).
+    numpy arrays anywhere in the tree are lifted out; numpy scalars fold to
+    Python numbers so the header stays pure JSON."""
+    arrays: list = []
+
+    def walk(node):
+        if isinstance(node, np.ndarray):
+            arrays.append(np.ascontiguousarray(node))
+            return {"__nd__": len(arrays) - 1}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if isinstance(node, np.integer):
+            return int(node)
+        if isinstance(node, np.floating):
+            return float(node)
+        if isinstance(node, np.bool_):
+            return bool(node)
+        return node
+
+    tree = walk(msg)
+    header = json.dumps({
+        "msg": tree,
+        "arrays": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+                   for a in arrays],
+    }).encode("utf-8")
+    parts = [struct.pack(">I", len(header)), header]
+    parts.extend(a.tobytes() for a in arrays)
+    return b"".join(parts)
+
+
+def decode_payload(buf: bytes) -> dict:
+    """Inverse of :func:`encode_payload`."""
+    if len(buf) < 4:
+        raise RemoteRPCError(f"truncated payload ({len(buf)} bytes)")
+    (hlen,) = struct.unpack(">I", buf[:4])
+    if 4 + hlen > len(buf):
+        raise RemoteRPCError(f"header length {hlen} exceeds payload")
+    header = json.loads(buf[4:4 + hlen].decode("utf-8"))
+    arrays = []
+    off = 4 + hlen
+    for desc in header.get("arrays", ()):
+        dtype = np.dtype(desc["dtype"])
+        shape = tuple(desc["shape"])
+        nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+        if off + nbytes > len(buf):
+            raise RemoteRPCError("array buffer extends past payload end")
+        arrays.append(np.frombuffer(
+            buf[off:off + nbytes], dtype=dtype).reshape(shape).copy())
+        off += nbytes
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"__nd__"}:
+                return arrays[node["__nd__"]]
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(header["msg"])
+
+
+def send_frame(sock: socket.socket, msg: dict) -> None:
+    payload = encode_payload(msg)
+    if len(payload) > MAX_FRAME_BYTES:
+        raise RemoteRPCError(f"frame of {len(payload)} bytes exceeds "
+                             f"MAX_FRAME_BYTES={MAX_FRAME_BYTES}")
+    sock.sendall(struct.pack(">I", len(payload)) + payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    got = 0
+    while got < n:
+        chunk = sock.recv(min(n - got, 1 << 20))
+        if not chunk:
+            raise ConnectionError("connection closed mid-frame")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+def recv_frame(sock: socket.socket) -> dict:
+    """Blocking read of one frame; ConnectionError on EOF (the reader
+    thread's crash-detection signal), RemoteRPCError on garbage."""
+    (length,) = struct.unpack(">I", _recv_exact(sock, 4))
+    if length > MAX_FRAME_BYTES:
+        raise RemoteRPCError(f"frame length {length} exceeds "
+                             f"MAX_FRAME_BYTES={MAX_FRAME_BYTES}")
+    return decode_payload(_recv_exact(sock, length))
+
+
+# ---------------------------------------------------------------------------
+# param transfer (parent → child, pure numpy)
+# ---------------------------------------------------------------------------
+
+def save_params_npz(path: str, params: dict) -> str:
+    """Flatten a nested param tree to an ``.npz`` with ``/``-joined keys.
+    Leaves go through ``np.asarray``, so they land as host numpy — the child
+    process rebuilds the tree with :func:`load_params_npz`. The tree is the
+    JAX ``DiffusionViT`` parameter tree (written by either package's
+    ``save_params_npz``); a port child converts it with
+    ``utils/weights.state_dict_from_flax``."""
+    flat: dict = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk("", params)
+    np.savez(path, **flat)
+    return path
+
+
+def load_params_npz(path: str) -> dict:
+    params: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = params
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+    return params
+
+
+class _Waiter:
+    """One in-flight RPC: the caller blocks on ``event``; the reader thread
+    (or crash handler) fills ``resp``/``error`` and sets it."""
+
+    __slots__ = ("event", "resp", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.resp: Optional[dict] = None
+        self.error: Optional[BaseException] = None
+
+
+class RemoteReplica(fleet.ReplicaHandle):
+    """ReplicaHandle backend over one replica server process.
+
+    Three daemon threads watch the boundary: a **reader** dispatching
+    responses and server-push ticket/preview events, a **heartbeat** firing
+    ``ping`` every ``heartbeat_s`` and counting consecutive misses against
+    ``miss_budget``, and a **process waiter** blocked in ``Popen.wait``.
+    Any of the three detecting death funnels into one idempotent crash
+    handler that fails every open ticket typed — the liveness contract:
+    no failure mode leaves a ticket blocking forever.
+    """
+
+    def __init__(self, conn: socket.socket, proc: subprocess.Popen, *,
+                 replica_id: str, spawn_s: float = 0.0,
+                 heartbeat_s: float = 0.5, miss_budget: int = 3,
+                 rpc_timeout_s: float = 10.0, warm_timeout_s: float = 600.0):
+        self.replica_id = replica_id
+        self.metrics = metrics.scope("remote")
+        self._fleet_metrics = metrics.scope("fleet")
+        self._conn = conn
+        self._proc = proc
+        self.spawn_s = float(spawn_s)
+        self.warm_s: Optional[float] = None
+        self.warm_report: Optional[dict] = None
+        self.heartbeat_s = float(heartbeat_s)
+        self.miss_budget = int(miss_budget)
+        self.rpc_timeout_s = float(rpc_timeout_s)
+        self.warm_timeout_s = float(warm_timeout_s)
+        self.crash_reason: Optional[str] = None
+        #: ``time.perf_counter()`` when the death was detected (None while
+        #: alive): how quickly a crash is seen, beside the caller's own clock
+        self.crashed_at: Optional[float] = None
+        #: last typed error the server pushed for a frame it refused to
+        #: decode (over-limit or garbage) — there is no call id to fail, so
+        #: the breadcrumb lands here and the in-flight call's own deadline
+        #: surfaces the failure
+        self.last_protocol_error: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self._send_lock = threading.Lock()
+        self._next_id = 0                               # guarded-by: _lock
+        self._next_rid = 0                              # guarded-by: _lock
+        self._pending: dict = {}                        # guarded-by: _lock
+        self._tickets: dict = {}                        # guarded-by: _lock
+        self._crashed = False                           # guarded-by: _lock
+        self._draining = threading.Event()
+        self._set_state(fleet.NEW)
+        self._reader = threading.Thread(
+            target=self._read_loop, name=f"remote-read-{replica_id}",
+            daemon=True)
+        self._reader.start()
+        self._heartbeat = threading.Thread(
+            target=self._heartbeat_loop, name=f"remote-hb-{replica_id}",
+            daemon=True)
+        self._heartbeat.start()
+        self._waiter = threading.Thread(
+            target=self._proc_wait_loop, name=f"remote-wait-{replica_id}",
+            daemon=True)
+        self._waiter.start()
+
+    def _set_state(self, state: str) -> None:
+        self.state = state
+        fleet.record_transition(self._fleet_metrics, state)
+
+    # ----------------------------------------------------------------- RPC
+
+    def _send(self, msg: dict, method: str) -> None:
+        """Serialize + send one frame. The two wire-level chaos sites live
+        here: ``rpc.drop`` (armed as kind ``transient``; the raise is
+        swallowed and the frame never leaves — the caller's deadline turns
+        it into ReplicaUnreachableError) and ``rpc.latency``."""
+        tag = f"replica:{self.replica_id}|method:{method}|"
+        try:
+            faults.fire("rpc.drop", tag=tag)
+        except faults.FaultError:
+            return  # frame dropped on the floor — no send, no error
+        faults.fire("rpc.latency", tag=tag)
+        payload = encode_payload(msg)
+        if len(payload) > MAX_FRAME_BYTES:
+            # reject locally and typed (RemoteRPCError is NOT retryable):
+            # an oversized frame shipped anyway would be killed by the
+            # peer's recv_frame, and a retried/hedged resend would then
+            # serially take down every replica it lands on
+            raise RemoteRPCError(
+                f"replica {self.replica_id}: {method!r} frame of "
+                f"{len(payload)} bytes exceeds "
+                f"MAX_FRAME_BYTES={MAX_FRAME_BYTES}")
+        try:
+            with self._send_lock:
+                self._conn.sendall(struct.pack(">I", len(payload)) + payload)
+        except OSError as exc:
+            raise ReplicaUnreachableError(
+                f"replica {self.replica_id}: send of {method!r} failed "
+                f"({exc})") from exc
+
+    def _call(self, method: str, params: Optional[dict] = None,
+              timeout: Optional[float] = None):
+        """One request/response round trip with a per-call deadline."""
+        timeout = self.rpc_timeout_s if timeout is None else timeout
+        waiter = _Waiter()
+        with self._lock:
+            if self._crashed:
+                raise ReplicaCrashedError(
+                    f"replica {self.replica_id} crashed: {self.crash_reason}")
+            call_id = self._next_id
+            self._next_id += 1
+            self._pending[call_id] = waiter
+        self.metrics.inc("remote.rpc_calls", key=method)
+        try:
+            self._send({"id": call_id, "method": method,
+                        "params": params or {}}, method)
+        except Exception:  # noqa: BLE001 — whatever the send raised is the
+            # caller's error; this handler only unregisters the waiter
+            with self._lock:
+                self._pending.pop(call_id, None)
+            raise
+        if not waiter.event.wait(timeout):
+            with self._lock:
+                self._pending.pop(call_id, None)
+            raise ReplicaUnreachableError(
+                f"replica {self.replica_id}: {method!r} RPC exceeded its "
+                f"{timeout}s deadline")
+        if waiter.error is not None:
+            raise waiter.error
+        resp = waiter.resp or {}
+        if resp.get("ok"):
+            return resp.get("result")
+        raise decode_exception(resp.get("error") or
+                               {"type": "RemoteRPCError",
+                                "message": "malformed error response"})
+
+    # ------------------------------------------------------------- threads
+
+    def _read_loop(self) -> None:
+        while True:
+            try:
+                msg = recv_frame(self._conn)
+            except Exception as exc:  # noqa: BLE001 — EOF / reset / garbage
+                # all mean the same thing here: the wire is dead
+                if not self._draining.is_set():
+                    self._on_crash(f"connection lost ({exc})")
+                return
+            try:
+                self._dispatch(msg)
+            except Exception:  # noqa: BLE001 — one bad frame must not kill
+                pass           # the reader (protocol errors surface per-call)
+
+    def _dispatch(self, msg: dict) -> None:
+        if "id" in msg:
+            with self._lock:
+                waiter = self._pending.pop(msg["id"], None)
+            if waiter is not None:
+                waiter.resp = msg
+                waiter.event.set()
+            return
+        event = msg.get("event")
+        if event == "ticket":
+            with self._lock:
+                ticket = self._tickets.pop(msg.get("rid"), None)
+            if ticket is None:
+                return
+            if msg.get("status") == "done":
+                rows = msg.get("result")
+                if isinstance(rows, np.ndarray):
+                    ticket._deliver(0, ticket.n, rows)
+                else:
+                    ticket._fail(RemoteRPCError(
+                        f"replica {self.replica_id}: ticket completed "
+                        "without a result buffer"))
+            else:
+                ticket._fail(decode_exception(msg.get("error") or {}))
+        elif event == "preview":
+            with self._lock:
+                ticket = self._tickets.get(msg.get("rid"))
+            rows = msg.get("rows")
+            if ticket is not None and isinstance(rows, np.ndarray):
+                ticket._preview(int(msg.get("step", 0)), 0, ticket.n, rows)
+        elif event == "protocol_error":
+            # the server refused one of our frames (over-limit, bad JSON)
+            # and could not attribute it to a call id — record the typed
+            # error so the inevitable per-call deadline has a cause to
+            # point at, and count it (a drift here means frame-limit or
+            # codec skew between the two processes)
+            self.metrics.inc("remote.protocol_errors")
+            self.last_protocol_error = decode_exception(
+                msg.get("error") or {})
+
+    def _heartbeat_loop(self) -> None:
+        misses = 0
+        while not self._draining.wait(self.heartbeat_s):
+            if self.state == fleet.CLOSED:
+                return
+            try:
+                self._call("ping", timeout=self.heartbeat_s)
+                misses = 0
+            except ReplicaCrashedError:
+                return
+            except Exception:  # noqa: BLE001 — any miss counts; the budget
+                misses += 1    # decides, not the failure flavor
+                self.metrics.inc("remote.heartbeat_misses")
+                if misses >= self.miss_budget:
+                    self._on_crash(
+                        f"heartbeat lost ({misses} consecutive misses, "
+                        f"budget {self.miss_budget})")
+                    return
+
+    def _proc_wait_loop(self) -> None:
+        rc = self._proc.wait()
+        if not self._draining.is_set():
+            self._on_crash(f"process exited with code {rc}")
+
+    def _on_crash(self, reason: str) -> None:
+        """Idempotent death handler: transition to closed, fail every open
+        ticket and in-flight RPC typed, and name the replica + cause in the
+        message (the failover path's breadcrumb). Tickets resolve OUTSIDE
+        the handle lock — a done-callback must be free to call back in."""
+        with self._lock:
+            if self._crashed:
+                return
+            self._crashed = True
+            self.crash_reason = reason
+            self.crashed_at = time.perf_counter()
+            tickets = list(self._tickets.values())
+            self._tickets.clear()
+            pending = list(self._pending.values())
+            self._pending.clear()
+        self.metrics.inc("remote.crashes")
+        self._set_state(fleet.CLOSED)
+        err = ReplicaCrashedError(
+            f"replica {self.replica_id} crashed: {reason}")
+        for waiter in pending:
+            waiter.error = err
+            waiter.event.set()
+        for ticket in tickets:
+            ticket._fail(ReplicaCrashedError(
+                f"replica {self.replica_id} crashed with this request "
+                f"open: {reason}"))
+        try:
+            self._conn.close()
+        except OSError:
+            pass
+        # A crash detected via heartbeat loss can leave the child ALIVE but
+        # wedged, holding the accelerator — a respawned replacement then
+        # cannot acquire the device. Kill it; the _proc_wait_loop thread
+        # (blocked in wait()) reaps the zombie.
+        if self._proc.poll() is None:
+            try:
+                self._proc.kill()
+            except OSError:
+                pass
+
+    # ----------------------------------------------------------- lifecycle
+
+    def warm(self, configs, buckets=None, **kwargs) -> dict:
+        cfgs = [dataclasses.asdict(c) if isinstance(c, SamplerConfig) else c
+                for c in configs]
+        t0 = time.perf_counter()
+        report = self._call(
+            "warm",
+            {"configs": cfgs,
+             "buckets": list(buckets) if buckets is not None else None,
+             "kwargs": dict(kwargs)},
+            timeout=self.warm_timeout_s)
+        self.warm_s = time.perf_counter() - t0
+        self.warm_report = report
+        h = self._call("health")
+        extra = int(h.get("programs_after_warmup", 0))
+        if extra:
+            raise RuntimeError(
+                f"replica {self.replica_id}: {extra} programs built AFTER "
+                "warmup — the spawn path's zero-program contract is broken "
+                "(an unwarmed config)")
+        self._set_state(fleet.READY)
+        return report
+
+    def start(self) -> None:
+        self._call("start")
+
+    def submit(self, seed=None, n=1, *, x_init=None, mask=None,
+               config=None, deadline_s=None, trace=None, **kwargs) -> Ticket:
+        if self.state != fleet.READY:
+            raise ReplicaCrashedError(
+                f"replica {self.replica_id} is {self.state}"
+                + (f" ({self.crash_reason})" if self.crash_reason else ""))
+        cfg = dataclasses.asdict(config) \
+            if isinstance(config, SamplerConfig) else config
+        params = {"seed": seed, "n": int(n), "config": cfg,
+                  "deadline_s": deadline_s, "kwargs": dict(kwargs)}
+        if x_init is not None:
+            params["x_init"] = np.asarray(x_init)
+        if mask is not None:
+            params["mask"] = np.asarray(mask)
+        # The CLIENT allocates the rid and registers the ticket BEFORE the
+        # submit frame leaves, so a fast-resolving request whose done event
+        # races (or beats) the submit response still finds its ticket —
+        # _dispatch drops events for unknown rids, and a dropped done event
+        # would block result() forever on a healthy replica.
+        ticket = Ticket(int(n))
+        ticket._health_cb = self.health
+        with self._lock:
+            if self._crashed:
+                raise ReplicaCrashedError(
+                    f"replica {self.replica_id} crashed: {self.crash_reason}")
+            rid = self._next_rid
+            self._next_rid += 1
+            self._tickets[rid] = ticket
+        params["rid"] = rid
+        try:
+            self._call("submit", params)
+        except Exception:  # noqa: BLE001 — submit never happened server-side
+            # (send failed / deadline / typed rejection): unregister so a
+            # stray late event cannot touch a ticket the caller never got
+            with self._lock:
+                self._tickets.pop(rid, None)
+            raise
+        return ticket
+
+    def health(self) -> dict:
+        h = self._call("health", timeout=self.rpc_timeout_s)
+        h["state"] = self.state  # the CLIENT's view wins: it sees crashes
+        h["spawn_s"] = self.spawn_s
+        h["warm_s"] = self.warm_s
+        return h
+
+    def drain(self, timeout: Optional[float] = None) -> dict:
+        """Graceful stop of the child: server-side engine drain, then
+        process shutdown. Draining a crashed replica is a no-op returning
+        the crash breadcrumb — the router retires dead replicas through
+        this same path."""
+        self._draining.set()
+        if self.state == fleet.CLOSED:
+            # retirement of a crashed replica must not leak the child:
+            # _on_crash already sent SIGKILL for the wedged-but-alive case,
+            # but make retirement itself the backstop before returning
+            if self._proc.poll() is None:
+                try:
+                    self._proc.kill()
+                except OSError:
+                    pass
+            try:
+                self._proc.wait(timeout=self.rpc_timeout_s)
+            except subprocess.TimeoutExpired:
+                pass
+            return {"closed": True, "crashed": True,
+                    "reason": self.crash_reason}
+        self._set_state(fleet.DRAINING)
+        report: dict = {"closed": True}
+        try:
+            budget = 30.0 if timeout is None else float(timeout)
+            report = self._call("drain", {"timeout": timeout},
+                                timeout=budget + self.rpc_timeout_s)
+            self._call("close")
+        except Exception as exc:  # noqa: BLE001 — a replica dying mid-drain
+            # is still a completed drain from the fleet's point of view
+            report = {"closed": True, "error": str(exc)}
+        try:
+            self._conn.close()
+        except OSError:
+            pass
+        try:
+            self._proc.wait(timeout=self.rpc_timeout_s)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+        self._set_state(fleet.CLOSED)
+        return report
+
+    def close(self) -> None:
+        if self.state != fleet.CLOSED:
+            self.drain(self.rpc_timeout_s)
+
+    @property
+    def programs_after_warmup(self) -> int:
+        try:
+            return int(self.health().get("programs_after_warmup", 0))
+        except Exception:  # noqa: BLE001 — a dead replica builds nothing
+            return 0
+
+
+# ---------------------------------------------------------------------------
+# factory
+# ---------------------------------------------------------------------------
+
+def _accept(listener: socket.socket, proc: subprocess.Popen, replica_id: str,
+            deadline: float) -> socket.socket:
+    """The child's connection, or a typed spawn failure: at the deadline,
+    or as soon as the child exits without connecting (a child that cannot
+    build its replica — no card for a CUDA spec — fails the spawn at once
+    instead of holding it for the whole budget)."""
+    listener.settimeout(0.2)
+    while True:
+        try:
+            conn, _ = listener.accept()
+            return conn
+        except socket.timeout:
+            pass
+        rc = proc.poll()
+        if rc is not None:
+            raise ReplicaUnreachableError(
+                f"replica {replica_id}: process exited with code {rc} "
+                "before connecting (its replica could not be built)")
+        if time.perf_counter() > deadline:
+            proc.kill()
+            raise ReplicaUnreachableError(
+                f"replica {replica_id}: no connection within the spawn "
+                "budget")
+
+
+def remote_factory(spec: dict, *, env: Optional[dict] = None,
+                   heartbeat_s: float = 0.5, miss_budget: int = 3,
+                   spawn_timeout_s: float = 180.0,
+                   rpc_timeout_s: float = 10.0,
+                   warm_timeout_s: float = 600.0,
+                   on_spawn: Optional[Callable] = None,
+                   ) -> Callable[[str], RemoteReplica]:
+    """Factory of subprocess replicas for :class:`~.router.Router`.
+
+    ``spec`` describes the child's engine and is shipped via the
+    ``DDIM_COLD_REPLICA_SPEC`` env var (see serve/replica_main.py)::
+
+        {"backend": "engine" | "stub",
+         "model":      {...DiffusionViT kwargs, dtype as a string,
+                        "device": "cuda" (the default) | "cpu"...},
+         "params_npz": "/path/saved/by/save_params_npz.npz",  # or
+         "init_seed":  0,          # the port's seeded init instead
+         "engine":     {...Engine kwargs...},
+         "stub":       {"delay_s": 0.0}}
+
+    (JAX's ``cache_dir`` is accepted and not read: there is no compiler
+    cache; every process loads the kernel libraries built into ``build/``.
+    Build them in the parent before the first spawn, so no child spends its
+    spawn budget in ``nvcc``.)
+
+    ``env`` overlays the child environment — the chaos harness uses it to
+    arm ``DDIM_COLD_FAULTS`` inside the replica only (the parent's armed
+    specs never leak across the fork; the two processes have independent
+    fault registries by construction).
+
+    The factory spawns the child, hands it the ephemeral listener port, and
+    blocks until the child connects and sends its hello (deadline
+    ``spawn_timeout_s``; a child that exits first fails the spawn at once). Spawn wall time lands on the handle as
+    ``spawn_s`` and in ``health()``; ``on_spawn(replica_id, spawn_s)`` is
+    a hook for spawn-time tables.
+    """
+    spec = dict(spec)
+
+    def factory(replica_id: str) -> RemoteReplica:
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(1)
+        port = listener.getsockname()[1]
+        child_env = dict(os.environ)
+        if env:
+            child_env.update(env)
+        child_env["DDIM_COLD_REPLICA_SPEC"] = json.dumps(spec)
+        # The child runs `-m ddim_cold_torch.serve.replica_main` with the
+        # parent's cwd, so when the package was imported off a sys.path
+        # entry (not installed), the child would not find it. Export the
+        # package root the parent actually loaded.
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))
+        existing = child_env.get("PYTHONPATH")
+        if pkg_root not in (existing or "").split(os.pathsep):
+            child_env["PYTHONPATH"] = (
+                pkg_root + (os.pathsep + existing if existing else ""))
+        argv = [sys.executable, "-m", "ddim_cold_torch.serve.replica_main",
+                "--connect", f"127.0.0.1:{port}", "--replica-id", replica_id]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, env=child_env)
+        try:
+            conn = _accept(listener, proc, replica_id, t0 + spawn_timeout_s)
+        finally:
+            listener.close()
+        # The hello read spends what is LEFT of the spawn budget — a child
+        # that connects but wedges before its hello (hung device init) must
+        # not block the factory, and through it fleet-wide supervision,
+        # forever. Only a validated hello earns a deadline-free socket.
+        remaining = spawn_timeout_s - (time.perf_counter() - t0)
+        conn.settimeout(max(1.0, remaining))
+        try:
+            hello = recv_frame(conn)
+        except Exception as exc:  # noqa: BLE001 — timeout, EOF, garbage:
+            # the child never completed its half of the handshake
+            proc.kill()
+            try:
+                conn.close()
+            except OSError:
+                pass
+            raise ReplicaUnreachableError(
+                f"replica {replica_id}: connected but sent no valid hello "
+                f"within the {spawn_timeout_s}s spawn budget ({exc})"
+            ) from exc
+        conn.settimeout(None)
+        if hello.get("event") != "hello":
+            proc.kill()
+            raise RemoteRPCError(
+                f"replica {replica_id}: expected hello, got {hello!r}")
+        spawn_s = time.perf_counter() - t0
+        if on_spawn is not None:
+            try:
+                on_spawn(replica_id, spawn_s)
+            except Exception:  # noqa: BLE001 — observers must not block spawn
+                pass
+        return RemoteReplica(
+            conn, proc, replica_id=replica_id, spawn_s=spawn_s,
+            heartbeat_s=heartbeat_s, miss_budget=miss_budget,
+            rpc_timeout_s=rpc_timeout_s, warm_timeout_s=warm_timeout_s)
+
+    return factory

@@ -1,0 +1,429 @@
+"""Replica server process — ``python -m ddim_cold_torch.serve.replica_main``.
+
+Counterpart of ``ddim_cold_tpu/serve/replica_main.py``. The child half of
+serve/remote.py: connects BACK to the parent's ephemeral
+listener (``--connect 127.0.0.1:<port>``; child-connects-to-parent means no
+listening socket outlives the fleet), sends a ``hello``, then serves the
+RPC methods over one wrapped :class:`~ddim_cold_torch.serve.fleet.LocalReplica`
+— the whole in-process serving stack (engine worker thread, drain
+semantics, zero-program accounting) reused verbatim one process down.
+
+The engine spec arrives via the ``DDIM_COLD_REPLICA_SPEC`` env var (JSON —
+see :func:`~ddim_cold_torch.serve.remote.remote_factory`). Two backends:
+
+* ``"engine"`` — a real Engine over the port's model, built by
+  serve/backend.py (the one torch-touching import, deferred so THIS file
+  stays host-only);
+* ``"stub"``  — :class:`StubEngine`, a pure-numpy Engine lookalike whose
+  results are a deterministic function of ``(seed, n)`` alone. The RPC
+  protocol tests run against it: every wire behavior (framing, typed
+  errors, deadlines, crash detection) is exercised without a model.
+
+Threading: the reader thread answers ``ping``/``health``/``submit``/
+``start`` inline (all non-blocking), and hands ``warm``/``drain``/``close``
+to worker threads — a replica mid-warmup or mid-drain KEEPS answering
+heartbeats, so slow is distinguishable from dead. Ticket results push back
+as server-initiated ``ticket``/``preview`` events from the engine's
+resolver threads, serialized by one send lock.
+
+Chaos: the child arms ``DDIM_COLD_FAULTS`` from ITS OWN environment (the
+factory's ``env`` overlay), and fires ``replica.kill`` / ``replica.hang``
+on the reader thread before dispatching each WORK request (submit/drain)
+— a ``kill`` is a SIGKILL mid-protocol with no goodbye, exactly the crash
+the parent's detection must catch; a ``hang`` wedges the reader so pings
+go unanswered and the heartbeat miss budget fires.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import struct
+import threading
+import time
+import types
+from typing import Optional
+
+import numpy as np
+
+from ddim_cold_torch.obs import metrics
+from ddim_cold_torch.serve import fleet
+from ddim_cold_torch.serve import remote
+from ddim_cold_torch.serve.batching import SamplerConfig, Ticket
+from ddim_cold_torch.serve.errors import (DeadlineExceeded, EngineClosedError,
+                                          QueueFullError, RemoteRPCError,
+                                          encode_exception)
+from ddim_cold_torch.utils import faults
+
+#: RPC methods this server answers — one entry per ``handle`` dispatch arm,
+#: set-equal to the client's ``remote.CLIENT_METHODS``.
+SERVER_METHODS = ("ping", "health", "start", "submit", "warm", "drain",
+                  "close")
+
+#: server-initiated event kinds this process may push — one entry per
+#: ``send({"event": ...})`` literal; every one has a client dispatch arm
+#: (``remote.CLIENT_EVENT_ARMS``).
+SERVER_EVENTS = ("hello", "ticket", "preview", "protocol_error")
+
+
+def stub_rows(seed, n: int, shape: tuple) -> np.ndarray:
+    """The stub's entire 'sampler': rows are a pure function of (seed, n)
+    — two stub replicas given the same request produce bitwise-identical
+    buffers, which is all the failover-equivalence tests need."""
+    rng = np.random.RandomState(0 if seed is None else int(seed) % (2**31))
+    return rng.standard_normal((int(n),) + tuple(shape)).astype(np.float32)
+
+
+class StubEngine:
+    """Pure-numpy stand-in for serve.engine.Engine behind a LocalReplica:
+    the queue/drain/ticket surface is real, the device work is
+    :func:`stub_rows` plus an optional ``delay_s`` sleep (how the deadline
+    and mid-batch-kill tests make requests take time). Warmup's programs
+    are dict inserts, so the zero-program accounting paths run unchanged.
+    It offers the port engine's warmup surface (``load_kernels``,
+    ``prewarm_cache``, ``run_program``, ``zero_inputs``, ``device``).
+    """
+
+    def __init__(self, replica_id: str = "stub", *, delay_s: float = 0.0,
+                 shape=(8, 8, 3), max_queue: int = 256, buckets=(4, 8)):
+        self.replica_id = replica_id
+        self.delay_s = float(delay_s)
+        self.shape = tuple(shape)
+        self.max_queue = int(max_queue)
+        self.buckets = tuple(buckets)
+        self.stats = {"programs": 0}
+        self._programs: dict = {}
+        self.device = types.SimpleNamespace(type="cpu")  # nothing to sync
+        self.metrics = metrics.scope("stub")  # warmup reports under it
+        self._lock = threading.Lock()
+        self._queue: list = []                          # guarded-by: _lock
+        self._closed = False                            # guarded-by: _lock
+
+    # ---- warmup surface --------------------------------------------------
+    def ensure_program(self, config, bucket) -> None:
+        key = (config, bucket)
+        if key not in self._programs:
+            self._programs[key] = ("stub", key)
+            self.stats["programs"] += 1
+
+    def load_kernels(self, configs=()) -> None:
+        pass
+
+    def prewarm_cache(self, config, bucket) -> None:
+        pass
+
+    def zero_inputs(self, config, bucket) -> tuple:
+        return ()
+
+    def run_program(self, config, bucket, xs) -> None:
+        self.ensure_program(config, bucket)
+
+    # ---- serving surface -------------------------------------------------
+    def submit(self, seed=None, n=1, *, x_init=None, mask=None,
+               config=None, deadline_s=None, trace=None, **kwargs) -> Ticket:
+        ticket = Ticket(int(n))
+        deadline = None if deadline_s is None \
+            else time.perf_counter() + float(deadline_s)
+        with self._lock:
+            if self._closed:
+                raise EngineClosedError(
+                    f"stub engine {self.replica_id} is closed")
+            if len(self._queue) >= self.max_queue:
+                raise QueueFullError(
+                    f"stub engine {self.replica_id} queue at {self.max_queue}")
+            self._queue.append((ticket, seed, int(n), deadline))
+        return ticket
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def run(self) -> None:
+        while True:
+            with self._lock:
+                if not self._queue:
+                    return
+                ticket, seed, n, deadline = self._queue.pop(0)
+            if self.delay_s:
+                time.sleep(self.delay_s)
+            if deadline is not None and time.perf_counter() > deadline:
+                ticket._fail(DeadlineExceeded(
+                    f"stub request ({n} rows, seed={seed}) expired "
+                    "before dispatch"))
+                continue
+            ticket._deliver(0, n, stub_rows(seed, n, self.shape))
+
+    def drain(self, timeout: Optional[float] = None) -> dict:
+        deadline = None if timeout is None \
+            else time.perf_counter() + float(timeout)
+        while self.queue_depth():  # flush what we can inside the budget
+            if deadline is not None and time.perf_counter() > deadline:
+                break
+            self.run()
+        with self._lock:
+            self._closed = True
+            leftovers, self._queue = self._queue, []
+        for ticket, seed, n, _ in leftovers:
+            ticket._fail(EngineClosedError(
+                f"stub engine {self.replica_id} drained with a "
+                f"{n}-row request still queued"))
+        report = self.health()
+        report["idle"] = True
+        return report
+
+    def health(self) -> dict:
+        # field parity with Engine.health() for every key the router and
+        # autoscaler read: the stub resolves work
+        # synchronously in run(), so the live-load fields are honestly zero
+        # — but they must EXIST, or the RPC protocol tests would silently
+        # exercise a health contract the real engine doesn't have
+        with self._lock:
+            depth = len(self._queue)
+            closed = self._closed
+        return {"replica": self.replica_id, "queue_depth": depth,
+                "open_tickets": 0,
+                "latency_p50_s": 0.0, "latency_p95_s": 0.0,
+                "latency_p99_s": 0.0,
+                "last_progress_s": 0.0, "quarantined": 0,
+                "closed": closed, "stalled": False, "running": not closed,
+                "programs": self.stats["programs"],
+                "max_queue": self.max_queue}
+
+
+def _jsonable(obj):
+    """Clamp a report dict to wire-safe values: numpy arrays pass through
+    (the framing layer carries them), tuples become lists, non-string dict
+    keys and unserializable leaves (warmup's per-key exception table)
+    become their ``str()``."""
+    if isinstance(obj, dict):
+        return {k if isinstance(k, str) else str(k): _jsonable(v)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (np.integer,)):
+        return int(obj)
+    if isinstance(obj, (np.floating,)):
+        return float(obj)
+    if isinstance(obj, (np.ndarray, str, int, float, bool)) or obj is None:
+        return obj
+    return str(obj)
+
+
+class ReplicaServer:
+    """One connection, one replica: decode frames, dispatch, push results."""
+
+    #: methods that may carry injected process faults (work, not liveness —
+    #: the per-site call counter then indexes submits, so a schedule's
+    #: ``at=N`` pins "this replica's N-th work request" exactly)
+    WORK_METHODS = ("submit", "drain")
+
+    def __init__(self, conn: socket.socket, replica, replica_id: str):
+        self._conn = conn
+        self._replica = replica
+        self._replica_id = replica_id
+        self._send_lock = threading.Lock()
+
+    def send(self, msg: dict) -> None:
+        payload = remote.encode_payload(msg)
+        if len(payload) > remote.MAX_FRAME_BYTES:
+            # raise locally and typed — shipping the frame anyway would be
+            # answered by the parent's recv_frame killing the connection
+            raise RemoteRPCError(
+                f"outbound frame of {len(payload)} bytes exceeds "
+                f"MAX_FRAME_BYTES={remote.MAX_FRAME_BYTES}")
+        try:
+            with self._send_lock:
+                self._conn.sendall(struct.pack(">I", len(payload)) + payload)
+        except OSError:
+            pass  # parent gone; the reader loop will see EOF and exit
+
+    def _recv_request(self) -> dict:
+        """recv_frame, except a protocol violation is NOT treated as
+        parent-gone: an over-limit frame is drained (its length prefix says
+        exactly how many bytes to discard, so the stream stays in sync) and
+        answered with a typed error event — one bad request must not kill
+        the replica, or a failover would replay it onto every survivor."""
+        while True:
+            (length,) = struct.unpack(
+                ">I", remote._recv_exact(self._conn, 4))
+            if length <= remote.MAX_FRAME_BYTES:
+                return remote.decode_payload(
+                    remote._recv_exact(self._conn, length))
+            remaining = length
+            while remaining:
+                chunk = self._conn.recv(min(remaining, 1 << 20))
+                if not chunk:
+                    raise ConnectionError("connection closed mid-frame")
+                remaining -= len(chunk)
+            self.send({"event": "protocol_error",
+                       "error": encode_exception(RemoteRPCError(
+                           f"inbound frame of {length} bytes exceeds "
+                           f"MAX_FRAME_BYTES={remote.MAX_FRAME_BYTES}"))})
+
+    def serve(self) -> None:
+        while True:
+            try:
+                msg = self._recv_request()
+            except (RemoteRPCError, ValueError, KeyError, TypeError) as exc:
+                # garbage INSIDE a fully consumed frame (bad JSON, bogus
+                # dtype, truncated buffers): the stream is still framed —
+                # answer typed and keep serving
+                try:
+                    self.send({"event": "protocol_error",
+                               "error": encode_exception(exc)})
+                except RemoteRPCError:
+                    pass
+                continue
+            except Exception:  # noqa: BLE001 — EOF/reset: parent is gone,
+                break          # so is our reason to exist
+            try:
+                self.handle(msg)
+            except Exception:  # noqa: BLE001 — per-request errors were
+                pass           # already answered; never kill the reader
+        try:
+            self._replica.close()
+        finally:
+            os._exit(0)
+
+    def handle(self, msg: dict) -> None:
+        method = msg.get("method")
+        call_id = msg.get("id")
+        params = msg.get("params") or {}
+        if method in self.WORK_METHODS:
+            tag = f"replica:{self._replica_id}|method:{method}|"
+            faults.fire("replica.kill", tag=tag)  # SIGKILL: no line after
+            faults.fire("replica.hang", tag=tag)  # wedge the reader thread
+        try:
+            if method == "ping":
+                result = {"pid": os.getpid()}
+            elif method == "health":
+                result = _jsonable(self._replica.health())
+            elif method == "start":
+                self._replica.start()
+                result = {}
+            elif method == "submit":
+                result = self._submit(params)
+            elif method in ("warm", "drain", "close"):
+                worker = threading.Thread(
+                    target=self._slow, args=(call_id, method, params),
+                    name=f"replica-{method}", daemon=True)
+                worker.start()
+                return
+            else:
+                raise RemoteRPCError(f"unknown RPC method {method!r}")
+        except Exception as exc:  # noqa: BLE001 — every failure crosses
+            # back TYPED; the client-side decoder restores the class
+            self.send({"id": call_id, "ok": False,
+                       "error": encode_exception(exc)})
+            return
+        self._answer(call_id, result)
+
+    def _answer(self, call_id, result) -> None:
+        try:
+            self.send({"id": call_id, "ok": True, "result": result})
+        except RemoteRPCError as exc:  # response too big for one frame:
+            # the caller still gets an answer, just a typed failure
+            self.send({"id": call_id, "ok": False,
+                       "error": encode_exception(exc)})
+
+    def _submit(self, params: dict) -> dict:
+        # the CLIENT owns rid allocation: it registered its ticket under
+        # this rid before the submit frame left, so our ticket/preview
+        # events can never race ahead of the registration (remote.py)
+        rid = params.get("rid")
+        if rid is None:
+            raise RemoteRPCError("submit without a client-allocated rid")
+        cfg = params.get("config")
+        if isinstance(cfg, dict):
+            cfg = SamplerConfig(**cfg)
+        n = int(params.get("n", 1))
+        kwargs = dict(params.get("kwargs") or {})
+        ticket = self._replica.submit(
+            seed=params.get("seed"), n=n, x_init=params.get("x_init"),
+            mask=params.get("mask"), config=cfg,
+            deadline_s=params.get("deadline_s"), **kwargs)
+        ticket.add_preview_callback(
+            lambda step, frames, _rid=rid: self.send(
+                {"event": "preview", "rid": _rid, "step": int(step),
+                 "rows": frames}))
+        ticket.add_done_callback(
+            lambda t, _rid=rid: self._push_result(_rid, t))
+        return {"rid": rid, "n": n}
+
+    def _push_result(self, rid: int, ticket) -> None:
+        exc = ticket.exception(timeout=0)
+        if exc is None:
+            try:
+                self.send({"event": "ticket", "rid": rid, "status": "done",
+                           "result": ticket.result(timeout=0)})
+                return
+            except RemoteRPCError as send_exc:  # result too big for one
+                exc = send_exc                  # frame: fail the ticket typed
+        self.send({"event": "ticket", "rid": rid, "status": "error",
+                   "error": encode_exception(exc)})
+
+    def _slow(self, call_id, method: str, params: dict) -> None:
+        """warm/drain/close run off the reader thread (they block for
+        seconds to minutes; heartbeats must keep flowing meanwhile)."""
+        try:
+            if method == "warm":
+                configs = [SamplerConfig(**c) if isinstance(c, dict) else c
+                           for c in params.get("configs") or []]
+                buckets = params.get("buckets")
+                result = _jsonable(self._replica.warm(
+                    configs, tuple(buckets) if buckets else None,
+                    **(params.get("kwargs") or {})))
+            elif method == "drain":
+                result = _jsonable(self._replica.drain(params.get("timeout")))
+            else:  # close: ack, then leave — nothing to say after
+                self.send({"id": call_id, "ok": True, "result": {}})
+                try:
+                    self._conn.close()
+                finally:
+                    os._exit(0)
+        except Exception as exc:  # noqa: BLE001 — typed across the wire
+            self.send({"id": call_id, "ok": False,
+                       "error": encode_exception(exc)})
+            return
+        self._answer(call_id, result)
+
+
+def build_replica(replica_id: str, spec: dict):
+    """Spec → ReplicaHandle. JAX's ``spec["cache_dir"]`` (its persistent
+    compile cache) is not read: there is no compiler cache, and the kernel
+    libraries every process loads are built once into ``build/``."""
+    if spec.get("backend", "stub") == "stub":
+        return fleet.LocalReplica(
+            StubEngine(replica_id=replica_id, **(spec.get("stub") or {})))
+    from ddim_cold_torch.serve import backend  # the torch-touching import,
+
+    # deferred: this file stays host-only
+    return backend.build_local_replica(replica_id, spec)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="ddim_cold_torch replica server (spawned by "
+                    "serve.remote.remote_factory)")
+    parser.add_argument("--connect", required=True,
+                        help="host:port of the parent's listener")
+    parser.add_argument("--replica-id", required=True)
+    args = parser.parse_args(argv)
+    host, _, port = args.connect.rpartition(":")
+    spec = json.loads(os.environ.get("DDIM_COLD_REPLICA_SPEC") or "{}")
+    faults.arm_from_env()  # the child's OWN chaos schedule (factory env=)
+    replica = build_replica(args.replica_id, spec)
+    conn = socket.create_connection((host or "127.0.0.1", int(port)),
+                                    timeout=30.0)
+    conn.settimeout(None)
+    server = ReplicaServer(conn, replica, args.replica_id)
+    server.send({"event": "hello", "replica_id": args.replica_id,
+                 "pid": os.getpid(),
+                 "backend": spec.get("backend", "stub")})
+    server.serve()
+
+
+if __name__ == "__main__":
+    main()

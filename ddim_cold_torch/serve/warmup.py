@@ -14,29 +14,37 @@ are those of every warmed config's variant
 the warmed pairs; serving a warmed set adds none (the tests pin it). A
 program that fails to warm raises, or with ``tolerate_errors=True`` is
 recorded and skipped, as in the JAX package.
+
+JAX's ``persistent_cache``, ``cache_dir`` and ``dedup`` have no
+counterpart: there is no compiler cache to wire (the kernel libraries are
+built once into ``build/`` and loaded from there by every process) and no
+traced program to fingerprint and alias.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ddim_cold_torch.serve.batching import SamplerConfig
 
 
-def warmup(engine, configs: Sequence[SamplerConfig], *,
+def warmup(engine, configs: Sequence[SamplerConfig],
+           buckets: Optional[Sequence[int]] = None, *,
            tolerate_errors: bool = False) -> dict:
-    """Load the kernels and run every (config, engine bucket) program once.
-    Returns the number of programs this call added, the total, what was
-    warmed, and ``errors``: ``{(config, bucket): exception}``.
+    """Load the kernels and run every (config, bucket) program once;
+    ``buckets=None`` means the engine's own buckets (the fleet router warms
+    each replica with ``rep.warm(configs, buckets)``). Returns the number of
+    programs this call added, the total, what was warmed, and ``errors``:
+    ``{(config, bucket): exception}``.
 
     ``tolerate_errors=True`` keeps warming the remaining programs when one
     fails (degraded startup beats no startup: a config whose program is
     broken fails at its own dispatch instead of taking the deployment
     down); by default the first failure raises. The counts are emitted as
     ``warmup.*`` under the engine's metrics scope."""
-    buckets = engine.buckets
+    buckets = tuple(buckets) if buckets is not None else engine.buckets
     before = engine.stats["programs"]
     errors: dict = {}
     engine.load_kernels(configs)

@@ -33,10 +33,12 @@ dtypes) chosen by the spec's RNG, ``hang`` sleeps ``hang_s`` (default
 effectively forever: a wedge, which the engine's stall watchdog catches),
 ``kill`` SIGKILLs the calling process (the fleet's crash case).
 
-The sites beyond ``serve.*`` (``ckpt.save``, ``data.next``, the router,
-replica and RPC sites) stay registered so that a spec written for the JAX
-package parses here; the port fires them once the modules that own them
-are ported (ROADMAP.md Queue 1 items 11 and 15).
+The engine fires the ``serve.*`` sites, the fleet router ``router.place``,
+``router.failover`` and ``replica.spawn``, the replica server
+``replica.kill`` and ``replica.hang``, and the RPC client ``rpc.drop`` and
+``rpc.latency``. ``ckpt.save`` and ``data.next`` stay registered so that a
+spec written for the JAX package parses here; the port fires them once the
+modules that own them are ported (ROADMAP.md Queue 1 item 11).
 
 Host-only: numpy and the port's ``obs.metrics``, no torch.
 """

@@ -223,10 +223,13 @@ def test_quant_wrappers_never_fall_back(no_cuda, name):
 
 # ------------------------------------------- fault sites and metric emits
 
-#: the robustness layer's host-only modules: the fleet imports them from a
-#: process that has no device
+#: the robustness layer's and the fleet's host-only modules: the fleet's
+#: router imports them in a process that needs no device (of the fleet, only
+#: serve/backend.py touches torch, and only inside a replica's child)
 HOST_ONLY = ("obs/metrics.py", "obs/spans.py", "utils/faults.py",
-             "utils/watchdog.py", "serve/errors.py")
+             "utils/watchdog.py", "serve/errors.py", "serve/router.py",
+             "serve/fleet.py", "serve/remote.py", "serve/replica_main.py",
+             "serve/autoscale.py")
 
 
 def _dotted(node):
@@ -258,7 +261,9 @@ def _package_calls(attrs):
 
 def test_fault_sites_are_registered_literals():
     """Every ``faults.fire`` site is a string literal in ``faults.SITES``,
-    and the engine fires each of the five ``serve.*`` sites."""
+    fired at one call site each: the engine's five ``serve.*`` sites, the
+    router's placement, failover and spawn sites, the replica server's kill
+    and hang, and the RPC client's drop and latency."""
     from ddim_cold_torch.utils import faults
 
     fired = []
@@ -269,7 +274,9 @@ def test_fault_sites_are_registered_literals():
         assert site.value in faults.SITES, (rel, line, site.value)
         fired.append(site.value)
     assert sorted(fired) == sorted(("serve.assemble", "serve.compile", "serve.dispatch",
-                                    "serve.fetch", "serve.preview"))
+                                    "serve.fetch", "serve.preview", "router.place",
+                                    "router.failover", "replica.spawn", "replica.kill",
+                                    "replica.hang", "rpc.drop", "rpc.latency"))
 
 
 def test_metric_emits_are_registered_literals_at_one_site():
@@ -296,8 +303,9 @@ def test_metric_emits_are_registered_literals_at_one_site():
 
 
 def test_host_only_modules_import_no_torch():
-    """The five modules import no torch at module level, and importing the
-    four below ``serve/`` loads no torch at all."""
+    """The host-only modules import no torch at module level, and importing
+    the four outside ``serve/`` loads no torch at all (a ``serve`` module
+    loads the package's ``__init__``, which imports the engine)."""
     for rel in HOST_ONLY:
         tree = ast.parse((ROOT / "ddim_cold_torch" / rel).read_text())
         for node in tree.body:
@@ -319,6 +327,29 @@ def test_robustness_slice_modules_are_checked():
     """The import checks walk the robustness layer's modules too."""
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     assert {f"ddim_cold_torch/{m}" for m in HOST_ONLY} <= names
+
+
+def test_fleet_slice_modules_are_checked():
+    """The import checks walk the fleet's modules, ``serve/backend.py``
+    (the one that imports torch) included."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/serve/{m}.py" for m in (
+        "router", "fleet", "remote", "replica_main", "autoscale", "backend")} <= names
+    assert "torch" in set(_imports(ROOT / "ddim_cold_torch/serve/backend.py"))
+
+
+def test_replica_backend_needs_cuda_unless_told(no_cuda):
+    """A replica spec without ``"device"`` builds its model on the card, and
+    raises without one instead of serving on the CPU; ``"cpu"`` asks for
+    the CPU."""
+    from ddim_cold_torch.serve import backend
+
+    spec = dict(TINY, img_size=[16, 16], dtype="float32")
+    with pytest.raises(RuntimeError, match="cuda"):
+        backend.build_model(spec)
+    with pytest.raises(RuntimeError, match="cuda"):
+        backend.build_local_replica("r0", {"backend": "engine", "model": spec})
+    assert backend.build_model(dict(spec, device="cpu")).device.type == "cpu"
 
 
 def test_engine_robustness_defaults_need_cuda(no_cuda, monkeypatch):
