@@ -43,8 +43,16 @@ Phases, one JSON object per line:
    model, warmed, answering three requests with DDIM k=20 (100 forwards
    each); the kernel launch counters are zeroed just before and read just
    after;
-7. profile — one more drain (a single 8-row batch) under ``torch.profiler``:
-   device time by kernel kind and the device's idle share;
+7. profile — one more drain (a single 8-row batch) traced by
+   ``utils/profiling.trace``: device time by kernel kind and the device's
+   idle share; then the trace read back by ``obs/attrib`` (an ``attrib``
+   line: per scope self and inclusive time, events, share of busy,
+   achieved TFLOP/s, MFU against the card's peak from ``utils/flops``,
+   roofline class; coverage, busy fraction, the top fusion candidates) and
+   held: ``flash_attention/fwd`` holds exactly the batch's flash_fwd
+   launches and their device time (5% slack), the busy fraction is the
+   phase's own 1 − idle share within 0.005, no MFU above 1 nor rate above
+   the peak, coverage at least ``attrib.COVERAGE_FLOOR``;
 7b. serve-chaos — the engine's robustness layer on the serve engine (its
    defaults: 2 batches assembled ahead on a side stream, 2 in flight, the
    stall watchdog at 900 s): ten requests (41 rows) disarmed, every row bit
@@ -90,8 +98,15 @@ Phases, one JSON object per line:
    steps and must read depth × steps for each of the three kernels. Then 2
    steps with attention dropout 0.1 (the JAX default, the YAML path): the
    dense rule holds and no flash kernel launches;
-10. train-profile — three more training steps under ``torch.profiler``:
-   device time of the three kernels and of the rest, and the idle share;
+10. train-profile — three more training steps traced by
+   ``utils/profiling.start_trace``/``stop_trace``: device time of the three
+   kernels and of the rest, and the idle share; attributed and held as in
+   7 (the three flash scopes), coverage reported only (autograd's
+   LayerNorm and GEMM backward kernels run under no scope);
+10b. train-nan — two B=16 steps with and without
+   ``profiling.enable_nan_checks``: losses bit for bit equal, ms/step of
+   each; then a NaN weight raises ``FloatingPointError`` naming the
+   module;
 11. kernel — the quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
    ``fused_trunk``) against their plain versions at the 200px/p4 serve
    shape (B=8) and at 200px/p8, in float32 and bfloat16, w8a16 and w8a8
@@ -107,9 +122,10 @@ Phases, one JSON object per line:
    request under each of ``quant="pallas"``, ``quant="pallas", fused=True``,
    ``quant="w8a8", fused=True`` and ``fused=True``; the launch counters are
    zeroed just before each drain and must read exactly depth × steps per
-   kernel of the config (dequant_mm 4× that); then one more
-   ``quant="pallas"`` batch and one more fused w8a16 batch under
-   ``torch.profiler``, each with its launch counts checked;
+   kernel of the config (dequant_mm 4× that); then one more batch of each
+   config traced, with its launch counts checked, attributed and held as
+   in 7 (each kernel's scope; in w8a8 the int8 shares of the scopes' work
+   set their peaks);
 14. serve-edit — one engine (buckets 4, 8) over the bf16 model and a
    seed-1 student weight set, warmed with eight configs: cold (7 levels),
    superres (cold, 3 levels, ``quant="pallas"``, a 25×25 input), inpaint
@@ -1158,21 +1174,154 @@ def _union_us(intervals) -> float:
     return busy
 
 
+# ------------------------------------------------ attribution of the captures
+
+#: each hand-written kernel's profiler scope (``obs/attrib.REGISTERED_SCOPES``;
+#: the key is a substring of the kernel's device function names)
+KERNEL_SCOPES = {"flash_fwd": "flash_attention/fwd", "flash_bwd_dq": "flash_attention/dq",
+                 "flash_bwd_dkv": "flash_attention/dkv",
+                 "fused_trunk": "flash_attention/fused_qkv",
+                 "dequant_mm": "dequant_matmul/pallas", "mlp_fused": "mlp/pallas"}
+#: a kernel scope's device time against its kernel's: the scope opens around
+#: the launch alone (the wrappers' copies, casts and w8a8 activation
+#: quantization sit outside it), so it may exceed the kernel's summed device
+#: time by 5%, plus SCOPE_ROUND_S for the trace's µs rounding of each event
+SCOPE_SLACK = 1.05
+SCOPE_ROUND_S = 5e-6
+#: ``busy_fraction`` against 1 − the phase's own idle share, absolute
+BUSY_TOL = 0.005
+#: where the captures' Chrome traces are written and read back (gitignored;
+#: each is deleted once attributed)
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+
+
+def _device_spans(prof):
+    """The profiler's device events that are work — kernels, copies, sets —
+    and not the ``gpu_user_annotation`` mirror of a scope."""
+    from torch.autograd import DeviceType
+
+    from ddim_cold_torch.obs import attrib
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in attrib.REGISTERED_SCOPES]
+
+
+def serve_scope_costs(model, forwards: int, quant=None, fused=False) -> dict:
+    """A served capture's scope costs: ``flops.vit_scope_costs`` of one
+    image's forward × ``forwards`` (rows × steps); in w8a8 with the share of
+    a scope's FLOPs that runs at the int8 rate: the fused attention's
+    projections, the whole fused Mlp, the forward's trunk GEMMs."""
+    from ddim_cold_torch.models import MODEL_CONFIGS
+    from ddim_cold_torch.utils import flops
+
+    kw = dict(MODEL_CONFIGS[MODEL], mlp_ratio=1.0)
+    per = flops.vit_scope_costs(**kw, flash=True, quant=quant is not None, fused=fused)
+    fractions = {}
+    if quant == "w8a8":
+        n, c = model.num_patches + 1, model.embed_dim
+        fractions = {"flash_attention/fused_qkv": 2 * c / (n + 2 * c), "mlp/pallas": 1.0,
+                     "sampler/model": flops.vit_trunk_gemm_fraction(**kw)}
+    return {scope: {"flops": cost["flops"] * forwards, "bytes": cost["bytes"] * forwards,
+                    **({"int8_fraction": fractions[scope]} if scope in fractions else {})}
+            for scope, cost in per.items()}
+
+
+def train_scope_costs(model, images: int) -> dict:
+    """The flash kernels' work in a training window: per image and layer the
+    forward's 4·N²·C FLOPs, dq's 6·N²·C (S, dP and dS·K again) and dk/dv's
+    8·N²·C (S, dP, Pᵀ·dO and dSᵀ·Q), in bf16; bytes each input read and
+    each output written once."""
+    n, c, depth = model.num_patches + 1, model.embed_dim, model.depth
+    per = {"flash_attention/fwd": (4, 4), "flash_attention/dq": (6, 5),
+           "flash_attention/dkv": (8, 6)}
+    return {scope: {"flops": float(f * n * n * c * depth * images),
+                    "bytes": float(b * n * c * 2 * depth * images)}
+            for scope, (f, b) in per.items()}
+
+
+def attribute_capture(torch, prof, log_dir: str, capture: str, costs: dict,
+                      launches: dict, idle_share: float, floor: bool) -> dict:
+    """Read back a capture's trace with ``obs.attrib`` and hold it: each
+    kernel's scope holds exactly its launches and its summed device time
+    (by name, from the profiler's own events) within SCOPE_SLACK; the busy
+    fraction is 1 − the phase's idle share within BUSY_TOL; no MFU above 1
+    nor achieved rate above the scope's peak; with ``floor``, coverage at
+    least ``attrib.COVERAGE_FLOOR``. Emits one ``attrib`` record."""
+    import shutil
+
+    from ddim_cold_torch.obs import attrib
+    from ddim_cold_torch.utils import flops
+
+    kind = torch.cuda.get_device_name(0)
+    path = os.path.join(log_dir, "trace.json")
+    trace_mb = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    report = attrib.attribute(log_dir, device_kind=kind, scope_costs=costs)
+    parse_s = time.perf_counter() - t0
+    shutil.rmtree(log_dir)
+    kernel_s = {name: 0.0 for name in launches}
+    for e in _device_spans(prof):
+        for name in kernel_s:
+            if name in e.name:
+                kernel_s[name] += (e.time_range.end - e.time_range.start) / 1e6
+    keys = ("self_s", "total_s", "events", "share_of_busy", "achieved_tflops", "mfu",
+            "roofline")
+    scopes = {name: {k: node[k] for k in keys}
+              for name, node in attrib.ranked_scopes(report)}
+    rec = {"phase": "attrib", "capture": capture, "device_kind": kind,
+           "coverage": report["coverage"], "busy_fraction": report["busy_fraction"],
+           "phase_idle_share": idle_share, "window_s": report["window_s"],
+           "device_busy_s": report["device_busy_s"], "idle_s": report["idle_s"],
+           "device_lanes": report["device_lanes"], "scopes": scopes,
+           "kernel_s": kernel_s, "expected_events": launches,
+           "fusion_candidates": report["fusion_candidates"][:3],
+           "trace_mb": trace_mb, "attribute_s": parse_s}
+    emit(rec)
+    for name, n in launches.items():
+        node = report["scopes"].get(KERNEL_SCOPES[name], {})
+        self_s = node.get("self_s", 0.0)
+        check(node.get("events") == n,
+              f"attrib {capture}: {KERNEL_SCOPES[name]} events {node.get('events')}, "
+              f"{name} launched {n}")
+        check(kernel_s[name] - SCOPE_ROUND_S <= self_s
+              <= SCOPE_SLACK * kernel_s[name] + SCOPE_ROUND_S,
+              f"attrib {capture}: {KERNEL_SCOPES[name]} self {self_s} s against "
+              f"{name}'s {kernel_s[name]} s")
+    check(report["busy_fraction"] is not None
+          and abs(report["busy_fraction"] - (1.0 - idle_share)) <= BUSY_TOL,
+          f"attrib {capture}: busy fraction {report['busy_fraction']} against the "
+          f"phase's idle share {idle_share}")
+    for name, node in report["scopes"].items():
+        peak = flops.mixed_peak_tflops(kind, (costs.get(name) or {}).get("int8_fraction", 0.0))
+        check(node["mfu"] is None or node["mfu"] <= 1.0,
+              f"attrib {capture}: {name} mfu {node['mfu']}")
+        check(node["achieved_tflops"] is None or (peak and node["achieved_tflops"] <= peak),
+              f"attrib {capture}: {name} {node['achieved_tflops']} TFLOP/s against a "
+              f"peak of {peak}")
+    if floor:
+        check(report["coverage"] is not None and report["coverage"] >= attrib.COVERAGE_FLOOR,
+              f"attrib {capture}: coverage {report['coverage']} under "
+              f"{attrib.COVERAGE_FLOOR}")
+    return report
+
+
 def phase_profile(torch, eng, config):
     """Where a served batch's time goes: one more drain of a single 8-row
-    batch under torch.profiler; device kernel time by kind and the device's
-    idle share over the drain."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    batch traced by ``utils/profiling.trace``; device kernel time by kind
+    and the device's idle share over the drain; then the trace attributed
+    to the port's scopes (``obs/attrib``)."""
+    from ddim_cold_torch.utils import profiling
 
     ticket = eng.submit(seed=3, n=8, config=config)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    log_dir = os.path.join(TRACE_DIR, "serve")
+    with profiling.trace(log_dir) as prof:
         t0 = time.perf_counter()
         report = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ticket.result(timeout=600)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = _device_spans(prof)
     kinds = {"flash_fwd": [], "gemm": [], "other": []}
     by_name: dict = {}
     for e in kernels:
@@ -1200,8 +1349,12 @@ def phase_profile(torch, eng, config):
     rec["top_kernels"] = [{"name": n, "s": us / 1e6, "launches": c}
                           for n, (us, c) in top]
     emit(rec)
-    check(rec["flash_fwd_launches"] == eng.model.depth * steps * report["batches"],
+    launches = eng.model.depth * steps * report["batches"]
+    check(rec["flash_fwd_launches"] == launches,
           f"profiled flash_fwd launches {rec['flash_fwd_launches']}")
+    forwards = steps * (report["rows"] + report["padded_rows"])  # image-forwards
+    attribute_capture(torch, prof, log_dir, "serve", serve_scope_costs(eng.model, forwards),
+                      {"flash_fwd": launches}, rec["idle_share"], floor=True)
 
 
 def _cold_batches(n: int, batch: int, seed: int):
@@ -1362,25 +1515,27 @@ def phase_train(torch, fa):
 
 
 def phase_train_profile(torch, model, state, step, batch, gen):
-    """Where a training step's time goes: PROFILE_STEPS more steps under
-    torch.profiler (the host→device copies of the later batches overlap the
-    earlier steps, as in a run); device time of the three kernels and of
-    the rest, and the device's idle share over the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where a training step's time goes: PROFILE_STEPS more steps traced by
+    ``utils/profiling.start_trace``/``stop_trace`` (the trainer's
+    ``profile_steps``; the host→device copies of the later batches overlap
+    the earlier steps, as in a run); device time of the three kernels and
+    of the rest, and the device's idle share over the window; then the
+    trace attributed to the port's scopes (coverage reported: autograd's
+    backward kernels outside the dq/dkv scopes are under no scope)."""
+    from ddim_cold_torch.utils import profiling
 
     loss_rec = torch.tensor(5.0, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _run_steps(torch, step, state, batch, gen, loss_rec)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    log_dir = os.path.join(TRACE_DIR, "train")
+    profiling.start_trace(log_dir)
+    t0 = time.perf_counter()
+    _run_steps(torch, step, state, batch, gen, loss_rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profiling.stop_trace()
     kinds = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": [], "gemm": [],
              "other": []}
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in _device_spans(prof):
         name = e.name.lower()
         kind = next((k for k in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")
                      if k in name), None)
@@ -1407,6 +1562,73 @@ def phase_train_profile(torch, model, state, step, batch, gen):
     for kind in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(rec[f"{kind}_launches"] == model.depth * len(batch),
               f"profiled {kind} launches {rec[f'{kind}_launches']}")
+    images = len(batch) * int(batch[0][0].shape[0])
+    attribute_capture(torch, prof, log_dir, "train", train_scope_costs(model, images),
+                      {k: model.depth * len(batch)
+                       for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                      rec["idle_share"], floor=False)
+
+
+def phase_train_nan(torch):
+    """``nan_checks`` at the training path's full width: two B=16 steps of
+    the bf16 flash model without and with ``profiling.enable_nan_checks``
+    (fresh seeded models, the same batches and generator seed): no false
+    positive, each loss bit for bit the plain one, the second step of each
+    timed; then one NaN written into a weight raises ``FloatingPointError``
+    naming the module its output reached. The checks are off afterwards."""
+    from torch.nn.modules import module as nn_module
+
+    from ddim_cold_torch.data.loader import device_prefetch
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+    from ddim_cold_torch.utils import profiling
+
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    host = _cold_batches(3, 16, SEED + 4)
+    lr = 0.005 * 16 / 512
+    got = {}
+    raised = None
+    for checked in (False, True):
+        model = _train_model(torch, drop_rate=0.1, attn_drop_rate=0.0, drop_path_rate=0.1)
+        state = create_train_state(model, lr, TRAIN_TOTAL_STEPS)
+        step = make_train_step(model, prepare=prepare)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        loss_rec = torch.tensor(5.0, device="cuda")
+        losses, ms = [], None
+        if checked:
+            profiling.enable_nan_checks(True, model)
+        try:
+            for i, b in enumerate(device_prefetch(host[:2], "cuda")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss, loss_rec = step(state, b, gen, loss_rec)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                losses.append(loss.item())
+            if checked:
+                with torch.no_grad():
+                    model.blocks[2].mlp.fc1.weight[0, 0] = float("nan")
+                try:
+                    _run_steps(torch, step, state, host[2:], gen, loss_rec)
+                    torch.cuda.synchronize()
+                except FloatingPointError as err:
+                    raised = str(err)
+        finally:
+            profiling.enable_nan_checks(False)
+        got[checked] = (losses, ms)
+        del model, state, step
+    torch.cuda.empty_cache()
+    rec = {"phase": "train-nan", "model": MODEL, "dtype": "bfloat16", "batch": 16,
+           "losses_plain": got[False][0], "losses_nan_checks": got[True][0],
+           "ms_per_step_plain": got[False][1], "ms_per_step_nan_checks": got[True][1],
+           "slowdown": got[True][1] / got[False][1], "raised": raised}
+    emit(rec)
+    check(got[True][0] == got[False][0] and all(map(math.isfinite, got[False][0])),
+          f"train-nan: losses {got[True][0]} under nan_checks, {got[False][0]} without")
+    check(raised is not None and "'blocks.2.mlp'" in raised,
+          f"train-nan: a NaN weight raised {raised!r}")
+    check(not torch.is_anomaly_enabled() and not nn_module._global_forward_hooks,
+          "train-nan: the checks outlived the phase")
 
 
 # ------------------------------------------------- the quantized trunk
@@ -2491,25 +2713,24 @@ def _kind_of(name: str, kinds) -> str:
 
 
 def phase_profile_quant(torch, eng, config, per_layer, model):
-    """One more batch of a quantized config under torch.profiler: device
-    time by kernel and the device's idle share; each of the config's
-    kernels (``per_layer``: launches a layer-forward) launched exactly
-    depth × steps times that."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One more batch of a quantized or fused config traced by
+    ``utils/profiling.trace``: device time by kernel and the device's idle
+    share; each of the config's kernels (``per_layer``: launches a
+    layer-forward) launched exactly depth × steps times that; then the
+    trace attributed to the port's scopes."""
+    from ddim_cold_torch.utils import profiling
 
     ticket = eng.submit(seed=SEED + 8, n=8, config=config)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    log_dir = os.path.join(TRACE_DIR, f"quant-{config.quant}-{config.fused}")
+    with profiling.trace(log_dir) as prof:
         t0 = time.perf_counter()
         report = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ticket.result(timeout=900)
     kinds = {k: [] for k in QUANT_KERNELS + ("gemm", "other")}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kinds[_kind_of(e.name, QUANT_KERNELS)].append(
-                (e.time_range.start, e.time_range.end))
+    for e in _device_spans(prof):
+        kinds[_kind_of(e.name, QUANT_KERNELS)].append((e.time_range.start, e.time_range.end))
     spans = [iv for ivs in kinds.values() for iv in ivs]
     window_us = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) if spans else 0.0
     busy_us = _union_us(spans)
@@ -2525,6 +2746,11 @@ def phase_profile_quant(torch, eng, config, per_layer, model):
     for name, n in per_layer.items():
         check(rec[f"{name}_launches"] == n * model.depth * steps,
               f"profiled {rec['config']}: {name} launches {rec[f'{name}_launches']}")
+    forwards = steps * (report["rows"] + report["padded_rows"])
+    attribute_capture(torch, prof, log_dir, f"serve {rec['config']}",
+                      serve_scope_costs(model, forwards, config.quant, config.fused),
+                      {name: n * model.depth * steps for name, n in per_layer.items()},
+                      rec["idle_share"], floor=True)
 
 
 def main() -> int:
@@ -2575,7 +2801,7 @@ def main() -> int:
     check_released(torch, "serve-fleet", before)
     phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant)
     eng, qconfigs, quant_launches = phase_serve_quant(torch, model, fa, quant, serve)
-    for config, (_, per_layer) in list(zip(qconfigs, SERVE_QUANT))[:2]:  # pallas, fused w8a16
+    for config, (_, per_layer) in zip(qconfigs, SERVE_QUANT):
         phase_profile_quant(torch, eng, config, per_layer, model)
     del eng
     edit_launches = phase_serve_edit(torch, model, fa, quant, serve, DiffusionViT,
@@ -2588,6 +2814,8 @@ def main() -> int:
     phase_train_check(torch, fa)
     train_model, state, step, batch, gen, train_launches = phase_train(torch, fa)
     phase_train_profile(torch, train_model, state, step, batch, gen)
+    del train_model, state, step
+    phase_train_nan(torch)
 
     fwd = records[("200_p4_b16", "bfloat16")]
     lines = [{

@@ -20,10 +20,13 @@ and replicated exactly (multi_gpu_trainer.py:191-196):
 ``diff_step`` is honored — passed to the model as total_steps when
 ``honor_diff_step`` is set; by default it is recorded but the time-embedding
 table stays at 2000 rows for checkpoint compatibility (SURVEY.md quirk #4).
-The optional keys the JAX package added keep their meaning; the port's
-trainer refuses those whose slice has not landed (``mesh``, more than one
-device, ``profile_steps``, ``nan_checks``, ``steps_per_dispatch`` > 1,
-MoE, remat, scan_blocks, ``flash_blocks``), naming the ROADMAP.md item.
+The optional keys the JAX package added keep their meaning;
+``profile_steps`` traces the first N steps into ``<run_dir>/trace`` and
+``nan_checks`` raises at the first non-finite value (the port's
+counterparts of a ``jax.profiler`` trace and ``jax_debug_nans``). The
+port's trainer refuses those whose slice has not landed (``mesh``, more
+than one device, ``steps_per_dispatch`` > 1, MoE, remat, scan_blocks,
+``flash_blocks``), naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ class ExperimentConfig:
     sp_mode: str = "ring"  # seq-parallel strategy: ring | ulysses
     remat: bool = False
     profile_steps: int = 0  # trace this many early steps into <run_dir>/trace
-    nan_checks: bool = False  # jax_debug_nans for the whole run
+    nan_checks: bool = False  # raise at the first NaN/inf, the whole run
     cache_images: object = None  # None=auto (fits 2GB), True/False=force
     # device-side corruption: ship clean bases, corrupt in-jit. Cold datasets:
     # bit-identical gathers (tests/test_device_path.py), both loaders.

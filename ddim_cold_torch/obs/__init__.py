@@ -8,10 +8,17 @@
   emit into; ``Engine.stats`` / ``Engine.health()`` are rendered from it.
 * :mod:`ddim_cold_torch.obs.device` — the step-cached samplers' telemetry
   decoded into per-ticket summaries.
+* :mod:`ddim_cold_torch.obs.attrib` — profiler-trace attribution: device
+  time per named scope from Kineto's traces, flop/byte joins → achieved
+  TFLOP/s, MFU, roofline class, fusion candidates.
+* :mod:`ddim_cold_torch.obs.trend` — the ``BENCH_r*``/``MULTICHIP_r*``
+  trajectory loader + noise-banded regression gate (``python -m
+  ddim_cold_torch.obs.trend``).
 
-``spans`` and ``metrics`` are host-only (stdlib; no torch).
+``spans``, ``metrics``, ``attrib`` and ``trend`` are host-only (stdlib; no
+torch).
 """
 
-from ddim_cold_torch.obs import device, metrics, spans
+from ddim_cold_torch.obs import attrib, device, metrics, spans, trend
 
-__all__ = ["device", "metrics", "spans"]
+__all__ = ["attrib", "device", "metrics", "spans", "trend"]

@@ -10,10 +10,8 @@ One name differs from the JAX catalog: the JAX engine counts XLA programs
 compiled (``engine.compiles``, ``warmup.new_compiles``); the port compiles
 nothing at serve time and counts the (config, bucket) programs it builds
 instead (``engine.programs``, ``warmup.new_programs``), the name its
-``stats["programs"]`` already used. The router, fleet, remote and
-autoscaler series are the JAX catalog's rows; the attribution and trend
-series come with the rest of the observability layer (ROADMAP.md Queue 1
-item 16).
+``stats["programs"]`` already used. The router, fleet, remote,
+autoscaler, attribution and trend series are the JAX catalog's rows.
 
 Contracts (checked statically by ``tests/test_torch_port_hygiene.py``):
 
@@ -96,6 +94,14 @@ METRICS = (
     ("autoscale.scale_ups", "counter", "target increments issued"),
     ("autoscale.scale_downs", "counter", "target decrements issued"),
     ("autoscale.target", "gauge", "router replica target after last tick"),
+    # -- attribution / trend (obs.attrib / obs.trend, host-side) ----------
+    ("attrib.traces", "counter", "profiler traces attributed"),
+    ("attrib.coverage_pct", "gauge",
+     "device-busy % attributed to registered scopes (last trace)"),
+    ("attrib.device_busy_s", "gauge",
+     "device-busy seconds in the last attributed trace"),
+    ("trend.points", "gauge", "series points loaded by the trend gate"),
+    ("trend.checks", "counter", "trend-gate checks by outcome (key: status)"),
     # -- fault injection --------------------------------------------------
     ("faults.injected", "counter", "realized fault injections (key: site)"),
 )

@@ -1,0 +1,351 @@
+"""Bench-trajectory series loading + the out-of-band regression gate.
+
+Counterpart of ``ddim_cold_tpu/obs/trend.py``: the one loader and one
+noise-band policy for every trajectory consumer.
+
+* :func:`load_series` — unwraps a ``{"cmd", "rc", "tail", "parsed"}``
+  wrapper (the bench record is ``parsed`` or the last parseable JSON line
+  of ``tail``; a wrapper whose tail is truncated beyond recovery becomes a
+  skipped, annotated point, not a crash), reads raw record files through
+  ``utils.record.last_json_record``, and raises :exc:`TrendError` on files
+  that are not JSON at all.
+* :func:`check` — one dotted-path metric over an ordered series: the newest
+  value against the median of its predecessors, with a noise band derived
+  from the spread of successive relative deltas. First-run and
+  missing-metric pass; drift beyond the band in the bad direction is a
+  regression.
+* :func:`gate` / ``python -m ddim_cold_torch.obs.trend`` — exit 0 on a
+  series, nonzero on any out-of-band regression. The checks are an
+  argument: the port has no bench records of its own yet, so its default
+  lists are empty (see :data:`BENCH_CHECKS`).
+* :func:`thin` / :func:`annotate_deltas` — the series-shaping helpers (one
+  thinning rule, one band policy).
+
+Ordering honors the ``run_meta`` stamp (``utils.record.run_metadata``) and
+falls back to the ``r{N}`` filename round only for unstamped records.
+
+Host-only: no torch — the gate runs on machines that never touch a device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import re
+import sys
+from typing import Optional
+
+from ddim_cold_torch.utils.record import is_device_record, last_json_record
+
+#: default relative noise floor, a policy: drift inside 10% is never a
+#: regression, even on a 2-point series whose spread cannot be measured.
+REL_FLOOR = 0.1
+#: band = max(REL_FLOOR, BAND_K · median |successive relative delta|)
+BAND_K = 3.0
+
+#: the checks ``gate`` runs by default over ``BENCH_r*.json``: (dotted
+#: metric path, direction — "higher" is better / "lower" / "zero" = must
+#: equal 0 / "true" = must be truthy). Empty: the port has no bench records
+#: of its own until its bench names its metrics (ROADMAP.md Queue 1 item
+#: 20, its bench half); a caller passes its checks to ``gate`` and ``main``.
+BENCH_CHECKS: tuple = ()
+#: the same over ``MULTICHIP_r*.json``; empty for the same reason.
+MULTICHIP_CHECKS: tuple = ()
+
+_MISSING = object()
+
+
+class TrendError(ValueError):
+    """A series file that is not parseable JSON at all (corrupt commit)."""
+
+
+_SCOPE = None
+
+
+def _mscope():
+    global _SCOPE
+    if _SCOPE is None:
+        from ddim_cold_torch.obs import metrics
+        _SCOPE = metrics.scope("trend")
+    return _SCOPE
+
+
+# ---------------------------------------------------------------------------
+# loading
+# ---------------------------------------------------------------------------
+
+class Point:
+    """One series point: ``record`` is None when the file held a valid
+    wrapper whose inner record is unrecoverable (``note`` says why)."""
+
+    __slots__ = ("path", "round", "record", "note")
+
+    def __init__(self, path, rnd, record, note=None):
+        self.path = path
+        self.round = rnd
+        self.record = record
+        self.note = note
+
+    def meta(self) -> dict:
+        return (self.record or {}).get("run_meta") or {}
+
+
+def unwrap(obj):
+    """A ``{"cmd", "rc", "tail", "parsed"}`` wrapper → (inner record | None,
+    note | None); non-wrapper dicts pass through untouched."""
+    if isinstance(obj, dict) and "tail" in obj and (
+            "parsed" in obj or "cmd" in obj):
+        if isinstance(obj.get("parsed"), dict):
+            return obj["parsed"], None
+        for ln in reversed(str(obj.get("tail") or "").splitlines()):
+            try:
+                rec = json.loads(ln)
+            except ValueError:
+                continue
+            if isinstance(rec, dict):
+                return rec, None
+        return None, ("wrapper tail holds no parseable record "
+                      "(truncated capture)")
+    return obj, None
+
+
+def load_record(path: str):
+    """→ (record | None, note | None). :exc:`TrendError` when the file has
+    no parseable JSON at all — a corrupt commit is an error, a truncated
+    wrapper tail is a skipped point."""
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except OSError as e:
+        raise TrendError(f"{path}: unreadable ({e})")
+    except ValueError:
+        obj = last_json_record(path)  # JSONL-style record files
+        if obj is None:
+            raise TrendError(f"{path}: no parseable JSON record")
+    return unwrap(obj)
+
+
+def _round_of(path: str) -> Optional[int]:
+    m = re.search(r"_r(\d+)\.json$", os.path.basename(path))
+    return int(m.group(1)) if m else None
+
+
+def load_series(paths) -> list:
+    """Ordered [Point] for a glob pattern or explicit path list. Order: the
+    ``run_meta.timestamp`` stamp when every loadable record carries one,
+    else the filename round (timestamp as tie-break)."""
+    if isinstance(paths, str):
+        paths = sorted(glob.glob(paths))
+    points = []
+    for p in paths:
+        rec, note = load_record(p)
+        points.append(Point(p, _round_of(p), rec, note))
+    stamps = [pt.meta().get("timestamp") for pt in points
+              if pt.record is not None]
+    if stamps and all(isinstance(t, (int, float)) for t in stamps):
+        points.sort(key=lambda pt: (pt.meta().get("timestamp", 0),
+                                    pt.round or 0))
+    else:
+        points.sort(key=lambda pt: (pt.round or 0, pt.path))
+    return points
+
+
+def metric_value(record, dotted: str):
+    """``"submetrics.serving.img_per_sec"`` → value, or ``_MISSING``."""
+    node = record
+    for part in dotted.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return _MISSING
+        node = node[part]
+    return node
+
+
+# ---------------------------------------------------------------------------
+# noise bands + the gate
+# ---------------------------------------------------------------------------
+
+def noise_band(prior_values, rel_floor: float = REL_FLOOR,
+               k: float = BAND_K) -> float:
+    """Relative band for "is the newest delta noise": k × the median
+    absolute successive relative delta over the prior series, floored at
+    ``rel_floor`` (a 1–2 point history has no measurable spread)."""
+    deltas = [abs((b - a) / a) for a, b in zip(prior_values,
+                                               prior_values[1:]) if a]
+    if not deltas:
+        return rel_floor
+    deltas.sort()
+    mid = len(deltas) // 2
+    spread = (deltas[mid] if len(deltas) % 2
+              else 0.5 * (deltas[mid - 1] + deltas[mid]))
+    return max(rel_floor, k * spread)
+
+
+def check(points, metric: str, direction: str = "higher",
+          rel_floor: float = REL_FLOOR, k: float = BAND_K,
+          device_only: bool = True) -> dict:
+    """One metric over one ordered series → a verdict dict with ``status``
+    in {"ok", "regression", "first_run", "missing", "no_points"}; only
+    "regression" gates. ``device_only`` keeps the records captured on an
+    accelerator (``utils.record.is_device_record``)."""
+    usable = [pt for pt in points if isinstance(pt.record, dict)
+              and not pt.record.get("skipped")]
+    if device_only:
+        usable = [pt for pt in usable if is_device_record(pt.record)]
+    out = {"metric": metric, "direction": direction,
+           "points": len(usable), "status": "no_points",
+           "last": None, "ref": None, "delta_rel": None, "band": None}
+    if not usable:
+        return out
+    last_pt = usable[-1]
+    last = metric_value(last_pt.record, metric)
+    if direction in ("zero", "true"):
+        ok = ((last == 0) if direction == "zero" else bool(last))
+        out.update(status="missing" if last is _MISSING
+                   else ("ok" if ok else "regression"), last=None
+                   if last is _MISSING else last, path=last_pt.path)
+        return out
+    series = [(pt, metric_value(pt.record, metric)) for pt in usable]
+    vals = [float(v) for _, v in series
+            if v is not _MISSING and isinstance(v, (int, float))]
+    if last is _MISSING or not isinstance(last, (int, float)):
+        out.update(status="missing")
+        return out
+    if len(vals) < 2:
+        out.update(status="first_run", last=last)
+        return out
+    prior = vals[:-1]
+    prior_sorted = sorted(prior)
+    mid = len(prior_sorted) // 2
+    ref = (prior_sorted[mid] if len(prior_sorted) % 2
+           else 0.5 * (prior_sorted[mid - 1] + prior_sorted[mid]))
+    band = noise_band(prior, rel_floor, k)
+    delta = (float(last) - ref) / abs(ref) if ref else 0.0
+    bad = delta < -band if direction == "higher" else delta > band
+    out.update(status="regression" if bad else "ok", last=float(last),
+               ref=round(ref, 4), delta_rel=round(delta, 4),
+               band=round(band, 4), path=last_pt.path)
+    return out
+
+
+def gate(root: str, rel_floor: float = REL_FLOOR, k: float = BAND_K,
+         bench_checks=BENCH_CHECKS,
+         multichip_checks=MULTICHIP_CHECKS) -> dict:
+    """The committed-series gate over ``<root>/BENCH_r*.json`` +
+    ``<root>/MULTICHIP_r*.json`` → {"exit_code", "checks", "statuses"}."""
+    results = []
+    bench = load_series(os.path.join(root, "BENCH_r*.json"))
+    multi = load_series(os.path.join(root, "MULTICHIP_r*.json"))
+    for pts, checks, device_only in ((bench, bench_checks, True),
+                                     (multi, multichip_checks, False)):
+        for metric, direction in checks:
+            results.append(check(pts, metric, direction, rel_floor, k,
+                                 device_only=device_only))
+    skipped = [{"path": pt.path, "note": pt.note}
+               for pt in bench + multi if pt.note]
+    statuses: dict = {}
+    for r in results:
+        statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+    m = _mscope()
+    m.gauge("trend.points", len(bench) + len(multi))
+    for r in results:
+        m.inc("trend.checks", key=r["status"])
+    return {"exit_code": 1 if statuses.get("regression") else 0,
+            "bench_points": len(bench), "multichip_points": len(multi),
+            "skipped_points": skipped, "statuses": statuses,
+            "checks": results}
+
+
+# ---------------------------------------------------------------------------
+# series shaping
+# ---------------------------------------------------------------------------
+
+def thin(seq, max_points: int) -> list:
+    """Evenly thin to ≤ ``max_points``, always keeping first and last —
+    the one thinning rule for trend artifacts (checkpoint snapshots here,
+    any future long series)."""
+    seq = list(seq)
+    if max_points <= 0 or len(seq) <= max_points:
+        return seq
+    if max_points == 1:
+        return [seq[0]]
+    step = (len(seq) - 1) / (max_points - 1)
+    idx = sorted({round(i * step) for i in range(max_points)})
+    return [seq[i] for i in idx]
+
+
+def annotate_deltas(rows, value_key: str, lower_is_better: bool = False,
+                    rel_floor: float = REL_FLOOR, k: float = BAND_K) -> list:
+    """Copy ``rows`` (dicts carrying ``value_key``) with per-point
+    ``delta_rel`` / ``band`` / ``in_band`` annotations under the SAME
+    noise-band policy as the regression gate, so a trend artifact speaks
+    the gate's language instead of shipping raw values."""
+    out = []
+    vals: list = []
+    for row in rows:
+        row = dict(row)
+        v = row.get(value_key)
+        if isinstance(v, (int, float)) and vals:
+            band = noise_band(vals, rel_floor, k)
+            prev = vals[-1]
+            delta = (float(v) - prev) / abs(prev) if prev else 0.0
+            worse = delta > band if lower_is_better else delta < -band
+            row.update(delta_rel=round(delta, 4), band=round(band, 4),
+                       in_band=not worse)
+        if isinstance(v, (int, float)):
+            vals.append(float(v))
+        out.append(row)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def _render(report: dict) -> str:
+    lines = [f"trend gate over {report['bench_points']} BENCH + "
+             f"{report['multichip_points']} MULTICHIP points "
+             f"— statuses {report['statuses']}"]
+    for r in report["checks"]:
+        extra = ""
+        if r["status"] in ("ok", "regression") and r.get("delta_rel") is not None:
+            extra = (f" last={r['last']} ref={r['ref']} "
+                     f"Δ={100 * r['delta_rel']:+.1f}% "
+                     f"band=±{100 * r['band']:.1f}%")
+        elif r.get("last") is not None:
+            extra = f" last={r['last']}"
+        lines.append(f"  [{r['status']:>10}] {r['metric']} "
+                     f"({r['direction']}){extra}")
+    for s in report["skipped_points"]:
+        lines.append(f"  [   skipped] {os.path.basename(s['path'])}: "
+                     f"{s['note']}")
+    return "\n".join(lines)
+
+
+def main(argv=None, bench_checks=BENCH_CHECKS,
+         multichip_checks=MULTICHIP_CHECKS) -> int:
+    ap = argparse.ArgumentParser(
+        description="bench-trajectory regression gate (exit 1 on any "
+                    "out-of-band regression)")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))),
+        help="repo root holding BENCH_r*.json / MULTICHIP_r*.json")
+    ap.add_argument("--rel-floor", type=float, default=REL_FLOOR)
+    ap.add_argument("--band-k", type=float, default=BAND_K)
+    ap.add_argument("--json", default=None,
+                    help="also write the full report to this path")
+    args = ap.parse_args(argv)
+    report = gate(args.root, rel_floor=args.rel_floor, k=args.band_k,
+                  bench_checks=bench_checks, multichip_checks=multichip_checks)
+    print(_render(report))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1)
+    if report["exit_code"]:
+        print("trend gate: REGRESSION detected", file=sys.stderr)
+    return report["exit_code"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

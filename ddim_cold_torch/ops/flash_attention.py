@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ddim_cold_torch.ops import _build, quant, tiling
+from ddim_cold_torch.utils import profiling
 
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain version does not count). Reset by assigning 0.
@@ -162,7 +163,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, scale)
+        with profiling.scope("flash_attention/fwd"):
+            return flash_forward_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on CUDA (kernel) or CPU (plain "
                          f"version), got device {q.device}")
@@ -174,7 +176,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
+    with profiling.scope("flash_attention/fwd"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             o.data_ptr(), lse.data_ptr(), B, N, H, D,
@@ -341,7 +343,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float) -> None:
     bfloat16 (the tensor-core kernel) q, k, v, dO and dq need 16-byte
     aligned bases and row strides, else ValueError before any build or
     launch. CUDA tensors only: the CPU route is :func:`flash_backward`'s."""
-    _launch("flash_bwd_dq", q, k, v, do, lse, delta, {"dq": dq}, scale)
+    with profiling.scope("flash_attention/dq"):
+        _launch("flash_bwd_dq", q, k, v, do, lse, delta, {"dq": dq}, scale)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
@@ -350,7 +353,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
     :func:`flash_bwd_dq`). CUDA tensors only."""
     if dk.stride() != dv.stride():
         raise ValueError("dk and dv must share their strides")
-    _launch("flash_bwd_dkv", q, k, v, do, lse, delta, {"dk": dk, "dv": dv}, scale)
+    with profiling.scope("flash_attention/dkv"):
+        _launch("flash_bwd_dkv", q, k, v, do, lse, delta, {"dk": dk, "dv": dv}, scale)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -372,7 +376,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check_backward(q, k, v, o, lse, do)
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, o, lse, do, scale)
+        # flash_backward_reference, each kernel's plain version in its scope
+        delta = backward_delta(o, do)
+        with profiling.scope("flash_attention/dq"):
+            dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+        with profiling.scope("flash_attention/dkv"):
+            dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+        return torch.stack((dq, dk, dv), dim=2)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on CUDA (kernels) or CPU (plain "
                          f"version), got device {q.device}")
@@ -574,9 +584,10 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
     _check_fused(x, w_qkv, s_qkv, w_proj, s_proj, num_heads, mode)
     quant.refuse_grad("the fused trunk attention kernel", x, b_qkv, b_proj)
     if x.device.type == "cpu":
-        return fused_trunk_attention_reference(
-            x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, num_heads=num_heads,
-            scale=scale, block_q=block_q, mode=mode)
+        with profiling.scope("flash_attention/fused_qkv"):
+            return fused_trunk_attention_reference(
+                x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, num_heads=num_heads,
+                scale=scale, block_q=block_q, mode=mode)
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk_attention runs on CUDA (kernel) or CPU "
                          f"(plain version), got device {x.device}")
@@ -598,7 +609,7 @@ def fused_trunk_attention(x, w_qkv, s_qkv, b_qkv, w_proj, s_proj, b_proj, *,
         _check_rows_aligned("fused_trunk", x=args[0], w_qkv=args[1], w_proj=args[4])
     out = torch.empty((B, N, C), dtype=x.dtype, device=x.device)
     lib = _build.load_library("fused_trunk")
-    with torch.cuda.device(x.device):
+    with profiling.scope("flash_attention/fused_qkv"), torch.cuda.device(x.device):
         err = lib.fused_trunk(
             *(quant._ptr(t) for t in args), out.data_ptr(),
             B, N, num_heads, D, geom.rows, geom.group,

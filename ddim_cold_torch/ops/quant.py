@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddim_cold_torch.ops import _build, tiling
+from ddim_cold_torch.utils import profiling
 
 #: the JAX package's quantization revision; the weight codec is unchanged
 #: since its first revision
@@ -279,7 +280,8 @@ def dequant_mm(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     _check_weight(w_int8, scale, K)
     refuse_grad("the dequant matmul kernel", x, bias)
     if not _on_cuda("dequant_mm", x):
-        return dequant_mm_reference(x, w_int8, scale, bias).to(out_dtype)
+        with profiling.scope("dequant_matmul/pallas"):
+            return dequant_mm_reference(x, w_int8, scale, bias).to(out_dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the dequant_mm kernel takes float32 or bfloat16 x, "
                          f"got {x.dtype}")
@@ -298,7 +300,7 @@ def dequant_mm(x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor,
     s, b = _f32_vec(scale), _f32_vec(bias)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     lib = _build.load_library("dequant_mm")
-    with torch.cuda.device(x.device):
+    with profiling.scope("dequant_matmul/pallas"), torch.cuda.device(x.device):
         err = lib.dequant_mm(x.data_ptr(), w.data_ptr(), s.data_ptr(), _ptr(b),
                              out.data_ptr(), M, N, K, x.stride(0),
                              KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[out_dtype],
@@ -549,8 +551,9 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _check_mlp(x, w1, b1, w2, b2, scale1, scale2, mode)
     refuse_grad("the fused Mlp kernel", x, w1, b1, w2, b2)
     if not _on_cuda("mlp_fused", x):
-        return mlp_fused_reference(x, w1, b1, w2, b2, scale1=scale1, scale2=scale2,
-                                   mode=mode, block_m=block_m)
+        with profiling.scope("mlp/pallas"):
+            return mlp_fused_reference(x, w1, b1, w2, b2, scale1=scale1,
+                                       scale2=scale2, mode=mode, block_m=block_m)
     cdt = x.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the mlp_fused kernel takes float32 or bfloat16, got {cdt}")
@@ -583,7 +586,7 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             w2.detach().contiguous(), _f32_vec(scale2), _f32_vec(b2))
     out = torch.empty((M, Nout), dtype=cdt, device=x.device)
     lib = _build.load_library("mlp_fused")
-    with torch.cuda.device(x.device):
+    with profiling.scope("mlp/pallas"), torch.cuda.device(x.device):
         err = lib.mlp_fused(
             *(_ptr(t) for t in args), out.data_ptr(), M, rows, K, Hf, Nout, cluster,
             bm, KERNEL_DTYPES[cdt], MLP_MODES.index(mode),

@@ -49,6 +49,7 @@ import torch
 
 from ddim_cold_torch.obs.device import StepTelemetry
 from ddim_cold_torch.ops import schedule, step_cache
+from ddim_cold_torch.utils import profiling
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
@@ -104,8 +105,12 @@ def fresh_start(model, generator: Optional[torch.Generator], n: int, device,
 
 
 def _x0(model, x: torch.Tensor, t: int) -> torch.Tensor:
-    """One model evaluation at level ``t``, clamped to [−1, 1]."""
-    return model(x, _t_vec(x, t)).clamp(-1.0, 1.0)
+    """One model evaluation at level ``t``, clamped to [−1, 1]. Every
+    uncached sampler's model call comes through here, under the
+    ``sampler/model`` scope (the JAX samplers' ``profiling.scope`` sites)."""
+    with profiling.scope("sampler/model"):
+        x0 = model(x, _t_vec(x, t))
+    return x0.clamp(-1.0, 1.0)
 
 
 def _t_vec(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -130,13 +135,17 @@ class _Cached:
         self.drift = []
 
     def __call__(self, x: torch.Tensor, t: int, i: int) -> torch.Tensor:
-        args = (self.model, x, _t_vec(x, t), self.spec.branches[i], self.cache, self.spec)
-        if self.taken is None:
-            x0, self.cache = step_cache.apply_step(*args)
-        else:
-            x0, self.cache, idx, drift = step_cache.apply_step_tel(*args)
-            self.taken.append(idx)
-            self.drift.append(drift)
+        # every cached sampler's model call, under ``sampler/cached_step``
+        # (JAX's cached steps, which nest no ``sampler/model`` inside)
+        with profiling.scope("sampler/cached_step"):
+            args = (self.model, x, _t_vec(x, t), self.spec.branches[i], self.cache,
+                    self.spec)
+            if self.taken is None:
+                x0, self.cache = step_cache.apply_step(*args)
+            else:
+                x0, self.cache, idx, drift = step_cache.apply_step_tel(*args)
+                self.taken.append(idx)
+                self.drift.append(drift)
         return x0.clamp(-1.0, 1.0)
 
     def telemetry(self) -> StepTelemetry:

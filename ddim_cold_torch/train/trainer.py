@@ -14,8 +14,15 @@ best/last dual checkpoints, epoch-granular resume restoring the step count
 (multi_gpu_trainer.py:53-55,94-106,126,135-163). The step never syncs with
 the host except at log points and epoch ends.
 
-One device only: ``config.mesh``, ``num_devices`` > 1, ``profile_steps``
-and ``nan_checks`` raise, naming their ROADMAP.md items.
+``profile_steps=N`` traces the run's first N steps into
+``<run_dir>/trace/trace.json`` (``utils/profiling.start_trace``; read it with
+``obs/attrib.load_trace``). ``nan_checks`` raises where the first non-finite
+value appears, forward or backward (``utils/profiling.enable_nan_checks``),
+for the whole run; both are process-wide and put back when ``run`` returns
+or raises.
+
+One device only: ``config.mesh``, ``num_devices`` > 1 and ``flash_blocks``
+raise, naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ddim_cold_torch.models import DiffusionViT
 from ddim_cold_torch.ops import degrade
 from ddim_cold_torch.train.step import create_train_state, make_eval_step, make_train_step
 from ddim_cold_torch.utils import checkpoint as ckpt
+from ddim_cold_torch.utils import profiling
 from ddim_cold_torch.utils.logging import ScalarWriter, asctime, print_log
 from ddim_cold_torch.utils.platform import resolve_device
 
@@ -123,8 +131,6 @@ def _refuse_later(config: ExperimentConfig) -> None:
         (config.mesh, "config.mesh", "Queue 1 item 14 (parallel/)"),
         (config.num_devices > 1, f"num_devices={config.num_devices}",
          "Queue 1 item 14 (parallel/: data parallelism)"),
-        (config.profile_steps, "profile_steps", "Queue 1 item 16 (observability)"),
-        (config.nan_checks, "nan_checks", "Queue 1 item 16 (observability)"),
         (config.flash_blocks is not None, "flash_blocks",
          "Queue 1 item 17 (tuning: the CUDA kernels' tiles are fixed)"),
     ]
@@ -259,12 +265,22 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
     stopper = _GracefulStop()
     stopper.__enter__()  # released after the finally block below: a signal
     # during the last in-flight checkpoint write stays graceful too
+    # step-bounded trace of the run's first profile_steps steps
+    profiling_until = steps + config.profile_steps if config.profile_steps else 0
     try:
+        if config.nan_checks:
+            profiling.enable_nan_checks(True, model)
+        if profiling_until:
+            profiling.start_trace(os.path.join(run_dir, "trace"))
         for epoch in range(epoch_start, config.epoch[1]):
             train_loader.set_epoch(epoch)
             for batch in device_prefetch(train_loader, dev):
                 state, _, loss_rec_dev = train_step(state, batch, generator, loss_rec_dev)
                 steps += 1
+                if profiling_until and steps >= profiling_until:
+                    float(loss_rec_dev)  # the window's device work is done
+                    profiling.stop_trace()
+                    profiling_until = 0
                 if steps % log_every == 0:
                     loss_rec = float(loss_rec_dev)  # the only per-step host sync
                     time_end = time.time()
@@ -336,10 +352,18 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
                 break
     finally:
         # every cleanup step runs even when an earlier one raises: an
-        # abandoned checkpoint write loses the final epoch, and a leaked
-        # signal handler outlives run()
+        # abandoned checkpoint write loses the final epoch, a leaked signal
+        # handler, profiler or nan check outlives run()
         try:
-            writer.close()
+            try:
+                if profiling_until:
+                    profiling.stop_trace()  # the run ended inside the window
+            finally:
+                try:
+                    if config.nan_checks:
+                        profiling.enable_nan_checks(False)
+                finally:
+                    writer.close()
         finally:
             try:
                 saver.wait()

@@ -1,0 +1,98 @@
+"""Bench-record parsing: ONE policy for "what is the record in this file"
+and "was it captured on a real accelerator", and the provenance stamp a
+record carries.
+
+Counterpart of ``ddim_cold_tpu/utils/record.py``; ``obs/trend.py`` reads
+series through it. Host-only: no torch import (versions come from package
+metadata)."""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+
+def last_json_record(path: str) -> Optional[dict]:
+    """Last parseable JSON line of ``path`` — a fatal/watchdog emit can
+    print the record twice, and the last one is the most complete. None when
+    the file is missing/empty/garbage."""
+    try:
+        with open(path) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    except OSError:
+        return None
+    for ln in reversed(lines):
+        try:
+            rec = json.loads(ln)
+        except ValueError:
+            continue
+        return rec if isinstance(rec, dict) else None
+    return None
+
+
+def is_device_record(rec) -> bool:
+    """True when ``rec`` is a bench record captured on a real accelerator —
+    chip recorded and not a CPU fallback (the JAX package's
+    ``is_tpu_record``, with the same logic)."""
+    return bool(isinstance(rec, dict) and rec.get("chip")
+                and "cpu" not in str(rec["chip"]).lower())
+
+
+def run_metadata(chip=None, repo=None) -> dict:
+    """The provenance stamp a bench JSON carries (``run_meta``): git sha,
+    device kind, the torch version and the CUDA version its build names,
+    round, and an EXTERNALLY-supplied timestamp — ``obs/trend.py`` orders
+    and annotates series points off it instead of inferring from filenames.
+
+    The timestamp comes from ``DDIM_COLD_RUN_TS`` (seconds since epoch,
+    exported by whoever runs the bench) or ``SOURCE_DATE_EPOCH``, never from
+    the wall clock here — an unstamped environment yields ``None`` rather than a
+    value that would make re-runs nondeterministic. Versions come from
+    package metadata, not ``import torch`` — this helper must stay
+    importable from the host-only trend/attrib layer. The CUDA build is the
+    ``+cuXYZ`` local tag of torch's version (``"12.4"`` for ``cu124``), None
+    for a CPU build."""
+    import os
+    import subprocess
+
+    here = repo or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sha = None
+    try:
+        out = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                             cwd=here, capture_output=True, text=True,
+                             timeout=10)
+        sha = out.stdout.strip() or None
+    except Exception:  # noqa: BLE001 — no git / not a checkout: stamp None
+        sha = None
+
+    def _version(dist):
+        try:
+            from importlib.metadata import version
+            return version(dist)
+        except Exception:  # noqa: BLE001 — uninstalled dist: stamp None
+            return None
+
+    torch_version = _version("torch")
+    cuda = None
+    local = (torch_version or "").partition("+")[2]
+    if local.startswith("cu") and local[2:].isdigit() and len(local) > 3:
+        cuda = f"{local[2:-1]}.{local[-1]}"
+
+    ts = None
+    raw_ts = (os.environ.get("DDIM_COLD_RUN_TS")
+              or os.environ.get("SOURCE_DATE_EPOCH") or "").strip()
+    if raw_ts:
+        try:
+            ts = float(raw_ts)
+        except ValueError:
+            ts = raw_ts  # ISO strings still order lexicographically
+    rnd = os.environ.get("DDIM_COLD_ROUND", "").strip()
+    return {
+        "git_sha": sha,
+        "device_kind": chip,
+        "torch": torch_version,
+        "cuda": cuda,
+        "timestamp": ts,
+        "round": int(rnd) if rnd.isdigit() else None,
+    }

@@ -223,13 +223,16 @@ def test_quant_wrappers_never_fall_back(no_cuda, name):
 
 # ------------------------------------------- fault sites and metric emits
 
-#: the robustness layer's and the fleet's host-only modules: the fleet's
-#: router imports them in a process that needs no device (of the fleet, only
-#: serve/backend.py touches torch, and only inside a replica's child)
+#: the robustness layer's, the fleet's and the observability layer's
+#: host-only modules: the fleet's router imports them in a process that
+#: needs no device (of the fleet, only serve/backend.py touches torch, and
+#: only inside a replica's child), and traces and bench series are read on
+#: machines that never saw the device
 HOST_ONLY = ("obs/metrics.py", "obs/spans.py", "utils/faults.py",
              "utils/watchdog.py", "serve/errors.py", "serve/router.py",
              "serve/fleet.py", "serve/remote.py", "serve/replica_main.py",
-             "serve/autoscale.py")
+             "serve/autoscale.py", "utils/flops.py", "utils/record.py",
+             "obs/attrib.py", "obs/trend.py")
 
 
 def _dotted(node):
@@ -361,3 +364,44 @@ def test_engine_robustness_defaults_need_cuda(no_cuda, monkeypatch):
         serve.Engine(model, buckets=(2,), max_queue=4, stall_s=0.0, prefetch_depth=1)
     eng = serve.Engine(model, buckets=(2,), device="cpu")
     assert eng.stall_s == 0.0 and eng.inflight == 2 and eng.prefetch_depth == 2
+
+
+# ------------------------------------------------------- profiler scopes
+
+#: registered scopes the port plants nowhere, each with its reason
+UNPLANTED_SCOPES = {
+    # the JAX kernel writes f32 and casts under this scope; fused_trunk.cu
+    # writes the compute dtype itself, so the scope would hold no device work
+    "flash_attention/fused_proj": "no device work in the port",
+    # sequence parallelism comes with parallel/ (ROADMAP.md Queue 1 item 14)
+    "sp/ring_exchange": "Queue 1 item 14",
+    "sp/all_to_all_gather": "Queue 1 item 14",
+    "sp/all_to_all_scatter": "Queue 1 item 14",
+}
+
+
+def test_registered_scopes_are_planted_literals():
+    """Every ``obs.attrib.REGISTERED_SCOPES`` entry but the unplanted four
+    is the literal name of a ``profiling.scope("…")`` call in the port, and
+    every planted name is registered: a renamed scope cannot drop out of
+    attribution silently. The registry is JAX's, whole."""
+    from ddim_cold_torch.obs import attrib
+    from ddim_cold_tpu.obs import attrib as jax_attrib
+
+    planted = set()
+    for rel, line, name, first, _ in _package_calls({"scope"}):
+        if name.split(".")[-2:] != ["profiling", "scope"]:
+            continue
+        assert isinstance(first, ast.Constant) and isinstance(first.value, str), (rel, line)
+        planted.add(first.value)
+    assert attrib.REGISTERED_SCOPES == jax_attrib.REGISTERED_SCOPES
+    assert planted == set(attrib.REGISTERED_SCOPES) - set(UNPLANTED_SCOPES)
+    assert set(UNPLANTED_SCOPES) <= set(attrib.REGISTERED_SCOPES)
+
+
+def test_observability_modules_are_checked():
+    """The import checks walk the observability layer's modules too."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}" for m in (
+        "utils/flops.py", "utils/record.py", "utils/profiling.py", "obs/attrib.py",
+        "obs/trend.py")} <= names

@@ -549,3 +549,69 @@ def test_fused_trunk_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.fused_trunk_attention(flat[1:].view(1, 3, 256), *args[1:], num_heads=4,
                                  scale=0.125)
     assert fa.LAUNCHES["fused_trunk"] == before
+
+
+#: each hand-written kernel's profiler scope (a substring of its device
+#: function names, the scope ``profiling.scope`` opens around its launch)
+KERNEL_SCOPES = {"flash_fwd": "flash_attention/fwd", "flash_bwd_dq": "flash_attention/dq",
+                 "flash_bwd_dkv": "flash_attention/dkv",
+                 "fused_trunk": "flash_attention/fused_qkv",
+                 "dequant_mm": "dequant_matmul/pallas", "mlp_fused": "mlp/pallas"}
+
+
+def test_card_capture_attributes_every_kernel_to_its_scope(cuda_device, tmp_path):
+    """A small bf16 model (32 px, patch 4: 65 tokens, 2 heads of 64),
+    traced on the card with ``profiling.trace`` and read by
+    ``obs.attrib``: a 2-row DDIM batch on the float flash route, the
+    ``quant="pallas"`` route and the fused w8a16 route, then one training
+    forward and backward. Each hand-written kernel's device events land in
+    its scope, as many as it launched and as the trace holds by name (the
+    backward pair's launched on autograd's thread); the sampler batches'
+    coverage is at least ``attrib.COVERAGE_FLOOR``."""
+    from torch.autograd import DeviceType
+
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.obs import attrib
+    from ddim_cold_torch.ops import sampling
+    from ddim_cold_torch.utils import profiling
+
+    kw = dict(img_size=(32, 32), patch_size=4, embed_dim=128, depth=2, num_heads=2,
+              dtype=torch.bfloat16, use_flash=True, seed=1, device=cuda_device)
+    kind = torch.cuda.get_device_name(0)
+
+    def counts():
+        return {k: fa.LAUNCHES[k] + quant.LAUNCHES[k] for k in KERNEL_SCOPES}
+
+    def captured(label, fn):
+        fn()  # builds and loads the libraries outside the capture
+        torch.cuda.synchronize()
+        before = counts()
+        with profiling.trace(str(tmp_path / label)) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in counts().items() if n > before[k]}
+        by_name = {k: sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and k in e.name)
+                   for k in launched}
+        report = attrib.attribute(str(tmp_path / label), device_kind=kind)
+        events = {k: report["scopes"].get(KERNEL_SCOPES[k], {}).get("events")
+                  for k in launched}
+        assert events == launched == by_name, (label, events, launched, by_name)
+        return report
+
+    for label, extra in (("float", {}), ("pallas", dict(quant="pallas")),
+                         ("fused", dict(quant="pallas", fused=True))):
+        model = DiffusionViT(**kw, **extra)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        report = captured(label, lambda: sampling.ddim_sample(
+            model, gen, n=2, k=500, device=cuda_device))
+        assert report["coverage"] >= attrib.COVERAGE_FLOOR, (label, report["coverage"])
+        assert report["scopes"]["sampler/model"]["events"] > 0
+
+    model = DiffusionViT(**kw, attn_drop_rate=0.0)
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator(device=cuda_device)
+                    .manual_seed(2), device=cuda_device)
+    t = torch.tensor([3, 900], device=cuda_device)
+    report = captured("train", lambda: model(x, t).float().square().mean().backward())
+    for scope in ("flash_attention/fwd", "flash_attention/dq", "flash_attention/dkv"):
+        assert report["scopes"][scope]["events"] == model.depth

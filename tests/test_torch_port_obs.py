@@ -236,7 +236,8 @@ def test_metrics_catalog_renames_compiles_to_programs():
     jax_cat = {name: kind for name, kind, _ in jax_metrics.METRICS}
     rename = {"engine.compiles": "engine.programs",
               "warmup.new_compiles": "warmup.new_programs"}
-    ported = ("engine", "warmup", "faults", "router", "fleet", "remote", "autoscale")
+    ported = ("engine", "warmup", "faults", "router", "fleet", "remote", "autoscale",
+              "attrib", "trend")
     for name, kind in jax_cat.items():
         name = rename.get(name, name)
         if name.split(".")[0] in ported and name in port:
@@ -244,12 +245,17 @@ def test_metrics_catalog_renames_compiles_to_programs():
     expected = {rename.get(n, n) for n in jax_cat if n.split(".")[0] in ported}
     # the JAX engine's program aliasing (warmup dedup) has no port analogue
     assert set(port) == expected - {"engine.program_aliases", "warmup.deduped"}
-    # the fleet's rows are JAX's: names, kinds and help texts
+    # the fleet's, attribution's and trend's rows are JAX's: names, kinds
+    # and help texts
     jax_rows = {row[0]: row for row in jax_metrics.METRICS}
     fleet_rows = [row for row in port_metrics.METRICS
                   if row[0].split(".")[0] in ("router", "fleet", "remote", "autoscale")]
     assert len(fleet_rows) == 21
     assert all(row == jax_rows[row[0]] for row in fleet_rows)
+    obs_rows = [row for row in port_metrics.METRICS
+                if row[0].split(".")[0] in ("attrib", "trend")]
+    assert len(obs_rows) == 5
+    assert all(row == jax_rows[row[0]] for row in obs_rows)
 
 
 # ------------------------------------------------------------------- spans

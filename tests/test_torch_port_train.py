@@ -25,6 +25,7 @@
 """
 
 import dataclasses
+import functools
 import math
 import os
 import re
@@ -333,7 +334,6 @@ def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
 
 @pytest.mark.parametrize("later,item", [
     (dict(mesh={"data": 2}), "item 14"), (dict(num_devices=2), "item 14"),
-    (dict(profile_steps=2), "item 16"), (dict(nan_checks=True), "item 16"),
     (dict(flash_blocks=(512, 1024)), "item 17"),
     (dict(steps_per_dispatch=2), "item 11"), (dict(remat=True), "item 11"),
     (dict(num_experts=2), "item 18"),
@@ -342,3 +342,79 @@ def test_trainer_refuses_later_options(tmp_path, synthetic_image_dir, later, ite
     cfg = _tiny_config(synthetic_image_dir, **later)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         port_trainer.run(cfg, str(tmp_path), device="cpu")
+
+
+# --------------------------------------------- profile_steps and nan_checks
+
+
+def _flash_training(monkeypatch):
+    """Build the trainer's model with attention dropout 0 (the config has no
+    key for it), so a training step runs the flash path and its scopes."""
+    monkeypatch.setattr(port_trainer, "DiffusionViT",
+                        functools.partial(PortViT, attn_drop_rate=0.0))
+
+
+def _checks_released():
+    """No profiler, nan-check hook or anomaly mode outlives a run."""
+    from torch.nn.modules import module as nn_module
+
+    from ddim_cold_torch.utils import profiling
+
+    assert not torch.autograd._profiler_enabled()
+    assert not profiling._ACTIVE and not profiling._NAN
+    assert not torch.is_anomaly_enabled()
+    assert not nn_module._global_forward_hooks
+
+
+def test_profile_steps_writes_a_trace_attrib_reads(tmp_path, synthetic_image_dir,
+                                                   monkeypatch):
+    """profile_steps=2 traces exactly the first two of three steps into
+    <run_dir>/trace: ``obs.attrib`` loads it, and its flash scopes hold
+    depth × 2 ranges each (one forward and one backward a layer a step)."""
+    from ddim_cold_torch.obs import attrib
+
+    _flash_training(monkeypatch)
+    cfg = _tiny_config(synthetic_image_dir, profile_steps=2)
+    result = port_trainer.run(cfg, str(tmp_path), max_steps=3, log_every=100,
+                              device="cpu")
+    assert result.steps == 3
+    _checks_released()
+    trace = attrib.load_trace(os.path.join(result.run_dir, "trace"))
+    counts: dict = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("cat") == "user_annotation" and ev["name"] in attrib.REGISTERED_SCOPES:
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    two_steps = cfg.depth * 2
+    assert counts == {"flash_attention/fwd": two_steps, "flash_attention/dq": two_steps,
+                      "flash_attention/dkv": two_steps}
+    report = attrib.attribute(trace)  # a CPU capture has no device lanes
+    assert report["device_lanes"] == 0 and report["coverage"] is None
+
+
+def test_nan_checks_runs_clean_and_raises_on_nan(tmp_path, synthetic_image_dir,
+                                                 monkeypatch):
+    """nan_checks: a clean run trains as without it (no false positive, the
+    same loss); a NaN in one weight (through the warm start) raises
+    FloatingPointError naming the module whose output it reached; the
+    checks are off again after either run."""
+    _flash_training(monkeypatch)
+    losses = []
+    for nan_checks in (False, True):
+        cfg = _tiny_config(synthetic_image_dir, nan_checks=nan_checks)
+        result = port_trainer.run(cfg, str(tmp_path / str(nan_checks)), max_steps=2,
+                                  log_every=2, device="cpu")
+        _checks_released()
+        log = open(os.path.join(result.run_dir, "train.log")).read()
+        losses.append(([ln.split()[3] for ln in log.splitlines()
+                        if ln.startswith("steps:")], result.last_val_loss))
+        assert math.isfinite(result.last_val_loss)
+    assert losses[0] == losses[1] and losses[0][0]
+
+    cfg = _tiny_config(synthetic_image_dir, nan_checks=True, initializing="nan.pkl")
+    sd = port_trainer.build_model(cfg, device="cpu").state_dict()
+    sd["blocks.0.mlp.fc1.weight"][3, 5] = float("nan")
+    os.makedirs(tmp_path / "nan" / "Saved_Models")
+    port_ckpt.save_torch_pkl(sd, str(tmp_path / "nan" / "Saved_Models" / "nan.pkl"))
+    with pytest.raises(FloatingPointError, match=r"'blocks\.0\.mlp'"):
+        port_trainer.run(cfg, str(tmp_path / "nan"), max_steps=2, device="cpu")
+    _checks_released()
