@@ -107,6 +107,39 @@ Phases, one JSON object per line:
    ``profiling.enable_nan_checks``: losses bit for bit equal, ms/step of
    each; then a NaN weight raises ``FloatingPointError`` naming the
    module;
+10c. native — the native C++ decode tier: the build tools (``g++``,
+   ``jpeglib.h``, ``png.h``, libjpeg, libpng), the build (with every tool
+   present it must load; without, the compiler's error is printed and the
+   trainer reads through PIL, as the line says); a synthetic folder of 128
+   train and 32 val images of sizes around 500×500 (PNG written with zlib
+   and struct, every other one JPEG where PIL is importable); one epoch of
+   the loader at 200 px with 8 threads per tier and route, in images per
+   second beside the dense trainer's consumption, and on the native tier
+   every batch from the fast path with no PIL decode;
+10d. train-remat — the bf16 200_p4 model at B=16, dropout and drop path
+   0.1, remat off and on from the same seed, batches and generator seed, on
+   the flash route (attention dropout 0; 3 + 10 steps) and the dense route
+   (0.1; 1 + 3): losses, parameters and the generator state bit for bit
+   equal, launches exact (remat: flash_fwd 2 × 6 a step, each backward
+   kernel 6; dense: none), ms/step and peak memory of each;
+10e. train-run — ``python -m ddim_cold_torch train <exp>`` as a child
+   process on the 200px YAML's keys (the synthetic folder, 3 epochs,
+   ``remat: True``): run 1 SIGKILLed by a ``ckpt.save:kill`` fault at the
+   post-write window of the second epoch's first save (lastepoch.ckpt, or
+   bestloss.ckpt when the val loss improved; every checkpoint left loads,
+   lastepoch.ckpt holds epoch 0, the warm-start pkl loads); run 2 resumes
+   from it through a ``python -c`` wrapper of the same ``main`` (the resume
+   lines, epochs 1 and 2, 24 steps, no temp file left beside a file it
+   saved; training launches no flash kernel, the dense rule, and the
+   deterministic evaluation forwards launch only flash_fwd, depth × val
+   batches an epoch), with each child's wall, run 2's peak memory and
+   seconds per epoch;
+10f. probe-xla — the attention probe of the bf16 flash model against the
+   dense model's at layers 0 (bit for bit), 2 and −1 (row total variation
+   within ``PROBE_TV``, while layer 1's probe and another input's land
+   above it), rows summing to 1; the ``use_flash="xla"`` route at
+   B=8 against the flash model within ``FWD_TOL``, launching nothing, its
+   time beside the flash forward's (10c–10f run after train-nan);
 11. kernel — the quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
    ``fused_trunk``) against their plain versions at the 200px/p4 serve
    shape (B=8) and at 200px/p8, in float32 and bfloat16, w8a16 and w8a8
@@ -174,7 +207,8 @@ Phases, one JSON object per line:
    resuming ``live/`` at its iteration; ``distilled_sampler_guard`` of the
    k=1 student; the k=1 student served, bit for bit its direct call;
 18. the ``kernels`` summary line (all six kernels, each with its design:
-   "wgmma", the bfloat16 route on the tensor cores), then the card's
+   "wgmma", the bfloat16 route on the tensor cores; the flash rows count
+   the train-remat launches too), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": ...}`` as the last
    line.
 
@@ -192,6 +226,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1248,8 +1283,6 @@ def attribute_capture(torch, prof, log_dir: str, capture: str, costs: dict,
     fraction is 1 − the phase's idle share within BUSY_TOL; no MFU above 1
     nor achieved rate above the scope's peak; with ``floor``, coverage at
     least ``attrib.COVERAGE_FLOOR``. Emits one ``attrib`` record."""
-    import shutil
-
     from ddim_cold_torch.obs import attrib
     from ddim_cold_torch.utils import flops
 
@@ -1629,6 +1662,460 @@ def phase_train_nan(torch):
           f"train-nan: a NaN weight raised {raised!r}")
     check(not torch.is_anomaly_enabled() and not nn_module._global_forward_hooks,
           "train-nan: the checks outlived the phase")
+
+
+# ------------------------------------------- the trainer as users start it
+
+#: the synthetic image folder of the native and train-run phases: sizes
+#: drawn around 500×500 (Oxford Flowers' own JPEGs are not in the repo)
+NATIVE_TRAIN, NATIVE_VAL, NATIVE_SIDE = 128, 32, (440, 561)
+LOADER_THREADS = 8
+#: the dense trainer's consumption rate at B=16: 16 images / 137.98 ms a
+#: step (PERF.md §5: the dense route on an H100 80GB HBM3 at 700 W)
+DENSE_TRAIN_IMG_S = 16 / 0.13798
+#: train-remat: (route, attention dropout, warm-up steps, timed steps)
+REMAT_ROUTES = (("flash", 0.0, 3, 10), ("dense", 0.1, 1, 3))
+#: train-run: the epochs, and the ``ckpt.save`` call the kill is placed at:
+#: each save fires 4 windows; epoch 0 saves bestloss.ckpt (calls 0-3: the
+#: val loss always improves on the initial 5.0) and lastepoch.ckpt (4-7);
+#: epoch 1's first save is calls 8-11, so call 9 is its post-write window:
+#: lastepoch.ckpt's when the val loss does not improve, bestloss.ckpt's
+#: when it does. Either way the file on disk still holds epoch 0 and
+#: lastepoch.ckpt is epoch 0's; the temp file the kill leaves names the file
+#: it hit, and is checked to be one of the two.
+RUN_EPOCHS, KILL_AT = 3, 9
+#: the val folder's batches of 16: the evaluation forward is deterministic,
+#: so it takes the flash kernel (the dense rule binds training only)
+RUN_VAL_BATCHES = NATIVE_VAL // 16
+#: probe-xla: a probed layer's weights on the flash model against the dense
+#: model's: layer 0 bit for bit (nothing runs before it); later layers see
+#: inputs that went through the flash or the dense route, so each row's
+#: total-variation distance must stay under this: ten times the largest
+#: reading on an H100 80GB HBM3 at 700 W (0.00049, PERF.md §6). At the
+#: seeded init every row is close to uniform, so two controls (another
+#: layer, another input) must land above it, showing the check can fail
+PROBE_TV = 5e-3
+
+
+def _png(arr) -> bytes:
+    """An RGB8 PNG of ``arr`` (H, W, 3) uint8, written with zlib and struct."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    h, w, _ = arr.shape
+    raw = b"".join(b"\x00" + row.tobytes() for row in arr)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _write_images(folder: str, n: int, rs, jpeg) -> dict:
+    """``n`` seeded images of varied sizes: smooth colour fields plus noise,
+    PNG, every other one JPEG when ``jpeg`` (PIL's Image) is given."""
+    import numpy as np
+
+    os.makedirs(folder)
+    formats: dict = {}
+    for i in range(n):
+        h, w = (int(s) for s in rs.integers(*NATIVE_SIDE, size=2))
+        low = rs.uniform(0, 255, (h // 64 + 2, w // 64 + 2, 3))
+        img = np.repeat(np.repeat(low, 64, 0), 64, 1)[:h, :w]
+        img = np.clip(img + rs.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        if jpeg is not None and i % 2:
+            jpeg.fromarray(img).save(os.path.join(folder, f"{i:04d}.jpg"), quality=90)
+            formats["jpg"] = formats.get("jpg", 0) + 1
+        else:
+            with open(os.path.join(folder, f"{i:04d}.png"), "wb") as f:
+                f.write(_png(img))
+            formats["png"] = formats.get("png", 0) + 1
+    return formats
+
+
+def phase_native(torch):
+    """The native decode tier on the card's machine: the build tools, the
+    build, then one epoch of the loader at 200 px with 8 threads over a
+    synthetic folder, per tier and route, against the dense trainer's
+    consumption rate. With the tools present the tier must load and take
+    every batch; without them the compiler's error is printed and the
+    trainer runs on the PIL tier, as the line says."""
+    import ctypes.util
+    import tempfile
+
+    import numpy as np
+
+    from ddim_cold_torch.data import ColdDownSampleDataset, ShardedLoader
+    from ddim_cold_torch.data import datasets, native
+
+    tools = {"g++": shutil.which("g++") is not None,
+             "jpeglib.h": os.path.isfile("/usr/include/jpeglib.h"),
+             "png.h": os.path.isfile("/usr/include/png.h"),
+             "libjpeg": ctypes.util.find_library("jpeg") is not None,
+             "libpng": ctypes.util.find_library("png") is not None}
+    t0 = time.perf_counter()
+    available = native.available()
+    build_s = time.perf_counter() - t0
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    rs = np.random.default_rng(SEED + 6)
+    formats = {"train": _write_images(os.path.join(root, "train"), NATIVE_TRAIN, rs, Image),
+               "val": _write_images(os.path.join(root, "val"), NATIVE_VAL, rs, Image)}
+    tiers = (["native"] if available else []) + (["pil"] if Image is not None else [])
+    loader = {}
+    for tier in tiers:
+        for raw in (False, True):
+            ds = ColdDownSampleDataset(os.path.join(root, "train"), imgSize=(200, 200),
+                                       use_native=tier == "native", cache_images=False)
+            ld = ShardedLoader(ds, 16, shuffle=True, seed=42, drop_last=True,
+                               num_threads=LOADER_THREADS, raw=raw)
+            pil_before = datasets.PIL_DECODES["files"]
+            t0 = time.perf_counter()
+            n = sum(len(b[0]) for b in ld)
+            wall = time.perf_counter() - t0
+            loader[f"{tier} {'raw' if raw else 'host-degrade'}"] = {
+                "img_per_s": n / wall, "images": n, "routes": dict(ld.routes),
+                "pil_decodes": datasets.PIL_DECODES["files"] - pil_before}
+    rec = {"phase": "native", "available": available,
+           "has_decode_batch": native.has_decode_batch(), "build_s": build_s,
+           "library": native.library_path(), "tools": tools,
+           "build_error": None if available else native.build_error(),
+           "images": {"train": NATIVE_TRAIN, "val": NATIVE_VAL}, "formats": formats,
+           "loader_threads": LOADER_THREADS, "loader": loader,
+           "dense_train_consumes_img_per_s": DENSE_TRAIN_IMG_S,
+           "trainer_tier": "native" if available else "pil"}
+    emit(rec)
+    if all(tools.values()):
+        check(available, f"native: the build tools are present but the tier did "
+                         f"not load: {native.build_error()}")
+    if not available:
+        print(f"chip_smoke: native: the tier is unavailable here (tools {tools}); "
+              f"the trainer runs on the PIL tier. Compiler:\n{native.build_error()}",
+              file=sys.stderr, flush=True)
+    for key, got in loader.items():
+        if key.startswith("native"):
+            route = "raw" if key.endswith("raw") else "get_batch"
+            check(got["routes"] == {route: NATIVE_TRAIN // 16} and not got["pil_decodes"],
+                  f"native: {key} took {got['routes']}, {got['pil_decodes']} PIL decodes")
+    check(bool(tiers), "native: neither the native tier nor PIL can read images here")
+    return root, rec["trainer_tier"]
+
+
+def phase_train_remat(torch, fa):
+    """``remat`` at the training path's full width: the bf16 200_p4 model
+    at B=16 (dropout and drop path 0.1), remat off and on with the same
+    seed, batches and generator seed, on the flash route (attention dropout
+    0) and the dense route (0.1): losses, parameters and the generator's
+    state bit for bit equal; exact launches (remat: the forward kernel
+    2 × depth a step, each backward kernel depth); ms/step and peak memory
+    of each."""
+    from ddim_cold_torch.data.loader import device_prefetch
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    host = _cold_batches(max(w + s for _, _, w, s in REMAT_ROUTES), 16, SEED + 5)
+    lr = 0.005 * 16 / 512
+    remat_launches = {}
+    for route, attn_drop, warm, n_steps in REMAT_ROUTES:
+        got = {}
+        for remat in (False, True):
+            model = _train_model(torch, drop_rate=0.1, attn_drop_rate=attn_drop,
+                                 drop_path_rate=0.1, remat=remat)
+            state = create_train_state(model, lr, TRAIN_TOTAL_STEPS)
+            step = make_train_step(model, prepare=prepare)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            loss_rec = torch.tensor(5.0, device="cuda")
+            losses = []
+            batches = list(device_prefetch(host[:warm + n_steps], "cuda"))
+            for b in batches[:warm]:
+                state, loss, loss_rec = step(state, b, gen, loss_rec)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            for b in batches[warm:]:
+                state, loss, loss_rec = step(state, b, gen, loss_rec)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got[remat] = {
+                "losses": torch.stack(losses).cpu(),
+                "params": [p.detach().clone() for p in model.parameters()],
+                "gen": gen.get_state(), "ms_per_step": wall / n_steps * 1e3,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": {k: fa.LAUNCHES[k] for k in
+                             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+            del model, state, step, batches
+            torch.cuda.empty_cache()
+        off, on = got[False], got[True]
+        depth = 6
+        rec = {"phase": "train-remat", "model": MODEL, "dtype": "bfloat16", "batch": 16,
+               "route": route, "attn_drop_rate": attn_drop, "drop_rate": 0.1,
+               "drop_path_rate": 0.1, "warmup_steps": warm, "steps": n_steps,
+               "ms_per_step": {"off": off["ms_per_step"], "on": on["ms_per_step"]},
+               "ms_ratio_on_off": on["ms_per_step"] / off["ms_per_step"],
+               "peak_mem_gib": {"off": off["peak_mem_gib"], "on": on["peak_mem_gib"]},
+               "losses": off["losses"].tolist(),
+               "losses_bitwise": torch.equal(off["losses"], on["losses"]),
+               "params_bitwise": all(torch.equal(a, b)
+                                     for a, b in zip(off["params"], on["params"])),
+               "generator_bitwise": torch.equal(off["gen"], on["gen"]),
+               "launches": {"off": off["launches"], "on": on["launches"]}}
+        emit(rec)
+        for key in ("losses_bitwise", "params_bitwise", "generator_bitwise"):
+            check(rec[key], f"train-remat {route}: {key} false")
+        check(all(map(math.isfinite, rec["losses"])), f"train-remat {route} losses")
+        if route == "flash":
+            want_on = {"flash_fwd": 2 * depth * n_steps, "flash_bwd_dq": depth * n_steps,
+                       "flash_bwd_dkv": depth * n_steps}
+            want_off = {k: depth * n_steps for k in want_on}
+            remat_launches = on["launches"]
+        else:
+            want_on = want_off = {k: 0 for k in on["launches"]}
+        check(on["launches"] == want_on and off["launches"] == want_off,
+              f"train-remat {route} launches {rec['launches']}")
+        del got, off, on
+    return remat_launches
+
+
+def _run_yaml(data_root: str, resume: str = "none") -> str:
+    """``20220822_200px.yaml``'s keys, with ``dataStorage`` at the synthetic
+    folder, RUN_EPOCHS epochs, ``remat: True`` and no ``snapshot_epochs``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    with open(os.path.join(here, "20220822_200px.yaml")) as f:
+        for line in f:
+            key = line.split(":", 1)[0].strip()
+            if key == "dataStorage":
+                line = (f"dataStorage : [{json.dumps(os.path.join(data_root, 'train'))}, "
+                        f"{json.dumps(os.path.join(data_root, 'val'))}]\n")
+            elif key == "epoch":
+                line = f"epoch : [0,{RUN_EPOCHS}]\n"
+            elif key == "resume":
+                line = f"resume : {json.dumps(resume)}\n"
+            elif key == "snapshot_epochs":
+                continue
+            lines.append(line)
+    return "".join(lines) + "remat : True\n"
+
+
+#: run 2's child: the same entry point a user starts, then one JSON line of
+#: what only the child can read (its peak memory and launch counts)
+RESUME_CHILD = """
+import json, sys, torch
+from ddim_cold_torch import __main__ as cli
+from ddim_cold_torch.ops import flash_attention as fa
+rc = cli.main(["train", sys.argv[1]])
+print(json.dumps({"child": {"rc": rc,
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "launches": dict(fa.LAUNCHES)}}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _epoch_lines(log: str) -> list:
+    """(epoch, val loss, seconds since the epoch) of each ``epoch:`` line."""
+    out = []
+    for m in re.finditer(r"^epoch:\s+(\d+)\s+loss: ([0-9.eE+-]+|nan)\s+time:(.+)$", log,
+                         re.MULTILINE):
+        when = time.mktime(time.strptime(m.group(3).strip(), "%a %b %d %H:%M:%S %Y"))
+        out.append((int(m.group(1)), float(m.group(2)), when))
+    return out
+
+
+def phase_train_run(torch, data_root: str, tier: str):
+    """The trainer as users start it: ``python -m ddim_cold_torch train
+    <exp>`` as a child process on the 200px YAML's keys (``remat: True``,
+    3 epochs of the synthetic folder). Run 1 is SIGKILLed by a
+    ``ckpt.save:kill`` fault at the post-write window of the second epoch's
+    first save (lastepoch.ckpt, or bestloss.ckpt when the val loss
+    improved): every checkpoint left loads, lastepoch.ckpt holds epoch 0,
+    the warm-start pkl was written. Run 2 resumes from it and finishes
+    epochs 1 and 2 (24 steps); every path it saves has no temp file left
+    beside it (the dead writer's is removed by that path's next save); its
+    training launches no flash kernel (attention dropout 0.1: the dense
+    rule), and its evaluation forwards, deterministic, launch flash_fwd
+    depth × val batches an epoch and no backward kernel."""
+    import signal
+    import tempfile
+
+    from ddim_cold_torch.utils import checkpoint as ckpt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_run_")
+    exp = "chip_smoke_run"
+    run_dir = os.path.join(work, "Saved_Models", exp + "flower200_diffusion")
+    last = os.path.join(run_dir, "lastepoch.ckpt")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, exp + ".yaml"), "w") as f:
+        f.write(_run_yaml(data_root))
+    t0 = time.perf_counter()
+    run1 = subprocess.run(
+        [sys.executable, "-m", "ddim_cold_torch", "train", exp], cwd=work,
+        capture_output=True, text=True, timeout=300,
+        env=dict(env, DDIM_COLD_FAULTS=f"ckpt.save:kill:match=window:post-write|,at={KILL_AT}"))
+    wall1 = time.perf_counter() - t0
+    log1 = open(os.path.join(run_dir, "train.log")).read()
+    epochs1 = _epoch_lines(log1)
+    left = sorted(os.listdir(run_dir))
+    killed = [n for n in left if n.endswith(".writing")]
+    loads = {}
+    for name in left:
+        if name.endswith(".ckpt"):
+            try:
+                loads[name] = ckpt.load_checkpoint(os.path.join(run_dir, name))
+            except Exception as e:  # noqa: BLE001 — a torn file is what this checks for
+                loads[name] = e
+    pkl = os.path.join(work, "Saved_Models", "flower200_p4.pkl")
+    try:
+        pkl_leaves = len(ckpt.load_torch_pkl(pkl))
+    except Exception as e:  # noqa: BLE001 — reported and failed below
+        pkl_leaves = repr(e)
+    survivor = loads.get("lastepoch.ckpt")
+    survivor_epoch = survivor.get("epoch") if isinstance(survivor, dict) else None
+    rec1 = {"phase": "train-run", "run": 1, "command": f"python -m ddim_cold_torch train {exp}",
+            "tier": tier, "fault": f"ckpt.save:kill at={KILL_AT} post-write",
+            "returncode": run1.returncode, "wall_s": wall1, "files": left,
+            "epochs": [(e, loss) for e, loss, _ in epochs1],
+            "killed_while_writing": killed,
+            "checkpoints_load": {k: not isinstance(v, Exception) for k, v in loads.items()},
+            "lastepoch_epoch": survivor_epoch, "warm_start_pkl_leaves": pkl_leaves,
+            "stderr_tail": run1.stderr[-600:]}
+    emit(rec1)
+    check(run1.returncode == -signal.SIGKILL,
+          f"train-run 1: exit {run1.returncode}, not SIGKILL: {run1.stderr[-2000:]}")
+    check(len(killed) == 1 and killed[0].split(".ckpt.")[0] in ("lastepoch", "bestloss"),
+          f"train-run 1: call {KILL_AT} was not epoch 1's first post-write "
+          f"(left {killed}, epochs {rec1['epochs']})")
+    check(loads and all(rec1["checkpoints_load"].values()),
+          f"train-run 1: checkpoints {rec1['checkpoints_load']}")
+    check(survivor_epoch == 0, f"train-run 1: lastepoch.ckpt holds epoch {survivor_epoch}")
+    check(isinstance(pkl_leaves, int) and pkl_leaves > 0,
+          f"train-run 1: warm-start pkl {pkl_leaves}")
+
+    with open(os.path.join(work, exp + ".yaml"), "w") as f:
+        f.write(_run_yaml(data_root, resume=last))
+    t0, start2 = time.perf_counter(), time.time()
+    run2 = subprocess.run([sys.executable, "-c", RESUME_CHILD, exp], cwd=work,
+                          capture_output=True, text=True, timeout=300, env=env)
+    wall2 = time.perf_counter() - t0
+    child = {}
+    for line in run2.stdout.splitlines():
+        if line.startswith('{"child"'):
+            child = json.loads(line)["child"]
+    log2 = open(os.path.join(run_dir, "train.log")).read()[len(log1):]
+    epochs2 = _epoch_lines(log2)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        ends = [json.loads(line)["time"] for line in f][len(epochs1):]
+    final = ckpt.load_checkpoint(last) if os.path.isfile(last) else {}
+    metric = survivor.get("metric") if isinstance(survivor, dict) else None
+    writing = [n for n in os.listdir(run_dir) if n.endswith(".writing")]
+    # a dead writer's temp file may stay only beside a path run 2 never saved
+    saved = {n for n in os.listdir(run_dir)
+             if n.endswith(".ckpt") and os.path.getmtime(os.path.join(run_dir, n)) >= start2}
+    stale = [n for n in writing if n.split(".ckpt.")[0] + ".ckpt" in saved]
+    flash = {k: n for k, n in child.get("launches", {}).items() if n}
+    rec2 = {"phase": "train-run", "run": 2, "resume": last, "returncode": run2.returncode,
+            "wall_s": wall2, "peak_mem_gib": child.get("peak_mem_gib"),
+            "epochs": [(e, loss) for e, loss, _ in epochs2],
+            "s_per_epoch_from_log": [b[2] - a[2] for a, b in zip(epochs2, epochs2[1:])],
+            "s_per_epoch_from_metrics": [b - a for a, b in zip(ends, ends[1:])],
+            "final_epoch": final.get("epoch"), "final_steps": final.get("steps"),
+            "writing_left": writing, "writing_beside_a_saved_path": stale,
+            "flash_launches": flash,
+            "stderr_tail": run2.stderr[-600:]}
+    emit(rec2)
+    check(run2.returncode == 0, f"train-run 2: exit {run2.returncode}: {run2.stderr[-2000:]}")
+    check("resuming from epoch        1 of" in log2,
+          "train-run 2: no 'resuming from epoch        1' line")
+    check(metric is not None and f"recovering best_loss {metric:4f}" in log2,
+          f"train-run 2: best_loss not recovered as {metric}")
+    check([e for e, _, _ in epochs2] == [1, 2], f"train-run 2: epochs {rec2['epochs']}")
+    check(final.get("epoch") == 2 and final.get("steps") == RUN_EPOCHS * NATIVE_TRAIN // 16,
+          f"train-run 2: lastepoch.ckpt epoch {final.get('epoch')} steps {final.get('steps')}")
+    check(not stale and set(writing) <= set(killed),
+          f"train-run 2: temp files left {writing} (beside a path it saved: {stale})")
+    check(child and flash == {"flash_fwd": 6 * RUN_VAL_BATCHES * len(epochs2)},
+          f"train-run 2: flash launches {flash} (child {child})")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_probe_xla(torch, fa):
+    """The model's two oracles at 200_p4 with bf16 weights: the attention
+    probe of the flash model against the dense model's at layers 0, 2 and
+    −1 (B=2; layer 0 bit for bit, later layers within PROBE_TV of
+    total-variation per row; every row summing to 1 within 1e-3; two
+    controls above PROBE_TV: the dense model's layer 1 against its layer 2,
+    and the flash model's layer −1 on other images), and the
+    blockwise route (``use_flash="xla"``) at B=8 against the flash model
+    within ``phase_forward``'s limit, with no kernel launched; the xla
+    route's time beside the flash forward's (the plain route's time, not a
+    yardstick)."""
+    from ddim_cold_torch.models import MODEL_CONFIGS, DiffusionViT
+
+    cfg = MODEL_CONFIGS[MODEL]
+    models = {route: DiffusionViT(**cfg, dtype=torch.bfloat16, use_flash=route, seed=SEED)
+              for route in (True, False, "xla")}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    H, W = cfg["img_size"]
+    x = torch.randn((8, H, W, 3), generator=gen, device="cuda")
+    t = torch.randint(0, 2000, (8,), generator=gen, device="cuda")
+    probes = {}
+    with torch.inference_mode():
+        for layer in (0, 2, -1):
+            a = models[True](x[:2], t[:2], return_attention_layer=layer)
+            b = models[False](x[:2], t[:2], return_attention_layer=layer)
+            tv = 0.5 * (a.float() - b.float()).abs().sum(-1).max().item()
+            rows = (a.float().sum(-1) - 1).abs().max().item()
+            probes[str(layer)] = {"shape": list(a.shape), "bitwise": torch.equal(a, b),
+                                  "max_row_tv": tv, "max_row_sum_err": rows}
+        controls = {
+            "dense layer 1 vs layer 2": (models[False](x[:2], t[:2], return_attention_layer=1),
+                                         models[False](x[:2], t[:2], return_attention_layer=2)),
+            "flash layer -1, other images": (
+                models[True](x[2:4], t[2:4], return_attention_layer=-1),
+                models[False](x[:2], t[:2], return_attention_layer=-1))}
+        controls = {k: 0.5 * (a.float() - b.float()).abs().sum(-1).max().item()
+                    for k, (a, b) in controls.items()}
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        out_xla = models["xla"](x, t)
+        torch.cuda.synchronize()
+        xla_launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+        out_flash = models[True](x, t)
+        err = (out_xla - out_flash).abs().max().item()
+        xla_ms = time_ms(torch, lambda: models["xla"](x, t), reps=5, warm=1)
+        flash_ms = time_ms(torch, lambda: models[True](x, t), reps=5, warm=1)
+    rec = {"phase": "probe-xla", "model": MODEL, "dtype": "bfloat16", "probe_batch": 2,
+           "probes": probes, "probe_tv_limit": PROBE_TV, "control_max_row_tv": controls,
+           "xla_batch": 8,
+           "xla_block_kv": 512, "max_abs_err_xla_vs_flash": err,
+           "tol": FWD_TOL["bfloat16"], "xla_launches": xla_launches,
+           "xla_ms": xla_ms, "flash_ms": flash_ms}
+    emit(rec)
+    N = (H // cfg["patch_size"]) * (W // cfg["patch_size"]) + 1
+    for layer, p in probes.items():
+        check(p["shape"] == [2, cfg["num_heads"], N, N], f"probe {layer} shape {p['shape']}")
+        check(p["max_row_sum_err"] <= 1e-3, f"probe {layer} rows sum off by "
+                                            f"{p['max_row_sum_err']}")
+        check(p["bitwise"] if layer == "0" else p["max_row_tv"] <= PROBE_TV,
+              f"probe {layer}: {p}")
+    for name, tv in controls.items():
+        check(tv > PROBE_TV, f"probe control {name}: row TV {tv} within {PROBE_TV}")
+    check(math.isfinite(err) and err <= FWD_TOL["bfloat16"],
+          f"xla route vs flash forward: {err}")
+    check(not xla_launches, f"xla route launched {xla_launches}")
+    del models
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- the quantized trunk
@@ -2816,6 +3303,11 @@ def main() -> int:
     phase_train_profile(torch, train_model, state, step, batch, gen)
     del train_model, state, step
     phase_train_nan(torch)
+    data_root, tier = phase_native(torch)
+    remat_launches = phase_train_remat(torch, fa)
+    phase_train_run(torch, data_root, tier)
+    shutil.rmtree(data_root, ignore_errors=True)
+    phase_probe_xla(torch, fa)
 
     fwd = records[("200_p4_b16", "bfloat16")]
     lines = [{
@@ -2824,6 +3316,7 @@ def main() -> int:
         "replaces": "ddim_cold_tpu/ops/flash_attention.py:79",
         "launches": train_launches["flash_fwd"],
         "launches_by_path": {"train": train_launches["flash_fwd"],
+                             "train-remat": remat_launches["flash_fwd"],
                              "serve": serve_launches, **chaos_launches,
                              **fleet_launches,
                              **{f"serve quant={q},fused={f}": n["flash_fwd"]
@@ -2847,6 +3340,7 @@ def main() -> int:
             "replaces": f"ddim_cold_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
             "launches_by_path": {"train": train_launches[name],
+                                 "train-remat": remat_launches[name],
                                  **{label: n[name] for label, n in new_paths.items()
                                     if n[name]}},
             "max_abs_err": rec["max_abs_err"],

@@ -12,6 +12,7 @@ never imports it. Module names mirror it:
 * ``models.vit``          — ``DiffusionViT`` (reference state_dict names)
 * ``utils.weights``       — JAX parameter tree → this package's state_dict
 * ``serve``               — bucketed ``Engine`` (tasks, previews, student) + ``warmup``
+* ``__main__``            — ``python -m ddim_cold_torch train <ExpName>``
 
 Entry points run on the card (``device=None`` means ``"cuda"``) and raise
 when CUDA is missing; tests pass ``device="cpu"``.

@@ -1,0 +1,80 @@
+"""The port's command line: ``python -m ddim_cold_torch train <ExpName>``.
+
+``train`` is the counterpart of the JAX package's launcher
+(``multi_gpu_trainer.py:17-64``): it reads ``<ExpName>.yaml`` from the
+working directory, creates ``Saved_Models/<ExpName><framework>/`` there
+(printing ``Warning!Current folder already exist!`` when it exists), copies
+the YAML in, trains with ``train/trainer.run`` and prints the launcher's
+closing line. It trains on the card: without CUDA it exits with code 3
+and a message before touching the file system, unless ``--device cpu``
+asks for the CPU. The subcommands are a dispatch table, :data:`COMMANDS`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+from typing import Optional, Sequence
+
+#: exit code of a run that asked for the card on a machine without one (the
+#: JAX launcher's ``require_accelerator_or_exit``)
+NO_ACCELERATOR = 3
+
+
+def _train(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) -> int:
+    parser = argparse.ArgumentParser(prog="python -m ddim_cold_torch train")
+    parser.add_argument("exp_name", help="reads <exp_name>.yaml from the working directory")
+    parser.add_argument("--device", default=device,
+                        help="'cpu' to train on the CPU (default: the card)")
+    opts = parser.parse_args(list(args))
+    import torch
+
+    if (opts.device is None or torch.device(opts.device).type == "cuda") and (
+            not torch.cuda.is_available()):
+        print("python -m ddim_cold_torch train: no CUDA device "
+              "(torch.cuda.is_available() is False); pass --device cpu to "
+              "train on the CPU", file=sys.stderr)
+        return NO_ACCELERATOR
+
+    from ddim_cold_torch.config import load_config
+    from ddim_cold_torch.train.trainer import run
+
+    yaml_path = os.path.abspath(opts.exp_name + ".yaml")
+    if not os.path.isfile(yaml_path):
+        print(f"python -m ddim_cold_torch train: no {yaml_path}", file=sys.stderr)
+        return 2
+    config = load_config(yaml_path, opts.exp_name)
+    base = base_dir or os.getcwd()
+    run_dir = os.path.join(base, "Saved_Models", config.run_name)
+    if os.path.isdir(run_dir):
+        print("Warning!Current folder already exist!")
+    os.makedirs(run_dir, exist_ok=True)
+    shutil.copy(yaml_path, run_dir)
+    result = run(config, base, device=opts.device)
+    print(f"\nbest val loss {result.best_loss:.5f} after {result.steps} steps "
+          f"→ {result.run_dir}")
+    return 0
+
+
+#: subcommand → handler(args, base_dir, device) → exit code
+COMMANDS = {"train": _train}
+
+
+def main(argv: Optional[Sequence[str]] = None, base_dir: Optional[str] = None,
+         device: Optional[str] = None) -> int:
+    """Run one subcommand; ``argv`` excludes the program name (default
+    ``sys.argv[1:]``). ``base_dir`` roots ``Saved_Models/`` elsewhere than
+    the working directory and ``device`` sets ``--device``'s default (both
+    for tests)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] not in COMMANDS:
+        print(f"usage: python -m ddim_cold_torch {{{','.join(COMMANDS)}}} ...",
+              file=sys.stderr)
+        return 2
+    return COMMANDS[argv[0]](argv[1:], base_dir, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

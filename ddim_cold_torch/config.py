@@ -23,9 +23,10 @@ table stays at 2000 rows for checkpoint compatibility (SURVEY.md quirk #4).
 The optional keys the JAX package added keep their meaning;
 ``profile_steps`` traces the first N steps into ``<run_dir>/trace`` and
 ``nan_checks`` raises at the first non-finite value (the port's
-counterparts of a ``jax.profiler`` trace and ``jax_debug_nans``). The
+counterparts of a ``jax.profiler`` trace and ``jax_debug_nans``);
+``remat`` checkpoints each block's activations (``models/vit.py``). The
 port's trainer refuses those whose slice has not landed (``mesh``, more
-than one device, ``steps_per_dispatch`` > 1, MoE, remat, scan_blocks,
+than one device, ``steps_per_dispatch`` > 1, MoE, scan_blocks,
 ``flash_blocks``), naming the ROADMAP.md item.
 """
 

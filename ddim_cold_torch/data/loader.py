@@ -12,8 +12,15 @@ DistributedSampler at world size 1 (multi_gpu_trainer.py:61-64):
   contents per (seed, epoch) are the JAX loader's.
 
 Decode overlaps device compute: a producer thread assembles batch after
-batch (items fanned over a thread pool; PIL decode releases the GIL) into a
-bounded queue, so at most ``prefetch + 1`` decoded batches exist at once.
+batch into a bounded queue, so at most ``prefetch + 1`` decoded batches
+exist at once. A batch comes from the dataset's native fast path
+(``get_batch``: decode, resize and degrade in C++ threads), or with
+``raw=True`` from ``get_raw_batch``, or item by item over a thread pool
+when the fast path says None (PIL decode releases the GIL).
+``ShardedLoader.routes`` counts the batches by the route that built them.
+The ``data.next`` fault site fires at the top of every batch, so an
+injected fault surfaces at the consumer's ``next()`` as a decode failure
+would.
 :func:`device_prefetch` then copies each batch from pinned host memory to
 the card on a side stream, one batch ahead of the step that consumes it.
 """
@@ -28,6 +35,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ddim_cold_torch.utils import faults
 
 
 class ShardedLoader:
@@ -51,6 +60,8 @@ class ShardedLoader:
         self.pad_final_batch = pad_final_batch
         self.raw = raw
         self.epoch = 0
+        #: batches built, by route: "raw", "get_batch" or "per_item"
+        self.routes: collections.Counter = collections.Counter()
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the epoch shuffle (mirrors DistributedSampler.set_epoch)."""
@@ -79,12 +90,24 @@ class ShardedLoader:
                 for i in range(nb)]
 
     def _make_batch(self, idxs: np.ndarray, pool: Optional[ThreadPoolExecutor] = None):
+        faults.fire("data.next", tag=f"epoch:{self.epoch}|")
+        threads = max(1, self.num_threads)
+        batch = None
         if self.raw:  # (base, t) only — corruption happens on the device
-            return self.dataset.get_raw_batch(idxs, pool=pool)
-        mapper = pool.map if pool is not None else map
-        items = list(mapper(self.dataset.__getitem__, [int(i) for i in idxs]))
-        return (np.stack([it[0] for it in items]), np.stack([it[1] for it in items]),
+            route, batch = "raw", self.dataset.get_raw_batch(idxs, num_threads=threads,
+                                                             pool=pool)
+        else:
+            get_batch = getattr(self.dataset, "get_batch", None)
+            if get_batch is not None:
+                route, batch = "get_batch", get_batch(idxs, num_threads=threads, pool=pool)
+        if batch is None:  # no fast path for this batch: item by item
+            mapper = pool.map if pool is not None else map
+            items = list(mapper(self.dataset.__getitem__, [int(i) for i in idxs]))
+            route, batch = "per_item", (
+                np.stack([it[0] for it in items]), np.stack([it[1] for it in items]),
                 np.asarray([it[2] for it in items], dtype=np.int32))
+        self.routes[route] += 1
+        return batch
 
     def __iter__(self) -> Iterator:
         batches = self._batches()

@@ -17,11 +17,14 @@ cast to ``dtype`` (float32 or bfloat16) at use, as the JAX modules do.
 
 ``use_flash=True`` routes attention through the hand-written flash kernels
 (:mod:`ddim_cold_torch.ops.flash_attention`, forward and backward); ``False``
-is the dense einsum path, kept as the kernels' oracle. The JAX routing rule
-holds: the flash path runs only where no attention weights are needed,
-that is in evaluation (``deterministic=True``) or with ``attn_drop_rate=0``;
-a training forward with attention dropout takes the dense path and drops
-attention weights (JAX vit.py:231, :356, :377-381).
+is the dense einsum path, kept as the kernels' oracle; ``"xla"`` is JAX's
+blockwise online-softmax route (``flash_attention.blockwise_attention_xla``
+over ``flash_blocks[1]`` keys a block, else 512), plain PyTorch that
+launches no kernel. The JAX routing rule holds: the flash and blockwise
+routes run only where no attention weights are needed, that is in
+evaluation (``deterministic=True``) or with ``attn_drop_rate=0``, and not
+on the probed layer; a training forward with attention dropout takes the
+dense path and drops attention weights (JAX vit.py:231, :356, :377-381).
 
 ``quant`` (None, ``"xla"``, ``"pallas"``, ``"w8a8"``) holds the four trunk
 linears of every block as int8 codes (:class:`~ddim_cold_torch.ops.quant.
@@ -33,10 +36,10 @@ the attention runs as one qkv → flash → proj kernel (``fused_trunk``) when
 ``quant`` is ``"pallas"`` or ``"w8a8"`` and the flash rule above holds
 (JAX vit.py:116-141, :241-265). The fused kernels are forward-only: a
 forward that needs a gradient through them raises. ``flash_blocks``
-``(block_q, block_kv)`` is accepted as in JAX, but in the port only
-``block_q`` means anything, and only for ``quant="w8a8", fused=True``: it
-sets the rows over which the attention context is requantized (default
-512, JAX's fallback off TPU). Every other block size of the JAX package
+``(block_q, block_kv)`` is accepted as in JAX: ``block_q`` sets, for
+``quant="w8a8", fused=True``, the rows over which the attention context is
+requantized (default 512, JAX's fallback off TPU), and ``block_kv`` the
+blockwise route's key block. Every other block size of the JAX package
 changes only the f32 summation order, and the CUDA kernels pick their own.
 
 ``deterministic=False`` is the training forward. It takes an explicit
@@ -48,14 +51,23 @@ their rates; and per-sample stochastic depth on both residual branches of
 every block, a (B, 1, 1) mask at the rates ``linspace(0, drop_path_rate,
 depth)``. The bits differ from JAX's: the distributions are the same.
 
+``remat=True`` runs each block under ``torch.utils.checkpoint`` (JAX's
+``nn.remat(Block)``, vit.py:891): a block keeps only its input for the
+backward and runs its forward again there, so one block's activations are
+live at a time (on the flash route the forward kernel launches twice per
+block and step). The recomputation draws the block's dropout masks again
+from a generator set to the state the first forward started from, and the
+caller's generator stays where the first forward left it, so a remat step
+is bit for bit the plain one: losses, gradients and the generator.
+
 The forward records autograd history like any module; the samplers and the
 serving engine run it under ``torch.inference_mode()``. The step-cache
 hooks of the JAX forward (``capture_split``, ``skip_blocks`` +
 ``block_delta``, ``capture_tokens``, ``token_cache`` + ``token_k``) are
-ported on every route above; see :meth:`DiffusionViT.forward`. The later
-slices' hooks (MoE, sequence parallelism, scan_blocks, remat, pipeline
-stages, the attention probe) raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+ported on every route above, and so is the attention probe
+(``return_attention_layer``); see :meth:`DiffusionViT.forward`. The later
+slices' hooks (MoE, sequence parallelism, scan_blocks, pipeline stages)
+raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -67,10 +79,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ddim_cold_torch.models.init import torch_default_uniform_, trunc_normal_
 from ddim_cold_torch.ops import quant as quant_ops
-from ddim_cold_torch.ops.flash_attention import (flash_attention_qkv,
+from ddim_cold_torch.ops.flash_attention import (DEFAULT_BLOCK_KV,
+                                                 blockwise_attention_xla,
+                                                 flash_attention_qkv,
                                                  fused_trunk_attention)
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
@@ -102,7 +117,6 @@ _LATER_CTOR = {
     "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
     "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
     "scan_blocks": (False, "Queue 1 item 14 (parallel/pipeline)"),
-    "remat": (False, "Queue 1 item 11 (training: remat)"),
     "seq_mesh": (None, "Queue 1 item 14 (sequence parallelism)"),
     "seq_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
     "batch_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
@@ -112,7 +126,6 @@ _LATER_CTOR = {
 
 #: forward hooks of the JAX model that belong to later slices
 _LATER_FORWARD = {
-    "return_attention_layer": (None, "Queue 1 item 3 (attention probe)"),
     "stage": ("full", "Queue 1 item 14 (pipeline stages)"),
     "tokens": (None, "Queue 1 item 14 (pipeline stages)"),
 }
@@ -180,6 +193,30 @@ def _live_tokens(tokens: torch.Tensor, ref_in: torch.Tensor, k: int) -> torch.Te
     return order[:, :k].sort(dim=-1).values
 
 
+def _remat_block(blk: nn.Module, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``blk(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant),
+    with the block's dropout masks replayed exactly in the recomputation.
+    ``preserve_rng_state`` covers only the global RNGs, and the port draws
+    from an explicit generator, so: the first forward draws from the
+    caller's generator (leaving it where the plain block would), and the
+    recomputation runs with a fresh generator on the same device set to the
+    state that forward started from."""
+    snapshot = None if generator is None else generator.get_state()
+    replay = False
+
+    def run(inp):
+        gen = generator
+        if replay and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(snapshot)
+        return blk(inp, gen)
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    replay = True  # read by the recomputation, during the backward
+    return out
+
+
 class PatchEmbed(nn.Module):
     """Image → patch tokens as one GEMM over (row, col, channel) patch
     features. Holds the reference ``Conv2d``'s weight (E, C, p, p) — for
@@ -238,11 +275,12 @@ class Attention(nn.Module):
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q):
+                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV):
         super().__init__()
         self.quant = quant
         self.fused = fused
         self.block_q = block_q
+        self.block_kv = block_kv
         self.num_heads = num_heads
         self.qk_scale = qk_scale
         self.attn_drop = attn_drop
@@ -251,12 +289,18 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                need_weights: bool = False) -> torch.Tensor:
+        """The attention output; with ``need_weights`` the (B, H, N, N)
+        attention weights instead (dense path, after attention dropout, as
+        JAX's probe returns them)."""
         B, N, C = x.shape
         head_dim = C // self.num_heads
         scale = self.qk_scale or head_dim**-0.5
-        weightless = generator is None or self.attn_drop == 0.0
+        # the flash, blockwise and fused routes never materialise the
+        # weights: they need attention dropout inactive and no probe (JAX's
+        # weightless_ok, vit.py:231)
+        weightless = not need_weights and (generator is None or self.attn_drop == 0.0)
         if self.fused and self.quant in ("pallas", "w8a8") and weightless:
             # one kernel: the qkv projection and the context never reach
             # device memory (JAX vit.py:241-265); forward-only
@@ -270,15 +314,17 @@ class Attention(nn.Module):
         # kernels read q, k, v as strided slices of the projection and write
         # its gradient as one buffer
         qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, head_dim)
-        # the flash path never materialises the weights, so it needs
-        # attention dropout inactive (JAX's weightless_ok, vit.py:231)
-        if self.use_flash and weightless:
+        if self.use_flash == "xla" and weightless:
+            out = blockwise_attention_xla(*qkv.unbind(2), scale, self.block_kv)
+        elif self.use_flash and weightless:
             out = flash_attention_qkv(qkv, scale)
         else:
             q, k, v = qkv.unbind(2)
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
             attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
             attn = _dropout(attn, self.attn_drop, generator)
+            if need_weights:
+                return attn
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         out = _linear(out.reshape(B, N, C), self.proj)
         return _dropout(out, self.proj_drop, generator)
@@ -293,14 +339,14 @@ class Block(nn.Module):
                  drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q):
+                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, attn_drop=attn_drop,
                               proj_drop=drop, use_flash=use_flash, quant=quant,
-                              fused=fused, block_q=block_q)
+                              fused=fused, block_q=block_q, block_kv=block_kv)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, quant=quant,
                        fused=fused)
@@ -310,8 +356,13 @@ class Block(nn.Module):
         Bernoulli(keep) draw per sample, broadcast over tokens and channels."""
         return _dropout(y, self.drop_path, generator, shape=(y.shape[0], 1, 1))
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                return_attention: bool = False) -> torch.Tensor:
+        """The block's output; with ``return_attention`` its attention
+        weights (B, H, N, N) instead (reference Block.return_attention,
+        ViT.py:132-135)."""
+        if return_attention:
+            return self.attn(_layer_norm(x, self.norm1), generator, need_weights=True)
         x = x + self._residual(self.attn(_layer_norm(x, self.norm1), generator),
                                generator)
         return x + self._residual(self.mlp(_layer_norm(x, self.norm2), generator),
@@ -343,7 +394,7 @@ class DiffusionViT(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  use_sincos_pos: bool = False, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 flash_blocks: Optional[tuple] = None, *,
+                 flash_blocks: Optional[tuple] = None, remat: bool = False, *,
                  device=None, seed: int = 0, **later):
         ctor = {k: v for k, v in locals().items()
                 if k not in ("self", "later", "__class__")}
@@ -366,11 +417,9 @@ class DiffusionViT(nn.Module):
             raise ValueError(f"flash_blocks must be (block_q, block_kv), got "
                              f"{flash_blocks!r}")
         refuse_later(later, _LATER_CTOR, "DiffusionViT")
-        if use_flash not in (True, False):
-            raise NotImplementedError(
-                f"use_flash={use_flash!r}: only the flash kernel (True) and the "
-                "dense path (False) are ported; the blockwise 'xla' path is "
-                "ROADMAP.md Queue 1 item 5")
+        if not (use_flash in (True, False) or use_flash == "xla"):
+            raise ValueError(f"use_flash must be True (the flash kernels), False "
+                             f"(dense) or 'xla' (blockwise), got {use_flash!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         super().__init__()
@@ -383,7 +432,8 @@ class DiffusionViT(nn.Module):
         self.num_heads = num_heads
         self.total_steps = total_steps
         self.dtype = dtype
-        self.use_flash = bool(use_flash)
+        self.use_flash = "xla" if use_flash == "xla" else bool(use_flash)
+        self.remat = bool(remat)
         self.quant = quant
         self.fused = bool(fused)
         self.flash_blocks = None if flash_blocks is None else tuple(flash_blocks)
@@ -410,7 +460,8 @@ class DiffusionViT(nn.Module):
                   qk_scale=qk_scale, drop=drop_rate, attn_drop=attn_drop_rate,
                   drop_path=float(dpr[i]), use_flash=self.use_flash, quant=quant,
                   fused=self.fused,
-                  block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q)
+                  block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q,
+                  block_kv=int(flash_blocks[1]) if flash_blocks else DEFAULT_BLOCK_KV)
             for i in range(depth))
         self.norm = nn.LayerNorm(E, eps=1e-5)
         self.head = nn.Linear(E, in_chans * patch_size**2)
@@ -440,7 +491,7 @@ class DiffusionViT(nn.Module):
         libs = set()
         if self.fused and self.quant in ("pallas", "w8a8"):
             libs.add("fused_trunk")
-        elif self.use_flash:
+        elif self.use_flash is True:
             libs.add("flash_fwd")
         if self.fused and self.quant != "xla":
             libs.add("mlp_fused")
@@ -485,6 +536,7 @@ class DiffusionViT(nn.Module):
                 capture_tokens: bool = False,
                 token_cache: Optional[tuple] = None,
                 token_k: Optional[int] = None,
+                return_attention_layer: Optional[int] = None,
                 **later):
         """``deterministic=False`` is the training forward and needs
         ``generator`` (on the model's device) for its dropout masks.
@@ -513,10 +565,17 @@ class DiffusionViT(nn.Module):
           ``(x̂0, (ref_in, trunk_delta))``.
 
         The block-delta and token families exclude each other, and so do a
-        family's refresh and reuse hooks."""
+        family's refresh and reuse hooks.
+
+        ``return_attention_layer=i`` — the attention probe: the blocks
+        before layer ``i % depth`` run as usual, then that layer's
+        attention weights (B, H, N, N) in the model dtype are returned from
+        the dense path, whatever ``use_flash`` (JAX vit.py:923-931). The
+        probed layer is never rematerialised; the cache hooks exclude it."""
         refuse_later(later, _LATER_FORWARD, "DiffusionViT.forward")
         self._check_cache_hooks(skip_blocks, block_delta, capture_split,
-                                capture_tokens, token_cache, token_k)
+                                capture_tokens, token_cache, token_k,
+                                return_attention_layer)
         if deterministic:
             generator = None
         elif generator is None:
@@ -545,12 +604,19 @@ class DiffusionViT(nn.Module):
             sub_in = tokens  # the trunk below runs at sequence length k
         lo, hi = skip_blocks if skip_blocks is not None else (0, 0)
         tokens_in, tokens_mid = tokens, None
+        probe = (None if return_attention_layer is None
+                 else return_attention_layer % self.depth)
         for i, blk in enumerate(self.blocks):
             if lo <= i < hi:
                 if i == lo:
                     tokens = tokens + block_delta.to(self.dtype)
                 continue
-            tokens = blk(tokens, generator)
+            if i == probe:
+                return blk(tokens, generator, return_attention=True)
+            if self.remat and torch.is_grad_enabled():
+                tokens = _remat_block(blk, tokens, generator)
+            else:
+                tokens = blk(tokens, generator)
             if capture_split is not None and i == capture_split - 1:
                 tokens_mid = tokens
 
@@ -578,8 +644,13 @@ class DiffusionViT(nn.Module):
         return out if cache is None else (out, cache)
 
     def _check_cache_hooks(self, skip_blocks, block_delta, capture_split,
-                           capture_tokens, token_cache, token_k) -> None:
-        """The JAX model's validation of the step-cache hooks (vit.py:724-773)."""
+                           capture_tokens, token_cache, token_k,
+                           return_attention_layer=None) -> None:
+        """The JAX model's validation of the step-cache hooks and the probe
+        (vit.py:724-773)."""
+        if (skip_blocks is not None or capture_split is not None) and (
+                return_attention_layer is not None):
+            raise ValueError("step caching excludes the attention probe")
         if skip_blocks is not None and capture_split is not None:
             raise ValueError(
                 "skip_blocks (reuse step) and capture_split (refresh step) "
@@ -594,6 +665,9 @@ class DiffusionViT(nn.Module):
         if capture_split is not None and not (1 <= capture_split < self.depth):
             raise ValueError(f"capture_split {capture_split} must split "
                              f"depth {self.depth} into two non-empty halves")
+        if (capture_tokens or token_cache is not None) and (
+                return_attention_layer is not None):
+            raise ValueError("token caching excludes the attention probe")
         if (capture_tokens or token_cache is not None) and (
                 skip_blocks is not None or capture_split is not None):
             raise ValueError(

@@ -11,7 +11,12 @@ and backward, without an N×N matrix ever reaching device memory:
 * :class:`FlashAttention` (through :func:`flash_attention_qkv` and
   :func:`flash_attention`) is the ``torch.autograd.Function`` joining them:
   residuals (qkv, o, lse), and one ``(B, N, 3, H, D)`` gradient buffer for
-  the qkv projection, so autograd never sums three copies.
+  the qkv projection, so autograd never sums three copies;
+* :func:`blockwise_attention_xla` is the JAX package's blockwise
+  online-softmax route (the model's ``use_flash="xla"``), which JAX computes
+  outside any Pallas kernel: plain PyTorch here, differentiable by autograd,
+  and it launches no kernel of its own. :func:`online_softmax_update` is its
+  step (and the ring-attention step's, in JAX).
 
 Each wrapper takes its kernel on a CUDA tensor and the plain PyTorch version
 of the same function (:func:`flash_forward_reference`,
@@ -435,6 +440,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward(q, k, v, scale)[0]
     _check(q, k, v)
     return flash_attention_qkv(torch.stack((q, k, v), dim=2), scale)
+
+
+# ---------------------------------------------------------------------------
+# the blockwise route (JAX's use_flash="xla"): plain PyTorch, no kernel
+# ---------------------------------------------------------------------------
+
+#: JAX's mask value for padded keys (ops/flash_attention.py ``_NEG_INF``)
+_NEG_INF = -1e30
+#: JAX's default K/V block of the blockwise route
+DEFAULT_BLOCK_KV = 512
+
+
+def online_softmax_update(o, l, m, logits, v_blk):
+    """One blockwise-softmax step (JAX ``online_softmax_update``): fold a
+    logits block into the running (numerator, denominator, max), all f32.
+    o ``(..., nq, D)``, l/m ``(..., nq)``, logits ``(..., nq, bkv)``, v_blk
+    ``(..., bkv, D)``; leading dims broadcast."""
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    o = o * corr[..., None] + torch.einsum("...qk,...kd->...qd", p, v_blk)
+    return o, l, m_new
+
+
+def blockwise_attention_xla(q, k, v, scale: float,
+                            block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
+    """softmax(scale·q·kᵀ)·v over K/V blocks of ``block_kv`` keys with the
+    online softmax (JAX ``blockwise_attention_xla``): only one (B, H, N,
+    block_kv) logits block exists at a time. f32 softmax; K/V padded to a
+    multiple of the block, the padded keys masked at ``_NEG_INF``. q/k/v
+    ``(B, N, H, D)`` → ``(B, N, H, D)`` in q's dtype."""
+    B, N, H, D = q.shape
+    qf = q.float().transpose(1, 2)  # (B, H, N, D)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    block_kv = min(int(block_kv), max(1, N))
+    pad = (-N) % block_kv
+    if pad:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    valid = torch.arange(N + pad, device=q.device) < N
+    o = torch.zeros((B, H, N, D), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, N), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, N), _NEG_INF, dtype=torch.float32, device=q.device)
+    for lo in range(0, N + pad, block_kv):
+        k_b, v_b = kf[:, :, lo:lo + block_kv], vf[:, :, lo:lo + block_kv]
+        logits = torch.einsum("bhqd,bhkd->bhqk", qf, k_b) * scale
+        logits = torch.where(valid[lo:lo + block_kv], logits,
+                             torch.tensor(_NEG_INF, device=q.device))
+        o, l, m = online_softmax_update(o, l, m, logits, v_b)
+    return (o / l[..., None]).transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 ``ddim_cold_tpu/train/trainer.py``, which replaced ``multi_gpu_trainer.main``).
 
     run(config)
-    ├─ datasets + ShardedLoader + device_prefetch   (data/)
+    ├─ datasets (native decode tier) + ShardedLoader + device_prefetch   (data/)
     ├─ build_model + create_train_state            (models/, train/step.py)
     ├─ optional warm-start / resume                (utils/checkpoint.py)
     └─ epoch loop: train_step → evaluate → log → checkpoint
@@ -12,7 +12,12 @@ Behavioural parity with the reference: the EMA(0.99) train loss starting at
 best/last dual checkpoints, epoch-granular resume restoring the step count
 (the cosine position), the best metric and the EMA loss
 (multi_gpu_trainer.py:53-55,94-106,126,135-163). The step never syncs with
-the host except at log points and epoch ends.
+the host except at log points and epoch ends. The datasets decode through
+the native C++ tier, PIL only for the files it rejects, as JAX's trainer
+builds them. Checkpoints are crash-safe: each file is renamed into place
+whole, and ``lastepoch.ckpt``/``bestloss.ckpt`` pass through the
+``ckpt.save`` fault site's four crash windows (``utils/checkpoint.py``).
+``remat`` reaches the model (activation checkpointing per block).
 
 ``profile_steps=N`` traces the run's first N steps into
 ``<run_dir>/trace/trace.json`` (``utils/profiling.start_trace``; read it with

@@ -12,9 +12,22 @@ The reference's dual checkpoints (multi_gpu_trainer.py:94-106,152-163):
 
 The warm-start ``initializing`` pkl loads through the same names (a
 reference ``lastepoch`` dict's ``state_dict`` and DDP's ``module.`` prefix
-are accepted). Files are written beside their destination and renamed over
-it, so a crash mid-write never destroys the previous checkpoint. Loads use
-``torch.load(weights_only=True)``: only tensors and plain containers.
+are accepted). Loads use ``torch.load(weights_only=True)``: only tensors
+and plain containers.
+
+Crash safety. Every file is written beside its destination as
+``<path>.<pid>.writing`` and renamed over it with one ``os.replace``, so a
+crash at any point leaves either the previous file or the new one whole.
+The next save of the same path removes what a killed writer left
+(``<path>.<pid>.writing`` of a pid that no longer runs), as JAX's save
+clears its ``.writing`` and ``.old`` directories. :func:`save_checkpoint`
+fires the ``ckpt.save`` fault site at JAX's four crash windows, in JAX's
+order and with its tags (``window:pre-write|``, ``window:post-write|``,
+``window:mid-swap|`` just before the replace, ``window:post-swap|`` just
+after it); a crash in the first three leaves the previous checkpoint, in
+the last the new one — the versions JAX's two directory renames leave after
+its ``recover_swap``. One rename never leaves a ``.old`` behind, so the
+port has no ``recover_swap``.
 """
 
 from __future__ import annotations
@@ -24,12 +37,55 @@ import re
 
 import torch
 
+from ddim_cold_torch.utils import faults
 
-def _atomic_save(obj, path: str) -> None:
+
+_WRITING = re.compile(r"\.(\d+)\.writing$")
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:  # alive, another user's
+        return True
+    return True
+
+
+def _clear_stale(path: str) -> None:
+    """Remove ``<path>.<pid>.writing`` files whose writer is gone (a save
+    killed mid-write); a live writer's file is left alone."""
+    folder, name = os.path.split(os.path.abspath(path))
+    for entry in os.listdir(folder):
+        m = _WRITING.search(entry)
+        if (m and entry[:m.start()] == name and int(m.group(1)) != os.getpid()
+                and not _pid_alive(int(m.group(1)))):
+            try:
+                os.remove(os.path.join(folder, entry))
+            except FileNotFoundError:  # another save removed it first
+                pass
+
+
+def _window(name: str) -> None:
+    faults.fire("ckpt.save", tag=f"window:{name}|")
+
+
+def _atomic_save(obj, path: str, windows: bool = False) -> None:
+    """``torch.save`` beside ``path``, then one rename over it; with
+    ``windows`` the ``ckpt.save`` site fires at the four crash windows."""
+    _clear_stale(path)
     tmp = f"{path}.{os.getpid()}.writing"
     try:
+        if windows:
+            _window("pre-write")
         torch.save(obj, tmp)
+        if windows:
+            _window("post-write")
+            _window("mid-swap")
         os.replace(tmp, path)
+        if windows:
+            _window("post-swap")
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -45,8 +101,9 @@ def _to_cpu(tree):
 
 def save_checkpoint(path: str, tree: dict) -> None:
     """Write a checkpoint (a dict of tensors, numbers and dicts of them);
-    tensors are copied to the host first."""
-    _atomic_save(_to_cpu(tree), path)
+    tensors are copied to the host first. The ``ckpt.save`` fault site
+    fires at its four crash windows."""
+    _atomic_save(_to_cpu(tree), path, windows=True)
 
 
 def load_checkpoint(path: str) -> dict:

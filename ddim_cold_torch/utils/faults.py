@@ -35,10 +35,10 @@ effectively forever: a wedge, which the engine's stall watchdog catches),
 
 The engine fires the ``serve.*`` sites, the fleet router ``router.place``,
 ``router.failover`` and ``replica.spawn``, the replica server
-``replica.kill`` and ``replica.hang``, and the RPC client ``rpc.drop`` and
-``rpc.latency``. ``ckpt.save`` and ``data.next`` stay registered so that a
-spec written for the JAX package parses here; the port fires them once the
-modules that own them are ported (ROADMAP.md Queue 1 item 11).
+``replica.kill`` and ``replica.hang``, the RPC client ``rpc.drop`` and
+``rpc.latency``, the loader ``data.next`` at every batch
+(``data/loader.py``), and the checkpoint writer ``ckpt.save`` at its four
+crash windows (``utils/checkpoint.py``), with JAX's tags.
 
 Host-only: numpy and the port's ``obs.metrics``, no torch.
 """

@@ -9,7 +9,8 @@
   96×80 jpgs, resized by the PIL tier), against JAX's at ``use_native=False``:
   identical t draws, identical (noisy, target) and raw (base, t) arrays, and
   the same batch order per (seed, epoch). Exact equality throughout: both
-  sides run the same numpy code on the same decoded bytes.
+  sides run the same numpy code on the same decoded bytes. (The native
+  tier, ``use_native=True``, is held in ``test_torch_port_native.py``.)
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
-from ddim_cold_torch.data import ColdDownSampleDataset, DiffusionDataset, ShardedLoader
+from ddim_cold_torch.data import ColdDownSampleDataset, ShardedLoader
 from ddim_cold_torch.data import loader as port_loader
 from ddim_cold_torch.data import resize as port_resize
 from ddim_cold_torch.ops import degrade as port_degrade
@@ -127,12 +128,6 @@ def test_dataset_items_and_raw_batches_match_jax(synthetic_image_dir, kind):
         idx = [7, 0, 3]
         for g, w in zip(port.get_raw_batch(idx), ref.get_raw_batch(idx)):
             np.testing.assert_array_equal(g, w)
-
-
-def test_use_native_refuses_naming_the_item(synthetic_image_dir):
-    for cls in (ColdDownSampleDataset, DiffusionDataset):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-            cls(synthetic_image_dir, imgSize=(16, 16), use_native=True)
 
 
 @pytest.mark.parametrize("raw", [False, True])

@@ -86,3 +86,25 @@ def test_wrapper_refuses_devices_it_has_no_route_for():
     q = torch.empty((1, 5, 2, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         port.flash_forward(q, q, q, 1.0)
+
+
+@pytest.mark.parametrize("block_kv", [8, 512])
+@pytest.mark.parametrize("N", [17, 257])
+def test_blockwise_attention_matches_jax(N, block_kv):
+    """``blockwise_attention_xla`` (JAX's use_flash="xla" route) against
+    JAX's on the same f32 inputs, 1e-5: the same online-softmax steps over
+    the same K/V blocks, the ragged last block masked at ``_NEG_INF``
+    (N=17, 257 against blocks of 8), one block holding all keys at 512.
+    It launches nothing."""
+    q, k, v = _qkv(2, N, 2, 16, seed=N)
+    scale = 16**-0.5
+    before = dict(port.LAUNCHES)
+    got = port.blockwise_attention_xla(*map(torch.from_numpy, (q, k, v)), scale, block_kv)
+    want = ref.blockwise_attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       scale, block_kv)
+    assert got.dtype == torch.float32 and got.shape == (2, N, 2, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert dict(port.LAUNCHES) == before
+    bf = port.blockwise_attention_xla(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                                      scale, block_kv)
+    assert bf.dtype == torch.bfloat16  # output in q's dtype, f32 inside

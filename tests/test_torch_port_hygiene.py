@@ -58,8 +58,8 @@ def test_training_slice_modules_are_checked():
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     assert {f"ddim_cold_torch/{m}.py" for m in (
         "config", "ops/losses", "ops/degrade", "data/resize", "data/datasets",
-        "data/loader", "utils/logging", "utils/checkpoint", "train/step",
-        "train/trainer")} <= names
+        "data/loader", "data/native", "utils/logging", "utils/checkpoint", "train/step",
+        "train/trainer", "__main__")} <= names
 
 
 def test_quant_slice_modules_are_checked():
@@ -136,6 +136,9 @@ def test_device_none_means_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         sampling.ddim_sample(model, x_init=np.zeros((1, 16, 16, 3)), k=500)
     assert resolve_device("cpu") == torch.device("cpu")
+    from ddim_cold_torch import __main__ as cli
+
+    assert cli.main(["train", "any_experiment"]) == cli.NO_ACCELERATOR
 
 
 def test_kernel_loader_raises_without_cuda(no_cuda):
@@ -232,7 +235,7 @@ HOST_ONLY = ("obs/metrics.py", "obs/spans.py", "utils/faults.py",
              "utils/watchdog.py", "serve/errors.py", "serve/router.py",
              "serve/fleet.py", "serve/remote.py", "serve/replica_main.py",
              "serve/autoscale.py", "utils/flops.py", "utils/record.py",
-             "obs/attrib.py", "obs/trend.py")
+             "obs/attrib.py", "obs/trend.py", "data/native.py")
 
 
 def _dotted(node):
@@ -266,7 +269,8 @@ def test_fault_sites_are_registered_literals():
     """Every ``faults.fire`` site is a string literal in ``faults.SITES``,
     fired at one call site each: the engine's five ``serve.*`` sites, the
     router's placement, failover and spawn sites, the replica server's kill
-    and hang, and the RPC client's drop and latency."""
+    and hang, the RPC client's drop and latency, the loader's ``data.next``
+    and the checkpoint writer's ``ckpt.save`` (one site, four windows)."""
     from ddim_cold_torch.utils import faults
 
     fired = []
@@ -279,7 +283,9 @@ def test_fault_sites_are_registered_literals():
     assert sorted(fired) == sorted(("serve.assemble", "serve.compile", "serve.dispatch",
                                     "serve.fetch", "serve.preview", "router.place",
                                     "router.failover", "replica.spawn", "replica.kill",
-                                    "replica.hang", "rpc.drop", "rpc.latency"))
+                                    "replica.hang", "rpc.drop", "rpc.latency",
+                                    "data.next", "ckpt.save"))
+    assert set(fired) == set(faults.SITES)
 
 
 def test_metric_emits_are_registered_literals_at_one_site():
@@ -307,8 +313,10 @@ def test_metric_emits_are_registered_literals_at_one_site():
 
 def test_host_only_modules_import_no_torch():
     """The host-only modules import no torch at module level, and importing
-    the four outside ``serve/`` loads no torch at all (a ``serve`` module
-    loads the package's ``__init__``, which imports the engine)."""
+    those outside ``serve/`` loads no torch at all (a ``serve`` module
+    loads the package's ``__init__``, which imports the engine; the
+    ``data`` package's ``__init__`` imports the loader, so ``data/native.py``
+    is loaded from its file)."""
     for rel in HOST_ONLY:
         tree = ast.parse((ROOT / "ddim_cold_torch" / rel).read_text())
         for node in tree.body:
@@ -317,8 +325,12 @@ def test_host_only_modules_import_no_torch():
                     else [])
             assert not [m for m in mods if m.split(".")[0] == "torch"], rel
     code = ("import sys\nsys.path.insert(0, %r)\n" % str(ROOT)
+            + "import importlib.util\n"
             + "".join(f"import ddim_cold_torch.{rel[:-3].replace('/', '.')}\n"
-                      for rel in HOST_ONLY if not rel.startswith("serve/"))
+                      for rel in HOST_ONLY if not rel.startswith(("serve/", "data/")))
+            + "".join(f"spec = importlib.util.spec_from_file_location('m', {str(ROOT / 'ddim_cold_torch' / rel)!r})\n"
+                      "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+                      for rel in HOST_ONLY if rel.startswith("data/"))
             + "print('torch' in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=60)

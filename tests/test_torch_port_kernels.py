@@ -362,6 +362,70 @@ def test_distill_student_backward_runs_the_kernels(cuda_device, monkeypatch, dty
         _assert_within_limit(grad, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_flash_training_is_bitwise_the_plain_route(cuda_device, dtype):
+    """Two training steps of a 64 px, patch 4 flash model (B=2, 257 tokens,
+    4 heads of 64, dropout and drop path 0.1, attention dropout 0) with and
+    without remat: losses, parameters and the generator's state bit for bit
+    equal (the kernels are deterministic and the recomputation sees the
+    same inputs and replays the same masks); remat launches the forward
+    kernel twice per block and step, each backward kernel once."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    batches = [(torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randint(0, 2000, (2,), generator=gen, device=cuda_device))
+               for _ in range(2)]
+    got = {}
+    for remat in (False, True):
+        model = DiffusionViT(img_size=(64, 64), patch_size=4, embed_dim=256, depth=2,
+                             num_heads=4, dtype=dtype, use_flash=True, remat=remat,
+                             attn_drop_rate=0.0, seed=5, device=cuda_device)
+        state = create_train_state(model, 1e-3, 10)
+        step = make_train_step(model)
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        rec = torch.tensor(5.0, device=cuda_device)
+        before = dict(fa.LAUNCHES)
+        losses = []
+        for b in batches:
+            state, loss, rec = step(state, b, g, rec)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launched = {k: fa.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        got[remat] = (torch.stack(losses), [p.detach().clone() for p in model.parameters()],
+                      g.get_state(), launched)
+    (l0, p0, g0, n0), (l1, p1, g1, n1) = got[False], got[True]
+    assert torch.equal(l0, l1) and bool(torch.isfinite(l0).all())
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(g0, g1)
+    steps = len(batches)
+    assert n0 == {"flash_fwd": 2 * steps, "flash_bwd_dq": 2 * steps,
+                  "flash_bwd_dkv": 2 * steps}
+    assert n1 == {"flash_fwd": 2 * 2 * steps, "flash_bwd_dq": 2 * steps,
+                  "flash_bwd_dkv": 2 * steps}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blockwise_route_against_the_flash_kernel(cuda_device, dtype):
+    """``blockwise_attention_xla`` (plain PyTorch, f32 softmax, no launch)
+    against ``flash_forward`` at 200_p4 B=2 (2501 tokens, 4 heads of 64):
+    within ``fa.o_error_limit`` of the blockwise result."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((2, 2501, 4, 64), generator=gen, device=cuda_device).to(dtype)
+               for _ in range(3))
+    before = dict(fa.LAUNCHES)
+    xla = fa.blockwise_attention_xla(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == before
+    o, _ = fa.flash_forward(q, k, v, 0.125)
+    assert xla.dtype == o.dtype == dtype
+    err = (o.float() - xla.float()).abs()
+    assert bool((err <= fa.o_error_limit(xla)).all()), err.max().item()
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros((1, 8, 2, 16), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):

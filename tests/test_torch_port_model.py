@@ -9,7 +9,10 @@ mode. Tolerances: float32 forward rtol 2e-4 / atol 2e-5 (the bridge's
 reference tolerance, tests/test_torch_bridge.py); bfloat16 forward atol
 1e-2 (about five bf16 ulps at the output's scale of ~0.5: the two
 frameworks round at different points); samplers atol 1e-4 over their 2-4
-steps.
+steps. The attention probe (``return_attention_layer``) and the blockwise
+``use_flash="xla"`` route are held at the float32 forward's tolerance; the
+xla route's gradients within 1e-5 (relative to the largest) of the dense
+route's.
 """
 
 import jax
@@ -127,14 +130,13 @@ def test_init_is_seeded_reference_init():
 
 @pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(seq_axis="seq"),
                                   dict(num_experts=2), dict(scan_blocks=True),
-                                  dict(remat=True), dict(sp_mode="ulysses"),
-                                  dict(use_flash="xla")])
+                                  dict(sp_mode="ulysses")])
 def test_later_slice_ctor_hooks_raise(hook):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PortViT(**TINY, device="cpu", **hook)
 
 
-@pytest.mark.parametrize("hook", [dict(stage="embed"), dict(return_attention_layer=0)])
+@pytest.mark.parametrize("hook", [dict(stage="embed")])
 def test_later_slice_forward_hooks_raise(hook):
     model = PortViT(**TINY, device="cpu")
     x, t = _inputs()
@@ -248,3 +250,82 @@ def test_cache_sampler_options_match_jax(jax_params, options):
         (got, got_tel), (want, want_tel) = got, want
         assert list(got_tel.branch) == list(np.asarray(want_tel.branch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+# ------------------------------------------ the attention probe and "xla"
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+@pytest.mark.parametrize("layer", [0, -1])
+def test_attention_probe_matches_jax(jax_params, layer, use_flash):
+    """``return_attention_layer``: layer ``i % depth``'s (B, H, N, N)
+    weights from the dense path whatever the route (the blocks before it
+    run their own route: flash, JAX's in interpret mode), within the f32
+    forward's tolerance; rows sum to 1."""
+    x, t = _inputs(4)
+    with torch.no_grad():
+        got = _port(jax_params, use_flash=use_flash)(
+            torch.from_numpy(x), torch.from_numpy(t), return_attention_layer=layer)
+    want = np.asarray(DiffusionViT(**TINY, use_flash=use_flash).apply(
+        {"params": jax_params}, jnp.asarray(x), jnp.asarray(t),
+        return_attention_layer=layer))
+    assert got.shape == want.shape == (2, 4, 17, 17)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got.sum(-1), torch.ones(2, 4, 17), rtol=0, atol=1e-5)
+
+
+def _probe_combos():
+    d = np.zeros((2, 17, 32), np.float32)
+    return {"capture_split": dict(capture_split=1),
+            "skip_blocks": dict(skip_blocks=(0, 1), block_delta=d),
+            "capture_tokens": dict(capture_tokens=True),
+            "token_cache": dict(token_cache=(d, d), token_k=3)}
+
+
+@pytest.mark.parametrize("hook", sorted(_probe_combos()))
+def test_probe_with_a_cache_hook_raises_jaxs_error(jax_params, hook):
+    x, t = _inputs()
+    kw = _probe_combos()[hook]
+    with pytest.raises(ValueError) as jax_err:
+        DiffusionViT(**TINY).apply(
+            {"params": jax_params}, jnp.asarray(x), jnp.asarray(t),
+            return_attention_layer=0,
+            **{k: (tuple(map(jnp.asarray, v)) if isinstance(v, tuple) and k == "token_cache"
+                   else jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+               for k, v in kw.items()})
+    pkw = {k: (tuple(map(torch.from_numpy, v)) if k == "token_cache"
+               else torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    with pytest.raises(ValueError) as port_err:
+        _port(jax_params)(torch.from_numpy(x), torch.from_numpy(t),
+                          return_attention_layer=0, **pkw)
+    assert str(port_err.value) == str(jax_err.value)
+    assert "excludes the attention probe" in str(port_err.value)
+
+
+def test_blockwise_route_matches_jax_and_its_gradient_the_dense(jax_params):
+    """``use_flash="xla"`` with ``flash_blocks=(4, 8)`` (three key blocks of
+    17 tokens): the forward within the f32 forward's tolerance of JAX's xla
+    model; its input and parameter gradients within 1e-5 (relative to the
+    largest) of the dense route's, since autograd differentiates the same
+    softmax in another order. It launches no kernel."""
+    from ddim_cold_torch.ops import flash_attention as fa
+
+    x, t = _inputs(5)
+    before = dict(fa.LAUNCHES)
+    xla = _port(jax_params, use_flash="xla", flash_blocks=(4, 8))
+    dense = _port(jax_params, use_flash=False)
+    assert xla.kernel_libraries() == ()
+    want = _jax_forward(jax_params, x, t, use_flash="xla", flash_blocks=(4, 8))
+    grads = []
+    for model in (xla, dense):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out = model(xt, torch.from_numpy(t))
+        if model is xla:
+            np.testing.assert_allclose(out.detach().numpy(), want, rtol=2e-4, atol=2e-5)
+        (out * torch.linspace(-1, 1, out.numel()).reshape(out.shape)).sum().backward()
+        grads.append([xt.grad] + [p.grad for p in model.parameters()])
+    for g, d in zip(*grads):
+        scale = d.abs().max().item() or 1.0
+        assert (g - d).abs().max().item() <= 1e-5 * scale
+    assert dict(fa.LAUNCHES) == before
