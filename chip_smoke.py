@@ -140,6 +140,26 @@ Phases, one JSON object per line:
    above it), rows summing to 1; the ``use_flash="xla"`` route at
    B=8 against the flash model within ``FWD_TOL``, launching nothing, its
    time beside the flash forward's (10c–10f run after train-nan);
+10g. dist-probe — which collectives gloo carries on CUDA tensors (two ranks
+   on the one card, probed first in 10h's world; point to point in a world
+   of its own, since a rank it kills must not take the other phases with
+   it), and NCCL at world 1 in this process: the ones ``parallel/`` runs
+   must all hold;
+10h. dist-train, dist-sample — one world of two gloo ranks on the one card
+   (NCCL refuses two ranks on one device), CUDA tensors, on ``{data: 2}``,
+   Ulysses ``{seq: 2}`` and ring ``{seq: 2}``: the bf16 200_p4 model, every
+   drop rate 0, 1 + 3 steps at B=16, each step held to the one-process step
+   on the same batches within ``DIST_TRAIN_TOL``, the
+   flash kernels launched 18 times each a rank (none on the ring), a traced
+   step of each sequence-parallel layout attributed to its ``sp/`` scopes,
+   ms/step and peak memory a rank reported; then ``ddim_sample(mesh=)`` of
+   the float32 model at k=20 over 8 rows within ``DIST_SAMPLE_TOL`` of the
+   one-process sampler, flash_fwd 600 a rank (none on the ring);
+10i. dist-cli — ``python -m ddim_cold_torch train`` as three children at
+   once on 10c's folder: a ``{data: 1, seq: 1}`` Ulysses mesh (an NCCL
+   world of one: its log line, the epoch, loadable checkpoints, exact
+   launches), ``num_gpus: 2`` (JAX's clamp line) and ``mesh: {data: 2}``
+   (JAX's error);
 11. kernel — the quantized trunk's kernels (``dequant_mm``, ``mlp_fused``,
    ``fused_trunk``) against their plain versions at the 200px/p4 serve
    shape (B=8) and at 200px/p8, in float32 and bfloat16, w8a16 and w8a8
@@ -2049,6 +2069,248 @@ def phase_train_run(torch, data_root: str, tier: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+#: the two-rank layouts of dist-train and dist-sample: (name, mesh, sp_mode)
+DIST_LAYOUTS = (("data", {"data": 2}, None), ("ulysses", {"seq": 2}, "ulysses"),
+                ("ring", {"seq": 2}, "ring"))
+DIST_WARM, DIST_STEPS = 1, 3
+#: dist-train's limits against the one-process step: both sides run the same
+#: kernels, so each is about ten times the largest difference of a sound
+#: two-rank run on an H100 (loss 4.5e-5, gradient norm 1.6e-4, update
+#: 0.042 relative); a gradient share counted twice or not averaged moves the
+#: norm by 1. The update's largest element gap stays MAX_UPDATE_GAP_LR a
+#: step: Adam's first update is lr·sign(g), so one element whose gradient
+#: is near 0 may flip by 2·lr in any sound run.
+DIST_TRAIN_TOL = {"loss": 5e-4, "grad_norm": 2e-3, "upd_rel": 0.4}
+#: dist-sample: rows, and the largest |Δ| allowed against the one-process
+#: ddim_sample in float32: about ten times a sound run's largest (0 on
+#: {data: 2} and Ulysses, 6e-7 for the ring's f32 online softmax against
+#: the f32 flash kernel), under the ~1/2501 a padding key left unmasked
+#: would weigh
+DIST_SAMPLE_N, DIST_SAMPLE_TOL = 8, 6e-6
+#: the collectives parallel/ runs: the ring rotates with all_to_all_single
+#: (point to point is not needed), the head's outputs are all_gather'ed,
+#: the gradients all_reduce'd, rank 0's parameters broadcast
+DIST_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all_single")
+
+
+def phase_dist_probe(torch, gloo: list) -> None:
+    """Which collectives gloo carries on CUDA tensors at this torch: ``gloo``,
+    the two ranks' answers (probed first in dist-train's world), then point
+    to point in a world of its own (a rank it kills must not take the other
+    phases with it); then NCCL at world 1 in this process."""
+    import torch.distributed as dist
+
+    from ddim_cold_torch.parallel import mesh as pmesh
+    from ddim_cold_torch.tools import dist_cases as dc
+
+    t0 = time.perf_counter()
+    try:
+        p2p = dc.run_world([("probe", {"ops": dc.PROBE_OPS[-1:]})], 2, device="cuda",
+                           backend="gloo", timeout_s=60)[0][0]["batch_isend_irecv"]
+    except dc.RankError as e:
+        p2p = f"a rank died: {str(e).strip()[:300]}"
+    pmesh.initialize_distributed(init_method=f"tcp://localhost:{pmesh.free_port()}",
+                                 world_size=1, rank=0, device="cuda")
+    try:
+        nccl = dc.probe(torch.device("cuda"))
+    finally:
+        dist.destroy_process_group()
+    rec = {"phase": "dist-probe", "torch": torch.__version__,
+           "gloo_cuda_two_ranks": {**gloo[0], "batch_isend_irecv": p2p},
+           "ranks_agree": gloo[0] == gloo[1], "nccl_world_1": nccl,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    for op in DIST_OPS:
+        check(gloo[0].get(op) == "ok" and gloo[1].get(op) == "ok",
+              f"dist-probe: gloo on CUDA tensors, {op}: {gloo[0].get(op)}")
+    check(nccl.get("backend") == "nccl" and all(nccl[op] == "ok" for op in dc.PROBE_OPS),
+          f"dist-probe: NCCL at world 1 {nccl}")
+
+
+def phase_dist(torch, MODEL_CONFIGS):
+    """dist-probe, dist-train and dist-sample: one world of two gloo ranks
+    on the one card (NCCL refuses two ranks on one device), CUDA tensors,
+    first probes the collectives (the dist-probe phase). dist-train:
+    the bf16 200_p4 model, every drop rate 0, B=16 a step, 1 + 3 steps on
+    each layout, every step held to the one-process step on the same
+    batches within ``DIST_TRAIN_TOL`` (the update's largest gap within the
+    train check's, scaled by the steps taken), launches exact, ms/step and peak memory
+    a rank reported (two ranks share the card: no speed is claimed), a
+    traced step of each sequence-parallel layout attributed to its ``sp/``
+    scopes. dist-sample: the float32 model, ``ddim_sample`` at k=20 over 8
+    rows on each layout against the one-process call on the same start."""
+    from ddim_cold_torch.tools import dist_cases as dc
+
+    cfg = dict(MODEL_CONFIGS[MODEL], use_flash=True, seed=SEED, drop_rate=0.0,
+               attn_drop_rate=0.0, drop_path_rate=0.0)
+    lr = 0.005 * 16 / 512
+    trace_dir = os.path.join(TRACE_DIR, "dist")
+    t0 = time.perf_counter()
+    gloo, train, sample = dc.run_world(
+        [("probe", {"ops": dc.PROBE_OPS[:-1]}),
+         ("card_train", dict(layouts=DIST_LAYOUTS, model_cfg=dict(cfg, dtype=torch.bfloat16),
+                             warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
+                             lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir)),
+         ("card_sample", dict(layouts=DIST_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N, k=K,
+                              seed=SEED + 6))],
+        2, device="cuda", backend="gloo", timeout_s=600)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    phase_dist_probe(torch, gloo)
+    depth = MODEL_CONFIGS[MODEL]["depth"]
+    tol = DIST_TRAIN_TOL
+    launches = {}
+    for name, spec, mode in DIST_LAYOUTS:
+        r0, r1 = train[0][name], train[1][name]
+        rec = {"phase": "dist-train", "layout": name, "mesh": spec, "sp_mode": mode,
+               "model": MODEL, "dtype": "bfloat16", "batch": 16, "lr": lr,
+               "backend": "gloo (two ranks, one card)", "warmup_steps": DIST_WARM,
+               "steps": DIST_STEPS, "ms_per_step": [r0["ms_per_step"], r1["ms_per_step"]],
+               "peak_mem_gib": [r0["peak_mem_gib"], r1["peak_mem_gib"]],
+               "launches": [r0["launches"], r1["launches"]], "per_step": r0["per_step"],
+               "tol": tol, "tol_max_param_gap_lr_a_step": MAX_UPDATE_GAP_LR,
+               "world_s": wall}
+        emit(rec)
+        want = 0 if mode == "ring" else depth * DIST_STEPS
+        for r in (r0, r1):
+            check(all(n == want for n in r["launches"].values()),
+                  f"dist-train {name}: launches {r['launches']}, expected {want} each")
+        for i, st in enumerate(r0["per_step"]):
+            rel = {"loss": abs(st["loss"] - st["loss_one_process"]) / abs(st["loss_one_process"]),
+                   "grad_norm": abs(st["grad_norm"] - st["grad_norm_one_process"])
+                   / st["grad_norm_one_process"], "upd_rel": st["upd_rel"]}
+            for key, val in rel.items():
+                check(math.isfinite(val) and val <= tol[key],
+                      f"dist-train {name} step {i}: {key} {val} over {tol[key]}")
+            check(st["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR * (i + 1),
+                  f"dist-train {name} step {i}: param gap {st['max_param_gap_lr']} lr")
+        if mode is not None:
+            scopes = r0.get("attrib", {})
+            emit({"phase": "attrib", "capture": f"dist-train {name} step (rank 0)",
+                  "coverage": r0.get("attrib_coverage"), "scopes": scopes})
+            names = (("sp/ring_exchange",) if mode == "ring"
+                     else ("sp/all_to_all_gather", "sp/all_to_all_scatter"))
+            for scope in names:
+                check(scopes.get(scope, {}).get("events", 0) > 0,
+                      f"dist-train {name}: no device work under {scope} ({scopes})")
+        launches[f"dist-train {name} (a rank)"] = r0["launches"]
+    for name, spec, mode in DIST_LAYOUTS:
+        r0, r1 = sample[0][name], sample[1][name]
+        rec = {"phase": "dist-sample", "layout": name, "mesh": spec, "sp_mode": r0["sp_mode"],
+               "model": MODEL, "dtype": "float32", "rows": DIST_SAMPLE_N, "k": K,
+               "wall_s": [r0["wall_s"], r1["wall_s"]],
+               "launches": [r0["launches"], r1["launches"]],
+               "max_abs_err": r0["max_abs_err"], "tol": DIST_SAMPLE_TOL,
+               "shape": r0["shape"], "finite": r0["finite"],
+               "in_unit_range": r0["in_unit_range"]}
+        emit(rec)
+        check(r0["sp_mode"] == mode, f"dist-sample {name}: sp_mode {r0['sp_mode']}")
+        check(r0["shape"] == [DIST_SAMPLE_N, 200, 200, 3] and r0["finite"]
+              and r0["in_unit_range"], f"dist-sample {name}: {rec}")
+        check(r0["max_abs_err"] <= DIST_SAMPLE_TOL,
+              f"dist-sample {name}: |Δ| {r0['max_abs_err']} over {DIST_SAMPLE_TOL}")
+        want = 0 if mode == "ring" else depth * 2000 // K
+        check(r0["launches"] == want and r1["launches"] == want,
+              f"dist-sample {name}: flash_fwd {rec['launches']}, expected {want}")
+        launches[f"dist-sample {name} (a rank)"] = {"flash_fwd": r0["launches"]}
+    return launches
+
+
+def _dist_yaml(data_root: str, **keys) -> str:
+    """``20220822_200px.yaml``'s keys on the synthetic folder, one epoch, no
+    warm start or snapshots, and ``keys``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    with open(os.path.join(here, "20220822_200px.yaml")) as f:
+        for line in f:
+            key = line.split(":", 1)[0].strip()
+            if key in ("snapshot_epochs", "initializing", *keys):
+                continue
+            if key == "dataStorage":
+                line = (f"dataStorage : [{json.dumps(os.path.join(data_root, 'train'))}, "
+                        f"{json.dumps(os.path.join(data_root, 'val'))}]\n")
+            elif key == "epoch":
+                line = "epoch : [0,1]\n"
+            lines.append(line)
+    return "".join(lines) + "".join(f"{k} : {json.dumps(v)}\n" for k, v in keys.items())
+
+
+def phase_dist_cli(torch, data_root: str):
+    """``python -m ddim_cold_torch train`` as three children at once on
+    train-run's images: ``mesh: {data: 1, seq: 1}, sp_mode: ulysses`` (an
+    NCCL world of one, one epoch: the log's process-group line, the epoch
+    line, loadable checkpoints, and the flash kernels launched by its
+    training through Ulysses and its evaluation, exactly); ``num_gpus: 2``
+    (clamped to the one card with JAX's log line, trains the epoch); and
+    ``mesh: {data: 2}`` (JAX's error, no training)."""
+    import tempfile
+
+    from ddim_cold_torch.utils import checkpoint as ckpt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    runs = {"mesh": dict(mesh={"data": 1, "seq": 1}, sp_mode="ulysses"),
+            "clamp": dict(num_gpus=2), "too-big": dict(mesh={"data": 2})}
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_cli_")
+    procs = {}
+    t0 = time.perf_counter()
+    for name, keys in runs.items():
+        with open(os.path.join(work, f"{name}.yaml"), "w") as f:
+            f.write(_dist_yaml(data_root, **keys))
+        procs[name] = subprocess.Popen([sys.executable, "-c", RESUME_CHILD, name], cwd=work,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, env=env)
+    done = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=400)
+        child = {}
+        for line in out.splitlines():
+            if line.startswith('{"child"'):
+                child = json.loads(line)["child"]
+        done[name] = (proc.returncode, child, err, time.perf_counter() - t0)
+    steps = NATIVE_TRAIN // 16
+    depth = 6
+    recs = {}
+    for name, (rc, child, err, wall) in done.items():
+        run_dir = os.path.join(work, "Saved_Models", name + "flower200_diffusion")
+        log_path = os.path.join(run_dir, "train.log")
+        log = open(log_path).read() if os.path.isfile(log_path) else ""
+        last = os.path.join(run_dir, "lastepoch.ckpt")
+        final = ckpt.load_checkpoint(last) if os.path.isfile(last) else {}
+        best = os.path.join(run_dir, "bestloss.ckpt")
+        recs[name] = rec = {
+            "phase": "dist-cli", "run": name, "keys": runs[name], "returncode": rc,
+            "wall_s": wall, "epochs": [(e, loss) for e, loss, _ in _epoch_lines(log)],
+            "log_lines": [ln for ln in log.splitlines()
+                          if ln.startswith(("process group", "requested"))],
+            "lastepoch": (final.get("epoch"), final.get("steps")),
+            "bestloss_loads": os.path.isfile(best) and bool(ckpt.load_checkpoint(best)),
+            "launches": {k: n for k, n in child.get("launches", {}).items() if n},
+            "peak_mem_gib": child.get("peak_mem_gib"), "stderr_tail": err[-400:]}
+        emit(rec)
+    m = recs["mesh"]
+    check(m["returncode"] == 0, f"dist-cli mesh: exit {m['returncode']}: {m['stderr_tail']}")
+    check(m["log_lines"] == ["process group: nccl, 1 ranks, mesh {'data': 1, 'seq': 1}, "
+                             "sp_mode ulysses"], f"dist-cli mesh: {m['log_lines']}")
+    check([e for e, _ in m["epochs"]] == [0] and m["lastepoch"] == (0, steps)
+          and m["bestloss_loads"], f"dist-cli mesh: epochs {m['epochs']}, "
+          f"lastepoch {m['lastepoch']}, bestloss loads {m['bestloss_loads']}")
+    want = {"flash_fwd": depth * (steps + RUN_VAL_BATCHES), "flash_bwd_dq": depth * steps,
+            "flash_bwd_dkv": depth * steps}
+    check(m["launches"] == want, f"dist-cli mesh: launches {m['launches']}, expected {want}")
+    c = recs["clamp"]
+    check(c["returncode"] == 0 and c["log_lines"] == [
+        "requested 2 devices, only 1 visible — clamping"] and c["lastepoch"] == (0, steps),
+        f"dist-cli clamp: {c}")
+    b = recs["too-big"]
+    check(b["returncode"] not in (0, None)
+          and "config.mesh {'data': 2} needs 2 devices, only 1 visible" in b["stderr_tail"]
+          and not b["epochs"], f"dist-cli too-big: {b}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"dist-cli mesh": m["launches"]}
+
+
 def phase_probe_xla(torch, fa):
     """The model's two oracles at 200_p4 with bf16 weights: the attention
     probe of the flash model against the dense model's at layers 0, 2 and
@@ -3306,6 +3568,8 @@ def main() -> int:
     data_root, tier = phase_native(torch)
     remat_launches = phase_train_remat(torch, fa)
     phase_train_run(torch, data_root, tier)
+    dist_launches = phase_dist(torch, MODEL_CONFIGS)
+    dist_launches.update(phase_dist_cli(torch, data_root))
     shutil.rmtree(data_root, ignore_errors=True)
     phase_probe_xla(torch, fa)
 
@@ -3326,7 +3590,9 @@ def main() -> int:
                              **{f"serve-cache {label}": n["flash_fwd"]
                                 for label, n in cache_launches.items() if n["flash_fwd"]},
                              **{label: n["flash_fwd"]
-                                for label, n in new_paths.items() if n["flash_fwd"]}},
+                                for label, n in new_paths.items() if n["flash_fwd"]},
+                             **{label: n["flash_fwd"]
+                                for label, n in dist_launches.items() if n["flash_fwd"]}},
         "max_abs_err": fwd["max_abs_err_o"], "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -3342,7 +3608,9 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[name],
                                  "train-remat": remat_launches[name],
                                  **{label: n[name] for label, n in new_paths.items()
-                                    if n[name]}},
+                                    if n[name]},
+                                 **{label: n[name] for label, n in dist_launches.items()
+                                    if n.get(name)}},
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

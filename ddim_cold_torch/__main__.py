@@ -7,7 +7,12 @@ working directory, creates ``Saved_Models/<ExpName><framework>/`` there
 the YAML in, trains with ``train/trainer.run`` and prints the launcher's
 closing line. It trains on the card: without CUDA it exits with code 3
 and a message before touching the file system, unless ``--device cpu``
-asks for the CPU. The subcommands are a dispatch table, :data:`COMMANDS`.
+asks for the CPU. ``num_gpus: N`` or a ``mesh: {data: d, seq: s}`` in the
+YAML trains one process per device, as the reference's launcher spawned
+them (``train/trainer.py``): NCCL on the cards, gloo on the CPU; under
+torchrun each process runs this command and only rank 0 prepares the run
+directory and prints. The subcommands are a dispatch table,
+:data:`COMMANDS`.
 """
 
 from __future__ import annotations
@@ -48,13 +53,16 @@ def _train(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) 
     config = load_config(yaml_path, opts.exp_name)
     base = base_dir or os.getcwd()
     run_dir = os.path.join(base, "Saved_Models", config.run_name)
-    if os.path.isdir(run_dir):
-        print("Warning!Current folder already exist!")
-    os.makedirs(run_dir, exist_ok=True)
-    shutil.copy(yaml_path, run_dir)
+    rank0 = int(os.environ.get("RANK", 0)) == 0  # torchrun starts every rank here
+    if rank0:
+        if os.path.isdir(run_dir):
+            print("Warning!Current folder already exist!")
+        os.makedirs(run_dir, exist_ok=True)
+        shutil.copy(yaml_path, run_dir)
     result = run(config, base, device=opts.device)
-    print(f"\nbest val loss {result.best_loss:.5f} after {result.steps} steps "
-          f"→ {result.run_dir}")
+    if rank0:
+        print(f"\nbest val loss {result.best_loss:.5f} after {result.steps} steps "
+              f"→ {result.run_dir}")
     return 0
 
 

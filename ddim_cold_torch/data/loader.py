@@ -2,9 +2,13 @@
 ``ddim_cold_tpu/data/loader.py``, which replaced DataLoader +
 DistributedSampler).
 
-The port trains on one device, so the loader takes the whole index order
-(the JAX loader's shard 0 of 1). Its semantics mirror torch's
-DistributedSampler at world size 1 (multi_gpu_trainer.py:61-64):
+Each process loads its own shard of the index order, ``shard_index`` of
+``shard_count`` (the JAX loader's semantics, DistributedSampler's rank
+interleaving, multi_gpu_trainer.py:61-64): the order is cut to a multiple
+of the shard count (drop_last) or padded up to one by wrapping around, and
+shard i takes ``indices[i::shard_count]``. The trainer passes the rank's
+coordinate on the mesh's ``data`` axis, so the seq ranks of one data row
+read the same rows.
 
 * train: a per-epoch permutation from ``seed + epoch``, drop_last;
 * eval: no shuffle; ``pad_final_batch`` rounds the last batch up to full
@@ -44,7 +48,8 @@ class ShardedLoader:
     or ``(base, t)`` with ``raw=True`` (the device-corruption path)."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool, seed: int = 42,
-                 drop_last: bool = True, num_threads: int = 8, prefetch: int = 2,
+                 drop_last: bool = True, shard_index: int = 0, shard_count: int = 1,
+                 num_threads: int = 8, prefetch: int = 2,
                  pad_final_batch: bool = False, raw: bool = False):
         if raw and not hasattr(dataset, "get_raw_batch"):
             raise ValueError(
@@ -55,6 +60,10 @@ class ShardedLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index {shard_index} outside [0, {shard_count})")
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.pad_final_batch = pad_final_batch
@@ -69,20 +78,29 @@ class ShardedLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
-    def _indices(self) -> np.ndarray:
+    def _shard_indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            indices = np.random.RandomState(self.seed + self.epoch).permutation(n)
+        else:
+            indices = np.arange(n)
+        world = self.shard_count
+        if self.drop_last:
+            indices = indices[:(n // world) * world]
+        else:
+            total = -(-n // world) * world  # up to a multiple of the shards
+            if total > n:
+                indices = np.resize(indices, total)  # wrap-around pad
+        return indices[self.shard_index::world]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        per_shard = len(self._shard_indices())
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return per_shard // self.batch_size
+        return -(-per_shard // self.batch_size)
 
     def _batches(self) -> list[np.ndarray]:
-        indices = self._indices()
+        indices = self._shard_indices()
         nb = len(self)
         if self.pad_final_batch and nb * self.batch_size > len(indices):
             indices = np.resize(indices, nb * self.batch_size)

@@ -60,13 +60,33 @@ from a generator set to the state the first forward started from, and the
 caller's generator stays where the first forward left it, so a remat step
 is bit for bit the plain one: losses, gradients and the generator.
 
+Sequence parallelism (``seq_mesh`` + ``seq_axis``, a ``DeviceMesh`` of
+:mod:`ddim_cold_torch.parallel`; :func:`sp_clone` builds it): the N+1
+tokens are split into equal blocks over the ``seq`` group (the last padded),
+and each rank holds its block through the whole trunk: the patch embedding,
+the class token and the positional rows of its token indices, LayerNorm,
+Mlp and head run on its tokens only, and attention alone exchanges
+activations, as ``sp_mode`` says: ``"ring"`` (K/V rotation,
+:mod:`~ddim_cold_torch.parallel.ring_attention`) or ``"ulysses"`` (two
+all-to-alls around the flash kernels, the blockwise route or the dense
+einsum by ``use_flash``, :mod:`~ddim_cold_torch.parallel.ulysses`). The head's
+outputs are gathered, so every rank of the group returns the whole image.
+The JAX rules hold: attention dropout in a training forward raises (the
+sequence-parallel routes never hold the weights), and the fused attention
+is never taken. Per-token dropout masks are drawn for all N+1 tokens and
+sliced, and stochastic depth draws one bit a sample, so every rank of a
+group, sharing one generator stream, drops what a one-process forward from
+that stream drops. ``batch_axis`` is checked and recorded: each process
+already holds its own rows. The token cache, the probe and ``quant`` under
+sequence parallelism raise.
+
 The forward records autograd history like any module; the samplers and the
 serving engine run it under ``torch.inference_mode()``. The step-cache
 hooks of the JAX forward (``capture_split``, ``skip_blocks`` +
 ``block_delta``, ``capture_tokens``, ``token_cache`` + ``token_k``) are
 ported on every route above, and so is the attention probe
 (``return_attention_layer``); see :meth:`DiffusionViT.forward`. The later
-slices' hooks (MoE, sequence parallelism, scan_blocks, pipeline stages)
+slices' hooks (MoE, tensor parallelism, scan_blocks, pipeline stages)
 raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
@@ -87,6 +107,9 @@ from ddim_cold_torch.ops.flash_attention import (DEFAULT_BLOCK_KV,
                                                  blockwise_attention_xla,
                                                  flash_attention_qkv,
                                                  fused_trunk_attention)
+from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.parallel.ring_attention import ring_attention
+from ddim_cold_torch.parallel.ulysses import ulysses_attention_qkv
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
@@ -117,11 +140,7 @@ _LATER_CTOR = {
     "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
     "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
     "scan_blocks": (False, "Queue 1 item 14 (parallel/pipeline)"),
-    "seq_mesh": (None, "Queue 1 item 14 (sequence parallelism)"),
-    "seq_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
-    "batch_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
-    "head_axis": (None, "Queue 1 item 14 (sequence parallelism)"),
-    "sp_mode": ("ring", "Queue 1 item 14 (sequence parallelism)"),
+    "head_axis": (None, "Queue 1 item 14 (tensor parallelism)"),
 }
 
 #: forward hooks of the JAX model that belong to later slices
@@ -159,18 +178,24 @@ def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-             shape=None) -> torch.Tensor:
+             shape=None, shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: identity without a generator (deterministic) or at
     rate 0; else a Bernoulli(1 − rate) mask of ``shape`` (default x's; a
     broadcastable shape gives stochastic depth) with survivors scaled by
-    1/(1 − rate) in x's dtype."""
+    1/(1 − rate) in x's dtype. ``shard``: x is a token block; the mask is
+    drawn for every token and this block's rows taken."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape if shape is None else shape, generator=generator,
-                      device=x.device) < keep
+    if shard is not None and shape is None:
+        full = (x.shape[0], shard.total, *x.shape[2:])
+        mask = shard.take(torch.rand(full, generator=generator, device=x.device) < keep,
+                          True)
+    else:
+        mask = torch.rand(x.shape if shape is None else shape, generator=generator,
+                          device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -229,10 +254,16 @@ class PatchEmbed(nn.Module):
                               stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.embed(self.patchify(x))
+
+    def patchify(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) → (B, N, p²C) patch features, (row, col, channel)."""
         B, H, W, C = x.shape
         p = self.patch_size
         x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, (H // p) * (W // p), p * p * C)
+        return x.reshape(B, (H // p) * (W // p), p * p * C)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
         w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
         return F.linear(x, w.to(x.dtype), self.proj.bias.to(x.dtype))
 
@@ -245,11 +276,13 @@ class Mlp(nn.Module):
     ``quant`` is set, swapped in by :class:`DiffusionViT`)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 drop: float = 0.0, quant: Optional[str] = None, fused: bool = False):
+                 drop: float = 0.0, quant: Optional[str] = None, fused: bool = False,
+                 shard: Optional[pmesh.SeqShard] = None):
         super().__init__()
         self.drop = drop
         self.quant = quant
         self.fused = fused
+        self.shard = shard
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
@@ -264,8 +297,8 @@ class Mlp(nn.Module):
             return quant_ops.mlp_fused(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
                                        block_m=DEFAULT_BLOCK_M)
         x = _dropout(F.gelu(_linear(x, self.fc1), approximate="none"), self.drop,
-                     generator)
-        return _dropout(_linear(x, self.fc2), self.drop, generator)
+                     generator, shard=self.shard)
+        return _dropout(_linear(x, self.fc2), self.drop, generator, shard=self.shard)
 
 
 class Attention(nn.Module):
@@ -275,10 +308,12 @@ class Attention(nn.Module):
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV):
+                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV,
+                 shard: Optional[pmesh.SeqShard] = None):
         super().__init__()
         self.quant = quant
         self.fused = fused
+        self.shard = shard
         self.block_q = block_q
         self.block_kv = block_kv
         self.num_heads = num_heads
@@ -301,6 +336,8 @@ class Attention(nn.Module):
         # weights: they need attention dropout inactive and no probe (JAX's
         # weightless_ok, vit.py:231)
         weightless = not need_weights and (generator is None or self.attn_drop == 0.0)
+        if self.shard is not None:
+            return self._seq_parallel(x, generator, need_weights, weightless, scale)
         if self.fused and self.quant in ("pallas", "w8a8") and weightless:
             # one kernel: the qkv projection and the context never reach
             # device memory (JAX vit.py:241-265); forward-only
@@ -329,6 +366,33 @@ class Attention(nn.Module):
         out = _linear(out.reshape(B, N, C), self.proj)
         return _dropout(out, self.proj_drop, generator)
 
+    def _seq_parallel(self, x, generator, need_weights, weightless, scale):
+        """Attention of this rank's token block over the seq group (JAX
+        vit.py:286-296, :333-355): ring or Ulysses by the shard's mode."""
+        shard = self.shard
+        if need_weights:
+            raise NotImplementedError(
+                "the attention probe under sequence parallelism is not ported "
+                "yet: ROADMAP.md Queue 1 item 14")
+        if not weightless:
+            # a dense fallback would hold the full N×N weights on every rank,
+            # the thing sequence parallelism exists to avoid
+            raise ValueError(
+                "sequence-parallel attention cannot apply attention-dropout "
+                f"(attn_drop={self.attn_drop} active in training); set "
+                "attn_drop_rate=0.0 on the model")
+        B, n, C = x.shape
+        qkv = _linear(x, self.qkv).reshape(B, n, 3, self.num_heads, C // self.num_heads)
+        if shard.mode == "ulysses":
+            out = ulysses_attention_qkv(qkv, group=shard.group, n_valid=shard.total,
+                                        scale=scale, use_flash=self.use_flash,
+                                        block_kv=self.block_kv)
+        else:
+            out = ring_attention(*qkv.unbind(2), shard.valid(B, x.device),
+                                 group=shard.group, scale=scale)
+        out = _linear(out.reshape(B, n, C), self.proj)
+        return _dropout(out, self.proj_drop, generator, shard=shard)
+
 
 class Block(nn.Module):
     """Pre-LN transformer block with stochastic-depth residuals (reference
@@ -339,17 +403,19 @@ class Block(nn.Module):
                  drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV):
+                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV,
+                 shard: Optional[pmesh.SeqShard] = None):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, attn_drop=attn_drop,
                               proj_drop=drop, use_flash=use_flash, quant=quant,
-                              fused=fused, block_q=block_q, block_kv=block_kv)
+                              fused=fused, block_q=block_q, block_kv=block_kv,
+                              shard=shard)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, quant=quant,
-                       fused=fused)
+                       fused=fused, shard=shard)
 
     def _residual(self, y: torch.Tensor, generator) -> torch.Tensor:
         """Per-sample stochastic depth (reference ViT.py:52-71): one
@@ -394,7 +460,9 @@ class DiffusionViT(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  use_sincos_pos: bool = False, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 flash_blocks: Optional[tuple] = None, remat: bool = False, *,
+                 flash_blocks: Optional[tuple] = None, remat: bool = False,
+                 seq_mesh=None, seq_axis: Optional[str] = None,
+                 batch_axis: Optional[str] = None, sp_mode: str = "ring", *,
                  device=None, seed: int = 0, **later):
         ctor = {k: v for k, v in locals().items()
                 if k not in ("self", "later", "__class__")}
@@ -417,6 +485,12 @@ class DiffusionViT(nn.Module):
             raise ValueError(f"flash_blocks must be (block_q, block_kv), got "
                              f"{flash_blocks!r}")
         refuse_later(later, _LATER_CTOR, "DiffusionViT")
+        shard = _seq_shard(seq_mesh, seq_axis, batch_axis, sp_mode,
+                           (img_size[0] // patch_size) * (img_size[1] // patch_size) + 1)
+        if shard is not None and quant is not None:
+            raise NotImplementedError(
+                "quant under sequence parallelism is not ported yet: ROADMAP.md "
+                "Queue 1 item 14 (item 7's leftover)")
         if not (use_flash in (True, False) or use_flash == "xla"):
             raise ValueError(f"use_flash must be True (the flash kernels), False "
                              f"(dense) or 'xla' (blockwise), got {use_flash!r}")
@@ -437,6 +511,9 @@ class DiffusionViT(nn.Module):
         self.quant = quant
         self.fused = bool(fused)
         self.flash_blocks = None if flash_blocks is None else tuple(flash_blocks)
+        self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
+        self.batch_axis, self.sp_mode = batch_axis, sp_mode
+        self.shard = shard
         self._ctor = ctor
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate
@@ -461,7 +538,8 @@ class DiffusionViT(nn.Module):
                   drop_path=float(dpr[i]), use_flash=self.use_flash, quant=quant,
                   fused=self.fused,
                   block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q,
-                  block_kv=int(flash_blocks[1]) if flash_blocks else DEFAULT_BLOCK_KV)
+                  block_kv=int(flash_blocks[1]) if flash_blocks else DEFAULT_BLOCK_KV,
+                  shard=shard)
             for i in range(depth))
         self.norm = nn.LayerNorm(E, eps=1e-5)
         self.head = nn.Linear(E, in_chans * patch_size**2)
@@ -491,13 +569,18 @@ class DiffusionViT(nn.Module):
         libs = set()
         if self.fused and self.quant in ("pallas", "w8a8"):
             libs.add("fused_trunk")
-        elif self.use_flash is True:
+        elif self.use_flash is True and (self.shard is None or self.shard.mode == "ulysses"):
             libs.add("flash_fwd")
         if self.fused and self.quant != "xla":
             libs.add("mlp_fused")
         if self.quant == "pallas" and not self.fused:
             libs.add("dequant_mm")
         return tuple(sorted(libs))
+
+    @property
+    def local_tokens(self) -> int:
+        """Token rows this rank's trunk holds: N+1, or its sequence block."""
+        return self.num_patches + 1 if self.shard is None else self.shard.n_local
 
     @property
     def num_patches(self) -> int:
@@ -583,16 +666,26 @@ class DiffusionViT(nn.Module):
                              "dropout masks: pass generator")
         B = x.shape[0]
         x = x.to(self.dtype)
-        tokens = self.patch_embed(x)
-        cls = self.cls_token.to(self.dtype).expand(B, 1, self.embed_dim)
-        tokens = torch.cat([cls, tokens], dim=1)
+        shard = self.shard
+        lo, hi = (0, self.num_patches + 1) if shard is None else (
+            shard.lo, shard.lo + shard.n_real)
+        if shard is None:
+            tokens = self.patch_embed(x)
+        else:  # this rank's tokens only: token i ≥ 1 is patch i − 1
+            tokens = self.patch_embed.embed(
+                self.patch_embed.patchify(x)[:, max(lo - 1, 0):hi - 1])
+        if lo == 0:
+            cls = self.cls_token.to(self.dtype).expand(B, 1, self.embed_dim)
+            tokens = torch.cat([cls, tokens], dim=1)
         # time conditioning: one learned row per step, added to EVERY token
         # (cls included) with the positional embedding (ViT.py:204-205)
         time = F.embedding(t.to(x.device).long(),
                            self.time_embed.weight.to(self.dtype))[:, None, :]
         pos = self.pos_embed if self.pos_embed is not None else self.pos_table
-        tokens = tokens + pos.to(self.dtype) + time
-        tokens = _dropout(tokens, self.drop_rate, generator)  # pos_drop
+        tokens = tokens + pos[:, lo:hi].to(self.dtype) + time
+        if shard is not None:
+            tokens = shard.pad(tokens)
+        tokens = _dropout(tokens, self.drop_rate, generator, shard=shard)  # pos_drop
 
         stream_in = tokens  # post-embed stream: the token cache's reference
         live = None
@@ -640,6 +733,8 @@ class DiffusionViT(nn.Module):
         elif capture_tokens:
             cache = (stream_in, tokens - stream_in)
         tokens = _linear(_layer_norm(tokens, self.norm), self.head)
+        if shard is not None:  # every rank of the group returns the whole image
+            tokens = shard.gather(tokens)
         out = self.unpatchify(tokens[:, 1:, :]).float()
         return out if cache is None else (out, cache)
 
@@ -647,7 +742,13 @@ class DiffusionViT(nn.Module):
                            capture_tokens, token_cache, token_k,
                            return_attention_layer=None) -> None:
         """The JAX model's validation of the step-cache hooks and the probe
-        (vit.py:724-773)."""
+        (vit.py:724-773); under sequence parallelism the token cache and the
+        probe raise (ROADMAP.md Queue 1 item 14)."""
+        if self.shard is not None and (capture_tokens or token_cache is not None
+                                       or return_attention_layer is not None):
+            raise NotImplementedError(
+                "the token cache and the attention probe under sequence "
+                "parallelism are not ported yet: ROADMAP.md Queue 1 item 14")
         if (skip_blocks is not None or capture_split is not None) and (
                 return_attention_layer is not None):
             raise ValueError("step caching excludes the attention probe")
@@ -693,3 +794,41 @@ class DiffusionViT(nn.Module):
         H, W = self.img_size
         x = x.reshape(x.shape[0], H // p, W // p, p, p, C).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(x.shape[0], H, W, C)
+
+
+def _seq_shard(mesh, seq_axis: Optional[str], batch_axis: Optional[str], sp_mode: str,
+               total: int) -> Optional[pmesh.SeqShard]:
+    """The model's token block on ``mesh``'s ``seq_axis``; None unless both
+    are given (JAX's ``seq_parallel``)."""
+    if sp_mode not in ("ring", "ulysses"):
+        raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got {sp_mode!r}")
+    if mesh is None or seq_axis is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    for what, axis in (("seq_axis", seq_axis), ("batch_axis", batch_axis)):
+        if axis is not None and axis not in names:
+            raise ValueError(f"{what} {axis!r} is not an axis of the mesh {names}")
+    return pmesh.seq_shard(mesh, seq_axis, total, sp_mode)
+
+
+def sp_clone(model: DiffusionViT, mesh, *, sp_mode: str = "ulysses",
+             seq_axis: str = "seq", batch_axis: str = "data",
+             head_axis=None) -> DiffusionViT:
+    """The sequence-parallel variant of ``model`` over ``mesh``, carrying
+    ``model``'s weights (JAX ``sp_clone``, vit.py:986). ``sp_mode="ulysses"``
+    needs the head count divisible by the seq axis and falls back to the ring
+    otherwise, which has no head constraint. A ``batch_axis`` the mesh lacks
+    is dropped; ``head_axis`` (tensor parallelism) is ROADMAP.md Queue 1
+    item 14."""
+    if head_axis is not None:
+        raise NotImplementedError("sp_clone(head_axis=...) is not ported yet: "
+                                  "ROADMAP.md Queue 1 item 14 (tensor parallelism)")
+    parts = pmesh.axis_size(mesh, seq_axis)
+    if sp_mode == "ulysses" and model.num_heads % parts:
+        sp_mode = "ring"
+    if batch_axis not in tuple(mesh.mesh_dim_names or ()):
+        batch_axis = None
+    clone = model.clone(seq_mesh=mesh, seq_axis=seq_axis, batch_axis=batch_axis,
+                        sp_mode=sp_mode)
+    clone.load_state_dict(model.state_dict(), strict=True)
+    return clone

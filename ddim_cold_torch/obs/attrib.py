@@ -59,7 +59,8 @@ from ddim_cold_torch.utils import flops as flops_util
 #: is "unattributed", and the ≥90% coverage floor is measured against this
 #: list. The port plants all but ``flash_attention/fused_proj`` (its fused
 #: kernel writes the compute dtype itself, so that scope would hold no
-#: device work) and the three ``sp/`` scopes (``parallel/`` is not ported);
+#: device work); the three ``sp/`` scopes are planted in ``parallel/``
+#: (the ring's exchange, Ulysses' two all-to-alls).
 #: tests/test_torch_port_hygiene.py pins each planted one to a literal
 #: call site.
 REGISTERED_SCOPES = (

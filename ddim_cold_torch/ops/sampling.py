@@ -28,6 +28,17 @@ runs through ``x_init``. A sampler draws its fresh start from ``generator``
 and the per-step noise of η > 0 from a second stream,
 ``fold_in(generator, NOISE_STREAM)``, as JAX folds its key.
 
+``mesh`` (a ``DeviceMesh`` of :mod:`ddim_cold_torch.parallel`, one process
+per device; ``ddim_sample``, ``ddim_sample_fewstep``, ``sample_from`` and
+``cold_sample`` take it, as JAX's do): every rank takes the whole start (the
+same ``generator`` seed or ``x_init`` on each), runs its rows of the mesh's
+``data`` axis (a model from ``models.sp_clone`` on the mesh also splits its
+tokens over ``seq``), and returns the whole batch, gathered, as JAX returns
+a global array. The noise of η > 0 is drawn for the whole batch and sliced,
+so no row depends on the mesh; the step cache holds the rank's rows
+(``step_cache.shard_cache``) and the adaptive gate's max spans the data
+ranks.
+
 ``cache_interval`` > 1 runs a sampler through the step cache
 (:mod:`ddim_cold_torch.ops.step_cache`): each step's model evaluation takes
 its branch of the static refresh/reuse table, and the cache tensors are
@@ -42,21 +53,16 @@ bit.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ddim_cold_torch.obs.device import StepTelemetry
 from ddim_cold_torch.ops import schedule, step_cache
+from ddim_cold_torch.parallel import mesh as pmesh
 from ddim_cold_torch.utils import profiling
 from ddim_cold_torch.utils.platform import resolve_device
-from ddim_cold_torch.utils.slices import refuse_later
-
-#: sampler options of the JAX samplers that belong to later slices
-_LATER = {
-    "mesh": (None, "Queue 1 item 14 (data-parallel sampling)"),
-}
 
 #: the stream η > 0 draws its per-step noise from (JAX ``fold_in(rng, 0xD1F)``)
 NOISE_STREAM = 0xD1F
@@ -104,6 +110,49 @@ def fresh_start(model, generator: Optional[torch.Generator], n: int, device,
                        device=device, dtype=torch.float32)
 
 
+class _Rows(NamedTuple):
+    """This rank's rows ``[lo, lo + n_local)`` of an ``n``-row batch split
+    over a mesh's ``data`` axis (``group`` None when the axis has one rank)."""
+
+    n: int
+    lo: int
+    n_local: int
+    group: object
+
+
+def _data_rows(mesh, n: int) -> Optional[_Rows]:
+    """This rank's rows of an ``n``-row batch on ``mesh`` (None: no mesh).
+    The batch must divide over the data axis, as JAX's placement needs."""
+    if mesh is None:
+        return None
+    parts = pmesh.data_axis_size(mesh)
+    if n % parts:
+        raise ValueError(f"batch of {n} rows does not divide over the 'data' "
+                         f"axis ({parts})")
+    b = n // parts
+    return _Rows(n=n, lo=pmesh.axis_index(mesh, "data") * b, n_local=b,
+                group=mesh.get_group("data") if parts > 1 else None)
+
+
+def _take(x: torch.Tensor, rows: Optional[_Rows]) -> torch.Tensor:
+    return x if rows is None else x[rows.lo:rows.lo + rows.n_local]
+
+
+def _gather(out: torch.Tensor, rows: Optional[_Rows], dim: int = 0) -> torch.Tensor:
+    """Every data rank's rows of ``out`` (batch along ``dim``), in order."""
+    if rows is None or rows.group is None:
+        return out
+    return pmesh.gather_cat(out, rows.group, dim)
+
+
+def _noise(x: torch.Tensor, generator, rows: Optional[_Rows]) -> torch.Tensor:
+    """Per-step N(0, 1) noise for ``x``: drawn for the whole batch and
+    sliced to this rank's rows under a mesh."""
+    shape = x.shape if rows is None else (rows.n, *x.shape[1:])
+    z = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+    return _take(z, rows)
+
+
 def _x0(model, x: torch.Tensor, t: int) -> torch.Tensor:
     """One model evaluation at level ``t``, clamped to [−1, 1]. Every
     uncached sampler's model call comes through here, under the
@@ -129,8 +178,10 @@ class _Cached:
     cache updated in place; with ``telemetry``, each step's branch as taken
     and the gate's drift are kept (JAX's scanned ``(idx, drift)`` aux)."""
 
-    def __init__(self, model, spec: step_cache.CacheSpec, cache, telemetry: bool = False):
+    def __init__(self, model, spec: step_cache.CacheSpec, cache, telemetry: bool = False,
+                 group=None):
         self.model, self.spec, self.cache = model, spec, cache
+        self.group = group  # the data ranks the adaptive gate reduces over
         self.taken = [] if telemetry else None
         self.drift = []
 
@@ -139,7 +190,7 @@ class _Cached:
         # (JAX's cached steps, which nest no ``sampler/model`` inside)
         with profiling.scope("sampler/cached_step"):
             args = (self.model, x, _t_vec(x, t), self.spec.branches[i], self.cache,
-                    self.spec)
+                    self.spec, self.group)
             if self.taken is None:
                 x0, self.cache = step_cache.apply_step(*args)
             else:
@@ -163,13 +214,15 @@ def _evaluator(model, cached: Optional[_Cached]):
 
 
 def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
-               sequence: bool, known=None, mask=None, cached: Optional[_Cached] = None):
+               sequence: bool, known=None, mask=None, cached: Optional[_Cached] = None,
+               rows: Optional[_Rows] = None):
     """The affine DDIM steps of ``coeffs`` from ``x``; with ``mask``, the
     known pixels of each clamped x̂0 are re-projected from ``known`` before
     the update (``x̂0 ← m·known + (1−m)·x̂0``); with ``cached``, step i's
-    x̂0 comes through the step cache. Returns the last state, the last x̂0
-    (None for an empty schedule) and, with ``sequence``, the frames: the
-    start, then every x̂0."""
+    x̂0 comes through the step cache; ``rows``: x is these rows of the
+    batch (the noise is the batch's, sliced). Returns the last state, the
+    last x̂0 (None for an empty schedule) and, with ``sequence``, the
+    frames: the start, then every x̂0."""
     evaluate = _evaluator(model, cached)
     frames = [x] if sequence else None
     x0 = None
@@ -180,8 +233,7 @@ def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
             x0 = mask * known + (1.0 - mask) * x0
         x_next = c1 * x + c2 * x0
         if cz:
-            x_next = x_next + cz * torch.randn(x.shape, generator=noise,
-                                               device=x.device, dtype=x.dtype)
+            x_next = x_next + cz * _noise(x, noise, rows)
         x = x_next
         if sequence:
             frames.append(x0)
@@ -199,12 +251,16 @@ def _cached_spec(model, n_steps: int, cache_interval: int, cache_mode: str,
         n_tokens=(model.num_patches + 1) if cache_mode == "token" else None)
 
 
-def _make_cache(model, x_init: torch.Tensor, mode: str = "delta") -> step_cache.Cache:
-    """A zero cache for a batch like ``x_init``, on its device."""
-    return step_cache.init_cache(x_init.shape[0], model.num_patches + 1,
-                                 model.embed_dim, model.dtype, mode=mode,
-                                 img_shape=tuple(x_init.shape[1:]),
-                                 device=x_init.device)
+def _make_cache(model, x_init: torch.Tensor, mode: str = "delta",
+                mesh=None) -> step_cache.Cache:
+    """A zero cache for a batch like ``x_init`` (the whole batch), on its
+    device: this rank's rows under ``mesh``, the model's token rows (its
+    block under sequence parallelism)."""
+    cache = step_cache.init_cache(x_init.shape[0], model.local_tokens,
+                                  model.embed_dim, model.dtype, mode=mode,
+                                  img_shape=tuple(x_init.shape[1:]),
+                                  device=x_init.device)
+    return step_cache.shard_cache(cache, mesh)
 
 
 def _check_schedule(x0, model, k, t_start) -> None:
@@ -218,19 +274,21 @@ def _ddim_cached_impl(model, x_init: torch.Tensor, noise: Optional[torch.Generat
                       cache0: step_cache.Cache, *, k: int, t_start: Optional[int],
                       eta: float, cache_interval: int, cache_mode: str,
                       cache_threshold=None, cache_tokens=None, sequence: bool,
-                      known=None, mask=None, telemetry: bool = False):
+                      known=None, mask=None, telemetry: bool = False,
+                      rows: Optional[_Rows] = None):
     """The step-cached DDIM loop: JAX's ``_ddim_cached_impl``; with
     ``known`` and ``mask`` its ``_ddim_inpaint_cached_impl`` (the projection
     applied to the clamped x̂0 after the cache branch); with ``telemetry``
     its ``_ddim_cached_tel_impl``. ``x_init`` is the loop's own start (not
-    copied) and ``noise`` the η > 0 noise stream. Returns ``(images,
-    cache)``, with ``telemetry`` ``(images, cache, StepTelemetry)``."""
+    copied) and ``noise`` the η > 0 noise stream; ``rows``: x_init is these
+    rows of the batch. Returns ``(images, cache)``, with ``telemetry``
+    ``(images, cache, StepTelemetry)``."""
     coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
     spec = _cached_spec(model, len(coeffs.t_seq), cache_interval, cache_mode,
                         cache_threshold, cache_tokens)
-    cached = _Cached(model, spec, cache0, telemetry)
+    cached = _Cached(model, spec, cache0, telemetry, rows and rows.group)
     _, x0, frames = _ddim_loop(model, x_init, coeffs, noise, sequence, known, mask,
-                               cached)
+                               cached, rows)
     _check_schedule(x0, model, k, t_start)
     if telemetry:
         return _images(x0, frames), cached.cache, cached.telemetry()
@@ -244,7 +302,7 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
                 eta: float = 0.0, device=None, cache_interval: int = 1,
                 cache_mode: str = "delta", cache_threshold: Optional[float] = None,
                 cache_tokens: Optional[int] = None, telemetry: bool = False,
-                **later):
+                mesh=None):
     """k-strided DDIM sampling; returns images in [0, 1], NHWC float32.
 
     Pass ``generator`` (a fresh N(0, 1) start of ``n`` images, reference
@@ -262,9 +320,9 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
     :mod:`~ddim_cold_torch.ops.step_cache`). ``telemetry=True`` (cached and
     last-only) returns ``(images, StepTelemetry)``: per step, the branch
     taken and the adaptive gate's drift; the images are those of
-    ``telemetry=False``, bit for bit.
+    ``telemetry=False``, bit for bit. ``mesh``: data-parallel (and, with a
+    ``sp_clone``d model, sequence-parallel) sampling, see the module.
     """
-    refuse_later(later, _LATER, "ddim_sample")
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
@@ -277,20 +335,24 @@ def ddim_sample(model, generator: Optional[torch.Generator] = None, *,
                              "(cache_interval > 1)")
     x = (fresh_start(model, generator, n, dev) if x_init is None
          else as_batch(x_init, dev))
+    rows = _data_rows(mesh, x.shape[0])
     noise = fold_in(generator, NOISE_STREAM) if eta else None
+    dim = 1 if return_sequence else 0
     if step_cache.enabled(cache_interval):
         out = _ddim_cached_impl(
-            model, x, noise, _make_cache(model, x, cache_mode), k=k,
+            model, _take(x, rows), noise, _make_cache(model, x, cache_mode, mesh), k=k,
             t_start=t_start, eta=eta, cache_interval=cache_interval,
             cache_mode=cache_mode, cache_threshold=cache_threshold,
             cache_tokens=cache_tokens, sequence=return_sequence,
-            telemetry=telemetry)
-        return (out[0], out[2]) if telemetry else out[0]
+            telemetry=telemetry, rows=rows)
+        images = _gather(out[0], rows, dim)
+        return (images, out[2]) if telemetry else images
     coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
-    _, x0, frames = _ddim_loop(model, x, coeffs, noise, return_sequence)
+    _, x0, frames = _ddim_loop(model, _take(x, rows), coeffs, noise, return_sequence,
+                               rows=rows)
     _check_schedule(x0, model, k, t_start)
     # the sample is the LAST x̂0 prediction (reference ViT.py:236)
-    return _images(x0, frames)
+    return _gather(_images(x0, frames), rows, dim)
 
 
 @torch.inference_mode()
@@ -335,19 +397,22 @@ def ddim_inpaint(model, x_init, known, mask, *, k: int = 10,
 def _fewstep_cached_impl(model, x_init: torch.Tensor, noise: Optional[torch.Generator],
                          cache0, *, steps: int, t_start: Optional[int], eta: float,
                          cache_interval: int = 1, cache_mode: str = "delta",
-                         cache_threshold=None, cache_tokens=None, sequence: bool):
+                         cache_threshold=None, cache_tokens=None, sequence: bool,
+                         rows: Optional[_Rows] = None):
     """The few-step loop (JAX ``_fewstep_impl``), through the step cache
     when ``cache0`` is given (``_fewstep_cached_impl``): the first steps−1
     evaluations take branches 0..steps−2 of the table, the final bare
-    forward its last. Returns ``(images, cache)``; ``cache0=None`` is the
-    plain loop (cache None)."""
+    forward its last. ``rows`` as in :func:`_ddim_cached_impl`. Returns
+    ``(images, cache)``; ``cache0=None`` is the plain loop (cache None)."""
     coeffs = schedule.fewstep_coefficients(model.total_steps, steps, t_start, eta)
     cached = None
     if cache0 is not None:
         cached = _Cached(model, _cached_spec(model, steps, cache_interval, cache_mode,
-                                             cache_threshold, cache_tokens), cache0)
+                                             cache_threshold, cache_tokens), cache0,
+                         group=rows and rows.group)
     head = schedule.DDIMCoefficients(*(a[:-1] for a in coeffs))
-    x, _, frames = _ddim_loop(model, x_init, head, noise, sequence, cached=cached)
+    x, _, frames = _ddim_loop(model, x_init, head, noise, sequence, cached=cached,
+                              rows=rows)
     # the jump to the clean image
     x0 = _evaluator(model, cached)(x, int(coeffs.t_seq[-1]), steps - 1)
     if frames is not None:
@@ -364,7 +429,7 @@ def ddim_sample_fewstep(model, generator: Optional[torch.Generator] = None, *,
                         cache_mode: str = "delta",
                         cache_threshold: Optional[float] = None,
                         cache_tokens: Optional[int] = None,
-                        **later) -> torch.Tensor:
+                        mesh=None) -> torch.Tensor:
     """Few-step DDIM sampling: exactly ``steps`` model evaluations along the
     proportional ``schedule.fewstep_time_sequence`` (the distilled-student
     serving path, k ∈ {1, 2, 4}); returns images in [0, 1].
@@ -372,38 +437,41 @@ def ddim_sample_fewstep(model, generator: Optional[torch.Generator] = None, *,
     The last jump targets the clean image, where the update is x' = x̂0
     exactly (``schedule.fewstep_coefficients``), so the final evaluation
     runs outside the loop as a bare forward and ``steps=1`` is one forward.
-    ``generator``/``x_init``/``t_start``/``return_sequence``/``eta`` and the
-    ``cache_*`` options behave as in :func:`ddim_sample`.
+    ``generator``/``x_init``/``t_start``/``return_sequence``/``eta``,
+    ``mesh`` and the ``cache_*`` options behave as in :func:`ddim_sample`.
     """
-    refuse_later(later, _LATER, "ddim_sample_fewstep")
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
     x = (fresh_start(model, generator, n, dev,
                      "ddim_sample_fewstep") if x_init is None
          else as_batch(x_init, dev))
+    rows = _data_rows(mesh, x.shape[0])
     noise = fold_in(generator, NOISE_STREAM) if eta else None
-    cache0 = (_make_cache(model, x, cache_mode)
+    cache0 = (_make_cache(model, x, cache_mode, mesh)
               if step_cache.enabled(cache_interval) else None)
-    return _fewstep_cached_impl(
-        model, x, noise, cache0, steps=steps, t_start=t_start, eta=eta,
+    out = _fewstep_cached_impl(
+        model, _take(x, rows), noise, cache0, steps=steps, t_start=t_start, eta=eta,
         cache_interval=cache_interval, cache_mode=cache_mode,
         cache_threshold=cache_threshold, cache_tokens=cache_tokens,
-        sequence=return_sequence)[0]
+        sequence=return_sequence, rows=rows)[0]
+    return _gather(out, rows, 1 if return_sequence else 0)
 
 
 @torch.inference_mode()
 def _cold_cached_impl(model, x_init: torch.Tensor, cache0, *, levels: int,
                       return_sequence: bool, cache_interval: int = 1,
                       cache_mode: str = "delta", cache_threshold=None,
-                      cache_tokens=None):
+                      cache_tokens=None, rows: Optional[_Rows] = None):
     """The cold loop (naive Algorithm 1, x ← clamp(f(x, t)) for t = levels,
     …, 1), through the step cache when ``cache0`` is given (JAX
-    ``_cold_cached_impl``). Returns ``(images, cache)``."""
+    ``_cold_cached_impl``; ``rows`` as in :func:`_ddim_cached_impl`).
+    Returns ``(images, cache)``."""
     cached = None
     if cache0 is not None:
         cached = _Cached(model, _cached_spec(model, levels, cache_interval, cache_mode,
-                                             cache_threshold, cache_tokens), cache0)
+                                             cache_threshold, cache_tokens), cache0,
+                         group=rows and rows.group)
     evaluate = _evaluator(model, cached)
     x = x_init
     frames = [x] if return_sequence else None
@@ -422,7 +490,7 @@ def cold_sample(model, generator: Optional[torch.Generator] = None, *,
                 return_sequence: bool = False, device=None,
                 cache_interval: int = 1, cache_mode: str = "delta",
                 cache_threshold: Optional[float] = None,
-                cache_tokens: Optional[int] = None, **later) -> torch.Tensor:
+                cache_tokens: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Cold-diffusion sampling (naive Algorithm 1): x ← clamp(f(x, t)) for
     t = levels, …, 1; returns images in [0, 1].
 
@@ -431,10 +499,9 @@ def cold_sample(model, generator: Optional[torch.Generator] = None, *,
     ``levels`` defaults to 6 = log2(64). ``x_init`` starts from a
     caller-provided degraded state at level ``levels`` instead (the
     super-resolution workload's upsampled low-res input).
-    ``return_sequence`` returns the start and every prediction; the
-    ``cache_*`` options are :func:`ddim_sample`'s.
+    ``return_sequence`` returns the start and every prediction; ``mesh``
+    and the ``cache_*`` options are :func:`ddim_sample`'s.
     """
-    refuse_later(later, _LATER, "cold_sample")
     dev = _sampling_device(model, device)
     if levels < 1:
         raise ValueError(f"levels must be >= 1, got {levels}")
@@ -442,13 +509,15 @@ def cold_sample(model, generator: Optional[torch.Generator] = None, *,
         x = cold_init(model, generator, n, dev)
     else:
         x = as_batch(x_init, dev)
-    cache0 = (_make_cache(model, x, cache_mode)
+    rows = _data_rows(mesh, x.shape[0])
+    cache0 = (_make_cache(model, x, cache_mode, mesh)
               if step_cache.enabled(cache_interval) else None)
-    return _cold_cached_impl(model, x, cache0, levels=levels,
-                             return_sequence=return_sequence,
-                             cache_interval=cache_interval, cache_mode=cache_mode,
-                             cache_threshold=cache_threshold,
-                             cache_tokens=cache_tokens)[0]
+    out = _cold_cached_impl(model, _take(x, rows), cache0, levels=levels,
+                            return_sequence=return_sequence,
+                            cache_interval=cache_interval, cache_mode=cache_mode,
+                            cache_threshold=cache_threshold,
+                            cache_tokens=cache_tokens, rows=rows)[0]
+    return _gather(out, rows, 1 if return_sequence else 0)
 
 
 def cold_init(model, generator: Optional[torch.Generator], n: int,
@@ -479,14 +548,15 @@ def sample_from(model, x_init, t_start: int, k: int = 10, eta: float = 0.0,
                 return_sequence: bool = False, device=None,
                 cache_interval: int = 1, cache_mode: str = "delta",
                 cache_threshold: Optional[float] = None,
-                cache_tokens: Optional[int] = None, **later) -> torch.Tensor:
+                cache_tokens: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Guided sampling: DDIM-denoise an encoded image from level ``t_start``
-    (a prefix-truncated :func:`ddim_sample`, its ``cache_*`` options too)."""
+    (a prefix-truncated :func:`ddim_sample`, its ``cache_*`` options and
+    ``mesh`` too)."""
     return ddim_sample(model, generator, x_init=x_init, t_start=t_start, k=k,
                        eta=eta, return_sequence=return_sequence, device=device,
                        cache_interval=cache_interval, cache_mode=cache_mode,
                        cache_threshold=cache_threshold, cache_tokens=cache_tokens,
-                       **later)
+                       mesh=mesh)
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, frac) -> torch.Tensor:

@@ -30,6 +30,10 @@ device value the host must read to pick the next launches: one
 synchronisation per reuse step of the static table (a static refresh step
 needs none), counted in :data:`GATE_SYNCS`.
 
+Under a mesh each process caches its own rows (:func:`shard_cache`), and a
+sequence-parallel model's cache holds its own token block; the adaptive
+gate's batch max then spans the data ranks.
+
 The cache is a tuple of tensors allocated once (:func:`init_cache`) and
 written in place: a refresh ``copy_``s the new deltas into it, a token
 reuse scatters its live rows into it. A serving loop can therefore keep one
@@ -44,6 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ddim_cold_torch.ops import schedule
+from ddim_cold_torch.parallel import mesh as pmesh
 
 #: the cache tuple, by mode:
 #:   "delta"/"full": (delta_front, delta_rear), each (B, N+1, E) model dtype
@@ -149,14 +154,17 @@ def init_cache(n: int, n_tokens: int, embed_dim: int, dtype,
 
 
 def shard_cache(cache: Cache, mesh) -> Cache:
-    """Batch-sharded placement over a mesh's 'data' axis: not ported."""
+    """This rank's rows of ``cache`` along the mesh's ``data`` axis (the
+    sample batch's placement, ``sampling.ddim_sample(mesh=)``): each process
+    carries the cache of its own rows. Copies, so the whole batch's buffers
+    are not kept alive."""
     if mesh is None:
         return cache
-    raise NotImplementedError("shard_cache(mesh=...) is not ported yet: ROADMAP.md "
-                              "Queue 1 item 14 (data-parallel sampling)")
+    return tuple(pmesh.shard_rows(a, mesh).clone() for a in cache)
 
 
-def adaptive_gate(x: torch.Tensor, cache: Cache, branch: int, spec: CacheSpec):
+def adaptive_gate(x: torch.Tensor, cache: Cache, branch: int, spec: CacheSpec,
+                  group=None):
     """The ``"adaptive"`` error gate: the branch to take at a step whose
     static id is ``branch``. Returns ``(idx, drift)``, ``idx`` a Python int
     and ``drift`` the device scalar. A static refresh stays one without
@@ -164,11 +172,15 @@ def adaptive_gate(x: torch.Tensor, cache: Cache, branch: int, spec: CacheSpec):
     reuse step reads the comparison ``drift >= threshold`` (in float32, as
     JAX compares) once, the one synchronisation, and refreshes if it holds.
     ``>=`` makes τ = 0 refresh every step. The drift is computed per row,
-    ‖x − x_ref‖² / (‖x_ref‖² + ε), and reduced with max over the batch."""
+    ‖x − x_ref‖² / (‖x_ref‖² + ε), and reduced with max over the batch:
+    with ``group`` (the data ranks of a mesh, each holding its rows) over
+    the whole batch, so every rank takes the same branch."""
     x_ref = cache[2]
     dims = tuple(range(1, x_ref.ndim))
     num = (x.float() - x_ref).square().sum(dims)
     d = (num / (x_ref.square().sum(dims) + DRIFT_EPS)).max()
+    if group is not None:
+        d = pmesh.all_reduce_max(d, group)
     if branch == schedule.CACHE_REFRESH:
         return branch, d
     GATE_SYNCS["adaptive_gate"] += 1
@@ -177,27 +189,27 @@ def adaptive_gate(x: torch.Tensor, cache: Cache, branch: int, spec: CacheSpec):
 
 
 def apply_step_tel(model, x: torch.Tensor, t_vec: torch.Tensor, branch: int,
-                   cache: Cache, spec: CacheSpec):
+                   cache: Cache, spec: CacheSpec, group=None):
     """:func:`apply_step` with the step's telemetry: returns ``(x0_raw,
     cache, idx, drift)``, ``idx`` the branch actually taken (after the gate
     in adaptive mode) and ``drift`` the gate's device scalar (a float32 0
     in the modes that compute none). The images are those of
     :func:`apply_step`."""
     if spec.mode == "adaptive":
-        idx, d = adaptive_gate(x, cache, branch, spec)
+        idx, d = adaptive_gate(x, cache, branch, spec, group)
     else:
         idx, d = branch, torch.zeros((), dtype=torch.float32, device=x.device)
     return (*_run_branch(model, x, t_vec, idx, cache, spec), idx, d)
 
 
 def apply_step(model, x: torch.Tensor, t_vec: torch.Tensor, branch: int,
-               cache: Cache, spec: CacheSpec):
+               cache: Cache, spec: CacheSpec, group=None):
     """One cache-aware model evaluation: the step's static ``branch`` (from
-    ``spec.branches``), folded through the drift gate in adaptive mode.
-    Returns ``(x0_raw, cache)``; the cache is the same tuple, updated in
-    place."""
+    ``spec.branches``), folded through the drift gate in adaptive mode
+    (``group``: :func:`adaptive_gate`'s). Returns ``(x0_raw, cache)``; the
+    cache is the same tuple, updated in place."""
     if spec.mode == "adaptive" and branch != schedule.CACHE_REFRESH:
-        branch, _ = adaptive_gate(x, cache, branch, spec)
+        branch, _ = adaptive_gate(x, cache, branch, spec, group)
     return _run_branch(model, x, t_vec, branch, cache, spec)
 
 

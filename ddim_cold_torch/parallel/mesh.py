@@ -1,0 +1,377 @@
+"""The mesh and its collectives, one process per device (counterpart of
+``ddim_cold_tpu/parallel/mesh.py``).
+
+The reference ran one OS process per GPU, rendezvoused over TCP
+(multi_gpu_trainer.py:25-30), wrapped the model in DDP and sharded its data
+with DistributedSampler. The JAX package drives every chip of a host from
+one process instead, over a named ``Mesh``. The port goes back to one
+process per card, as PyTorch does it: :func:`initialize_distributed` joins
+the ``torch.distributed`` world, :func:`make_mesh` names its axes with a
+``DeviceMesh`` (``data``: batch rows; ``seq``: tokens), and each process
+holds its own rows, its own tokens and a full copy of the parameters.
+
+The collectives the parallel layers need are here too, each one call that
+both NCCL and gloo carry, with no branch on the backend:
+
+* :func:`all_to_all` — ``all_to_all_single`` in equal chunks along dim 0,
+  differentiable (its backward is the same exchange of the gradient);
+* :func:`ring_shift` — the whole tensor to the next rank of a group, the
+  previous rank's in return: ``all_to_all_single`` with every split but the
+  neighbour's empty (not differentiable: the ring's own backward calls it);
+* :func:`gather_cat` — every rank's tensor concatenated along a dim,
+  differentiable with the backward every rank of the group computing the
+  same function of the result needs: its own slice of the gradient;
+* :func:`all_reduce_flat` — a list of tensors summed across a group in a
+  few flat buffers (:func:`all_reduce_mesh`: across a whole mesh).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import socket
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from ddim_cold_torch.utils.platform import resolve_device
+
+#: the mesh axes this slice runs; ``model``, ``pipe`` and ``expert`` are
+#: ROADMAP.md Queue 1 item 14's other half
+PORTED_AXES = ("data", "seq")
+
+#: largest flat buffer :func:`all_reduce_flat` sums in one call (DDP's
+#: default bucket)
+BUCKET_BYTES = 25 * 2**20
+
+
+def initialize_distributed(backend: Optional[str] = None,
+                           init_method: Optional[str] = None,
+                           world_size: Optional[int] = None,
+                           rank: Optional[int] = None, *, device=None) -> bool:
+    """Join the process group (the reference's TCP rendezvous,
+    multi_gpu_trainer.py:25-30; JAX's ``jax.distributed.initialize``).
+
+    ``world_size``/``rank`` default to torchrun's ``WORLD_SIZE``/``RANK``,
+    ``init_method`` to ``env://`` when ``MASTER_ADDR`` is set. A world of one
+    with no ``init_method`` and no launcher environment initialises nothing
+    and returns False, as JAX's does for one process; otherwise the group is
+    joined (once: a second call with the same world returns False) and True
+    is returned. ``backend`` defaults to NCCL when ``device`` (None means
+    ``"cuda"``) is a CUDA device and to gloo for the CPU; a caller that wants
+    gloo on CUDA tensors names it."""
+    env = os.environ
+    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else int(world_size)
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    if init_method is None and "MASTER_ADDR" in env:
+        init_method = "env://"
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks "
+                               f"exists; asked for {world_size}")
+        return False
+    if world_size <= 1 and init_method is None:
+        return False
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+    return True
+
+
+def free_port() -> int:
+    """A free local TCP port for a ``tcp://localhost:<port>`` rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def make_mesh(shape: Optional[dict] = None, device=None):
+    """A ``DeviceMesh`` over the process group's ranks with named axes
+    (``init_device_mesh``). ``shape`` e.g. ``{"data": 2, "seq": 2}``: axis
+    order is dict order (the first outermost), and the sizes must multiply
+    to the world size; default ``{"data": world}``. ``device`` (None means
+    ``"cuda"``) sets the mesh's device type. Needs
+    :func:`initialize_distributed` first."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call "
+                           "initialize_distributed first")
+    world = dist.get_world_size()
+    if shape is None:
+        shape = {"data": world}
+    sizes = tuple(int(s) for s in shape.values())
+    if math.prod(sizes) != world:
+        raise ValueError(f"mesh shape {dict(shape)} does not match {world} devices")
+    return init_device_mesh(resolve_device(device).type, sizes,
+                            mesh_dim_names=tuple(shape))
+
+
+def axis_size(mesh, axis: Optional[str]) -> int:
+    """Ranks along ``axis``; 1 for no mesh, no axis or an axis the mesh
+    lacks."""
+    if mesh is None or axis is None or axis not in (mesh.mesh_dim_names or ()):
+        return 1
+    return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def axis_index(mesh, axis: Optional[str]) -> int:
+    """This rank's coordinate along ``axis`` (0 where :func:`axis_size` is 1
+    for want of the axis)."""
+    if mesh is None or axis is None or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return int(mesh.get_local_rank(axis))
+
+
+def data_axis_size(mesh) -> int:
+    """Shards a batch's leading dim splits into on this mesh: 1 for no mesh
+    or a mesh without a ``data`` axis (batch replicated). JAX's
+    ``data_axis_size``."""
+    return axis_size(mesh, "data")
+
+
+def shard_rows(x, mesh, axis: str = "data"):
+    """This rank's rows of ``x`` (tensor or array) along ``axis``: block
+    ``axis_index`` of ``axis_size`` equal blocks of the leading dim."""
+    parts = axis_size(mesh, axis)
+    if parts == 1:
+        return x
+    n = x.shape[0]
+    if n % parts:
+        raise ValueError(f"batch of {n} rows does not divide over the '{axis}' "
+                         f"axis ({parts})")
+    b = n // parts
+    i = axis_index(mesh, axis)
+    return x[i * b:(i + 1) * b]
+
+
+def shard_batch(batch, mesh):
+    """This rank's rows of a global batch (a tuple of tensors or arrays)
+    along ``data``, the whole batch along ``seq`` (every seq rank of a data
+    row reads the same rows): the port's ``shard_batch``."""
+    return tuple(shard_rows(x, mesh) for x in batch)
+
+
+class SeqShard(NamedTuple):
+    """This rank's block of a token axis of ``total`` positions split over
+    the ranks of ``group``: tokens ``[lo, lo + n_real)``, held as ``n_local``
+    rows (the sequence is padded to equal blocks, so the last block may be
+    short or empty of real tokens). ``mode`` is the model's ``sp_mode``."""
+
+    group: object
+    total: int
+    n_local: int
+    lo: int
+    n_real: int
+    mode: Optional[str] = None
+
+    def pad(self, x: torch.Tensor, value=0.0) -> torch.Tensor:
+        """``x`` (B, n_real, …) padded to (B, n_local, …) with ``value``."""
+        extra = self.n_local - self.n_real
+        if not extra:
+            return x
+        fill = torch.full((x.shape[0], extra, *x.shape[2:]), value, dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([x, fill], dim=1)
+
+    def take(self, x: torch.Tensor, value=0.0) -> torch.Tensor:
+        """This block of a whole ``x`` (B, total, …), padded: (B, n_local, …)."""
+        return self.pad(x[:, self.lo:self.lo + self.n_real], value)
+
+    def valid(self, batch: int, device) -> torch.Tensor:
+        """(B, n_local) bool: True on real tokens."""
+        pos = torch.arange(self.lo, self.lo + self.n_local, device=device)
+        return (pos < self.total)[None].expand(batch, -1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block (B, n_local, …) joined into the whole (B,
+        total, …), on every rank of the group."""
+        return gather_cat(x, self.group, dim=1)[:, :self.total]
+
+
+def seq_shard(mesh, axis: str, total: int, mode: Optional[str] = None) -> SeqShard:
+    """This rank's :class:`SeqShard` of ``total`` positions along ``axis``."""
+    parts = axis_size(mesh, axis)
+    n_loc = -(-total // parts)
+    lo = axis_index(mesh, axis) * n_loc
+    return SeqShard(group=mesh.get_group(axis), total=total, n_local=n_loc, lo=lo,
+                    n_real=max(0, min(n_loc, total - lo)), mode=mode)
+
+
+def over_sequence(fn, xs: tuple, mesh, axis: str, batch_axis: Optional[str] = None):
+    """``fn(shard, *blocks)`` on this rank's rows (along ``batch_axis``, if
+    any) and token block (along ``axis``) of whole ``(B, N, …)`` tensors
+    ``xs``; its ``(B, n_local, …)`` result is gathered back, so every rank
+    returns the whole ``(B, N, …)``. The gradients of a rank's inputs are its
+    own rows and tokens' share: summed over the ranks they are the whole
+    gradient."""
+    shard = seq_shard(mesh, axis, xs[0].shape[1])
+    if batch_axis is not None:
+        xs = tuple(shard_rows(x, mesh, batch_axis) for x in xs)
+    out = shard.gather(fn(shard, *(shard.take(x) for x in xs)))
+    if batch_axis is not None:
+        out = gather_cat(out, mesh.get_group(batch_axis), dim=0)
+    return out
+
+
+def _broadcast_flat(tensors: list, src: int = 0, group=None) -> None:
+    for bucket in _buckets(tensors):
+        flat = torch._utils._flatten_dense_tensors([t.detach() for t in bucket])
+        dist.broadcast(flat, src=src, group=group)
+        with torch.no_grad():
+            for t, v in zip(bucket, torch._utils._unflatten_dense_tensors(flat, bucket)):
+                t.copy_(v)
+
+
+def shard_params(model) -> None:
+    """Every rank takes rank 0's parameters and buffers (broadcast over the
+    world; the mesh replicates them on every axis this slice runs). JAX's
+    ``shard_params`` with no specs."""
+    if dist.is_initialized():
+        _broadcast_flat(list(model.parameters()) + list(model.buffers()))
+
+
+def shard_train_state(state):
+    """:func:`shard_params` for a ``train.step.TrainState``: parameters, the
+    EMA shadow and AdamW's moments from rank 0, so every rank starts from
+    identical tensors."""
+    if dist.is_initialized():
+        shard_params(state.model)
+        extra = list(state.ema_params) if state.ema_params is not None else []
+        _broadcast_flat(list(state.mu) + list(state.nu) + extra)
+    return state
+
+
+def _buckets(tensors: list) -> list:
+    """Consecutive runs of one dtype and device, each at most
+    :data:`BUCKET_BYTES` (one tensor alone may exceed it)."""
+    out, cur, size = [], [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if cur and (t.dtype != cur[0].dtype or t.device != cur[0].device
+                    or size + nbytes > BUCKET_BYTES):
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += nbytes
+    if cur:
+        out.append(cur)
+    return out
+
+
+def all_reduce_flat(tensors: list, group=None) -> list:
+    """``tensors`` summed across ``group`` (default the world), through a few
+    flat buffers; returns new tensors in their order and shapes."""
+    out = []
+    for bucket in _buckets(tensors):
+        flat = torch._utils._flatten_dense_tensors(bucket)
+        dist.all_reduce(flat, group=group)
+        out.extend(torch._utils._unflatten_dense_tensors(flat, bucket))
+    return out
+
+
+def all_reduce_mesh(tensors: list, mesh) -> list:
+    """``tensors`` summed over every rank of ``mesh``: :func:`all_reduce_flat`
+    along each axis of more than one rank in turn."""
+    for axis in mesh.mesh_dim_names:
+        if axis_size(mesh, axis) > 1:
+            tensors = all_reduce_flat(tensors, group=mesh.get_group(axis))
+    return list(tensors)
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` across ``group`` (a new tensor)."""
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` from the previous rank of ``group``, this rank's ``x`` sent to
+    the next: one ``all_to_all_single`` in which only the neighbours' splits
+    are non-empty (NCCL runs it as one grouped send and receive)."""
+    size = dist.get_world_size(group)
+    if size == 1:
+        return x
+    r = dist.get_rank(group)
+    n = x.shape[0]
+    send = [0] * size
+    recv = [0] * size
+    send[(r + 1) % size] = n
+    recv[(r - 1) % size] = n
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, recv, send, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` in equal chunks along dim 0: chunk j goes to
+    rank j, and rank j's chunk for this rank lands at position j. The
+    exchange is its own inverse, so the backward sends the gradient back the
+    same way."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _exchange(grad, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()  # the buffers are read and written as contiguous memory
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable equal-chunk all-to-all along dim 0 (size a multiple of
+    the group's)."""
+    if x.shape[0] % dist.get_world_size(group):
+        raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) must divide over "
+                         f"the group ({dist.get_world_size(group)})")
+    return _AllToAll.apply(x, group)
+
+
+class _GatherCat(torch.autograd.Function):
+    """Every rank's tensor, concatenated along ``dim`` in rank order. Every
+    rank of the group computes the same function of the result (the sampler
+    and the loss run on the whole image on each seq rank), so the gradient
+    of this rank's input is its own slice of the result's gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.dim, ctx.rank, ctx.n = dim, dist.get_rank(group), x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` (all of one shape)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherCat.apply(x, group, dim)
+
+
+def is_rank0() -> bool:
+    """True in the process that writes (rank 0 of the world, or no world)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op without a process group)."""
+    if dist.is_initialized():
+        dist.barrier()

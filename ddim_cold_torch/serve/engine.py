@@ -100,7 +100,10 @@ of its trace. With faults disarmed and tracing off, a dispatch launches
 exactly the kernels of its program and nothing else.
 
 Sequence-parallel configs (``sp_degree > 1``) raise
-``NotImplementedError`` at ``submit`` naming their ROADMAP.md item.
+``NotImplementedError`` at ``submit`` naming their ROADMAP.md item: the
+JAX engine builds a ``(data, seq)`` mesh over one controller's devices,
+and in the port, one process per device, an engine spanning ranks is a
+design of its own (item 14).
 """
 
 from __future__ import annotations
@@ -178,7 +181,8 @@ def refuse_unported(config: SamplerConfig) -> None:
     if config.sp_degree > 1:
         raise NotImplementedError(
             f"SamplerConfig(sp_degree={config.sp_degree}) is not ported yet: "
-            "ROADMAP.md Queue 1 item 14 (sequence parallelism)")
+            "ROADMAP.md Queue 1 item 14 (a multi-rank engine: sequence "
+            "parallelism across processes)")
 
 
 class Engine:

@@ -1,0 +1,474 @@
+"""Rank cases of data and sequence parallelism, torch only.
+
+:func:`run_world` spawns one world of ranks over a local TCP rendezvous
+(``torch.multiprocessing``, spawn) and runs a list of cases in every rank,
+each a function of this module called by name with its keyword arguments;
+it returns every rank's result of every case. The CPU tests
+(``tests/test_torch_port_parallel.py``: four gloo ranks, one intra-op thread
+each) and ``chip_smoke.py`` (two gloo ranks on one card, CUDA tensors) run
+the same code on their own devices.
+
+A mesh spec smaller than the world is run by every block of consecutive
+ranks at once, each block a one-axis mesh of its own
+(``DeviceMesh.from_group``); a spec as large as the world is
+``parallel.make_mesh``.
+
+Cases: :func:`attention` (ring or Ulysses over whole arrays, forward and
+the gradients summed over the mesh), :func:`model_forward`,
+:func:`train_steps`, :func:`sample` (TINY sizes, weights passed in),
+:func:`ulysses_heads_error`, and the card's :func:`probe`,
+:func:`card_train` and :func:`card_sample`.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ddim_cold_torch.parallel import mesh as pmesh
+
+
+class RankError(RuntimeError):
+    """A rank of :func:`run_world` raised, died or outlived the deadline."""
+
+
+def run_world(cases: list, world: int, *, device: str = "cpu",
+              backend: Optional[str] = None, timeout_s: float = 100.0) -> list:
+    """Run ``cases`` (``[(name, kwargs), ...]``) in a spawned world of
+    ``world`` ranks on ``device`` (each CUDA rank on ``cuda:0``: one card
+    serves every rank) and return ``results[case][rank]``. ``backend``
+    None is ``initialize_distributed``'s default. Each rank runs one intra-op
+    thread (the ranks share the host's cores). A rank that raises or dies,
+    or a world still running after ``timeout_s``, raises :class:`RankError`
+    with what the ranks left; every process is gone when this returns."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="dist_cases_") as out:
+        init = f"tcp://localhost:{pmesh.free_port()}"
+        ctx = mp.start_processes(
+            _rank_main, args=(world, init, cases, device, backend, out),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        failure = None
+        try:
+            while not ctx.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    failure = f"world of {world} still running after {timeout_s} s"
+                    break
+        except Exception as e:  # noqa: BLE001 — a rank raised or died: reported below
+            failure = f"{type(e).__name__}: {e}"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results, errors = [], []
+        for r in range(world):
+            path = os.path.join(out, f"rank{r}.pkl")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    got = pickle.load(f)
+                errors += [f"rank {r}: {e}" for e in got.get("errors", [])]
+                results.append(got.get("results"))
+            else:
+                results.append(None)
+        if failure or errors or any(r is None for r in results):
+            raise RankError("; ".join([failure or ""] + errors))
+    return [[results[r][i] for r in range(world)] for i in range(len(cases))]
+
+
+def _rank_main(rank: int, world: int, init: str, cases: list, device: str,
+               backend: Optional[str], out: str) -> None:
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    got = {"results": None, "errors": []}
+    try:
+        pmesh.initialize_distributed(backend, init, world, rank, device=dev)
+        results = []
+        for name, kwargs in cases:
+            results.append(globals()[name](dev=dev, **kwargs))
+        got["results"] = results
+    except BaseException:  # noqa: BLE001 — the parent reports it
+        got["errors"].append(traceback.format_exc())
+        raise
+    finally:
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(got, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ meshes
+
+def mesh_for(spec: dict, dev: torch.device):
+    """The mesh of ``spec`` for this rank: the world's (``make_mesh``) when
+    the spec covers it, else this rank's block of consecutive ranks as a
+    one-axis mesh (every block runs the case at once)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    size = math.prod(spec.values())
+    if size == world:
+        return pmesh.make_mesh(spec, device=dev)
+    if len(spec) != 1 or world % size:
+        raise ValueError(f"mesh {spec} is neither the world of {world} nor one "
+                         "axis that divides it")
+    groups = [dist.new_group(list(range(lo, lo + size))) for lo in range(0, world, size)]
+    mine = groups[dist.get_rank() // size]
+    return DeviceMesh.from_group(mine, dev.type, mesh_dim_names=tuple(spec))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def qkv_inputs(seed: int, B: int, N: int, H: int, D: int) -> tuple:
+    """q, k, v and the loss weights w, (B, N, H, D) float32 each."""
+    rs = np.random.RandomState(seed)
+    return tuple(rs.randn(B, N, H, D).astype(np.float32) for _ in range(4))
+
+
+# ------------------------------------------------------------- CPU cases
+
+def attention(dev, spec: dict, fn: str, N: int, seed: int = 0, B: int = 4, H: int = 4,
+              D: int = 8, dtype: str = "float32", use_flash=False, grad: bool = True,
+              batch_axis: Optional[str] = None) -> dict:
+    """``ring_self_attention`` or ``ulysses_self_attention`` over ``spec``'s
+    ``seq`` axis: the whole output and, with ``grad``, the gradients of
+    ``Σ out·w`` summed over the mesh."""
+    from ddim_cold_torch.parallel import ring_self_attention, ulysses_self_attention
+
+    mesh = mesh_for(spec, dev)
+    q, k, v, w = (torch.from_numpy(a).to(dev) for a in qkv_inputs(seed, B, N, H, D))
+    q, k, v = (x.to(getattr(torch, dtype)).requires_grad_(grad) for x in (q, k, v))
+    scale = D**-0.5
+    if fn == "ring":
+        out = ring_self_attention(q, k, v, mesh, axis="seq", batch_axis=batch_axis,
+                                  scale=scale)
+    else:
+        out = ulysses_self_attention(q, k, v, mesh, axis="seq", batch_axis=batch_axis,
+                                     scale=scale, use_flash=use_flash)
+    res = {"out": _np(out)}
+    if grad:
+        (out.float() * w).sum().backward()
+        grads = pmesh.all_reduce_mesh([x.grad for x in (q, k, v)], mesh)
+        res.update(dq=_np(grads[0]), dk=_np(grads[1]), dv=_np(grads[2]))
+    return res
+
+
+def ulysses_heads_error(dev, spec: dict) -> str:
+    """The message of ``ulysses_attention`` on local shards whose heads do
+    not divide the seq group."""
+    from ddim_cold_torch.parallel.ulysses import SeqParallelConfigError, ulysses_attention
+
+    mesh = mesh_for(spec, dev)
+    q = torch.zeros(1, 2, 3, 8, device=dev)
+    try:
+        ulysses_attention(q, q, q, group=mesh.get_group("seq"), scale=1.0)
+    except SeqParallelConfigError as e:
+        return str(e)
+    return ""
+
+
+def _model(dev, cfg: dict, state_dict: dict, mesh=None, sp_mode: Optional[str] = None):
+    from ddim_cold_torch.models import DiffusionViT, sp_clone
+
+    model = DiffusionViT(**cfg, device=dev)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()},
+                          strict=True)
+    if sp_mode is not None:
+        model = sp_clone(model, mesh, sp_mode=sp_mode)
+    return model
+
+
+def model_forward(dev, spec: dict, cfg: dict, state_dict: dict, x, t,
+                  sp_mode: str) -> dict:
+    """``sp_clone(model, mesh, sp_mode=...)`` on this rank's rows of ``x``,
+    gathered: the output and the mode ``sp_clone`` resolved."""
+    mesh = mesh_for(spec, dev)
+    model = _model(dev, cfg, state_dict, mesh, sp_mode)
+    with torch.no_grad():
+        out = model(pmesh.shard_rows(torch.from_numpy(x), mesh),
+                    pmesh.shard_rows(torch.from_numpy(t), mesh))
+    if pmesh.data_axis_size(mesh) > 1:
+        out = pmesh.gather_cat(out, mesh.get_group("data"))
+    return {"out": _np(out), "sp_mode": model.sp_mode}
+
+
+def train_steps(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr: float,
+                total_steps: int, sp_mode: Optional[str] = None,
+                grad_accum: int = 1) -> dict:
+    """``train.step`` on ``mesh``: each batch's rows of this rank (the whole
+    batch on seq ranks), the model sequence-parallel when ``sp_mode`` is
+    given. Returns the losses, the global gradient norms the clip saw and
+    the parameters by name."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    mesh = mesh_for(spec, dev)
+    extra = {}
+    if sp_mode is not None:
+        names = tuple(mesh.mesh_dim_names)
+        extra = dict(seq_mesh=mesh, seq_axis="seq", sp_mode=sp_mode,
+                     batch_axis="data" if "data" in names else None)
+    model = DiffusionViT(**cfg, **extra, device=dev)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()},
+                          strict=True)
+    state = create_train_state(model, lr, total_steps)
+    pmesh.shard_train_state(state)
+    step = make_train_step(model, grad_accum=grad_accum, mesh=mesh)
+    rec = torch.tensor(5.0, device=dev)
+    losses, norms = [], []
+    for batch in batches:
+        local = tuple(torch.from_numpy(a).to(dev) for a in pmesh.shard_batch(batch, mesh))
+        state, loss, rec = step(state, local, torch.Generator(device=dev), rec)
+        losses.append(float(loss))
+        norms.append(float(state.grad_norm))
+    return {"losses": losses, "grad_norms": norms, "rec": float(rec),
+            "params": {n: _np(p) for n, p in model.named_parameters()}}
+
+
+def sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, fn: str = "ddim_sample",
+           sp_mode: Optional[str] = None, **kwargs) -> dict:
+    """``sampling.<fn>(model, x_init=..., mesh=..., **kwargs)`` (``ddim_sample``,
+    ``ddim_sample_fewstep``, ``cold_sample`` or ``sample_from``), the model
+    ``sp_clone``d onto the mesh when ``sp_mode`` is given: the whole batch,
+    and with ``telemetry`` each step's branch and gate drift."""
+    from ddim_cold_torch.ops import sampling
+
+    mesh = mesh_for(spec, dev)
+    model = _model(dev, cfg, state_dict, mesh, sp_mode)
+    out = getattr(sampling, fn)(model, x_init=x_init, mesh=mesh, device=dev, **kwargs)
+    if kwargs.get("telemetry"):
+        out, tel = out
+        return {"images": _np(out), "branch": tel.branch.tolist(),
+                "drift": _np(tel.drift)}
+    return {"images": _np(out)}
+
+
+# ------------------------------------------------------------ card cases
+
+#: the collectives a backend may carry on CUDA tensors, probed in order
+#: (point to point last: gloo may refuse it on CUDA tensors)
+PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+             "all_to_all_single", "batch_isend_irecv")
+
+
+def probe(dev, ops=PROBE_OPS) -> dict:
+    """Which collectives the world's backend carries on ``dev`` tensors at
+    this torch, each checked for the right values: ``{op: "ok" | error}``."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    got = {"backend": dist.get_backend(), "torch": torch.__version__}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    for op in ops:
+        try:
+            if op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = bool((y == world * (world + 1) / 2).all())
+            elif op == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, src=0)
+                ok = bool((y == 1).all())
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                ok = all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+            elif op == "all_gather_into_tensor":
+                y = torch.empty(world * 4, device=dev)
+                dist.all_gather_into_tensor(y, x)
+                ok = bool((y.view(world, 4)[:, 0].cpu()
+                           == torch.arange(1, world + 1).float()).all())
+            elif op == "all_to_all_single":
+                y = pmesh.ring_shift(x, dist.group.WORLD)
+                ok = bool((y == (rank - 1) % world + 1).all())
+            else:
+                y = torch.empty_like(x)
+                reqs = dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % world),
+                    dist.P2POp(dist.irecv, y, (rank - 1) % world)])
+                for r in reqs:
+                    r.wait()
+                ok = bool((y == (rank - 1) % world + 1).all())
+            got[op] = "ok" if ok else "wrong values"
+        except Exception as e:  # noqa: BLE001 — a refused op is the finding
+            got[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return got
+
+
+def cold_batches(n: int, batch: int, seed: int, size: int = 200) -> list:
+    """Synthetic raw cold batches: uint8 (batch, size, size, 3) bases and t
+    in [1, 7] from a seeded numpy generator (``chip_smoke.py``'s training
+    input, the same in every rank)."""
+    rs = np.random.default_rng(seed)
+    return [(rs.integers(0, 256, (batch, size, size, 3), dtype=np.uint8),
+             rs.integers(1, 8, (batch,), dtype=np.int32)) for _ in range(n)]
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+
+
+def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch: int,
+               seed: int, lr: float, total_steps: int, trace_dir: Optional[str] = None
+               ) -> dict:
+    """Training steps of the full-width model on each layout ``(name, mesh,
+    sp_mode or None)``: ``warm`` + ``steps`` steps of ``batch``-row cold
+    batches corrupted on the device, every drop rate 0. Rank 0 also runs
+    the one-process step on the same batches from the same weights after
+    each of them (outside the timed and counted windows) and records, step
+    by step, both losses and gradient norms and the cumulative updates'
+    relative L2 distance and largest element gap. Launch counts cover the
+    timed steps of this rank only; ms/step is the barrier-to-barrier wall
+    of a step; peak memory is this rank's over the layout. With
+    ``trace_dir``, one more step of each sequence-parallel layout is traced
+    on rank 0 and attributed (``obs/attrib``): its scopes' events and self
+    seconds."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.obs import attrib
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.train.step import (create_train_state, make_train_step,
+                                            step_generator)
+    from ddim_cold_torch.utils import profiling
+
+    rank = dist.get_rank()
+    size = int(model_cfg["img_size"][0])
+    prepare = degrade.make_cold_prepare(size, max_step=7, chain=True)
+    host = cold_batches(warm + steps + 1, batch, seed, size)
+    out = {}
+    for name, spec, mode in layouts:
+        mesh = pmesh.make_mesh(spec, device=dev)
+        extra = {}
+        if mode is not None:
+            extra = dict(seq_mesh=mesh, seq_axis="seq", sp_mode=mode,
+                         batch_axis="data" if "data" in spec else None)
+        model = DiffusionViT(**model_cfg, device=dev, **extra)
+        state = pmesh.shard_train_state(create_train_state(model, lr, total_steps))
+        step = make_train_step(model, prepare=prepare, mesh=mesh)
+        stream = pmesh.axis_index(mesh, "data") if pmesh.data_axis_size(mesh) > 1 else None
+        rec = torch.tensor(5.0, device=dev)
+        if rank == 0:
+            ref = DiffusionViT(**model_cfg, device=dev)
+            ref_state = create_train_state(ref, lr, total_steps)
+            ref_step = make_train_step(ref, prepare=prepare)
+            ref_rec = torch.tensor(5.0, device=dev)
+            p0 = [p.detach().clone() for p in model.parameters()]
+        counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
+        times, per_step = [], []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for i, (base, t) in enumerate(host[:warm + steps]):
+            local = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in pmesh.shard_batch((base, t), mesh))
+            gen = step_generator(seed, state.step, dev, stream)
+            before = dict(fa.LAUNCHES)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, loss, rec = step(state, local, gen, rec)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            got = {k: fa.LAUNCHES[k] - before.get(k, 0) for k in counts}
+            if i >= warm:
+                times.append(dt)
+                counts = {k: counts[k] + got[k] for k in counts}
+            if rank == 0:
+                full = (torch.from_numpy(base).to(dev), torch.from_numpy(t).to(dev))
+                ref_state, ref_loss, ref_rec = ref_step(
+                    ref_state, full, step_generator(seed, ref_state.step, dev), ref_rec)
+                upd = [p.detach() - a for p, a in zip(model.parameters(), p0)]
+                rupd = [p.detach() - a for p, a in zip(ref.parameters(), p0)]
+                gap = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(upd, rupd)))
+                norm = math.sqrt(sum(float((b ** 2).sum()) for b in rupd))
+                per_step.append({
+                    "loss": float(loss), "loss_one_process": float(ref_loss),
+                    "grad_norm": float(state.grad_norm),
+                    "grad_norm_one_process": float(ref_state.grad_norm),
+                    "upd_rel": gap / norm,
+                    "max_param_gap_lr": max(float((a - b).abs().max())
+                                            for a, b in zip(upd, rupd)) / lr})
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+        res = {"mesh": spec, "sp_mode": mode, "launches": counts, "ms_per_step":
+               [1e3 * s for s in times], "peak_mem_gib": peak, "per_step": per_step}
+        if trace_dir is not None and mode is not None:
+            base, t = host[-1]
+            local = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in pmesh.shard_batch((base, t), mesh))
+            gen = step_generator(seed, state.step, dev, stream)
+            where = os.path.join(trace_dir, name)
+            _sync(dev)
+            if rank == 0:
+                with profiling.trace(where):
+                    state, _, rec = step(state, local, gen, rec)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            else:
+                state, _, rec = step(state, local, gen, rec)
+            _sync(dev)
+            if rank == 0:
+                kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+                report = attrib.attribute(where, device_kind=kind)
+                res["attrib"] = {s: {"events": node["events"], "self_s": node["self_s"],
+                                     "share_of_busy": node["share_of_busy"]}
+                                 for s, node in report["scopes"].items()}
+                res["attrib_coverage"] = report["coverage"]
+        out[name] = res
+        del model, state, step
+        if rank == 0:
+            del ref, ref_state, ref_step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def card_sample(dev, layouts: list, model_cfg: dict, n: int, k: int, seed: int) -> dict:
+    """``ddim_sample(mesh=)`` of the full-width model on each layout ``(name,
+    mesh, sp_mode or None)`` from one seeded ``x_init`` of ``n`` rows:
+    this rank's flash_fwd launches and wall, and (rank 0) the largest
+    |Δ| against the one-process ``ddim_sample`` on the same start, run
+    once before the layouts, outside their windows."""
+    from ddim_cold_torch.models import DiffusionViT, sp_clone
+    from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.ops import sampling
+
+    x = np.random.default_rng(seed).standard_normal(
+        (n, *model_cfg["img_size"], 3)).astype(np.float32)
+    base = DiffusionViT(**model_cfg, device=dev)
+    ref = None
+    if dist.get_rank() == 0:
+        ref = sampling.ddim_sample(base, x_init=x, k=k, device=dev)
+    out = {}
+    for name, spec, mode in layouts:
+        mesh = pmesh.make_mesh(spec, device=dev)
+        model = sp_clone(base, mesh, sp_mode=mode) if mode else base
+        before = dict(fa.LAUNCHES)
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = sampling.ddim_sample(model, x_init=x, k=k, mesh=mesh, device=dev)
+        _sync(dev)
+        res = {"mesh": spec, "sp_mode": model.sp_mode if mode else None,
+               "wall_s": time.perf_counter() - t0,
+               "launches": fa.LAUNCHES["flash_fwd"] - before.get("flash_fwd", 0),
+               "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+               "in_unit_range": bool(((got >= 0) & (got <= 1)).all())}
+        if ref is not None:
+            res["max_abs_err"] = float((got - ref).abs().max())
+        out[name] = res
+        del model
+    return out

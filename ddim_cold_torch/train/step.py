@@ -17,7 +17,21 @@ in place (PyTorch may update in place where JAX rebuilds the tree).
 
 Randomness (dropout, drop path, a stochastic ``prepare``) comes from one
 ``torch.Generator`` on the model's device, drawn in a fixed order; it cannot
-reproduce JAX's bits.
+reproduce JAX's bits. The trainer makes each step's generator with
+:func:`step_generator` from (seed, step) and, under data parallelism, the
+rank's ``data`` coordinate, as JAX folds the step into its key
+(``fold_in(rng, state.step)``): a run resumed at step s draws what the
+uninterrupted run draws, data ranks draw apart, and the seq ranks of one
+data row share their stream.
+
+With a ``mesh`` (:mod:`ddim_cold_torch.parallel`, one process per device)
+the step reduces the gradients across the ranks before the clip, so the
+clip sees JAX's global gradient: a sum over each mesh axis in a few flat
+buffers, divided by the ``data`` size, is the mean over data ranks of the
+sum over seq ranks. A seq rank's gradient is its own tokens' share of its
+data row's loss (the model gathers the head's outputs with a backward that
+keeps each rank's slice), so the sum over seq ranks is the whole gradient.
+The logged loss is the same mean over data ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ from typing import Callable, Optional
 import torch
 
 from ddim_cold_torch.ops.losses import smooth_l1
+from ddim_cold_torch.ops.sampling import fold_in
+from ddim_cold_torch.parallel import mesh as pmesh
 
 B1, B2, EPS, WEIGHT_DECAY, MAX_NORM = 0.9, 0.999, 1e-8, 0.05, 1.0
 
@@ -133,10 +149,21 @@ def apply_gradients(state: TrainState, grads: list) -> None:
     state.step = count
 
 
+def step_generator(seed: int, step: int, device, data_index: Optional[int] = None
+                   ) -> torch.Generator:
+    """The generator of optimizer step ``step`` (the update count before it)
+    on ``device``: ``seed + 1`` with the step folded in, then the rank's
+    ``data`` coordinate when the batch is split over data ranks (JAX's
+    ``fold_in(PRNGKey(seed + 1), state.step)``, train/step.py:146-152, with
+    its per-shard key)."""
+    g = fold_in(torch.Generator(device=device).manual_seed(seed + 1), step)
+    return g if data_index is None else fold_in(g, data_index)
+
+
 def make_train_step(model, prepare: Optional[Callable] = None,
                     ema_decay: float = 0.0, grad_accum: int = 1,
                     moe_aux_weight: float = 0.0,
-                    steps_per_dispatch: int = 1) -> Callable:
+                    steps_per_dispatch: int = 1, mesh=None) -> Callable:
     """``(state, batch, generator, loss_rec) → (state, loss, loss_rec)``.
 
     ``batch`` is ``(noisy, target, t)`` tensors on the model's device, or,
@@ -149,8 +176,11 @@ def make_train_step(model, prepare: Optional[Callable] = None,
     state's EMA shadow after the update (``ema ← d·ema + (1−d)·p``).
     ``grad_accum`` > 1 splits the batch into that many interleaved slices
     (slice j = rows j, j+ga, …, as the JAX step), averages their gradients
-    and their losses, and makes one update. ``moe_aux_weight`` > 0 and
-    ``steps_per_dispatch`` > 1 belong to later slices and raise.
+    and their losses, and makes one update. ``mesh``: this rank's rows (and,
+    for a sequence-parallel model, its tokens); the gradients and the loss
+    are reduced across the world as the module says, so every rank applies
+    the same update. ``moe_aux_weight`` > 0 and ``steps_per_dispatch`` > 1
+    belong to later slices and raise.
     """
     if moe_aux_weight:
         raise NotImplementedError("moe_aux_weight is ROADMAP.md Queue 1 item 18 (MoE)")
@@ -169,7 +199,18 @@ def make_train_step(model, prepare: Optional[Callable] = None,
     def loss_and_grads(params, noisy, target, t, generator):
         pred = model(noisy, t, deterministic=False, generator=generator)
         loss = smooth_l1(pred, target)
-        return loss, list(torch.autograd.grad(loss, params))
+        # a seq rank that holds no class token leaves it unused: its share is 0
+        return loss, list(torch.autograd.grad(loss, params, allow_unused=True,
+                                              materialize_grads=True))
+
+    data_size = pmesh.data_axis_size(mesh)
+
+    def reduce(loss, grads):
+        """Sum over the mesh, then the mean over data ranks (the seq ranks'
+        losses are one loss counted once per rank)."""
+        out = pmesh.all_reduce_mesh(grads + [loss.reshape(1)], mesh)
+        grads = torch._foreach_div(out[:-1], float(data_size))
+        return out[-1][0] / mesh.size(), grads
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    loss_rec: torch.Tensor):
@@ -201,6 +242,8 @@ def make_train_step(model, prepare: Optional[Callable] = None,
             torch._foreach_div_(grads, float(grad_accum))
             loss = loss / grad_accum
         loss = loss.detach()
+        if mesh is not None:
+            loss, grads = reduce(loss, grads)
         apply_gradients(state, grads)
         if ema_decay:
             with torch.no_grad():  # optax.incremental_update(p, ema, 1 − d)

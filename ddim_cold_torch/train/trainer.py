@@ -1,7 +1,9 @@
-"""The training loop on one device (counterpart of
-``ddim_cold_tpu/train/trainer.py``, which replaced ``multi_gpu_trainer.main``).
+"""The training loop (counterpart of ``ddim_cold_tpu/train/trainer.py``,
+which replaced ``multi_gpu_trainer.main``).
 
     run(config)
+    ├─ one process per device: spawned workers over a local TCP rendezvous
+    │  (or torchrun's), each a rank of a ``data``/``seq`` mesh  (parallel/)
     ├─ datasets (native decode tier) + ShardedLoader + device_prefetch   (data/)
     ├─ build_model + create_train_state            (models/, train/step.py)
     ├─ optional warm-start / resume                (utils/checkpoint.py)
@@ -17,21 +19,42 @@ the native C++ tier, PIL only for the files it rejects, as JAX's trainer
 builds them. Checkpoints are crash-safe: each file is renamed into place
 whole, and ``lastepoch.ckpt``/``bestloss.ckpt`` pass through the
 ``ckpt.save`` fault site's four crash windows (``utils/checkpoint.py``).
-``remat`` reaches the model (activation checkpointing per block).
+``remat`` reaches the model (activation checkpointing per block). Each
+step draws from its own generator, made from (seed, step) and the rank's
+``data`` coordinate (``train/step.step_generator``), so a resumed run draws
+what the uninterrupted run draws.
+
+Several devices (``num_gpus: N``, or ``mesh: {data: d, seq: s}`` with
+``sp_mode: ring|ulysses``), as the reference's DDP trainer ran them: one
+process per device, spawned here (``torch.multiprocessing``, spawn) over a
+local TCP rendezvous, or started by torchrun (whose environment names the
+rank; nothing is spawned). Each rank takes ``cuda:<local rank>`` over NCCL,
+or with ``device="cpu"`` the CPU over gloo. JAX's rules hold: ``num_gpus``
+above the visible count is clamped with JAX's log line (the lr follows the
+batch trained), a ``mesh`` larger than the visible devices is JAX's error,
+the global batch is ``effective_batch × data`` and a rank's loader shard is
+its ``data`` coordinate, a ``seq`` axis builds the model sequence-parallel
+with attention dropout 0. Only rank 0 writes ``train.log``, the scalars and
+the checkpoints (synchronously, as JAX's multi-host saves; the others meet
+it at a barrier); a resume loads one file on every rank; a stop signal is
+agreed across ranks at the loop points every rank reaches; the validation
+loss is reduced over the ranks weighted by rows.
 
 ``profile_steps=N`` traces the run's first N steps into
 ``<run_dir>/trace/trace.json`` (``utils/profiling.start_trace``; read it with
-``obs/attrib.load_trace``). ``nan_checks`` raises where the first non-finite
-value appears, forward or backward (``utils/profiling.enable_nan_checks``),
-for the whole run; both are process-wide and put back when ``run`` returns
-or raises.
+``obs/attrib.load_trace``; rank 0 only). ``nan_checks`` raises where the
+first non-finite value appears, forward or backward
+(``utils/profiling.enable_nan_checks``), for the whole run; both are
+process-wide and put back when ``run`` returns or raises.
 
-One device only: ``config.mesh``, ``num_devices`` > 1 and ``flash_blocks``
-raise, naming their ROADMAP.md items.
+Tensor, pipeline and expert axes and ``flash_blocks`` raise, naming their
+ROADMAP.md items.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import threading
 import time
@@ -39,13 +62,16 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ddim_cold_torch.config import ExperimentConfig
 from ddim_cold_torch.data import ColdDownSampleDataset, DiffusionDataset, ShardedLoader
 from ddim_cold_torch.data.loader import device_prefetch
 from ddim_cold_torch.models import DiffusionViT
 from ddim_cold_torch.ops import degrade
-from ddim_cold_torch.train.step import create_train_state, make_eval_step, make_train_step
+from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.train.step import (create_train_state, make_eval_step,
+                                        make_train_step, step_generator)
 from ddim_cold_torch.utils import checkpoint as ckpt
 from ddim_cold_torch.utils import profiling
 from ddim_cold_torch.utils.logging import ScalarWriter, asctime, print_log
@@ -70,6 +96,16 @@ class _GracefulStop:
     def __init__(self):
         self.requested = False
         self._prev: dict = {}
+
+    def agreed(self, device) -> bool:
+        """The stop flag agreed across ranks: True when ANY rank was
+        signalled. Every rank calls this at the same loop point (JAX
+        ``_GracefulStop.agreed``): gating the loop on the local flag would
+        leave one rank's loop alone and hang the others' collectives."""
+        if not dist.is_initialized():
+            return self.requested
+        flag = torch.tensor([float(self.requested)], device=device)
+        return bool(pmesh.all_reduce_max(flag).item())
 
     def __enter__(self):
         import signal
@@ -132,10 +168,10 @@ class _AsyncSaver:
 
 
 def _refuse_later(config: ExperimentConfig) -> None:
+    other = sorted(set(config.mesh or {}) - set(pmesh.PORTED_AXES))
     later = [
-        (config.mesh, "config.mesh", "Queue 1 item 14 (parallel/)"),
-        (config.num_devices > 1, f"num_devices={config.num_devices}",
-         "Queue 1 item 14 (parallel/: data parallelism)"),
+        (other, f"config.mesh axis {other}",
+         "Queue 1 item 14 (parallel/: tensor, pipeline and expert parallelism)"),
         (config.flash_blocks is not None, "flash_blocks",
          "Queue 1 item 17 (tuning: the CUDA kernels' tiles are fixed)"),
     ]
@@ -158,31 +194,150 @@ def _build_dataset(config: ExperimentConfig, root: str):
     raise ValueError(f"unknown dataset kind {config.dataset!r}")
 
 
-def build_model(config: ExperimentConfig, device=None) -> DiffusionViT:
+def build_model(config: ExperimentConfig, device=None, mesh=None) -> DiffusionViT:
     """The model from the config, bf16 compute under AMP, weights from
     ``config.seed``. The JAX drop-rate defaults apply (0.1 each; the config
     has no key for them), so a training forward with ``use_flash`` takes the
-    dense path, as in the JAX trainer on one device."""
+    dense path, as in the JAX trainer on one device. With a ``seq`` axis on
+    ``mesh`` the model is sequence-parallel over it (``config.sp_mode``) and
+    attention dropout is 0, as JAX's ``build_model`` makes it."""
     _refuse_later(config)
+    kwargs = dict(config.model_kwargs())
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    if "seq" in names:
+        kwargs.update(seq_mesh=mesh, seq_axis="seq",
+                      batch_axis="data" if "data" in names else None,
+                      attn_drop_rate=0.0, sp_mode=config.sp_mode)
     return DiffusionViT(dtype=torch.bfloat16 if config.amp else torch.float32,
-                        device=device, seed=config.seed, **config.model_kwargs())
+                        device=device, seed=config.seed, **kwargs)
+
+
+def _visible_devices(dev: torch.device) -> int:
+    """The devices a run can span: under torchrun the world it launched, on
+    every host (JAX's ``jax.devices()``); else this host's cards (CPU
+    cores for ``--device cpu``), one spawned process each."""
+    if "RANK" in os.environ:
+        return int(os.environ.get("WORLD_SIZE", 1))
+    return torch.cuda.device_count() if dev.type == "cuda" else (os.cpu_count() or 1)
+
+
+def _mesh_shape(config: ExperimentConfig, dev: torch.device, log: Optional[str]):
+    """``(shape, config)``: the mesh to run, None for one device, with the
+    config's device count clamped to the visible devices (JAX trainer.py:
+    241-262; ``log`` None writes no line)."""
+    avail = _visible_devices(dev)
+    if config.mesh:
+        shape = {k: int(v) for k, v in dict(config.mesh).items()}
+        need = math.prod(shape.values())
+        if need > avail:
+            raise ValueError(f"config.mesh {shape} needs {need} devices, "
+                             f"only {avail} visible")
+        return shape, config
+    ndev = config.num_devices
+    if ndev > avail:
+        if log is not None:
+            print_log(f"requested {ndev} devices, only {avail} visible — clamping", log)
+        ndev = avail
+        # keep the lr↔global-batch linear-scaling rule consistent with the
+        # batch actually trained (config.lr derives from num_devices)
+        config = dataclasses.replace(config, num_devices=ndev)
+    return ({"data": ndev} if ndev > 1 else None), config
+
+
+def _rank_device(dev: torch.device, local_rank: int) -> torch.device:
+    if dev.type != "cuda":
+        return dev
+    rank_dev = torch.device("cuda", local_rank)
+    torch.cuda.set_device(rank_dev)
+    return rank_dev
+
+
+def _worker(rank: int, world: int, init_method: str, config, base_dir, shape,
+            max_steps, log_every, device: str, results) -> None:
+    """One spawned rank: join the group, train, hand rank 0's result back."""
+    dev = _rank_device(torch.device(device), rank)
+    pmesh.initialize_distributed(init_method=init_method, world_size=world, rank=rank,
+                                 device=dev)
+    try:
+        result = _train(config, base_dir, shape, max_steps, log_every, dev)
+        if rank == 0:
+            results.put(result)
+    finally:
+        dist.destroy_process_group()
 
 
 def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = None,
         log_every: int = 100, device=None) -> TrainResult:
-    """Train per the config on one device (None means ``"cuda"``); returns
-    the best/final metrics. ``max_steps`` bounds the optimizer steps (a
-    test/bench hook, not in the reference)."""
+    """Train per the config (``device`` None means ``"cuda"``); returns the
+    best/final metrics (rank 0's). ``max_steps`` bounds the optimizer steps
+    (a test/bench hook, not in the reference). Several devices run one
+    process each (see the module); under torchrun this process is one of
+    them."""
     dev = resolve_device(device)
-    model = build_model(config, device=dev)  # refuses later slices' options
+    _refuse_later(config)
+    run_dir = os.path.join(base_dir, "Saved_Models", config.run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    launched = "RANK" in os.environ
+    log = os.path.join(run_dir, "train.log") if int(os.environ.get("RANK", 0)) == 0 else None
+    shape, config = _mesh_shape(config, dev, log)
+    if launched:  # torchrun started every rank: this process is one
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if world != (math.prod(shape.values()) if shape else 1):
+            raise ValueError(f"launched as {world} ranks; the config asks for "
+                             f"{shape or {'data': 1}}")
+        dev = _rank_device(dev, int(os.environ.get("LOCAL_RANK", 0)))
+        if shape is None:
+            return _train(config, base_dir, None, max_steps, log_every, dev)
+        created = pmesh.initialize_distributed(device=dev)
+        try:
+            return _train(config, base_dir, shape, max_steps, log_every, dev)
+        finally:
+            if created:
+                dist.destroy_process_group()
+    if shape is None:
+        return _train(config, base_dir, None, max_steps, log_every, dev)
+    world = math.prod(shape.values())
+    init_method = f"tcp://localhost:{pmesh.free_port()}"
+    if world == 1:  # a mesh of one device: a group of one, in this process
+        pmesh.initialize_distributed(init_method=init_method, world_size=1, rank=0,
+                                     device=dev)
+        try:
+            return _train(config, base_dir, shape, max_steps, log_every, dev)
+        finally:
+            dist.destroy_process_group()
+    import torch.multiprocessing as mp
+
+    results = mp.get_context("spawn").SimpleQueue()
+    mp.start_processes(_worker, args=(world, init_method, config, base_dir, shape,
+                                      max_steps, log_every, dev.type, results),
+                       nprocs=world, join=True, start_method="spawn")
+    return results.get()
+
+
+def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
+           max_steps: Optional[int], log_every: int, dev: torch.device) -> TrainResult:
+    """One rank's run (the whole run on one device): ``shape`` None, or the
+    mesh of a process group already joined."""
+    mesh = pmesh.make_mesh(shape, device=dev) if shape is not None else None
+    rank0 = pmesh.is_rank0()
+    model = build_model(config, device=dev, mesh=mesh)
     saved_dir = os.path.join(base_dir, "Saved_Models")
     run_dir = os.path.join(saved_dir, config.run_name)
     os.makedirs(run_dir, exist_ok=True)
-    log = os.path.join(run_dir, "train.log")
-    global_batch = config.effective_batch
-    if config.grad_accum > 1 and global_batch % config.grad_accum:
-        raise ValueError(f"grad_accum needs batch {global_batch} divisible by "
-                         f"{config.grad_accum}")
+    log_path = os.path.join(run_dir, "train.log")
+
+    def log(line: str) -> None:
+        if rank0:
+            print_log(line, log_path)
+
+    data = pmesh.data_axis_size(mesh)
+    data_index = pmesh.axis_index(mesh, "data")
+    global_batch = config.effective_batch * data
+    if config.grad_accum > 1 and (global_batch % config.grad_accum
+                                  or (global_batch // config.grad_accum) % data):
+        raise ValueError(
+            f"grad_accum needs global batch {global_batch} divisible by "
+            f"{config.grad_accum} and each slice by data={data}")
     train_set = _build_dataset(config, config.data_storage[0])
     test_set = _build_dataset(config, config.data_storage[1])
     # device-side corruption: the datasets ship clean bases and the step
@@ -199,10 +354,14 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
                 chain=(config.dataset == "cold"))
         else:
             prepare = degrade.make_gaussian_prepare(config.total_steps)
-    train_loader = ShardedLoader(train_set, global_batch, shuffle=True,
-                                 seed=config.seed, drop_last=True, raw=raw_train)
-    test_loader = ShardedLoader(test_set, global_batch, shuffle=False,
-                                drop_last=False, pad_final_batch=True, raw=raw_eval)
+    # a rank's shard is its data coordinate: the seq ranks of a data row
+    # read the same rows (JAX trainer.py:277-278, :297)
+    shard = dict(shard_index=data_index, shard_count=data)
+    train_loader = ShardedLoader(train_set, global_batch // data, shuffle=True,
+                                 seed=config.seed, drop_last=True, raw=raw_train, **shard)
+    test_loader = ShardedLoader(test_set, global_batch // data, shuffle=False,
+                                drop_last=False, pad_final_batch=True, raw=raw_eval,
+                                **shard)
     train_batches, test_batches = len(train_loader), len(test_loader)
     if train_batches == 0:
         raise ValueError("dataset smaller than one global batch (drop_last)")
@@ -219,8 +378,9 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
             loaded = ckpt.load_torch_pkl(init_path)
             ckpt.check_loaded_params(loaded, model.state_dict(), init_path)
             model.load_state_dict(loaded, strict=True)
-        else:
+        elif rank0:
             ckpt.save_torch_pkl(model.state_dict(), init_path)
+        pmesh.barrier()  # no rank reads a file rank 0 is still writing
 
     restored = None
     if config.resume != "none":
@@ -237,36 +397,44 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
             names = state.names
             state.ema_params = [restored["ema_params"][n].to(dev) for n in names]
         elif config.ema_decay:
-            print_log("resume checkpoint has no ema_params — re-seeding the "
-                      "EMA shadow from the restored params", log)
+            log("resume checkpoint has no ema_params — re-seeding the "
+                "EMA shadow from the restored params")
         elif "ema_params" in restored:
-            print_log("resume checkpoint carries ema_params but ema_decay is "
-                      "off — dropping the shadow", log)
-        print_log(f"resuming from epoch {epoch_start:8d} of " + config.resume, log)
-        print_log(f"recovering best_loss {best_loss:4f}", log)
+            log("resume checkpoint carries ema_params but ema_decay is "
+                "off — dropping the shadow")
+        log(f"resuming from epoch {epoch_start:8d} of " + config.resume)
+        log(f"recovering best_loss {best_loss:4f}")
     else:
-        print_log(f"Date: {asctime()}", log)
-        print_log("TrainSet batchs:" + str(train_batches), log)
-        print_log("TestSet batchs:" + str(test_batches), log)
+        log(f"Date: {asctime()}")
+        log("TrainSet batchs:" + str(train_batches))
+        log("TestSet batchs:" + str(test_batches))
+    if mesh is not None:
+        log(f"process group: {dist.get_backend()}, {dist.get_world_size()} ranks, "
+            f"mesh {shape}, sp_mode {config.sp_mode}")
     if config.ema_decay and state.ema_params is None:
         # seed the shadow from whatever params the run starts with (fresh
         # init, warm start, or an ema-less resume)
         state.seed_ema()
+    if mesh is not None:
+        pmesh.shard_train_state(state)  # every rank from rank 0's tensors
 
     train_step = make_train_step(model, prepare=prepare, ema_decay=config.ema_decay,
                                  grad_accum=config.grad_accum,
                                  moe_aux_weight=(config.moe_aux_weight
                                                  if config.num_experts > 1 else 0.0),
-                                 steps_per_dispatch=config.steps_per_dispatch)
+                                 steps_per_dispatch=config.steps_per_dispatch,
+                                 mesh=mesh)
     eval_step = make_eval_step(model, prepare=eval_prepare)
-    writer = ScalarWriter(run_dir)
-    generator = torch.Generator(device=dev).manual_seed(config.seed + 1)
+    writer = ScalarWriter(run_dir) if rank0 else None
+    # the data coordinate separates the data ranks' streams; seq ranks of a
+    # row share theirs (and one device folds in nothing)
+    stream = data_index if data > 1 else None
 
     vloss = float("nan")
     loss_rec_dev = torch.tensor(loss_rec, dtype=torch.float32, device=dev)
     time_start = time.time()
     done = False
-    saver = _AsyncSaver(sync=not config.async_checkpoint)
+    saver = _AsyncSaver(sync=mesh is not None or not config.async_checkpoint)
     stopper = _GracefulStop()
     stopper.__enter__()  # released after the finally block below: a signal
     # during the last in-flight checkpoint write stays graceful too
@@ -275,45 +443,70 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
     try:
         if config.nan_checks:
             profiling.enable_nan_checks(True, model)
-        if profiling_until:
+        if profiling_until and rank0:
             profiling.start_trace(os.path.join(run_dir, "trace"))
         for epoch in range(epoch_start, config.epoch[1]):
             train_loader.set_epoch(epoch)
             for batch in device_prefetch(train_loader, dev):
+                generator = step_generator(config.seed, state.step, dev, stream)
                 state, _, loss_rec_dev = train_step(state, batch, generator, loss_rec_dev)
                 steps += 1
                 if profiling_until and steps >= profiling_until:
                     float(loss_rec_dev)  # the window's device work is done
-                    profiling.stop_trace()
+                    if rank0:
+                        profiling.stop_trace()
                     profiling_until = 0
                 if steps % log_every == 0:
                     loss_rec = float(loss_rec_dev)  # the only per-step host sync
                     time_end = time.time()
-                    print_log(f"steps: {steps:8d} loss: {loss_rec:.4f} "
-                              f"time_cost: {time_end - time_start:.2f}", log)
+                    log(f"steps: {steps:8d} loss: {loss_rec:.4f} "
+                        f"time_cost: {time_end - time_start:.2f}")
                     time_start = time.time()
-                    if stopper.requested:
+                    # every rank reaches this point at the same step
+                    if stopper.agreed(dev):
                         done = True
-                        print_log(f"stop signal at step {steps:8d} — "
-                                  "evaluating, checkpointing, exiting", log)
+                        log(f"stop signal at step {steps:8d} — "
+                            "evaluating, checkpointing, exiting")
                         break
                 if max_steps is not None and steps >= max_steps:
                     done = True
                     break
-            if not done and stopper.requested:
+            if not done and stopper.agreed(dev):
                 done = True
-                print_log(f"stop signal at epoch {epoch:4d} end — "
-                          "evaluating, checkpointing, exiting", log)
+                log(f"stop signal at epoch {epoch:4d} end — "
+                    "evaluating, checkpointing, exiting")
             loss_rec = float(loss_rec_dev)
 
             # -- evaluate: mean loss per batch, mean over batches; one host
-            # sync for the whole val set
+            # sync for the whole val set. Across ranks: each batch's mean
+            # weighted by its rows, so every row counts once per rank
             test_loader.set_epoch(epoch)
-            batch_losses = [eval_step(b) for b in device_prefetch(test_loader, dev)]
-            vloss = float(torch.stack(batch_losses).mean())
-            print_log(f"epoch: {epoch:4d}    loss: {vloss:.5f}    time:{asctime()}", log)
-            writer.add_scalar("loss", vloss, epoch)
+            batch_losses, rows = [], []
+            for b in device_prefetch(test_loader, dev):
+                batch_losses.append(eval_step(b))
+                rows.append(b[0].shape[0])
+            losses = torch.stack(batch_losses)
+            if mesh is None:
+                vloss = float(losses.mean())
+            else:
+                weights = torch.tensor(rows, dtype=losses.dtype, device=losses.device)
+                total, count = pmesh.all_reduce_mesh(
+                    [(losses * weights).sum(), weights.sum()], mesh)
+                vloss = float(total / count)
+            log(f"epoch: {epoch:4d}    loss: {vloss:.5f}    time:{asctime()}")
+            if writer is not None:
+                writer.add_scalar("loss", vloss, epoch)
 
+            # NaN-safe: a diverged epoch (vloss NaN) compares False and
+            # leaves best_loss finite
+            improved = vloss < best_loss
+            if improved:
+                best_loss = vloss
+            if not rank0:
+                pmesh.barrier()  # rank 0 saves the epoch
+                if done:
+                    break
+                continue
             saver.wait()  # at most one epoch's saves in flight
             # snapshot on the device: the next step updates params in place
             params_snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -323,12 +516,6 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
                         "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
             ema_snap = (dict(zip(state.names, (p.clone() for p in state.ema_params)))
                         if state.ema_params is not None else None)
-
-            # NaN-safe: a diverged epoch (vloss NaN) compares False and
-            # leaves best_loss finite
-            improved = vloss < best_loss
-            if improved:
-                best_loss = vloss
 
             def save_epoch(epoch=epoch, steps=steps, loss_rec=loss_rec,
                            improved=improved, best=best_loss,
@@ -353,6 +540,8 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
                      **({"ema_params": ema} if ema is not None else {})})
 
             saver.submit(save_epoch)
+            if mesh is not None:
+                pmesh.barrier()  # the others wait for the synchronous save
             if done:
                 break
     finally:
@@ -361,14 +550,15 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
         # handler, profiler or nan check outlives run()
         try:
             try:
-                if profiling_until:
+                if profiling_until and rank0:
                     profiling.stop_trace()  # the run ended inside the window
             finally:
                 try:
                     if config.nan_checks:
                         profiling.enable_nan_checks(False)
                 finally:
-                    writer.close()
+                    if writer is not None:
+                        writer.close()
         finally:
             try:
                 saver.wait()

@@ -385,30 +385,34 @@ UNPLANTED_SCOPES = {
     # the JAX kernel writes f32 and casts under this scope; fused_trunk.cu
     # writes the compute dtype itself, so the scope would hold no device work
     "flash_attention/fused_proj": "no device work in the port",
-    # sequence parallelism comes with parallel/ (ROADMAP.md Queue 1 item 14)
-    "sp/ring_exchange": "Queue 1 item 14",
-    "sp/all_to_all_gather": "Queue 1 item 14",
-    "sp/all_to_all_scatter": "Queue 1 item 14",
 }
+
+#: the sequence-parallel scopes and the module that plants each
+SP_SCOPES = {"sp/ring_exchange": "parallel/ring_attention.py",
+             "sp/all_to_all_gather": "parallel/ulysses.py",
+             "sp/all_to_all_scatter": "parallel/ulysses.py"}
 
 
 def test_registered_scopes_are_planted_literals():
-    """Every ``obs.attrib.REGISTERED_SCOPES`` entry but the unplanted four
+    """Every ``obs.attrib.REGISTERED_SCOPES`` entry but the unplanted one
     is the literal name of a ``profiling.scope("…")`` call in the port, and
     every planted name is registered: a renamed scope cannot drop out of
     attribution silently. The registry is JAX's, whole."""
     from ddim_cold_torch.obs import attrib
     from ddim_cold_tpu.obs import attrib as jax_attrib
 
-    planted = set()
+    planted, where = set(), {}
     for rel, line, name, first, _ in _package_calls({"scope"}):
         if name.split(".")[-2:] != ["profiling", "scope"]:
             continue
         assert isinstance(first, ast.Constant) and isinstance(first.value, str), (rel, line)
         planted.add(first.value)
+        where.setdefault(first.value, set()).add(rel)
     assert attrib.REGISTERED_SCOPES == jax_attrib.REGISTERED_SCOPES
     assert planted == set(attrib.REGISTERED_SCOPES) - set(UNPLANTED_SCOPES)
     assert set(UNPLANTED_SCOPES) <= set(attrib.REGISTERED_SCOPES)
+    for scope, module in SP_SCOPES.items():
+        assert where[scope] == {f"ddim_cold_torch/{module}"}, scope
 
 
 def test_observability_modules_are_checked():
@@ -417,3 +421,54 @@ def test_observability_modules_are_checked():
     assert {f"ddim_cold_torch/{m}" for m in (
         "utils/flops.py", "utils/record.py", "utils/profiling.py", "obs/attrib.py",
         "obs/trend.py")} <= names
+
+
+# ------------------------------------------------------- parallel/
+
+
+def test_parallel_slice_modules_are_checked():
+    """The import checks walk ``parallel/`` and the rank cases' module."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/{m}.py" for m in (
+        "parallel/__init__", "parallel/mesh", "parallel/ring_attention",
+        "parallel/ulysses", "tools/dist_cases")} <= names
+
+
+def test_parallel_never_changes_backend_or_device():
+    """``parallel/`` holds no branch on the backend and no fallback: no
+    ``get_backend`` call, no backend name outside ``initialize_distributed``
+    (whose default is NCCL for a CUDA device, gloo for the CPU, and which
+    otherwise takes the caller's), no copy through host memory (``.cpu()``
+    or a ``"cpu"`` literal) and no ``except`` that could swallow a failed
+    collective."""
+    bad = []
+    for f in sorted((ROOT / "ddim_cold_torch" / "parallel").rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        allowed = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and node.name == "initialize_distributed":
+                allowed |= {id(n) for n in ast.walk(node)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ExceptHandler):
+                bad.append((f.name, node.lineno, "except"))
+            elif isinstance(node, ast.Attribute) and node.attr in ("get_backend", "cpu"):
+                bad.append((f.name, node.lineno, node.attr))
+            elif isinstance(node, ast.Constant) and node.value in ("gloo", "nccl", "cpu"):
+                if id(node) not in allowed or node.value == "cpu":
+                    bad.append((f.name, node.lineno, node.value))
+    assert bad == []
+
+
+def test_initialize_distributed_needs_cuda_unless_told(no_cuda, tmp_path):
+    """``device=None`` means the card: without CUDA the rendezvous is never
+    attempted; a mesh in the trainer's config likewise."""
+    from ddim_cold_torch.config import ExperimentConfig
+    from ddim_cold_torch.parallel import initialize_distributed
+    from ddim_cold_torch.train import trainer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize_distributed(init_method="tcp://localhost:9", world_size=2, rank=0)
+    cfg = ExperimentConfig(exp_name="x", data_storage=(str(tmp_path), str(tmp_path)),
+                           mesh={"data": 2})
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.run(cfg, str(tmp_path))

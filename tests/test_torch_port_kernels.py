@@ -679,3 +679,26 @@ def test_card_capture_attributes_every_kernel_to_its_scope(cuda_device, tmp_path
     report = captured("train", lambda: model(x, t).float().square().mean().backward())
     for scope in ("flash_attention/fwd", "flash_attention/dq", "flash_attention/dkv"):
         assert report["scopes"][scope]["events"] == model.depth
+
+
+def test_two_ranks_on_the_card_attend_as_one_process(cuda_device):
+    """Two gloo ranks on the one card with CUDA tensors (NCCL refuses two
+    ranks on one device), ``{seq: 2}`` at the 200_p4 attention shape in
+    bf16: Ulysses through the flash kernel (each rank the whole sequence for
+    2 of the 4 heads) and the ring (f32 blocks) against the one-process
+    flash kernel on the same inputs, within ``fa.o_error_limit``; every rank
+    returns the whole result."""
+    from ddim_cold_torch.tools import dist_cases
+
+    shape = dict(B=2, N=2501, H=4, D=64)
+    cases = [("attention", dict(spec={"seq": 2}, fn=fn, dtype="bfloat16", use_flash=True,
+                                grad=False, **shape)) for fn in ("ulysses", "ring")]
+    results = dist_cases.run_world(cases, 2, device="cuda", backend="gloo", timeout_s=180)
+    q, k, v, _ = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in dist_cases.qkv_inputs(0, *shape.values()))
+    ref = fa.flash_forward(q, k, v, 64**-0.5)[0].float().cpu()
+    limit = fa.o_error_limit(ref.to(torch.bfloat16))
+    for (fn, _), ranks in zip(cases, results):
+        for got in ranks:
+            err = (torch.from_numpy(got["out"]) - ref).abs()
+            assert bool((err <= limit).all()), (fn, float(err.max()))

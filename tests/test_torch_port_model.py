@@ -128,9 +128,27 @@ def test_init_is_seeded_reference_init():
     assert wide.min().item() >= -0.5 and wide.max().item() <= 0.5
 
 
-@pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(seq_axis="seq"),
+class _OneRankMesh:
+    """A ``DeviceMesh`` stand-in with one ``seq`` rank (no process group)."""
+
+    mesh_dim_names = ("seq",)
+
+    def size(self, dim):
+        return 1
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+
+# sequence parallelism landed (seq_mesh, seq_axis, batch_axis, sp_mode);
+# tensor parallelism's head_axis and quant under sequence parallelism did not
+@pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(head_axis="model"),
                                   dict(num_experts=2), dict(scan_blocks=True),
-                                  dict(sp_mode="ulysses")])
+                                  dict(seq_mesh=_OneRankMesh(), seq_axis="seq",
+                                       quant="pallas")])
 def test_later_slice_ctor_hooks_raise(hook):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PortViT(**TINY, device="cpu", **hook)

@@ -389,6 +389,64 @@ def test_trainer_resume_restores_step_lr_and_best(trained, synthetic_image_dir, 
     assert float(first.split()[3]) < float(last["loss_rec"]) + 0.5
 
 
+def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path, synthetic_image_dir):
+    """Each step's generator comes from (seed, step) (``step.step_generator``,
+    JAX's ``fold_in(rng, state.step)``): two epochs straight, and the same
+    run stopped after its first epoch (``max_steps``; the cosine schedule
+    keeps its two-epoch length) then resumed to the second, leave the same
+    parameters, moments, EMA loss and validation losses bit for bit, with
+    every drop rate at the trainer's 0.1."""
+    cfg = _tiny_config(synthetic_image_dir)  # epochs (0, 2) of 5 steps
+    straight = port_trainer.run(cfg, str(tmp_path / "a"), log_every=2, device="cpu")
+    first = port_trainer.run(cfg, str(tmp_path / "b"), max_steps=5, log_every=2,
+                             device="cpu")
+    resumed = port_trainer.run(
+        dataclasses.replace(cfg, resume=os.path.join(first.run_dir, "lastepoch.ckpt")),
+        str(tmp_path / "b"), log_every=2, device="cpu")
+    assert resumed.steps == straight.steps == 10
+    assert resumed.last_val_loss == straight.last_val_loss
+    assert resumed.best_loss == straight.best_loss
+    a, b = (port_ckpt.load_checkpoint(os.path.join(r.run_dir, "lastepoch.ckpt"))
+            for r in (straight, resumed))
+    assert a["loss_rec"] == b["loss_rec"] and a["metric"] == b["metric"]
+    for name in a["params"]:
+        assert torch.equal(a["params"][name], b["params"][name]), name
+    for which in ("mu", "nu"):
+        for name in a["opt_state"][which]:
+            assert torch.equal(a["opt_state"][which][name], b["opt_state"][which][name])
+
+
+def test_step_generators_fold_the_step_and_the_data_rank():
+    """Distinct streams per step and per data coordinate, each reproducible."""
+    draw = lambda *a: torch.rand(4, generator=port_step.step_generator(7, *a)).tolist()  # noqa: E731
+    assert draw(3, "cpu") == draw(3, "cpu")
+    assert len({tuple(draw(s, "cpu", d)) for s in (0, 1) for d in (None, 0, 1)}) == 6
+
+
+def test_torchrun_world_counts_every_hosts_devices(monkeypatch, synthetic_image_dir):
+    """Under torchrun a run spans its ``WORLD_SIZE`` (every host's cards, as
+    JAX counts ``jax.devices()``), not this host's: a launch of 2 hosts × 8
+    cards takes ``mesh: {data: 16}`` and ``num_gpus: 16`` unclamped, and a
+    larger mesh is JAX's error against the world. Spawned, the count is this
+    host's cards."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    cuda = torch.device("cuda")
+    shape = lambda **kw: port_trainer._mesh_shape(  # noqa: E731
+        _tiny_config(synthetic_image_dir, **kw), cuda, None)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "16")
+    assert shape(mesh={"data": 16})[0] == {"data": 16}
+    got, cfg = shape(num_devices=16)
+    assert got == {"data": 16} and cfg.num_devices == 16
+    with pytest.raises(ValueError, match=r"needs 32 devices, only 16 visible"):
+        shape(mesh={"data": 32})
+    monkeypatch.delenv("RANK")
+    with pytest.raises(ValueError, match=r"needs 16 devices, only 8 visible"):
+        shape(mesh={"data": 16})
+    got, cfg = shape(num_devices=16)
+    assert got == {"data": 8} and cfg.num_devices == 8
+
+
 def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
     base, cfg, _ = trained
     bigger = dataclasses.replace(cfg, depth=2, framework="other")
@@ -397,7 +455,7 @@ def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
 
 
 @pytest.mark.parametrize("later,item", [
-    (dict(mesh={"data": 2}), "item 14"), (dict(num_devices=2), "item 14"),
+    (dict(mesh={"model": 2}), "item 14"), (dict(mesh={"pipe": 2}), "item 14"),
     (dict(flash_blocks=(512, 1024)), "item 17"),
     (dict(steps_per_dispatch=2), "item 11"),
     (dict(num_experts=2), "item 18"),

@@ -224,3 +224,43 @@ def test_dead_writers_temp_file_is_removed_by_the_next_save(tmp_path):
     assert not os.path.exists(stray)
     assert os.path.exists(live) and os.path.exists(other)
     assert port_ckpt.load_checkpoint(p) == {"epoch": 0}
+
+
+def test_two_ranks_on_the_cpu_write_once_and_resume(tmp_path, synthetic_image_dir,
+                                                    monkeypatch, capsys):
+    """``num_gpus: 2`` with ``--device cpu``: two gloo ranks spawned over a
+    local rendezvous (global batch 2 × 2, each rank its data shard of the
+    10 images: 2 steps an epoch). Rank 0 alone writes: one ``Date:`` line,
+    one line per epoch, one scalar per epoch, the checkpoints; the other
+    rank prints nothing. A second run resumes from its lastepoch.ckpt."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned ranks' intra-op threads
+    # TensorBoard off in the ranks too (its import pulls in TensorFlow here,
+    # ~17 s): spawned processes take this process's sys.path, where a stub
+    # ``tensorboard`` that refuses to import comes first
+    stub = tmp_path / "stub" / "tensorboard"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text('raise ImportError("TensorBoard is off here")\n')
+    monkeypatch.syspath_prepend(str(tmp_path / "stub"))
+    monkeypatch.chdir(tmp_path)
+    _exp_yaml(tmp_path, synthetic_image_dir, name="dp", num_gpus=2)
+    assert cli.main(["train", "dp"], base_dir=str(tmp_path), device="cpu") == 0
+    run_dir = tmp_path / "Saved_Models" / "dpsmoke"
+    log = (run_dir / "train.log").read_text()
+    assert log.count("Date: ") == 1 and log.count("epoch:    0") == 1
+    assert "TrainSet batchs:2" in log
+    assert "process group: gloo, 2 ranks, mesh {'data': 2}" in log
+    assert len((run_dir / "metrics.jsonl").read_text().splitlines()) == 1
+    assert {"dp.yaml", "train.log", "metrics.jsonl", "bestloss.ckpt", "bestloss.pkl",
+            "lastepoch.ckpt"} <= set(os.listdir(run_dir))
+    assert not [n for n in os.listdir(run_dir) if n.endswith((".writing", ".tmp"))]
+    last = port_ckpt.load_checkpoint(str(run_dir / "lastepoch.ckpt"))
+    assert (last["epoch"], last["steps"]) == (0, 2)
+    assert capsys.readouterr().out.count("best val loss") == 1
+
+    _exp_yaml(tmp_path, synthetic_image_dir, name="dp", num_gpus=2, epoch=[0, 2],
+              resume=str(run_dir / "lastepoch.ckpt"))
+    assert cli.main(["train", "dp"], base_dir=str(tmp_path), device="cpu") == 0
+    log = (run_dir / "train.log").read_text()
+    assert log.count("resuming from epoch        1 of") == 1 and log.count("epoch:    1") == 1
+    after = port_ckpt.load_checkpoint(str(run_dir / "lastepoch.ckpt"))
+    assert (after["epoch"], after["steps"], after["opt_state"]["count"]) == (1, 4, 4)
