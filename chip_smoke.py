@@ -134,6 +134,19 @@ Phases, one JSON object per line:
    deterministic evaluation forwards launch only flash_fwd, depth × val
    batches an epoch), with each child's wall, run 2's peak memory and
    seconds per epoch;
+10e2. cli — the commands users start: ``python -m ddim_cold_torch sample
+   --config oxford_flower_200_p4 --init-random --sample_n 8 --acc_k 20`` as
+   a child process in a temporary directory (every tile of
+   ``samples.png`` bit for bit ``to_uint8`` of the parent's direct
+   ``ddim_sample`` from the same seed; float32 dense, no flash launch; its
+   img/s), then in process ``edit`` (a 200 px draft, two interpolation
+   ends, 4 cold samples: four PNGs, 7 cold levels, the draft tile exact),
+   ``fid`` cold and ddim k=20 (32 samples in batches of 8), ``fid-trend``
+   and ``publish`` on 10e's finished run directory (bf16, flash): flash_fwd
+   launched exactly depth × forwards × batches (168, 2,400, 168, 84), JAX's
+   JSON keys, finite values; ``attrib-report`` on 7's serve capture, its
+   scope rows those of 7's attrib line; ``obs-report --from-jsonl`` on the
+   span dump of one traced batch;
 10f. probe-xla — the attention probe of the bf16 flash model against the
    dense model's at layers 0 (bit for bit), 2 and −1 (row total variation
    within ``PROBE_TV``, while layer 1's probe and another input's land
@@ -1296,13 +1309,15 @@ def train_scope_costs(model, images: int) -> dict:
 
 
 def attribute_capture(torch, prof, log_dir: str, capture: str, costs: dict,
-                      launches: dict, idle_share: float, floor: bool) -> dict:
+                      launches: dict, idle_share: float, floor: bool,
+                      keep: bool = False) -> dict:
     """Read back a capture's trace with ``obs.attrib`` and hold it: each
     kernel's scope holds exactly its launches and its summed device time
     (by name, from the profiler's own events) within SCOPE_SLACK; the busy
     fraction is 1 − the phase's idle share within BUSY_TOL; no MFU above 1
     nor achieved rate above the scope's peak; with ``floor``, coverage at
-    least ``attrib.COVERAGE_FLOOR``. Emits one ``attrib`` record."""
+    least ``attrib.COVERAGE_FLOOR``. Emits one ``attrib`` record and returns
+    the report; the capture's directory is removed unless ``keep``."""
     from ddim_cold_torch.obs import attrib
     from ddim_cold_torch.utils import flops
 
@@ -1312,7 +1327,8 @@ def attribute_capture(torch, prof, log_dir: str, capture: str, costs: dict,
     t0 = time.perf_counter()
     report = attrib.attribute(log_dir, device_kind=kind, scope_costs=costs)
     parse_s = time.perf_counter() - t0
-    shutil.rmtree(log_dir)
+    if not keep:
+        shutil.rmtree(log_dir)
     kernel_s = {name: 0.0 for name in launches}
     for e in _device_spans(prof):
         for name in kernel_s:
@@ -1363,7 +1379,8 @@ def phase_profile(torch, eng, config):
     """Where a served batch's time goes: one more drain of a single 8-row
     batch traced by ``utils/profiling.trace``; device kernel time by kind
     and the device's idle share over the drain; then the trace attributed
-    to the port's scopes (``obs/attrib``)."""
+    to the port's scopes (``obs/attrib``). Returns the attribution report;
+    the capture stays in ``TRACE_DIR/serve`` for the cli phase."""
     from ddim_cold_torch.utils import profiling
 
     ticket = eng.submit(seed=3, n=8, config=config)
@@ -1406,8 +1423,10 @@ def phase_profile(torch, eng, config):
     check(rec["flash_fwd_launches"] == launches,
           f"profiled flash_fwd launches {rec['flash_fwd_launches']}")
     forwards = steps * (report["rows"] + report["padded_rows"])  # image-forwards
-    attribute_capture(torch, prof, log_dir, "serve", serve_scope_costs(eng.model, forwards),
-                      {"flash_fwd": launches}, rec["idle_share"], floor=True)
+    # the capture stays for the cli phase's attrib-report
+    return attribute_capture(torch, prof, log_dir, "serve",
+                             serve_scope_costs(eng.model, forwards), {"flash_fwd": launches},
+                             rec["idle_share"], floor=True, keep=True)
 
 
 def _cold_batches(n: int, batch: int, seed: int):
@@ -1962,7 +1981,9 @@ def phase_train_run(torch, data_root: str, tier: str):
     beside it (the dead writer's is removed by that path's next save); its
     training launches no flash kernel (attention dropout 0.1: the dense
     rule), and its evaluation forwards, deterministic, launch flash_fwd
-    depth × val batches an epoch and no backward kernel."""
+    depth × val batches an epoch and no backward kernel. Returns (working
+    directory, run directory): the cli phase reads the finished run, and
+    the caller removes the working directory after it."""
     import signal
     import tempfile
 
@@ -2066,7 +2087,253 @@ def phase_train_run(torch, data_root: str, tier: str):
           f"train-run 2: temp files left {writing} (beside a path it saved: {stale})")
     check(child and flash == {"flash_fwd": 6 * RUN_VAL_BATCHES * len(epochs2)},
           f"train-run 2: flash launches {flash} (child {child})")
+    return work, run_dir
+
+
+#: the cli phase: sample's rows and stride; fid's samples and batch (fid-trend
+#: takes CLI_TREND_N a point); the scope keys attrib-report must reproduce
+CLI_SAMPLE_N, CLI_SAMPLE_K = 8, 20
+CLI_FID_N, CLI_BATCH, CLI_TREND_N = 32, 8, 16
+CLI_ATTRIB_KEYS = ("self_s", "total_s", "events", "share_of_busy")
+
+
+def _cli_call(fa, quant, argv: list, base: str) -> dict:
+    """``__main__.main(argv)`` in this process with the launch counters
+    zeroed just before and read just after: rc, wall, stdout's last JSON
+    line (if any) and the counts."""
+    import contextlib
+    import io
+
+    from ddim_cold_torch import __main__ as cli
+
+    _zero([fa.LAUNCHES, quant.LAUNCHES])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, base_dir=base)
+    wall = time.perf_counter() - t0
+    last = None
+    for line in out.getvalue().splitlines():
+        if line.startswith("{"):
+            last = json.loads(line)
+    return {"rc": rc, "wall_s": wall, "json": last, "stdout": out.getvalue(),
+            "launches": _counts(fa, quant)}
+
+
+def phase_cli(torch, fa, quant, run_dir: str, data_root: str, serve_report: dict) -> dict:
+    """The commands users start, at full width on the card. ``sample``
+    (``oxford_flower_200_p4``, ``--init-random``, 8 samples at k=20) as a
+    child process in a temporary working directory: the parent rebuilds the
+    seeded model and decodes ``samples.png``, each tile bit for bit
+    ``to_uint8`` of the parent's direct ``ddim_sample`` from generator seed
+    1 (float32, dense: no flash launch); its img/s from the two PNGs' write
+    times. In process through ``__main__.main``: ``edit`` (a 200 px draft
+    and two interpolation ends from the synthetic folder, 4 cold samples:
+    four PNGs, 7 cold levels, the draft tile exact); ``fid`` cold and ddim
+    k=20, ``fid-trend`` (points random and best) and ``publish`` on
+    train-run's finished run directory (bf16, the YAML's ``use_flash``):
+    flash_fwd launched exactly depth × forwards × batches, JAX's JSON keys,
+    finite values (``publish`` whole where matplotlib imports, else its
+    ``render_samples``); ``attrib-report`` on the profile phase's serve
+    capture, its scope rows equal to that capture's attrib line;
+    ``obs-report --from-jsonl`` on the span dump of one traced batch.
+    Returns each flash path's counts for the kernels line."""
+    import tempfile
+
+    import numpy as np
+
+    from ddim_cold_torch import serve
+    from ddim_cold_torch.cli import edit, sample
+    from ddim_cold_torch.models import MODEL_CONFIGS
+    from ddim_cold_torch.obs import spans
+    from ddim_cold_torch.ops import sampling, schedule
+    from ddim_cold_torch.utils import image
+    from ddim_cold_torch.utils.run_io import load_run_template
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    rec: dict = {"phase": "cli"}
+    paths: dict = {}
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    # sample: a child process, as a user starts it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    argv = ["sample", "--config", MODEL, "--init-random", "--sample_n", str(CLI_SAMPLE_N),
+            "--acc_k", str(CLI_SAMPLE_K)]
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "ddim_cold_torch"] + argv, cwd=work,
+                           capture_output=True, text=True, timeout=300, env=env)
+    wall = time.perf_counter() - t0
+    saved = os.path.join(work, "Saved_Models")
+    seq_png, smp_png = (os.path.join(saved, n) for n in ("denoise_sequence.png", "samples.png"))
+    model = sample.build_model(MODEL, None, True, 0, work, torch.device("cuda"))
+    _zero([fa.LAUNCHES, quant.LAUNCHES])
+    want = sampling.ddim_sample(model, torch.Generator(device="cuda").manual_seed(1),
+                                n=CLI_SAMPLE_N, k=CLI_SAMPLE_K, device="cuda")
+    direct_launches = _counts(fa, quant)
+    want = image.to_uint8(want.cpu().numpy())
+    nrows, ncols = image.grid_shape(CLI_SAMPLE_N)
+    tiles = (image.grid_tiles(smp_png, CLI_SAMPLE_N, nrows=nrows, ncols=ncols)
+             if os.path.isfile(smp_png) else None)
+    sampling_s = (os.path.getmtime(smp_png) - os.path.getmtime(seq_png)
+                  if tiles is not None and os.path.isfile(seq_png) else None)
+    rec["sample"] = {"command": "python -m ddim_cold_torch " + " ".join(argv),
+                     "rc": child.returncode, "wall_s": wall,
+                     "samples_s_from_png_times": sampling_s,
+                     "img_per_s": CLI_SAMPLE_N / sampling_s if sampling_s else None,
+                     "tiles_bitwise": tiles is not None and np.array_equal(tiles, want),
+                     "flash_launches_direct": direct_launches["flash_fwd"],
+                     "route": "float32 dense (ViT.py's model)",
+                     "stderr_tail": child.stderr[-600:]}
+    check(child.returncode == 0, f"cli sample: exit {child.returncode}: {child.stderr[-2000:]}")
+    check(rec["sample"]["tiles_bitwise"], "cli sample: samples.png tiles are not the "
+          "direct ddim_sample's")
+    check(direct_launches["flash_fwd"] == 0, f"cli sample: {direct_launches} on the dense route")
+    del model
+
+    # edit, in process
+    val = os.path.join(data_root, "val")
+    names = sorted(os.listdir(val))
+    draft, ends = os.path.join(val, names[0]), [os.path.join(val, n) for n in names[1:3]]
+    got = _cli_call(fa, quant, ["edit", "--config", MODEL, "--init-random", "--cold-n", "4",
+                                "--draft", draft, "--interpolate"] + ends, work)
+    pngs = {n: os.path.isfile(os.path.join(saved, n)) for n in (
+        "cold_sequence.png", "cold_samples.png", "draft2img.png", "interpolation.png")}
+    side = MODEL_CONFIGS[MODEL]["img_size"][0]
+    levels = int(math.log2(side))
+    seq_ok = draft_ok = False
+    if all(pngs.values()):
+        from PIL import Image
+
+        w = Image.open(os.path.join(saved, "cold_sequence.png")).size
+        seq_ok = w == ((levels + 1) * side + levels * 2, 4 * side + 3 * 2)
+        x = edit.img2tensor(draft, (side, side))
+        draft_ok = np.array_equal(
+            image.grid_tiles(os.path.join(saved, "draft2img.png"), 1, nrows=2, ncols=5)[0],
+            image.to_uint8(((x[0] + 1) / 2).numpy()))
+    rec["edit"] = {"rc": got["rc"], "wall_s": got["wall_s"], "pngs": pngs,
+                   "cold_sequence_levels": levels if seq_ok else None,
+                   "draft_tile_exact": draft_ok, "flash_launches": got["launches"]["flash_fwd"]}
+    check(got["rc"] == 0 and all(pngs.values()), f"cli edit: {rec['edit']}")
+    check(seq_ok and draft_ok, f"cli edit: cold sequence / draft tile {rec['edit']}")
+
+    # fid, fid-trend, publish on train-run's run directory: the flash path
+    config, run_model, _ = load_run_template(run_dir, "cuda")
+    depth = run_model.depth
+    cold_fwd = len(schedule.cold_time_sequence(int(math.log2(config.image_size[0]))))
+    ddim_fwd = len(schedule.ddim_time_sequence(run_model.total_steps, CLI_SAMPLE_K))
+    del run_model
+    n_real = min(len(names), 2048)
+    batches = -(-CLI_FID_N // CLI_BATCH)
+    keys = {"metric", "value", "n_samples", "n_real", "extractor", "run"}
+    for sampler, fwd in (("cold", cold_fwd), ("ddim", ddim_fwd)):
+        got = _cli_call(fa, quant, ["fid", run_dir, "--n-samples", str(CLI_FID_N), "--batch",
+                                    str(CLI_BATCH), "--n-real", str(n_real), "--sampler",
+                                    sampler, "--k", str(CLI_SAMPLE_K)], work)
+        want_n = depth * fwd * batches
+        out = got["json"] or {}
+        rec[f"fid {sampler}"] = {"rc": got["rc"], "wall_s": got["wall_s"], "json": out,
+                                 "launches": got["launches"], "expected_flash_fwd": want_n}
+        paths[f"cli fid {sampler}"] = got["launches"]
+        check(got["rc"] == 0 and set(out) == keys and np.isfinite(out.get("value", np.nan))
+              and out.get("n_real") == (n_real // CLI_BATCH) * CLI_BATCH,
+              f"cli fid {sampler}: {rec[f'fid {sampler}']}")
+        check(got["launches"]["flash_fwd"] == want_n and sum(got["launches"].values()) == want_n,
+              f"cli fid {sampler}: launches {got['launches']}, flash_fwd {want_n} expected")
+    got = _cli_call(fa, quant, ["fid-trend", run_dir, "--n-samples", str(CLI_TREND_N),
+                                "--batch", str(CLI_BATCH), "--n-real", str(n_real)], work)
+    out = got["json"] or {}
+    points = [p.get("ckpt") for p in out.get("points", [])]
+    want_n = depth * cold_fwd * (-(-CLI_TREND_N // CLI_BATCH)) * len(points)
+    rec["fid-trend"] = {"rc": got["rc"], "wall_s": got["wall_s"], "points": out.get("points"),
+                        "launches": got["launches"], "expected_flash_fwd": want_n}
+    paths["cli fid-trend"] = got["launches"]
+    check(got["rc"] == 0 and points == ["random", "best"]
+          and all(np.isfinite(p["fid"]) for p in out["points"]),
+          f"cli fid-trend: {rec['fid-trend']}")
+    check(got["launches"]["flash_fwd"] == want_n and sum(got["launches"].values()) == want_n,
+          f"cli fid-trend: launches {got['launches']}, flash_fwd {want_n} expected")
+    try:
+        import matplotlib  # noqa: F401 — the whole command needs it for val_curve.png
+        whole = True
+    except ImportError:
+        whole = False
+    if whole:
+        got = _cli_call(fa, quant, ["publish", run_dir], work)
+    else:
+        from ddim_cold_torch.cli.publish_run import render_samples
+
+        _zero([fa.LAUNCHES, quant.LAUNCHES])
+        t0 = time.perf_counter()
+        out_dir = os.path.join(work, "results", os.path.basename(run_dir))
+        os.makedirs(out_dir, exist_ok=True)
+        render_samples(run_dir, out_dir)
+        got = {"rc": 0, "wall_s": time.perf_counter() - t0, "launches": _counts(fa, quant)}
+    want_n = depth * cold_fwd * 2  # 16 samples, then the 4-row sequence
+    out_dir = os.path.join(work, "results", os.path.basename(run_dir))
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    rec["publish"] = {"whole_command": whole, "rc": got["rc"], "wall_s": got["wall_s"],
+                      "files": files, "launches": got["launches"],
+                      "expected_flash_fwd": want_n}
+    paths["cli publish"] = got["launches"]
+    need = {"samples.png", "cold_sequence.png"} | (
+        {"val_curve.png", "summary.json", "train.log"} if whole else set())
+    check(got["rc"] == 0 and need <= set(files), f"cli publish: {rec['publish']}")
+    check(got["launches"]["flash_fwd"] == want_n and sum(got["launches"].values()) == want_n,
+          f"cli publish: launches {got['launches']}, flash_fwd {want_n} expected")
+
+    # attrib-report on the serve capture
+    kind = torch.cuda.get_device_name(0)
+    report_path = os.path.join(work, "attrib.json")
+    got = _cli_call(fa, quant, ["attrib-report", os.path.join(TRACE_DIR, "serve"),
+                                "--device-kind", kind, "--json", report_path], work)
+    cli_rows = []
+    if got["rc"] == 0:
+        with open(report_path) as f:
+            rows = json.load(f)["scopes"]
+        from ddim_cold_torch.obs import attrib
+
+        cli_rows = [(n, [rows[n][k] for k in CLI_ATTRIB_KEYS])
+                    for n, _ in attrib.ranked_scopes({"scopes": rows})]
+    line_rows = [(n, [node[k] for k in CLI_ATTRIB_KEYS])
+                 for n, node in sorted(serve_report["scopes"].items(),
+                                       key=lambda kv: -kv[1]["self_s"])]
+    rec["attrib-report"] = {"rc": got["rc"], "wall_s": got["wall_s"],
+                            "rows": len(cli_rows), "rows_equal": cli_rows == line_rows}
+    check(got["rc"] == 0 and cli_rows and cli_rows == line_rows,
+          f"cli attrib-report: rows {cli_rows} against the attrib line's {line_rows}")
+    shutil.rmtree(os.path.join(TRACE_DIR, "serve"), ignore_errors=True)
+
+    # obs-report on the span dump of one traced batch
+    model = sample.build_model(MODEL, None, True, 0, work, torch.device("cuda"))
+    eng = serve.Engine(model, buckets=(CLI_BATCH,))
+    cfg = serve.SamplerConfig(k=500)
+    serve.warmup(eng, [cfg])
+    spans.clear()
+    with spans.tracing():
+        ticket = eng.submit(seed=0, n=CLI_BATCH, config=cfg)
+        eng.run()
+    ticket.result(timeout=600)
+    dump = os.path.join(work, "spans.jsonl")
+    rows = spans.export_jsonl(dump)
+    spans.clear()
+    chrome = os.path.join(work, "trace.json")
+    got = _cli_call(fa, quant, ["obs-report", "--from-jsonl", dump, "--chrome", chrome], work)
+    events = json.load(open(chrome))["traceEvents"] if os.path.isfile(chrome) else []
+    rec["obs-report"] = {"rc": got["rc"], "wall_s": got["wall_s"], "spans": len(rows),
+                         "events": len(events),
+                         "summary_head": got["stdout"].splitlines()[:1]}
+    check(got["rc"] == 0 and rows and len(events) == len(rows)
+          and got["stdout"].startswith(f"{len(rows)} span(s) across 1 trace(s)"),
+          f"cli obs-report: {rec['obs-report']}")
+    del eng, model
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
     shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
 
 
 #: the two-rank layouts of dist-train and dist-sample: (name, mesh, sp_mode)
@@ -3536,7 +3803,7 @@ def main() -> int:
     qk = phase_kernels_quant(torch, fa, quant)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
     eng, config, serve_launches, serve_report = phase_serve(torch, model, fa, serve)
-    phase_profile(torch, eng, config)
+    profile_report = phase_profile(torch, eng, config)
     gc.collect()  # what the earlier phases left to the collector is not serve-chaos's
     before = torch.cuda.memory_allocated()
     chaos_launches = phase_serve_chaos(torch, model, fa, serve, eng, config, serve_report)
@@ -3567,7 +3834,9 @@ def main() -> int:
     phase_train_nan(torch)
     data_root, tier = phase_native(torch)
     remat_launches = phase_train_remat(torch, fa)
-    phase_train_run(torch, data_root, tier)
+    run_work, run_dir = phase_train_run(torch, data_root, tier)
+    new_paths.update(phase_cli(torch, fa, quant, run_dir, data_root, profile_report))
+    shutil.rmtree(run_work, ignore_errors=True)
     dist_launches = phase_dist(torch, MODEL_CONFIGS)
     dist_launches.update(phase_dist_cli(torch, data_root))
     shutil.rmtree(data_root, ignore_errors=True)

@@ -1,4 +1,26 @@
-"""The port's command line: ``python -m ddim_cold_torch train <ExpName>``.
+"""The port's command line: ``python -m ddim_cold_torch <command> ...``.
+
+Commands (:data:`COMMANDS`), each the counterpart of a JAX entry point:
+
+* ``train <ExpName>`` — the launcher (``multi_gpu_trainer.py``), below;
+* ``sample`` — batch sampling and the denoise-sequence figure (``ViT.py``);
+* ``edit`` — cold sampling, draft→drawing and slerp interpolation
+  (``ViT_draft2drawing.py``);
+* ``fid``, ``fid-trend``, ``publish`` — FID of a finished run, FID across
+  its checkpoints, and its published evidence (``scripts/compute_fid.py``,
+  ``fid_trend.py``, ``publish_run.py``);
+* ``attrib-report``, ``obs-report`` — the observability layer's files
+  rendered (``scripts/attrib_report.py``, ``obs_report.py``);
+* ``make-dataset`` — the surrogate dataset's recipe
+  (``scripts/make_dataset.py``);
+* ``loader-check`` — the degradation visual check
+  (``diffusion_loader.py``).
+
+All but ``train`` live in :mod:`ddim_cold_torch.cli`, one module each,
+imported when the command runs. Every command that builds a model runs on
+the card and exits with code 3 before writing anything when CUDA is
+unavailable, unless ``--device cpu`` (``--cpu`` for ``fid``, ``fid-trend``
+and ``publish``, the JAX scripts' flag) asks for the CPU.
 
 ``train`` is the counterpart of the JAX package's launcher
 (``multi_gpu_trainer.py:17-64``): it reads ``<ExpName>.yaml`` from the
@@ -18,14 +40,13 @@ directory and prints. The subcommands are a dispatch table,
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import shutil
 import sys
 from typing import Optional, Sequence
 
-#: exit code of a run that asked for the card on a machine without one (the
-#: JAX launcher's ``require_accelerator_or_exit``)
-NO_ACCELERATOR = 3
+from ddim_cold_torch.cli import NO_ACCELERATOR, device_or_exit
 
 
 def _train(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) -> int:
@@ -34,13 +55,7 @@ def _train(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) 
     parser.add_argument("--device", default=device,
                         help="'cpu' to train on the CPU (default: the card)")
     opts = parser.parse_args(list(args))
-    import torch
-
-    if (opts.device is None or torch.device(opts.device).type == "cuda") and (
-            not torch.cuda.is_available()):
-        print("python -m ddim_cold_torch train: no CUDA device "
-              "(torch.cuda.is_available() is False); pass --device cpu to "
-              "train on the CPU", file=sys.stderr)
+    if device_or_exit(opts.device, "train") is None:
         return NO_ACCELERATOR
 
     from ddim_cold_torch.config import load_config
@@ -66,16 +81,29 @@ def _train(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) 
     return 0
 
 
+def _command(module: str):
+    """The handler of a :mod:`ddim_cold_torch.cli` module, imported on use."""
+    def run(args: Sequence[str], base_dir: Optional[str], device: Optional[str]) -> int:
+        return importlib.import_module(f"ddim_cold_torch.cli.{module}").main(
+            args, base_dir=base_dir, device=device)
+
+    return run
+
+
 #: subcommand → handler(args, base_dir, device) → exit code
-COMMANDS = {"train": _train}
+COMMANDS = {"train": _train, "sample": _command("sample"), "edit": _command("edit"),
+            "fid": _command("compute_fid"), "fid-trend": _command("fid_trend"),
+            "publish": _command("publish_run"), "attrib-report": _command("attrib_report"),
+            "obs-report": _command("obs_report"), "make-dataset": _command("make_dataset"),
+            "loader-check": _command("loader_check")}
 
 
 def main(argv: Optional[Sequence[str]] = None, base_dir: Optional[str] = None,
          device: Optional[str] = None) -> int:
     """Run one subcommand; ``argv`` excludes the program name (default
     ``sys.argv[1:]``). ``base_dir`` roots ``Saved_Models/`` elsewhere than
-    the working directory and ``device`` sets ``--device``'s default (both
-    for tests)."""
+    the working directory and ``device`` sets ``--device``'s default
+    (``"cpu"`` sets ``--cpu``; both for tests)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in COMMANDS:
         print(f"usage: python -m ddim_cold_torch {{{','.join(COMMANDS)}}} ...",

@@ -86,6 +86,19 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, (m + torch.log(l)).reshape(B * H, N)
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of an f32 tensor to within about an ulp on every device, for
+    the plain versions' softmax. On the CPU torch's f32 ``exp`` runs MKL's
+    vector math library, whose accuracy mode is per thread: in a process's
+    first call a worker thread has been seen to compute its chunk at ~1.5e-4
+    relative error (3 processes in 150 on a restricted CPU set; ROADMAP
+    Queue 3 item 2), so there the exp is taken in float64 and rounded back.
+    On CUDA it is ``torch.exp``."""
+    if x.device.type == "cpu":
+        return torch.exp(x.double()).to(x.dtype)
+    return torch.exp(x)
+
+
 def _softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """softmax(q·kᵀ·scale)·v with f32 logits and softmax, p rounded to v's
     dtype before P·V; q ``(B, Nq, H, D)``, k/v ``(B, Nk, H, D)``. Returns
@@ -93,7 +106,7 @@ def _softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
     ``(B, H, Nq, 1)`` f32."""
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
+    p = exp_f32(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
     o = acc / l.permute(0, 2, 1, 3)  # (B, H, N, 1) → (B, N, H, 1)
@@ -242,7 +255,7 @@ def ds_flip_bound(q, k, v, do, lse, delta, scale: float):
     qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
     lse4, delta4 = lse.reshape(B, H, N, 1), delta.reshape(B, H, N, 1)
     s = torch.einsum("bnhd,bmhd->bhnm", qf, kf)
-    p = torch.exp(s * scale - lse4)
+    p = exp_f32(s * scale - lse4)
     dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
     ds = p * (dp - delta4)
     w = (dp - delta4).abs()
@@ -284,7 +297,7 @@ def _p_ds(q, k, v, do, lse, delta, scale):
     """P rebuilt from the lse and dS = P∘(dP − δ), both (B, H, N, N) f32."""
     B, N, H, _ = q.shape
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    p = torch.exp(logits - lse.reshape(B, H, N, 1))
+    p = exp_f32(logits - lse.reshape(B, H, N, 1))
     dp = torch.einsum("bnhd,bmhd->bhnm", do.float(), v.float())
     return p, p * (dp - delta.reshape(B, H, N, 1))
 
@@ -458,8 +471,8 @@ def online_softmax_update(o, l, m, logits, v_blk):
     o ``(..., nq, D)``, l/m ``(..., nq)``, logits ``(..., nq, bkv)``, v_blk
     ``(..., bkv, D)``; leading dims broadcast."""
     m_new = torch.maximum(m, logits.amax(dim=-1))
-    p = torch.exp(logits - m_new[..., None])
-    corr = torch.exp(m - m_new)
+    p = exp_f32(logits - m_new[..., None])
+    corr = exp_f32(m - m_new)
     l = l * corr + p.sum(dim=-1)
     o = o * corr[..., None] + torch.einsum("...qk,...kd->...qd", p, v_blk)
     return o, l, m_new

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ddim_cold_torch.ops.flash_attention import online_softmax_update
+from ddim_cold_torch.ops.flash_attention import exp_f32, online_softmax_update
 from ddim_cold_torch.parallel import mesh as pmesh
 from ddim_cold_torch.utils import profiling
 
@@ -107,7 +107,7 @@ class RingAttention(torch.autograd.Function):
         dv_blk = torch.zeros_like(dk_blk)
         for s in range(size):
             logits = _logits(qf, k_blk, valid_blk, scale)
-            p = torch.exp(logits - lse[..., None])  # masked keys: exactly 0
+            p = exp_f32(logits - lse[..., None])  # masked keys: exactly 0
             vf = v_blk.transpose(1, 2)  # (B, H, nk, D)
             dv_blk = dv_blk + torch.einsum("bhqk,bhqd->bhkd", p, dof)
             dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)

@@ -16,6 +16,7 @@ ranks at once, each block a one-axis mesh of its own
 Cases: :func:`attention` (ring or Ulysses over whole arrays, forward and
 the gradients summed over the mesh), :func:`model_forward`,
 :func:`train_steps`, :func:`sample` (TINY sizes, weights passed in),
+:func:`cli_sample` (the ``sample`` command's samples on a data mesh),
 :func:`ulysses_heads_error`, and the card's :func:`probe`,
 :func:`card_train` and :func:`card_sample`.
 """
@@ -258,6 +259,17 @@ def sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, fn: str = "ddim
         return {"images": _np(out), "branch": tel.branch.tolist(),
                 "drift": _np(tel.drift)}
     return {"images": _np(out)}
+
+
+def cli_sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, acc_k: int) -> dict:
+    """The ``sample`` command's samples (``cli.sample.samples``) over the
+    mesh's data axis, and the same call without a mesh in this rank."""
+    from ddim_cold_torch.cli import sample as command
+
+    model = _model(dev, cfg, state_dict)
+    return {"mesh": _np(command.samples(model, x_init, acc_k=acc_k,
+                                        mesh=mesh_for(spec, dev))),
+            "one": _np(command.samples(model, x_init, acc_k=acc_k))}
 
 
 # ------------------------------------------------------------ card cases

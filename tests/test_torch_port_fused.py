@@ -87,6 +87,20 @@ def test_fused_trunk_attention_matches_jax(trunk_case, mode, dtype):
         assert (np.abs(got - want) <= limit).all(), np.abs(got - want).max()
 
 
+def test_plain_exp_is_accurate_on_the_cpu():
+    """The plain versions' softmax exp (``flash_attention.exp_f32``) is
+    float64's exp rounded to float32 on the CPU: within one float32 ulp
+    whatever accuracy mode MKL's vector math gives the thread that runs it
+    (a process's first torch.exp has returned ~1.5e-4 relative error on some
+    worker threads' chunks, which moved the pallas-float32 case above by
+    5.5e-5 in one full run)."""
+    x = torch.linspace(-80.0, 10.0, 100_003)
+    got = pfa.exp_f32(x)
+    assert got.dtype == torch.float32
+    want = torch.exp(x.double())
+    assert ((got.double() - want).abs() / want).max() <= 2.0**-23
+
+
 def test_fused_trunk_w8a8_block_q_sets_the_requant_rows(trunk_case):
     """Only block_q, and only in w8a8, changes the value: the context is
     requantized per block_q rows of the padded sequence."""

@@ -2,10 +2,13 @@
 
 * no module of ``ddim_cold_torch`` (nor ``chip_smoke.py``) imports jax, flax
   or the JAX package — the training slice's modules included — and none
-  imports PIL, PyYAML, TensorBoard or Triton at module level (the card's
-  machine need not have them: they are imported where they are used);
+  imports PIL, PyYAML, TensorBoard, Triton or matplotlib at module level
+  (the card's machine need not have them: they are imported where they
+  are used);
 * the entry points resolve ``device=None`` to CUDA and raise without it,
-  instead of running on the CPU; the kernel loader raises likewise;
+  instead of running on the CPU; the kernel loader raises likewise; every
+  command of ``python -m ddim_cold_torch`` that builds a model exits 3
+  without CUDA unless the CPU is asked for, writing nothing;
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and
   when the port is not beside it.
 """
@@ -106,8 +109,9 @@ def test_edit_entry_points_need_cuda_unless_told(no_cuda, name):
 
 
 def test_optional_packages_are_imported_lazily():
-    """PIL, yaml, tensorboard and triton appear only inside functions."""
-    lazy = ("PIL", "yaml", "tensorboard", "triton")
+    """PIL, yaml, tensorboard, triton and matplotlib appear only inside
+    functions."""
+    lazy = ("PIL", "yaml", "tensorboard", "triton", "matplotlib")
     bad = []
     for f in _port_files():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -472,3 +476,46 @@ def test_initialize_distributed_needs_cuda_unless_told(no_cuda, tmp_path):
                            mesh={"data": 2})
     with pytest.raises(RuntimeError, match="cuda"):
         trainer.run(cfg, str(tmp_path))
+
+
+# ------------------------------------------------------------- commands
+
+#: the commands that build a model, each with the arguments of a run that
+#: asks for nothing but the default device
+MODEL_COMMANDS = {
+    "sample": ["--init-random", "--config", "vit_tiny", "--sample_n", "1"],
+    "edit": ["--init-random", "--config", "vit_tiny", "--cold-n", "1"],
+    "fid": ["--n-samples", "1"],
+    "fid-trend": ["--n-samples", "1"],
+    "publish": [],
+    "obs-report": ["--demo"],
+}
+#: the commands that only read or write files (obs-report without --demo too)
+HOST_COMMANDS = {"attrib-report", "make-dataset", "loader-check"}
+
+
+def test_cli_slice_modules_are_checked():
+    """The import checks walk every module of ``cli/`` and the new utils."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    cli_files = {str(f.relative_to(ROOT)) for f in (ROOT / "ddim_cold_torch/cli").glob("*.py")}
+    assert len(cli_files) == 10 and cli_files <= names
+    assert {"ddim_cold_torch/utils/image.py", "ddim_cold_torch/utils/run_io.py"} <= names
+
+
+def test_every_command_is_classified():
+    from ddim_cold_torch import __main__ as cli
+
+    assert set(cli.COMMANDS) == {"train"} | set(MODEL_COMMANDS) | HOST_COMMANDS
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_COMMANDS))
+def test_model_commands_need_cuda_unless_told(no_cuda, name, tmp_path, monkeypatch, capsys):
+    """Without CUDA and without the CPU flag a command that builds a model
+    exits 3 with a message naming the flag, and writes nothing."""
+    from ddim_cold_torch import __main__ as cli
+
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([name] + MODEL_COMMANDS[name], base_dir=str(tmp_path)) == cli.NO_ACCELERATOR
+    flag = "--cpu" if name in ("fid", "fid-trend", "publish") else "--device cpu"
+    assert f"pass {flag}" in capsys.readouterr().err
+    assert list(tmp_path.iterdir()) == []

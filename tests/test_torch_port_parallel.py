@@ -41,6 +41,8 @@ same numpy inputs; JAX's parameters reach the port through
   ``ddim_sample_fewstep``, ``cold_sample`` and ``sample_from`` on ``{data:
   2}``, each against JAX's on the same mesh: atol 1e-4 (as
   tests/test_torch_port_samplers.py);
+* the ``sample`` command's samples on ``{data: 2}``: every rank's whole
+  batch bit for bit the one-process command's in that rank;
 * the loader's shards against JAX's ``ShardedLoader`` (index for index).
 """
 
@@ -170,6 +172,9 @@ def world():
             spec=spec, cfg=dict(TINY, depth=depth, use_flash=True),
             state_dict=_sd(params[4 if depth == 1 else "depth2"]), x_init=x, fn=fn,
             sp_mode=mode, **kw)))
+    ids.append(("cli", "sample"))
+    cases.append(("cli_sample", dict(spec=DP2, cfg=dict(TINY, use_flash=True),
+                                     state_dict=_sd(params[4]), x_init=x, acc_k=2)))
     results = dist_cases.run_world(cases, WORLD, device="cpu", timeout_s=DEADLINE_S)
     return {"by_id": {i: r[0] for i, r in zip(ids, results)}, "all": dict(zip(ids, results)),
             "params": params, "inputs": (x, t, batch),
@@ -355,6 +360,18 @@ def test_mesh_sampling_matches_jax(world, case):
         assert min(halves) < ADAPTIVE_TAU <= max(halves), halves
     assert got["images"].shape == (4, 16, 16, 3)
     np.testing.assert_allclose(got["images"], np.asarray(want), rtol=0, atol=1e-4)
+
+
+def test_sample_command_over_a_data_mesh(world):
+    """The ``sample`` command's samples over ``{data: 2}`` (what it runs with
+    one process per card): on every rank the whole batch, bit for bit the
+    one-process command's."""
+    ranks = world["all"][("cli", "sample")]
+    assert len(ranks) == WORLD
+    for r in ranks:
+        assert r["mesh"].shape == (4, 16, 16, 3)
+        np.testing.assert_array_equal(r["mesh"], r["one"])
+        np.testing.assert_array_equal(r["mesh"], ranks[0]["mesh"])
 
 
 # -------------------------------------------------------------- loader

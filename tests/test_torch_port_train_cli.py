@@ -82,7 +82,9 @@ def test_train_needs_cuda_unless_told(tmp_path, synthetic_image_dir, monkeypatch
     assert cli.main(["train", "exp"], base_dir=str(tmp_path)) == cli.NO_ACCELERATOR
     assert "--device cpu" in capsys.readouterr().err
     assert not (tmp_path / "Saved_Models").exists()
-    assert cli.main(["sample"]) == 2 and set(cli.COMMANDS) == {"train"}
+    assert cli.main(["no-such-command"]) == 2 and set(cli.COMMANDS) == {
+        "train", "sample", "edit", "fid", "fid-trend", "publish", "attrib-report",
+        "obs-report", "make-dataset", "loader-check"}
 
 
 def test_resume_restores_epoch_steps_loss_and_metric(cli_run, synthetic_image_dir,
