@@ -167,7 +167,17 @@ Phases, one JSON object per line:
    step of each sequence-parallel layout attributed to its ``sp/`` scopes,
    ms/step and peak memory a rank reported; then ``ddim_sample(mesh=)`` of
    the float32 model at k=20 over 8 rows within ``DIST_SAMPLE_TOL`` of the
-   one-process sampler, flash_fwd 600 a rank (none on the ring);
+   one-process sampler, flash_fwd 600 a rank (none on the ring); then
+   dist-serve in the same world: the serving engine across the two ranks
+   (``Engine(mesh={data: 2})``), every rank warming the nine configs of
+   ``DIST_SERVE`` (float, ``quant="pallas"``, pallas fused, w8a8 and w8a8
+   fused on the data mesh at k=20; Ulysses, the ring, Ulysses with the full step cache
+   and Ulysses pallas fused at ``sp_degree=2``, k=100), rank 0 serving one
+   8-row batch (3 + 5 rows) of each while rank 1 follows: the rows within
+   ``DIST_SERVE_TOL`` of the one-process twin's at the same bucket and
+   start, zero programs after warmup on both ranks, each rank's launches
+   exact, rank 1's ``follow()`` report rank 0's batches; wall, img/s and
+   p50 reported (two ranks share one card: no speed claimed);
 10i. dist-cli — ``python -m ddim_cold_torch train`` as three children at
    once on 10c's folder: a ``{data: 1, seq: 1}`` Ulysses mesh (an NCCL
    world of one: its log line, the epoch, loadable checkpoints, exact
@@ -2354,6 +2364,44 @@ DIST_TRAIN_TOL = {"loss": 5e-4, "grad_norm": 2e-3, "upd_rel": 0.4}
 #: the f32 flash kernel), under the ~1/2501 a padding key left unmasked
 #: would weigh
 DIST_SAMPLE_N, DIST_SAMPLE_TOL = 8, 6e-6
+#: dist-serve: (label, SamplerConfig kwargs, kernels one layer-forward
+#: launches on a rank). The data-mesh configs run k=20 (100 forwards); the
+#: sp configs k=100 (20 forwards), since their exchanges stage through the
+#: host under gloo (a k=20 Ulysses call took 26.87 s in dist-sample)
+DIST_SERVE_SP_K = 100
+DIST_SERVE = (
+    ("float {data: 2}", dict(k=K), {"flash_fwd": 1}),
+    ("pallas {data: 2}", dict(k=K, quant="pallas"), {"flash_fwd": 1, "dequant_mm": 4}),
+    ("pallas fused {data: 2}", dict(k=K, quant="pallas", fused=True),
+     {"fused_trunk": 1, "mlp_fused": 1}),
+    ("w8a8 {data: 2}", dict(k=K, quant="w8a8"), {"flash_fwd": 1}),
+    ("w8a8 fused {data: 2}", dict(k=K, quant="w8a8", fused=True),
+     {"fused_trunk": 1, "mlp_fused": 1}),
+    ("ulysses sp2", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2),
+     {"flash_fwd": 1}),
+    ("ring sp2", dict(k=DIST_SERVE_SP_K, sp_mode="ring", sp_degree=2), {}),
+    ("ulysses sp2 full i2", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2,
+                                 cache_interval=2, cache_mode="full"), {"flash_fwd": 1}),
+    # under sp the fused attention is gated off: qkv and proj run as
+    # dequant_mm around the Ulysses exchange, the Mlp as one kernel
+    ("ulysses sp2 pallas fused", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2,
+                                      quant="pallas", fused=True),
+     {"mlp_fused": 1, "dequant_mm": 2, "flash_fwd": 1}),
+)
+#: dist-serve: the largest |Δ| allowed against the one-process twin at the
+#: same bucket and start. Every config but w8a8 fused takes DIST_SAMPLE_TOL
+#: (~10× the ring's reading): on an H100 a sound run read 0 for each but the
+#: ring (4.8e-7), the quant ones included (each row runs the same kernels at
+#: the same shape on both sides, and w8a8 takes the whole batch's activation
+#: scale), while the w8a8 config with the scale taken per rank read 1.1e-2
+#: and followers sampling zeros in place of the broadcast batch 0.88. The
+#: fused w8a8 Mlp requantizes its hidden activation per tile of the rows a
+#: rank holds, not of the whole batch's (ROADMAP.md Queue 3 item 3): a sound
+#: run read 8.98e-3 on an H100, so that config takes ~10× it; with the scale
+#: taken per rank it reads about the same (9.57e-3: the unfused w8a8 config
+#: is the one that catches that fault)
+DIST_SERVE_TOL = {label: DIST_SAMPLE_TOL for label, _, _ in DIST_SERVE}
+DIST_SERVE_TOL["w8a8 fused {data: 2}"] = 9e-2
 #: the collectives parallel/ runs: the ring rotates with all_to_all_single
 #: (point to point is not needed), the head's outputs are all_gather'ed,
 #: the gradients all_reduce'd, rank 0's parameters broadcast
@@ -2413,14 +2461,15 @@ def phase_dist(torch, MODEL_CONFIGS):
     lr = 0.005 * 16 / 512
     trace_dir = os.path.join(TRACE_DIR, "dist")
     t0 = time.perf_counter()
-    gloo, train, sample = dc.run_world(
+    gloo, train, sample, served = dc.run_world(
         [("probe", {"ops": dc.PROBE_OPS[:-1]}),
          ("card_train", dict(layouts=DIST_LAYOUTS, model_cfg=dict(cfg, dtype=torch.bfloat16),
                              warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
                              lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir)),
          ("card_sample", dict(layouts=DIST_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N, k=K,
-                              seed=SEED + 6))],
-        2, device="cuda", backend="gloo", timeout_s=600)
+                              seed=SEED + 6)),
+         dist_serve_case(cfg)],
+        2, device="cuda", backend="gloo", timeout_s=800)
     shutil.rmtree(trace_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
     phase_dist_probe(torch, gloo)
@@ -2480,7 +2529,73 @@ def phase_dist(torch, MODEL_CONFIGS):
         check(r0["launches"] == want and r1["launches"] == want,
               f"dist-sample {name}: flash_fwd {rec['launches']}, expected {want}")
         launches[f"dist-sample {name} (a rank)"] = {"flash_fwd": r0["launches"]}
+    launches.update(phase_dist_serve(served, MODEL_CONFIGS[MODEL]))
     return launches
+
+
+def dist_serve_case(cfg: dict) -> tuple:
+    """dist-serve's rank case: the float32 200_p4 model of dist-sample."""
+    return ("card_serve", dict(model_cfg=cfg, bucket=DIST_SAMPLE_N,
+                               configs=[c for _, c, _ in DIST_SERVE], seed=SEED + 7))
+
+
+def phase_dist_serve(ranks: list, model_cfg: dict) -> dict:
+    """dist-serve's checks on the two ranks' results of ``dist_serve_case``:
+    per config the rows against the one-process twin within
+    ``DIST_SERVE_TOL``, each rank's launches exactly the config's
+    layer-forwards times its ``DIST_SERVE`` kernels, shapes, finite, in
+    [0, 1]; zero programs after warmup on both ranks; rank 1's ``follow()``
+    report rank 0's batches. Returns each config's launches on a rank."""
+    import types
+
+    from ddim_cold_torch.serve import SamplerConfig
+
+    r0, r1 = ranks
+    depth = model_cfg["depth"]
+    geometry = types.SimpleNamespace(depth=depth, total_steps=2000,
+                                     num_patches=(200 // model_cfg["patch_size"]) ** 2)
+    follow = r1["follow"]
+    emit({"phase": "dist-serve", "model": MODEL, "dtype": "float32", "bucket": DIST_SAMPLE_N,
+          "warmup_s": [r0["warmup_s"], r1["warmup_s"]], "sp_meshes": r0["sp_meshes"],
+          "programs_after_warmup": [r0["programs_after_warmup"],
+                                    r1["programs_after_warmup"]],
+          "follow": follow, "backend": "gloo (two ranks, one card)"})
+    check(r0["programs_after_warmup"] == 0 and r1["programs_after_warmup"] == 0
+          and follow["new_programs"] == 0,
+          f"dist-serve: programs after warmup {r0['programs_after_warmup']}, "
+          f"{r1['programs_after_warmup']}")
+    check(follow["batches"] == r0["stats"]["dispatches"] == len(DIST_SERVE)
+          and follow["failed_batches"] == 0 and follow["programs"] == r0["stats"]["programs"],
+          f"dist-serve: follow() {follow} against rank 0's {r0['stats']}")
+    check(r0["sp_meshes"] == {2: {"data": 1, "seq": 2}},
+          f"dist-serve: sp meshes {r0['sp_meshes']}")
+    runs = {r["config"]: r["launches"] for r in r1["runs"]}
+    out = {}
+    for i, ((label, kw, per_layer), rec) in enumerate(zip(DIST_SERVE, r0["served"])):
+        config = SamplerConfig(**kw)
+        layers = (_cache_plan(geometry, config)[2] if config.cached
+                  else depth * _forwards(config, 2000))
+        want = {name: per_layer.get(name, 0) * layers for name in rec["launches"]}
+        tol = DIST_SERVE_TOL[label]
+        emit({"phase": "dist-serve", "config": label, "sp_mode": rec["sp_mode"],
+              "k": config.k, "rows": [3, 5], "wall_s": rec["wall_s"],
+              "img_per_sec": rec["img_per_sec"], "p50_s": rec["p50_s"],
+              "speed": "two ranks share one card: no speed claimed",
+              "launches": [rec["launches"], runs.get(i)], "expected": want,
+              "max_abs_err": rec["max_abs_err"], "tol": tol})
+        check(rec["batches"] == 1 and rec["failed_tickets"] == 0
+              and rec["shapes"] == [[3, 200, 200, 3], [5, 200, 200, 3]]
+              and rec["finite"] and rec["in_unit_range"], f"dist-serve {label}: {rec}")
+        check(rec["max_abs_err"] <= tol,
+              f"dist-serve {label}: |Δ| {rec['max_abs_err']} over {tol}")
+        check(rec["launches"] == want and runs.get(i) == want,
+              f"dist-serve {label}: launches {rec['launches']}, {runs.get(i)}; "
+              f"expected {want}")
+        if config.sp_degree > 1:
+            mode = "ring" if config.sp_mode == "ring" else "ulysses"
+            check(rec["sp_mode"] == mode, f"dist-serve {label}: sp_mode {rec['sp_mode']}")
+        out[f"dist-serve {label} (a rank)"] = rec["launches"]
+    return out
 
 
 def _dist_yaml(data_root: str, **keys) -> str:
@@ -3837,7 +3952,7 @@ def main() -> int:
     run_work, run_dir = phase_train_run(torch, data_root, tier)
     new_paths.update(phase_cli(torch, fa, quant, run_dir, data_root, profile_report))
     shutil.rmtree(run_work, ignore_errors=True)
-    dist_launches = phase_dist(torch, MODEL_CONFIGS)
+    dist_launches = phase_dist(torch, MODEL_CONFIGS)  # dist-serve's too
     dist_launches.update(phase_dist_cli(torch, data_root))
     shutil.rmtree(data_root, ignore_errors=True)
     phase_probe_xla(torch, fa)
@@ -3901,6 +4016,8 @@ def main() -> int:
         by_path.update({f"serve-cache {label}": n[name]
                         for label, n in cache_launches.items() if n[name]})
         by_path.update({label: n[name] for label, n in new_paths.items() if n[name]})
+        by_path.update({label: n[name] for label, n in dist_launches.items()
+                        if n.get(name)})
         lines.append({
             "name": name, "route": "cuda", "source": f"ddim_cold_torch/csrc/{name}.cu",
             "replaces": line, "launches": sum(by_path.values()),

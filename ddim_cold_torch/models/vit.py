@@ -73,12 +73,17 @@ einsum by ``use_flash``, :mod:`~ddim_cold_torch.parallel.ulysses`). The head's
 outputs are gathered, so every rank of the group returns the whole image.
 The JAX rules hold: attention dropout in a training forward raises (the
 sequence-parallel routes never hold the weights), and the fused attention
-is never taken. Per-token dropout masks are drawn for all N+1 tokens and
-sliced, and stochastic depth draws one bit a sample, so every rank of a
-group, sharing one generator stream, drops what a one-process forward from
-that stream drops. ``batch_axis`` is checked and recorded: each process
-already holds its own rows. The token cache, the probe and ``quant`` under
-sequence parallelism raise.
+is never taken (JAX vit.py:240-243): a ``quant`` model runs its qkv and
+proj as int8 linears around the sequence-parallel attention, and with
+``fused`` its Mlp still runs as one kernel, per token. A w8a8 model's
+per-tensor activation scale is the whole sequence's: ``max|x|`` is taken
+over the block's real tokens and reduced over the group
+(``quant.act_scale_over``). Per-token dropout masks are drawn for all N+1
+tokens and sliced, and stochastic depth draws one bit a sample, so every
+rank of a group, sharing one generator stream, drops what a one-process
+forward from that stream drops. ``batch_axis`` is checked and recorded:
+each process already holds its own rows. The token cache and the probe
+under sequence parallelism raise.
 
 The forward records autograd history like any module; the samplers and the
 serving engine run it under ``torch.inference_mode()``. The step-cache
@@ -92,6 +97,7 @@ raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -487,10 +493,6 @@ class DiffusionViT(nn.Module):
         refuse_later(later, _LATER_CTOR, "DiffusionViT")
         shard = _seq_shard(seq_mesh, seq_axis, batch_axis, sp_mode,
                            (img_size[0] // patch_size) * (img_size[1] // patch_size) + 1)
-        if shard is not None and quant is not None:
-            raise NotImplementedError(
-                "quant under sequence parallelism is not ported yet: ROADMAP.md "
-                "Queue 1 item 14 (item 7's leftover)")
         if not (use_flash in (True, False) or use_flash == "xla"):
             raise ValueError(f"use_flash must be True (the flash kernels), False "
                              f"(dense) or 'xla' (blockwise), got {use_flash!r}")
@@ -567,13 +569,15 @@ class DiffusionViT(nn.Module):
         """The kernel libraries (``csrc/<name>.cu``) an inference forward of
         this model launches on CUDA."""
         libs = set()
-        if self.fused and self.quant in ("pallas", "w8a8"):
+        # under sequence parallelism the fused attention is gated off
+        fused_attn = self.fused and self.quant in ("pallas", "w8a8") and self.shard is None
+        if fused_attn:
             libs.add("fused_trunk")
         elif self.use_flash is True and (self.shard is None or self.shard.mode == "ulysses"):
             libs.add("flash_fwd")
         if self.fused and self.quant != "xla":
             libs.add("mlp_fused")
-        if self.quant == "pallas" and not self.fused:
+        if self.quant == "pallas" and not fused_attn:
             libs.add("dequant_mm")
         return tuple(sorted(libs))
 
@@ -699,19 +703,24 @@ class DiffusionViT(nn.Module):
         tokens_in, tokens_mid = tokens, None
         probe = (None if return_attention_layer is None
                  else return_attention_layer % self.depth)
-        for i, blk in enumerate(self.blocks):
-            if lo <= i < hi:
-                if i == lo:
-                    tokens = tokens + block_delta.to(self.dtype)
-                continue
-            if i == probe:
-                return blk(tokens, generator, return_attention=True)
-            if self.remat and torch.is_grad_enabled():
-                tokens = _remat_block(blk, tokens, generator)
-            else:
-                tokens = blk(tokens, generator)
-            if capture_split is not None and i == capture_split - 1:
-                tokens_mid = tokens
+        # a w8a8 block's activation scale is the whole sequence's
+        scope = (quant_ops.act_scale_over(shard.group, n_valid=shard.n_real)
+                 if shard is not None and self.quant == "w8a8"
+                 else contextlib.nullcontext())
+        with scope:
+            for i, blk in enumerate(self.blocks):
+                if lo <= i < hi:
+                    if i == lo:
+                        tokens = tokens + block_delta.to(self.dtype)
+                    continue
+                if i == probe:
+                    return blk(tokens, generator, return_attention=True)
+                if self.remat and torch.is_grad_enabled():
+                    tokens = _remat_block(blk, tokens, generator)
+                else:
+                    tokens = blk(tokens, generator)
+                if capture_split is not None and i == capture_split - 1:
+                    tokens_mid = tokens
 
         cache = None
         if token_cache is not None:
@@ -815,7 +824,8 @@ def sp_clone(model: DiffusionViT, mesh, *, sp_mode: str = "ulysses",
              seq_axis: str = "seq", batch_axis: str = "data",
              head_axis=None) -> DiffusionViT:
     """The sequence-parallel variant of ``model`` over ``mesh``, carrying
-    ``model``'s weights (JAX ``sp_clone``, vit.py:986). ``sp_mode="ulysses"``
+    ``model``'s weights (JAX ``sp_clone``, vit.py:986); a quant or fused
+    model keeps its ``quant`` and ``fused``. ``sp_mode="ulysses"``
     needs the head count divisible by the seq axis and falls back to the ring
     otherwise, which has no head constraint. A ``batch_axis`` the mesh lacks
     is dropped; ``head_axis`` (tensor parallelism) is ROADMAP.md Queue 1

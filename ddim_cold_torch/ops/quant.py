@@ -13,7 +13,10 @@ keeps ``(in, out)``; a JAX code matrix is this one transposed.
 * :func:`quantize_weight`, :func:`dequantize_weight`, :func:`quantize_act`:
   the codec, equal to JAX's bit for bit (``torch.round`` rounds half to
   even like ``jnp.round``; an all-zero channel gets scale 1.0; codes are
-  clipped to [−127, 127]).
+  clipped to [−127, 127]). The activation scale is per tensor, and a tensor
+  split over ranks is still one tensor: inside :func:`act_scale_over` its
+  ``max|x|`` is reduced over the ranks that hold the other parts, as JAX's
+  ``jnp.max`` over a global array is.
 * :func:`quantize_state_dict` (``quantize_params``), :func:`is_quantized`,
   :func:`param_bytes`, :func:`calibrate` over a model's state_dict.
 * :func:`dequant_matmul`, ``x @ (w_int8·scale)ᵀ + bias`` with f32
@@ -38,11 +41,13 @@ launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -100,11 +105,60 @@ def dequantize_weight(w_int8: torch.Tensor, scale: torch.Tensor,
     return (w_int8.float() * scale[:, None]).to(dtype)
 
 
+class _ActScope(threading.local):
+    """The ranks that hold the rest of this thread's activations: process
+    groups to reduce ``max|x|`` over, and how many leading token rows of a
+    ``(B, n, …)`` activation are real (None: all of them)."""
+
+    groups: tuple = ()
+    n_valid: Optional[int] = None
+
+
+_ACT_SCOPE = _ActScope()
+
+
+@contextlib.contextmanager
+def act_scale_over(*groups, n_valid: Optional[int] = None):
+    """Make every :func:`quantize_act` in this block (this thread) take the
+    per-tensor scale of the whole tensor when its rows or tokens are split
+    over ranks: ``max|x|`` is reduced with ``MAX`` over each process group
+    of ``groups`` (None entries and groups already in force are skipped, so
+    scopes nest). ``n_valid``: only the first ``n_valid`` rows of dim 1 of a
+    ``(B, n, …)`` activation are real tokens (a sequence block's padding is
+    not part of the tensor). The samplers enter it with a mesh's ``data``
+    group and a sequence-parallel model with its ``seq`` group."""
+    scope = _ACT_SCOPE
+    saved = scope.groups, scope.n_valid
+    scope.groups = saved[0] + tuple(g for g in dict.fromkeys(groups)
+                                    if g is not None and g not in saved[0])
+    if n_valid is not None:
+        scope.n_valid = int(n_valid)
+    try:
+        yield
+    finally:
+        scope.groups, scope.n_valid = saved
+
+
+def act_amax(xf: torch.Tensor) -> torch.Tensor:
+    """``max|x|`` of an f32 activation as a 0-d tensor: over its real tokens
+    and across the ranks of :func:`act_scale_over` (0 for no element)."""
+    scope = _ACT_SCOPE
+    if scope.n_valid is not None and xf.dim() >= 3:
+        xf = xf[:, :scope.n_valid]
+    amax = xf.abs().amax() if xf.numel() else xf.new_zeros(())
+    for group in scope.groups:
+        amax = amax.reshape(1).clone()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        amax = amax.reshape(())
+    return amax
+
+
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 codes of an activation: one scale
-    ``max|x| / 127`` (1.0 for an all-zero tensor) as a 0-d f32 tensor."""
+    ``max|x| / 127`` (1.0 for an all-zero tensor) as a 0-d f32 tensor,
+    ``max|x|`` taken over the whole tensor (:func:`act_amax`)."""
     xf = x.float()
-    amax = xf.abs().amax()
+    amax = act_amax(xf)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     return torch.clip(torch.round(xf / scale), -127.0, 127.0).to(torch.int8), scale
 
@@ -449,7 +503,8 @@ def mlp_fused_reference(x, w1, b1, w2, b2=None, *, scale1=None, scale2=None,
     M = x2.shape[0]
     b1f = b1.float()
     if mode == "w8a8":
-        xi, xs = quantize_act(x2)
+        xi, xs = quantize_act(x)
+        xi = xi.reshape(-1, K)
         bm = tiling.legal_block(block_m, M, torch.int8)
         Mp = tiling.round_up(M, bm)
         xi = F.pad(xi, (0, 0, 0, Mp - M))
@@ -569,7 +624,8 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         if max(K, Hf) > EXACT_F32_K:
             raise ValueError(f"the w8a8 kernel sums int8 products in f32: K and "
                              f"hidden must be <= {EXACT_F32_K}")
-        x2, xs = quantize_act(x2)
+        x2, xs = quantize_act(x)
+        x2 = x2.reshape(-1, K)
         s1 = (scale1.float() * xs).contiguous()
         bm = tiling.legal_block(block_m, M, torch.int8)
         if bm % MLP_BLOCK_UNIT or bm > 8 * MLP_BLOCK_UNIT:

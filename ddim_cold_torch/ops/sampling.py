@@ -30,14 +30,16 @@ and the per-step noise of η > 0 from a second stream,
 
 ``mesh`` (a ``DeviceMesh`` of :mod:`ddim_cold_torch.parallel`, one process
 per device; ``ddim_sample``, ``ddim_sample_fewstep``, ``sample_from`` and
-``cold_sample`` take it, as JAX's do): every rank takes the whole start (the
+``cold_sample`` take it, as JAX's do, and ``ddim_inpaint``, which the
+serving engine runs on a mesh): every rank takes the whole start (the
 same ``generator`` seed or ``x_init`` on each), runs its rows of the mesh's
 ``data`` axis (a model from ``models.sp_clone`` on the mesh also splits its
 tokens over ``seq``), and returns the whole batch, gathered, as JAX returns
 a global array. The noise of η > 0 is drawn for the whole batch and sliced,
 so no row depends on the mesh; the step cache holds the rank's rows
-(``step_cache.shard_cache``) and the adaptive gate's max spans the data
-ranks.
+(``step_cache.shard_cache``), and the adaptive gate's max and a w8a8
+model's per-tensor activation scale (``quant.act_scale_over``) span the
+data ranks.
 
 ``cache_interval`` > 1 runs a sampler through the step cache
 (:mod:`ddim_cold_torch.ops.step_cache`): each step's model evaluation takes
@@ -59,7 +61,7 @@ import numpy as np
 import torch
 
 from ddim_cold_torch.obs.device import StepTelemetry
-from ddim_cold_torch.ops import schedule, step_cache
+from ddim_cold_torch.ops import quant, schedule, step_cache
 from ddim_cold_torch.parallel import mesh as pmesh
 from ddim_cold_torch.utils import profiling
 from ddim_cold_torch.utils.platform import resolve_device
@@ -153,11 +155,12 @@ def _noise(x: torch.Tensor, generator, rows: Optional[_Rows]) -> torch.Tensor:
     return _take(z, rows)
 
 
-def _x0(model, x: torch.Tensor, t: int) -> torch.Tensor:
+def _x0(model, x: torch.Tensor, t: int, group=None) -> torch.Tensor:
     """One model evaluation at level ``t``, clamped to [−1, 1]. Every
     uncached sampler's model call comes through here, under the
-    ``sampler/model`` scope (the JAX samplers' ``profiling.scope`` sites)."""
-    with profiling.scope("sampler/model"):
+    ``sampler/model`` scope (the JAX samplers' ``profiling.scope`` sites);
+    ``group``: the data ranks holding the batch's other rows."""
+    with profiling.scope("sampler/model"), quant.act_scale_over(group):
         x0 = model(x, _t_vec(x, t))
     return x0.clamp(-1.0, 1.0)
 
@@ -188,7 +191,7 @@ class _Cached:
     def __call__(self, x: torch.Tensor, t: int, i: int) -> torch.Tensor:
         # every cached sampler's model call, under ``sampler/cached_step``
         # (JAX's cached steps, which nest no ``sampler/model`` inside)
-        with profiling.scope("sampler/cached_step"):
+        with profiling.scope("sampler/cached_step"), quant.act_scale_over(self.group):
             args = (self.model, x, _t_vec(x, t), self.spec.branches[i], self.cache,
                     self.spec, self.group)
             if self.taken is None:
@@ -206,11 +209,13 @@ class _Cached:
                              drift=torch.stack(self.drift))
 
 
-def _evaluator(model, cached: Optional[_Cached]):
-    """The x̂0 of step i: the plain clamped forward, or the cached one."""
+def _evaluator(model, cached: Optional[_Cached], rows: Optional[_Rows] = None):
+    """The x̂0 of step i: the plain clamped forward, or the cached one
+    (``rows``: x is these rows of the batch)."""
     if cached is not None:
         return cached
-    return lambda x, t, i: _x0(model, x, t)
+    group = rows and rows.group
+    return lambda x, t, i: _x0(model, x, t, group)
 
 
 def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
@@ -223,7 +228,7 @@ def _ddim_loop(model, x: torch.Tensor, coeffs, noise: Optional[torch.Generator],
     batch (the noise is the batch's, sliced). Returns the last state, the
     last x̂0 (None for an empty schedule) and, with ``sequence``, the
     frames: the start, then every x̂0."""
-    evaluate = _evaluator(model, cached)
+    evaluate = _evaluator(model, cached, rows)
     frames = [x] if sequence else None
     x0 = None
     for i, (t, c1, c2, cz) in enumerate(zip(coeffs.t_seq.tolist(), coeffs.cx.tolist(),
@@ -362,7 +367,7 @@ def ddim_inpaint(model, x_init, known, mask, *, k: int = 10,
                  return_sequence: bool = False, device=None,
                  cache_interval: int = 1, cache_mode: str = "delta",
                  cache_threshold: Optional[float] = None,
-                 cache_tokens: Optional[int] = None) -> torch.Tensor:
+                 cache_tokens: Optional[int] = None, mesh=None) -> torch.Tensor:
     """DDIM from ``x_init`` with the known pixels re-projected after every
     clamp (JAX ``_ddim_inpaint_impl``): ``known`` is the reference image in
     [−1, 1], ``mask`` an (n, H, W, 1) batch of {0, 1} (1 = known). The
@@ -372,25 +377,30 @@ def ddim_inpaint(model, x_init, known, mask, *, k: int = 10,
     (mask 0) passes through it untouched. ``return_sequence`` returns the
     start and every projected x̂0. ``eta`` > 0 draws its per-step noise from
     ``generator`` itself (the caller's noise stream). The ``cache_*``
-    options are :func:`ddim_sample`'s."""
+    options and ``mesh`` are :func:`ddim_sample`'s (the known image and the
+    mask are split over the data axis with x, as the JAX engine places
+    them)."""
     dev = _sampling_device(model, device)
     if eta and generator is None:
         raise ValueError("eta > 0 draws per-step noise — pass generator")
     x = as_batch(x_init, dev)
-    known = torch.as_tensor(known).to(device=dev, dtype=torch.float32)
-    mask = torch.as_tensor(mask).to(device=dev, dtype=torch.float32)
+    rows = _data_rows(mesh, x.shape[0])
+    known = _take(torch.as_tensor(known).to(device=dev, dtype=torch.float32), rows)
+    mask = _take(torch.as_tensor(mask).to(device=dev, dtype=torch.float32), rows)
+    dim = 1 if return_sequence else 0
     if step_cache.enabled(cache_interval):
-        return _ddim_cached_impl(
-            model, x, generator, _make_cache(model, x, cache_mode), k=k,
-            t_start=t_start, eta=eta, cache_interval=cache_interval,
+        out = _ddim_cached_impl(
+            model, _take(x, rows), generator, _make_cache(model, x, cache_mode, mesh),
+            k=k, t_start=t_start, eta=eta, cache_interval=cache_interval,
             cache_mode=cache_mode, cache_threshold=cache_threshold,
             cache_tokens=cache_tokens, sequence=return_sequence, known=known,
-            mask=mask)[0]
+            mask=mask, rows=rows)[0]
+        return _gather(out, rows, dim)
     coeffs = schedule.ddim_coefficients(model.total_steps, k, t_start, eta)
-    _, x0, frames = _ddim_loop(model, x, coeffs, generator, return_sequence,
-                               known, mask)
+    _, x0, frames = _ddim_loop(model, _take(x, rows), coeffs, generator, return_sequence,
+                               known, mask, rows=rows)
     _check_schedule(x0, model, k, t_start)
-    return _images(x0, frames)
+    return _gather(_images(x0, frames), rows, dim)
 
 
 @torch.inference_mode()
@@ -414,7 +424,7 @@ def _fewstep_cached_impl(model, x_init: torch.Tensor, noise: Optional[torch.Gene
     x, _, frames = _ddim_loop(model, x_init, head, noise, sequence, cached=cached,
                               rows=rows)
     # the jump to the clean image
-    x0 = _evaluator(model, cached)(x, int(coeffs.t_seq[-1]), steps - 1)
+    x0 = _evaluator(model, cached, rows)(x, int(coeffs.t_seq[-1]), steps - 1)
     if frames is not None:
         frames.append(x0)
     return _images(x0, frames), (cached.cache if cached else None)
@@ -472,7 +482,7 @@ def _cold_cached_impl(model, x_init: torch.Tensor, cache0, *, levels: int,
         cached = _Cached(model, _cached_spec(model, levels, cache_interval, cache_mode,
                                              cache_threshold, cache_tokens), cache0,
                          group=rows and rows.group)
-    evaluate = _evaluator(model, cached)
+    evaluate = _evaluator(model, cached, rows)
     x = x_init
     frames = [x] if return_sequence else None
     for i, t in enumerate(schedule.cold_time_sequence(levels).tolist()):

@@ -14,6 +14,7 @@ from ddim_cold_torch.parallel.mesh import (
     shard_batch,
     shard_params,
     shard_train_state,
+    submesh,
 )
 from ddim_cold_torch.parallel.ring_attention import ring_attention, ring_self_attention
 from ddim_cold_torch.parallel.ulysses import (
@@ -32,6 +33,7 @@ __all__ = [
     "shard_batch",
     "shard_params",
     "shard_train_state",
+    "submesh",
     "ulysses_attention",
     "ulysses_self_attention",
 ]

@@ -23,14 +23,22 @@ both NCCL and gloo carry, with no branch on the backend:
   same function of the result needs: its own slice of the gradient;
 * :func:`all_reduce_flat` — a list of tensors summed across a group in a
   few flat buffers (:func:`all_reduce_mesh`: across a whole mesh).
+
+The serving engine across ranks adds :func:`submesh` (a named mesh over a
+given list of ranks, such as a sequence-parallel ``(data, seq)`` mesh over
+an engine's ranks), :func:`mesh_ranks`, :func:`local_group`, :func:`wait`
+(a collective's wait bounded per call), and the dispatch broadcast: a fixed
+int64 header (:data:`HEADER`, :func:`broadcast_header`) and then the
+batch's tensors (:func:`broadcast_tensors`), with no pickling.
 """
 
 from __future__ import annotations
 
+import datetime
 import math
 import os
 import socket
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -217,10 +225,17 @@ def over_sequence(fn, xs: tuple, mesh, axis: str, batch_axis: Optional[str] = No
     return out
 
 
-def _broadcast_flat(tensors: list, src: int = 0, group=None) -> None:
-    for bucket in _buckets(tensors):
+def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0, group=None) -> None:
+    """``tensors`` of global rank ``src`` copied into every other rank's
+    tensors of the same shapes and dtypes, through a few flat buffers
+    (``src`` keeps its own untouched): parameters from rank 0, or a
+    dispatch's inputs after its header, allocated from it."""
+    mine = dist.get_rank() == src
+    for bucket in _buckets(list(tensors)):
         flat = torch._utils._flatten_dense_tensors([t.detach() for t in bucket])
         dist.broadcast(flat, src=src, group=group)
+        if mine:
+            continue
         with torch.no_grad():
             for t, v in zip(bucket, torch._utils._unflatten_dense_tensors(flat, bucket)):
                 t.copy_(v)
@@ -231,7 +246,7 @@ def shard_params(model) -> None:
     world; the mesh replicates them on every axis this slice runs). JAX's
     ``shard_params`` with no specs."""
     if dist.is_initialized():
-        _broadcast_flat(list(model.parameters()) + list(model.buffers()))
+        broadcast_tensors(list(model.parameters()) + list(model.buffers()))
 
 
 def shard_train_state(state):
@@ -241,7 +256,7 @@ def shard_train_state(state):
     if dist.is_initialized():
         shard_params(state.model)
         extra = list(state.ema_params) if state.ema_params is not None else []
-        _broadcast_flat(list(state.mu) + list(state.nu) + extra)
+        broadcast_tensors(list(state.mu) + list(state.nu) + extra)
     return state
 
 
@@ -364,6 +379,78 @@ def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _GatherCat.apply(x, group, dim)
+
+
+def mesh_ranks(mesh) -> list:
+    """The global ranks of ``mesh``, in its order (the first axis
+    outermost)."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def local_group(ranks: Sequence[int], timeout: Optional[float] = None,
+                backend: Optional[str] = None):
+    """A process group over ``ranks`` (this rank among them) that only they
+    create: every rank of ``ranks`` calls this at once, in the same order
+    as their other such calls. ``timeout`` in seconds bounds each of its
+    collectives (None: the backend's default)."""
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    return dist.new_group(list(ranks), backend=backend, use_local_synchronization=True,
+                          **kw)
+
+
+def submesh(ranks: Sequence[int], shape: dict, device=None,
+            timeout: Optional[float] = None):
+    """A ``DeviceMesh`` with named axes over ``ranks`` (global ranks, this
+    one among them), laid out in that order with the first axis outermost:
+    ``submesh(r, {"data": 2, "seq": 2})`` puts each seq group on two
+    consecutive ranks of ``r``, JAX's data-major ``make_mesh`` over a
+    device list. Every rank of ``ranks`` calls it at once; the others need
+    not (it works over a whole world and over a block of one). Each axis
+    group bounds its collectives by ``timeout`` seconds (None: the
+    backend's default)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sizes = tuple(int(v) for v in shape.values())
+    if math.prod(sizes) != len(ranks):
+        raise ValueError(f"mesh shape {dict(shape)} does not match {len(ranks)} ranks")
+    grid = torch.tensor([int(r) for r in ranks], dtype=torch.int64).reshape(sizes)
+    hits = (grid == dist.get_rank()).nonzero()
+    if not len(hits):
+        raise ValueError(f"rank {dist.get_rank()} is not one of {list(ranks)}")
+    coord = [int(c) for c in hits[0]]
+    groups = []
+    for dim in range(len(sizes)):
+        index = list(coord)
+        index[dim] = slice(None)
+        groups.append(local_group(grid[tuple(index)].tolist(), timeout))
+    return DeviceMesh.from_group(groups, resolve_device(device).type, mesh=grid,
+                                 mesh_dim_names=tuple(shape))
+
+
+def wait(work, timeout: Optional[float] = None) -> None:
+    """Wait for an ``async_op`` collective's ``work``, at most ``timeout``
+    seconds (None: its group's own bound); raises past it."""
+    if timeout is None:
+        work.wait()
+    else:
+        work.wait(datetime.timedelta(seconds=timeout))
+
+
+#: the dispatch header's int64 fields, in order
+HEADER = ("op", "config", "bucket", "rows", "attempt")
+
+
+def broadcast_header(values: Optional[Sequence[int]], src: int, group,
+                     timeout: Optional[float] = None) -> list:
+    """The dispatch header, ``values`` (one int per :data:`HEADER` field) on
+    global rank ``src``, None elsewhere, broadcast over ``group`` as one
+    int64 CPU tensor; returns the fields on every rank. ``timeout`` in
+    seconds bounds the wait (None: the group's own bound)."""
+    buf = torch.zeros(len(HEADER), dtype=torch.int64)
+    if values is not None:
+        buf.copy_(torch.tensor([int(v) for v in values], dtype=torch.int64))
+    wait(dist.broadcast(buf, src=src, group=group, async_op=True), timeout)
+    return [int(v) for v in buf.tolist()]
 
 
 def is_rank0() -> bool:

@@ -40,14 +40,15 @@ as the result.
 
 **Variants.** The engine holds one float model, and optionally a second,
 distilled float weight set (``student_params``, a state_dict of the same
-architecture) that ``SamplerConfig(student=True)`` selects. A config runs on
-a variant keyed by ``(quant, fused, student)`` (JAX ``_model_for`` and
+architecture) that ``SamplerConfig(student=True)`` selects. A config runs
+on a variant keyed by ``(quant, fused, student)`` (JAX ``_model_for`` and
 ``_params_for``), built once: a :meth:`DiffusionViT.clone` loaded with
 ``assign=True``, so it shares the weight set's tensors rather than copying
-them. The quant variants of a weight set share one int8 state, built from
-its float weights on the first quant config that needs it;
-``stats["param_bytes"]`` and ``stats["param_bytes_quant"]`` report the
-teacher's two states. Configs never coalesce across variants.
+them (an sp config's variant is that one ``sp_clone``d, below). The quant
+variants of a weight set share one int8 state, built from its float weights
+on the first quant config that needs it; ``stats["param_bytes"]`` and
+``stats["param_bytes_quant"]`` report the teacher's two states. Configs
+never coalesce across variants.
 
 **Step cache** (``SamplerConfig(cache_interval > 1)``, every sampler and
 task): a cached program takes its cache as an argument and hands it back
@@ -99,17 +100,52 @@ scope) and, with ``obs.spans`` tracing on, each request's stages are spans
 of its trace. With faults disarmed and tracing off, a dispatch launches
 exactly the kernels of its program and nothing else.
 
-Sequence-parallel configs (``sp_degree > 1``) raise
-``NotImplementedError`` at ``submit`` naming their ROADMAP.md item: the
-JAX engine builds a ``(data, seq)`` mesh over one controller's devices,
-and in the port, one process per device, an engine spanning ranks is a
-design of its own (item 14).
+**Across ranks** (``Engine(..., mesh=mesh)``, JAX's ``mesh=``): every
+batch is split over the mesh's ``data`` axis, so every bucket must divide
+it. A config with ``sp_degree > 1`` runs on a ``(data, seq)`` mesh of its
+degree over the engine's ranks (``parallel.submesh``, data-major as JAX's
+``_sp_mesh``) with the model ``sp_clone``d onto it from its quant/fused
+variant (JAX ``_model_for``): Ulysses falls back to the ring when the
+heads do not divide the degree, the fused attention is gated off, the fused
+Mlp still runs per token. ``sp_degree=1`` is the default config, and with
+``mesh=None`` the engine is the one-process path above by identity.
+
+JAX drives every device from one controller; the port runs one process per
+device, so an engine across ranks is a rank protocol. Every rank builds the
+engine on the same mesh (rank 0's weights are broadcast) and calls
+:func:`~ddim_cold_torch.serve.warmup.warmup` with the same configs
+(:meth:`Engine.warm`): the warmed configs are the table the other ranks can
+run, every rank checks that all hold the same table (a digest compared with
+an all_reduce), and every rank builds every sp degree's mesh at once. Rank 0
+alone holds the queue, plans, assembles (its assembly thread issues no
+collective), fires every fault site and owns the tickets. For each run of a
+program (warmup's, each dispatch attempt, each bisected half) it broadcasts
+a fixed int64 header (op, config index, bucket, rows, attempt) and then the
+batch's inputs (``parallel.mesh.broadcast_header``, ``broadcast_tensors``);
+every rank readies the program (builds it, takes its spare cache), one
+all_reduce of a status flag makes the ranks agree that all are ready, and
+every rank runs the program on its rows and tokens through the ``mesh=``
+samplers; rank 0 reads the gathered rows. The other ranks sit in
+:meth:`Engine.follow`, which returns its report when rank 0 drains (a stop
+header). A rank that fails to ready a program fails the batch on rank 0 as
+:class:`~.errors.RankFailedError` (no rank ran it), and retry and bisection
+go on as on one process. A program that raises once it runs leaves the
+other ranks inside its collectives, so nothing can run after it: it fails
+the open tickets with :class:`~.errors.RankLostError`, an
+:class:`~.errors.EngineStalledError`, and closes the engine, as does a
+collective of the protocol that fails (a rank died) or outlives
+``stall_s``, which bounds every group the engine creates (rank 0 waits in
+a raising follower's collective that long). The groups are the engine's
+own: it leaves the caller's mesh as it found it. The token cache under
+``sp_degree > 1`` raises ``NotImplementedError`` at ``submit`` (ROADMAP.md
+Queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import threading
 import time
 import traceback
@@ -118,16 +154,20 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ddim_cold_torch.data.loader import background_map
+from ddim_cold_torch.models.vit import sp_clone
 from ddim_cold_torch.obs import device as obs_device
 from ddim_cold_torch.obs import metrics, spans
 from ddim_cold_torch.ops import _build, quant, sampling, step_cache
+from ddim_cold_torch.parallel import mesh as pmesh
 from ddim_cold_torch.serve.batching import (BatchPlan, Request, SamplerConfig,
                                             Ticket, plan_batches)
 from ddim_cold_torch.serve.errors import (RETRYABLE_EXCEPTIONS, DeadlineExceeded,
                                           EngineClosedError, EngineStalledError,
-                                          QueueFullError, RequestFailedError,
+                                          QueueFullError, RankFailedError,
+                                          RankLostError, RequestFailedError,
                                           RequestQuarantinedError)
 from ddim_cold_torch.utils import faults
 from ddim_cold_torch.utils.platform import resolve_device, watchdog_stall_s
@@ -144,6 +184,17 @@ _EXTRA_INPUTS = {"inpaint": ("known", "mask")}
 _NO_STUDENT = ("config.student=True but this engine holds no student tree — "
                "pass student_params= at construction (the distilled "
                "weight set's state_dict)")
+
+#: the rank protocol's header ops: run a program, end warmup (its status),
+#: stop following
+_RUN, _WARM_END, _WARM_FAILED, _STOP = 1, 2, 3, 4
+#: a rank's readiness for a program: ready, or raised
+_OK, _FAILED = 0, 1
+#: the header group's timeout: a follower waits for rank 0's next header as
+#: long as rank 0 lives (its closed socket ends the wait at once). Gloo
+#: takes no "never" (0 is 0 ms, and a deadline past ~292 years overflows),
+#: so a century stands for it
+_FOREVER_S = 100 * 365 * 24 * 3600.0
 
 
 def _detach(exc: BaseException) -> BaseException:
@@ -177,12 +228,13 @@ def _need_seed(seed) -> int:
 
 
 def refuse_unported(config: SamplerConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the port so far."""
-    if config.sp_degree > 1:
+    """Raise ``NotImplementedError`` for a config outside the port so far:
+    the token cache under sequence parallelism."""
+    if config.sp_degree > 1 and config.cached and config.cache_mode == "token":
         raise NotImplementedError(
-            f"SamplerConfig(sp_degree={config.sp_degree}) is not ported yet: "
-            "ROADMAP.md Queue 1 item 14 (a multi-rank engine: sequence "
-            "parallelism across processes)")
+            f"SamplerConfig(cache_mode='token', sp_degree={config.sp_degree}) is "
+            "not ported yet: ROADMAP.md Queue 1 item 14 (the token cache under "
+            "sequence parallelism)")
 
 
 class Engine:
@@ -214,14 +266,31 @@ class Engine:
     failure messages and :meth:`health`.
     ``submit`` is thread-safe; ``run`` drains the queue; ``drain`` closes
     admission and fails what is still queued.
+
+    ``mesh`` (a ``DeviceMesh`` of :mod:`ddim_cold_torch.parallel`) serves
+    across its ranks, one process per device (module docstring): every rank
+    builds the engine and calls ``warmup`` with the same configs, then rank
+    0 (the mesh's first rank) submits and runs while the others call
+    :meth:`follow`::
+
+        mesh = parallel.make_mesh({"data": world})
+        eng = Engine(model, buckets=(8,), mesh=mesh)
+        warmup(eng, configs)
+        if eng.is_leader:
+            t = eng.submit(seed=0, n=3, k=20); eng.run(); eng.drain()
+        else:
+            eng.follow()          # returns when rank 0 drains
+
+    The engine runs on groups of its own over the mesh's ranks, each
+    bounded by ``stall_s``; ``mesh``'s own groups are not used or changed.
     """
 
     def __init__(self, model, params=None, buckets: Sequence[int] = (8, 32, 128),
-                 *, student_params=None, prefetch_depth: int = 2, inflight: int = 2,
-                 max_queue: Optional[int] = None, max_retries: int = 2,
-                 retry_base_s: float = 0.05, retry_cap_s: float = 1.0,
-                 stall_s: Optional[float] = None, replica_id: str = "",
-                 device=None):
+                 *, mesh=None, student_params=None, prefetch_depth: int = 2,
+                 inflight: int = 2, max_queue: Optional[int] = None,
+                 max_retries: int = 2, retry_base_s: float = 0.05,
+                 retry_cap_s: float = 1.0, stall_s: Optional[float] = None,
+                 replica_id: str = "", device=None):
         self.device = resolve_device(device)
         have = model.device
         if have.type != self.device.type or (
@@ -248,6 +317,13 @@ class Engine:
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive, got {buckets!r}")
+        shards = pmesh.data_axis_size(mesh)
+        bad = [b for b in self.buckets if b % shards]
+        if bad:
+            raise ValueError(
+                f"buckets {bad} do not divide the mesh data axis ({shards}); "
+                "sharded placement needs even divisibility")
+        self.mesh = mesh
         self.prefetch_depth = int(prefetch_depth)
         self.inflight = max(1, int(inflight))
         if max_queue is not None and max_queue < 1:
@@ -258,13 +334,16 @@ class Engine:
         self.retry_cap_s = float(retry_cap_s)
         self.stall_s = (watchdog_stall_s("DDIM_COLD_SERVE_STALL_S", 900.0, self.device)
                         if stall_s is None else float(stall_s))
+        self._init_ranks(mesh)
         # the assembly thread's stream (CUDA only; on the CPU it computes)
         self._side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                       else None)
         self._programs: dict = {}
         self._spare_caches: dict = {}  # (bucket, kind) -> a step cache
-        self._variants: dict = {}     # (quant, fused, student) -> model variant
+        # (quant, fused, student, sp_mode, sp_degree) -> model variant
+        self._variants: dict = {}
         self._qstates: dict = {}      # student -> that weight set's int8 state
+        self._sp_meshes: dict = {}    # sp_degree -> (data, seq) DeviceMesh
         self._lock = threading.Lock()
         # draws each request's start once, whichever thread assembles first
         self._init_lock = threading.Lock()
@@ -315,6 +394,264 @@ class Engine:
             "stalls": m.value("engine.stalls"),
         }
 
+    # ----------------------------------------------------------------- ranks
+
+    def _init_ranks(self, mesh) -> None:
+        """The engine's ranks and its protocol's groups. With no mesh, or a
+        mesh of one rank, the engine is one process. Otherwise every rank
+        builds the engine's own groups over the mesh's ranks: a copy of the
+        mesh (``parallel.submesh``: the programs' collectives), a group of
+        the mesh's backend for the batches' inputs, both bounded by
+        ``stall_s``, and a gloo group for the headers and the status
+        flags (CPU tensors; a follower waits on it as long as rank 0 is
+        idle, and rank 0 bounds each of its own waits by ``stall_s``);
+        then every rank takes rank 0's weights (teacher and student)."""
+        self._ranks = pmesh.mesh_ranks(mesh) if mesh is not None else None
+        self._multi = mesh is not None and len(self._ranks) > 1
+        self._leader = self._ranks[0] if mesh is not None else 0
+        #: True on the rank that submits, runs and drains: the mesh's first
+        self.is_leader = not self._multi or dist.get_rank() == self._leader
+        self._bound = self.stall_s if self.stall_s > 0 else None
+        self._lost: Optional[RankLostError] = None
+        self._stopped = False
+        self._table: tuple = ()   # the warmed configs: a header's config index
+        self._index: dict = {}
+        self._follow_errors: list = []
+        if not self._multi:
+            return
+        shape = {axis: int(size) for axis, size in zip(mesh.mesh_dim_names,
+                                                       mesh.mesh.shape)}
+        self.mesh = pmesh.submesh(self._ranks, shape, device=self.device,
+                                  timeout=self._bound)
+        self._ctrl = pmesh.local_group(self._ranks, _FOREVER_S, backend="gloo")
+        self._wire = pmesh.local_group(self._ranks, self._bound)
+        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        if self.student_params is not None:
+            tensors += [self.student_params[k] for k in sorted(self.student_params)]
+        pmesh.broadcast_tensors(tensors, self._leader, self._wire)
+
+    def _need_leader(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what} runs on rank {self._leader}, which leads this engine; "
+                f"rank {dist.get_rank()} calls follow()")
+
+    def _ctrl_max(self, values: list) -> list:
+        """``values`` reduced with MAX over the engine's ranks on the header
+        group, each rank's wait bounded by ``stall_s``."""
+        both = torch.tensor(values, dtype=torch.int64)
+        try:
+            pmesh.wait(dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self._ctrl,
+                                       async_op=True), self._bound)
+        except Exception as exc:  # noqa: BLE001 — a lost rank, typed below
+            raise self._lose(exc) from exc
+        return [int(v) for v in both.tolist()]
+
+    def _set_table(self, configs: Sequence[SamplerConfig]) -> None:
+        """Add ``configs`` to the configs every rank can run: a header names
+        its config by its place here. Across ranks, every rank must hold the
+        same table and buckets: a digest of them is compared with an
+        all_reduce, and a mismatch raises on every rank."""
+        table = tuple(dict.fromkeys(self._table + tuple(configs)))
+        if self._multi:
+            digest = int.from_bytes(hashlib.sha256(
+                repr((table, self.buckets)).encode()).digest()[:7], "big")
+            high, low = self._ctrl_max([digest, -digest])
+            if high != digest or -low != digest:
+                raise ValueError(
+                    f"the ranks of {self._rname} warm different configs or "
+                    "buckets: every rank builds the engine with the same "
+                    "buckets and calls warmup with the same configs")
+        self._table = table
+        self._index = {c: i for i, c in enumerate(table)}
+
+    def _lost_error(self, exc: BaseException) -> RankLostError:
+        reason = (str(exc).splitlines() or [""])[0][:200]
+        return RankLostError(
+            f"{self._rname}: its ranks can no longer run in step "
+            f"({type(exc).__name__}: {reason}) — in-flight and queued tickets "
+            "failed and the engine is closed; results fetched before stand")
+
+    def _lose(self, exc: BaseException) -> RankLostError:
+        """A collective of the protocol failed or outlived ``stall_s``, or a
+        program raised while running (the other ranks wait in its
+        collectives): the ranks can no longer run in step. Fail every open
+        ticket (once), close the engine, and return the error to raise."""
+        if self._lost is None:
+            self._lost = self._lost_error(exc)
+            self._stalled = True
+            self.metrics.inc("engine.stalls", key="rank_lost")
+            with self._lock:
+                self._closed = True
+                open_reqs = list(self._open.values())
+            for req in open_reqs:
+                self._fail_request(req, self._lost_error(exc))
+        return self._lost_error(exc)
+
+    def _header(self, op: int, index: int = 0, bucket: int = 0, rows: int = 0,
+                attempt: int = 0) -> None:
+        """Rank 0: broadcast one header to the engine's ranks."""
+        try:
+            pmesh.broadcast_header((op, index, bucket, rows, attempt), self._leader,
+                                   self._ctrl, timeout=self._bound)
+        except Exception as exc:  # noqa: BLE001 — a lost rank, typed below
+            raise self._lose(exc) from exc
+
+    def _run_lockstep(self, config: SamplerConfig, bucket: int, xs: tuple,
+                      rows: int, attempt: int):
+        """Rank 0's run of a program across ranks: the header and the inputs
+        out, every rank's readiness agreed, the program on every rank."""
+        if self._lost is not None:
+            raise RankLostError(str(self._lost))
+        index = self._index.get(config)
+        if index is None:
+            raise ValueError(
+                f"{config} was not warmed on every rank of {self._rname}: an "
+                "engine across ranks runs the configs warmup gave every rank")
+        self._header(_RUN, index, bucket, rows, attempt)
+        try:
+            pmesh.broadcast_tensors(xs, self._leader, self._wire)
+        except Exception as exc:  # noqa: BLE001 — a lost rank, typed below
+            raise self._lose(exc) from exc
+        err, ready = None, None
+        try:
+            ready = self._prepare(config, bucket)
+        except Exception as exc:  # noqa: BLE001 — agreed on, then re-raised
+            err = exc
+        (failed,) = self._ctrl_max([_FAILED if err is not None else _OK])
+        if failed != _OK:
+            self._unprepare(config, bucket, ready)
+            if err is not None:
+                raise err
+            raise RankFailedError(
+                f"another rank of {self._rname} could not ready its part of a "
+                f"batch (bucket {bucket}, config {index}, attempt {attempt}), "
+                "so no rank ran it; that rank's follow() report holds the "
+                "exception")
+        try:
+            return self._launch(config, bucket, xs, *ready)
+        except Exception as exc:  # noqa: BLE001 — the ranks are out of step
+            raise self._lose(exc) from exc
+
+    def follow(self) -> dict:
+        """The loop of every rank but rank 0 of an engine across ranks:
+        receive each header and its inputs, ready the program, agree on
+        every rank's readiness, run it on this rank's rows and tokens;
+        return when rank 0 drains. Returns ``{"rank", "batches",
+        "failed_batches", "programs", "new_programs", "errors"}``: the
+        programs run and those no rank ran because a rank could not ready
+        its part, the programs this rank has built and how many of them
+        this call built (0 after a warmup that covered every config and
+        bucket), and the last exceptions of this rank's own failures.
+        Raises :class:`RankLostError` when rank 0 stops answering, or when
+        this rank's part of a running program raises (the other ranks wait
+        in its collectives until ``stall_s``)."""
+        if not self._multi or self.is_leader:
+            raise RuntimeError("follow() runs on the ranks after the first of an "
+                               "engine across ranks (Engine(mesh=...))")
+        return self._follow(_STOP)
+
+    def _follow(self, until: int) -> dict:
+        rank = dist.get_rank()
+        p0 = self.metrics.value("engine.programs")
+        report = {"rank": rank, "batches": 0, "failed_batches": 0}
+        while True:
+            try:
+                op, index, bucket, _, _ = pmesh.broadcast_header(
+                    None, self._leader, self._ctrl)
+            except Exception as exc:  # noqa: BLE001 — rank 0 is gone
+                raise self._lose(exc) from exc
+            if op == until or op == _STOP:
+                break
+            if op == _WARM_FAILED:
+                raise RuntimeError(f"warmup failed on rank {self._leader} of "
+                                   f"{self._rname}; its exception says why")
+            if op != _RUN:
+                raise RuntimeError(f"rank {rank}: header op {op}, expected a run")
+            config = self._table[index]
+            xs = self.zero_inputs(config, bucket)
+            try:
+                pmesh.broadcast_tensors(xs, self._leader, self._wire)
+            except Exception as exc:  # noqa: BLE001 — rank 0 is gone
+                raise self._lose(exc) from exc
+            err, ready = None, None
+            try:
+                ready = self._prepare(config, bucket)
+            except Exception as exc:  # noqa: BLE001 — agreed on, reported
+                err = exc
+                self._follow_errors = (self._follow_errors + [repr(exc)])[-4:]
+            (failed,) = self._ctrl_max([_FAILED if err is not None else _OK])
+            if failed != _OK:
+                self._unprepare(config, bucket, ready)
+                report["failed_batches"] += 1
+                continue
+            try:
+                self._launch(config, bucket, xs, *ready)
+            except Exception as exc:  # noqa: BLE001 — the ranks are out of step
+                self._follow_errors = (self._follow_errors + [repr(exc)])[-4:]
+                raise self._lose(exc) from exc
+            report["batches"] += 1
+        programs = self.metrics.value("engine.programs")
+        report.update(programs=programs, new_programs=programs - p0,
+                      errors=list(self._follow_errors))
+        return report
+
+    def warm(self, configs: Sequence[SamplerConfig], buckets: Sequence[int], *,
+             tolerate_errors: bool = False) -> dict:
+        """Warmup's work (:func:`~ddim_cold_torch.serve.warmup.warmup`):
+        make ``configs`` the table the engine's ranks run, build every sp
+        degree's mesh (on every rank at once, across ranks), load the kernel
+        libraries, then run every (config, bucket) program once on a zero
+        batch, each spare cache allocated first: across ranks rank 0 runs
+        them as it serves a batch while the other ranks follow, and a
+        failure on rank 0 fails warmup on every rank. Returns ``{"errors":
+        {(config, bucket): exception}, "sp_meshes": ...}``; with
+        ``tolerate_errors`` a failing program is recorded and skipped."""
+        self._set_table(configs)
+        ranks = len(self._devices())
+        for degree in sorted({c.sp_degree for c in configs if c.sp_degree > 1}):
+            if ranks % degree == 0:  # else each of its programs raises, below
+                self._sp_mesh(degree)
+        errors: dict = {}
+        if not self.is_leader:
+            self.load_kernels(configs)
+            self._follow(_WARM_END)
+            return {"errors": errors, "sp_meshes": self.sp_meshes}
+        ok = False
+        try:
+            self.load_kernels(configs)
+            for config in configs:
+                for bucket in buckets:
+                    try:
+                        self.prewarm_cache(config, bucket)
+                        self.run_program(config, bucket, self.zero_inputs(config, bucket))
+                    except Exception as exc:  # noqa: BLE001 — optionally isolated
+                        if not tolerate_errors or isinstance(exc, RankLostError):
+                            raise
+                        errors[(config, bucket)] = exc
+            ok = True
+        finally:
+            if self._multi and self._lost is None:
+                self._header(_WARM_END if ok else _WARM_FAILED)
+        return {"errors": errors, "sp_meshes": self.sp_meshes}
+
+    @property
+    def sp_meshes(self) -> dict:
+        """The sequence-parallel meshes built: ``{degree: {axis: size}}``."""
+        return {d: dict(zip(m.mesh_dim_names, m.mesh.shape))
+                for d, m in self._sp_meshes.items()}
+
+    def _send_stop(self) -> None:
+        """Rank 0: release the followers (once), when nothing runs."""
+        with self._lock:
+            if not self._multi or self._stopped or self._lost is not None:
+                return
+            self._stopped = True
+        try:
+            self._header(_STOP)
+        except RankLostError:
+            pass  # the followers are gone: nothing left to release
+
     # ---------------------------------------------------------------- submit
 
     def submit(self, seed: Optional[int] = None, n: int = 1, *,
@@ -350,9 +687,14 @@ class Engine:
             config = SamplerConfig(**kwargs)
         elif kwargs:
             raise ValueError(f"pass config OR keyword options, not both: {kwargs}")
+        self._need_leader("submit")
         refuse_unported(config)
         if config.student and self.student_params is None:
             raise ValueError(_NO_STUDENT)
+        if self._multi and config not in self._index:
+            raise ValueError(
+                f"{config} was not warmed: an engine across ranks serves the "
+                "configs warmup gave every rank")
         task = config.task
         if mask is not None and task != "inpaint":
             raise ValueError(
@@ -474,9 +816,9 @@ class Engine:
                 self.metrics.gauge("engine.param_bytes_quant", quant.param_bytes(qstate))
         return qstate
 
-    def _model_for(self, config: SamplerConfig):
-        """The model a config's programs run: the float model, or its
-        ``(quant, fused, student)`` variant, built once."""
+    def _variant(self, config: SamplerConfig):
+        """The float model, or its ``(quant, fused, student)`` variant, built
+        once."""
         key = (config.quant, config.fused, config.student)
         if key == (None, False, False):
             return self.model
@@ -488,15 +830,69 @@ class Engine:
             self._variants[key] = model
         return model
 
+    def _model_for(self, config: SamplerConfig):
+        """The model a config's programs run (JAX ``_model_for``): its
+        ``(quant, fused, student)`` variant, and for ``sp_degree > 1`` that
+        variant ``sp_clone``d onto the degree's ``(data, seq)`` mesh, built
+        once per ``(quant, fused, student, sp_mode, sp_degree)``."""
+        base = self._variant(config)
+        if config.sp_degree == 1:
+            return base
+        key = (config.quant, config.fused, config.student, config.sp_mode,
+               config.sp_degree)
+        model = self._variants.get(key)
+        if model is None:
+            # sp_clone is the one resolver of Ulysses' fallback to the ring
+            model = self._variants[key] = sp_clone(
+                base, self._sp_mesh(config.sp_degree), sp_mode=config.sp_mode)
+        return model
+
+    # -------------------------------------------------- sequence parallelism
+
+    def _devices(self) -> list:
+        """The ranks sp meshes are built over: the engine mesh's, else this
+        process alone."""
+        if self._ranks is not None:
+            return list(self._ranks)
+        return [dist.get_rank() if dist.is_initialized() else 0]
+
+    def _sp_mesh(self, degree: int):
+        """The ``(data, seq)`` mesh of one ``sp_degree``, built once over the
+        engine's ranks (data-major: each seq group is consecutive ranks), by
+        every rank at once (:meth:`warm` builds them all before any program
+        runs, so no rank builds one while another waits in a collective)."""
+        mesh = self._sp_meshes.get(degree)
+        if mesh is None:
+            ranks = self._devices()
+            if len(ranks) % degree:
+                raise ValueError(
+                    f"sp_degree={degree} does not divide the {len(ranks)} "
+                    "rank(s) of this engine — the (data, seq) mesh needs a "
+                    "whole data axis; pick an sp_degree from the divisors of "
+                    "the rank count (an engine spans the ranks of its mesh=)")
+            mesh = self._sp_meshes[degree] = pmesh.submesh(
+                ranks, {"data": len(ranks) // degree, "seq": degree},
+                device=self.device, timeout=self._bound)
+        return mesh
+
+    def _mesh_for(self, config: SamplerConfig):
+        """The mesh a config's programs run on: the engine's own for the
+        degree-1 configs (None: one process), else the degree's."""
+        if config.sp_degree == 1:
+            return self.mesh
+        return self._sp_mesh(config.sp_degree)
+
     def _build_program(self, config: SamplerConfig):
         """The sampler call of a config, taking the batch's inputs in
         assembly order: x, then the task's extras, then (cached configs)
-        the cache, which it returns beside the images."""
+        the cache, which it returns beside the images. On a mesh every rank
+        runs its rows (and tokens) and gets the whole batch back."""
         model = self._model_for(config)
+        mesh = self._mesh_for(config)
         seq = config.preview_every > 0
         if config.cached:
-            return self._build_cached_program(model, config, seq)
-        kw = dict(return_sequence=seq, device=self.device)
+            return self._build_cached_program(model, config, seq, mesh)
+        kw = dict(return_sequence=seq, device=self.device, mesh=mesh)
         if config.task == "inpaint":
             return functools.partial(sampling.ddim_inpaint, model, k=config.k,
                                      t_start=config.t_start, **kw)
@@ -512,27 +908,42 @@ class Engine:
         return lambda x: fn(x_init=x)
 
     @staticmethod
-    def _build_cached_program(model, config: SamplerConfig, seq: bool):
+    def _build_cached_program(model, config: SamplerConfig, seq: bool, mesh):
         """The cached loop of a config (JAX ``_ddim_cached_spec``,
         ``_ddim_cached_tel_spec``, ``_fewstep_cached_spec``,
         ``_cold_cached_spec``, ``_inpaint_cached_spec``), taking the batch's
-        inputs and its cache."""
+        inputs and its cache (this rank's rows of it on a mesh)."""
         kw = dict(cache_interval=config.cache_interval, cache_mode=config.cache_mode,
                   cache_threshold=config.cache_threshold,
                   cache_tokens=config.cache_tokens or None)
         ddim = dict(k=config.k, t_start=config.t_start, eta=0.0, **kw)
         if config.task == "inpaint":
-            return lambda x, known, mask, cache: sampling._ddim_cached_impl(
-                model, x, None, cache, sequence=seq, known=known, mask=mask, **ddim)
-        if config.sampler == "cold":
-            return lambda x, cache: sampling._cold_cached_impl(
-                model, x, cache, levels=config.levels, return_sequence=seq, **kw)
-        if config.steps > 0:
-            return lambda x, cache: sampling._fewstep_cached_impl(
-                model, x, None, cache, steps=config.steps, t_start=config.t_start,
-                eta=0.0, sequence=seq, **kw)
-        return lambda x, cache: sampling._ddim_cached_impl(
-            model, x, None, cache, sequence=seq, telemetry=config.telemetry, **ddim)
+            def impl(x, known, mask, cache, rows):
+                return sampling._ddim_cached_impl(
+                    model, x, None, cache, sequence=seq, known=known, mask=mask,
+                    rows=rows, **ddim)
+        elif config.sampler == "cold":
+            def impl(x, cache, rows):
+                return sampling._cold_cached_impl(
+                    model, x, cache, levels=config.levels, return_sequence=seq,
+                    rows=rows, **kw)
+        elif config.steps > 0:
+            def impl(x, cache, rows):
+                return sampling._fewstep_cached_impl(
+                    model, x, None, cache, steps=config.steps, t_start=config.t_start,
+                    eta=0.0, sequence=seq, rows=rows, **kw)
+        else:
+            def impl(x, cache, rows):
+                return sampling._ddim_cached_impl(
+                    model, x, None, cache, sequence=seq, telemetry=config.telemetry,
+                    rows=rows, **ddim)
+
+        def program(*args):
+            *inputs, cache = args
+            rows = sampling._data_rows(mesh, inputs[0].shape[0])
+            out = impl(*(sampling._take(t, rows) for t in inputs), cache, rows)
+            return (sampling._gather(out[0], rows, 1 if seq else 0),) + tuple(out[1:])
+        return program
 
     def ensure_program(self, config: SamplerConfig, bucket: int):
         """The program for one (config, bucket) pair — the only place one is
@@ -542,7 +953,17 @@ class Engine:
         prog = self._programs.get(key)
         if prog is None:
             refuse_unported(config)
-            faults.fire("serve.compile", tag=f"bucket:{bucket}|")
+            if config.sp_degree > 1:
+                shards = pmesh.data_axis_size(self._sp_mesh(config.sp_degree))
+                if bucket % shards:
+                    raise ValueError(
+                        f"bucket {bucket} does not tile the sp config's data "
+                        f"axis ({shards} = {len(self._devices())} ranks / "
+                        f"sp_degree {config.sp_degree}); pick buckets that it "
+                        "divides, or a larger sp_degree (which shrinks the "
+                        "data axis)")
+            if self.is_leader:  # rank 0 alone fires the fault sites
+                faults.fire("serve.compile", tag=f"bucket:{bucket}|")
             self._mark(f"build bucket={bucket}", budget_s=4 * self.stall_s)
             prog = self._programs[key] = self._build_program(config)
             self.metrics.inc("engine.programs")
@@ -557,35 +978,65 @@ class Engine:
             return (x,)
         return x, torch.zeros_like(x), torch.zeros((bucket, H, W, 1), device=self.device)
 
-    def run_program(self, config: SamplerConfig, bucket: int, xs: tuple):
-        """Run the (config, bucket) program on a batch's inputs. A cached
-        program takes the spare cache of its (bucket, kind) and gives it
-        back. Returns the images, or ``(images, StepTelemetry)`` for a
-        telemetry config."""
+    def run_program(self, config: SamplerConfig, bucket: int, xs: tuple, *,
+                    rows: Optional[int] = None, attempt: int = 0):
+        """Run the (config, bucket) program on a batch's inputs (``rows`` of
+        them real; ``attempt`` counts retries). A cached program takes the
+        spare cache of its (bucket, kind) and gives it back. Returns the
+        images, or ``(images, StepTelemetry)`` for a telemetry config.
+        Across ranks (rank 0 only), every rank runs it in lockstep."""
+        if not self._multi:
+            return self._launch(config, bucket, xs, *self._prepare(config, bucket))
+        self._need_leader("run_program")
+        return self._run_lockstep(config, bucket, tuple(xs),
+                                  bucket if rows is None else rows, attempt)
+
+    def _prepare(self, config: SamplerConfig, bucket: int) -> tuple:
+        """A program made ready to run, with no collective: ``(program,
+        cache)``, the cache its (bucket, kind)'s spare (None uncached)."""
         prog = self.ensure_program(config, bucket)
-        if not config.cached:
+        return prog, (self._take_cache(bucket, config) if config.cached else None)
+
+    def _unprepare(self, config: SamplerConfig, bucket: int, ready) -> None:
+        """Give back what :meth:`_prepare` took for a program that will not
+        run (its spare cache)."""
+        if ready is not None and ready[1] is not None:
+            self._recycle_cache(bucket, config, ready[1])
+
+    def _launch(self, config: SamplerConfig, bucket: int, xs: tuple, prog, cache):
+        """Run a ready program; a cached one hands its cache back to the
+        pool."""
+        if cache is None:
             return prog(*xs)
-        out = prog(*xs, self._take_cache(bucket, config))
+        out = prog(*xs, cache)
         self._recycle_cache(bucket, config, out[1])
         return (out[0], out[2]) if config.telemetry else out[0]
 
     # ---------------------------------------------------------- cache pool
 
     @staticmethod
-    def _cache_kind(config: SamplerConfig) -> str:
+    def _cache_kind(config: SamplerConfig):
         """Pool key suffix: delta, full and token share the two-tensor
         (B, N+1, E) cache ("pair"; every schedule refreshes at step 0
-        before it reads one), adaptive adds ``x_ref`` and has its own."""
-        return "adaptive" if config.cache_mode == "adaptive" else "pair"
+        before it reads one), adaptive adds ``x_ref`` and has its own; an sp
+        config's cache holds its token block on its own mesh, keyed
+        ``(kind, sp_mode, sp_degree)`` (JAX ``_cache_kind``)."""
+        kind = "adaptive" if config.cache_mode == "adaptive" else "pair"
+        if config.sp_degree > 1:
+            return (kind, config.sp_mode, config.sp_degree)
+        return kind
 
     def _take_cache(self, bucket: int, config: SamplerConfig):
         cache = self._spare_caches.pop((bucket, self._cache_kind(config)), None)
         if cache is None:
+            # this rank's rows and token block of the whole batch's cache
+            model = self._model_for(config)
             H, W = self.model.img_size
             cache = step_cache.init_cache(
-                bucket, self.model.num_patches + 1, self.model.embed_dim,
-                self.model.dtype, mode=config.cache_mode,
-                img_shape=(H, W, self.model.in_chans), device=self.device)
+                bucket // pmesh.data_axis_size(self._mesh_for(config)),
+                model.local_tokens, model.embed_dim, model.dtype,
+                mode=config.cache_mode, img_shape=(H, W, self.model.in_chans),
+                device=self.device)
         return cache
 
     def _recycle_cache(self, bucket: int, config: SamplerConfig, cache) -> None:
@@ -721,12 +1172,13 @@ class Engine:
 
     # ------------------------------------------------------------- dispatch
 
-    def _dispatch(self, plan: BatchPlan, xs: tuple):
+    def _dispatch(self, plan: BatchPlan, xs: tuple, attempt: int = 0):
         self.ensure_program(plan.config, plan.bucket)
         self._mark(f"dispatch bucket={plan.bucket}")
         t0 = spans.now() if spans.enabled() else 0.0
         faults.fire("serve.dispatch", tag=self._tag(plan))
-        out = self.run_program(plan.config, plan.bucket, xs)
+        out = self.run_program(plan.config, plan.bucket, xs, rows=plan.rows,
+                               attempt=attempt)
         self.metrics.inc("engine.dispatches")
         self.metrics.inc("engine.rows", plan.rows)
         self.metrics.inc("engine.padded_rows", plan.padded_rows)
@@ -742,7 +1194,7 @@ class Engine:
         delay = self.retry_base_s
         for attempt in range(self.max_retries + 1):
             try:
-                return self._dispatch(plan, xs)
+                return self._dispatch(plan, xs, attempt)
             except RETRYABLE_EXCEPTIONS:
                 if attempt == self.max_retries:
                     raise
@@ -787,6 +1239,8 @@ class Engine:
             return []
         try:
             return [(plan, self._dispatch_retry(plan, xs))]
+        except RankLostError:
+            return []  # the engine is closed and its tickets failed
         except Exception as exc:  # noqa: BLE001 — isolate, bisect, quarantine
             self.metrics.inc("engine.failed_batches", key="dispatch")
             reqs = list({id(r): r for r, *_ in plan.entries}.values())
@@ -931,7 +1385,12 @@ class Engine:
         requests while their batches are on the device would race delivery.
         The run itself fails what it finds queued once it sees the engine
         closed. Both sides take the queue by swapping ``_pending`` under
-        ``_lock``, so each request is failed or served exactly once."""
+        ``_lock``, so each request is failed or served exactly once.
+
+        Across ranks, the drained engine releases the other ranks' ``follow``
+        (a stop header), from here when idle, else from the run when it
+        ends."""
+        self._need_leader("drain")
         with self._lock:
             self._closed = True
         idle = self._idle.wait(timeout)
@@ -942,6 +1401,7 @@ class Engine:
                 self._fail_request(req, EngineClosedError(
                     f"{self._rname} drained with request {req.rid} "
                     "still queued"))
+            self._send_stop()
         report = self.health()
         report["idle"] = idle
         return report
@@ -994,6 +1454,7 @@ class Engine:
         → fetch, pipelined. Returns this drain's report (throughput over
         real rows: padding is excluded from img/s). Failures never escape a
         batch; with ``stall_s > 0`` a soft watchdog guards the drain."""
+        self._need_leader("run")
         t0 = time.perf_counter()
         s0 = self.stats
         counters0 = {k: s0[k] for k in ("programs", "retries", "failed_tickets",
@@ -1056,6 +1517,8 @@ class Engine:
             if wd is not None:
                 wd.done()
                 self._wd = None
+            if self._closed:  # a drain timed out while this run was going
+                self._send_stop()
             self._idle.set()
         wall = time.perf_counter() - t0
         s1 = self.stats

@@ -54,6 +54,18 @@ class EngineStalledError(ServeError):
     fail with this; batches fetched before the stall keep their results."""
 
 
+class RankFailedError(RequestFailedError):
+    """Another rank of a multi-rank engine failed its part of this batch's
+    program. The ranks agree on every program's outcome, so rank 0 fails
+    the batch as it would fail a program of its own: bisection follows."""
+
+
+class RankLostError(EngineStalledError):
+    """A rank of a multi-rank engine stopped answering (its process died, or
+    a collective timed out): the engine fails its in-flight and queued
+    tickets, closes, and refuses new work; results fetched before stand."""
+
+
 class RemoteRPCError(ServeError):
     """The replica RPC protocol itself broke (malformed frame, unknown
     method, version skew) — a bug surface, not a load surface; never

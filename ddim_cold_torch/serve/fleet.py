@@ -217,8 +217,15 @@ def local_factory(model, params=None,
     weight footprint for N replicas); ``params``, an optional float
     state_dict, is loaded into it once, here, before any replica serves.
     ``engine_kwargs`` go to every Engine (``buckets``, ``device``,
-    ``max_queue``, ...). JAX's ``mesh=`` has no counterpart: the engine
-    refuses ``sp_degree`` until ROADMAP.md Queue 1 item 14."""
+    ``max_queue``, ...), but not JAX's ``mesh=``: a replica across ranks
+    needs a process group of its own per replica, and every rank of it
+    following its leader, which the fleet does not build yet (ROADMAP.md
+    Queue 1 item 14, the fleet across ranks). A replica's engine serves
+    ``sp_degree`` only on a mesh, so it refuses sp configs too."""
+    if "mesh" in engine_kwargs:
+        raise NotImplementedError(
+            "local_factory(mesh=...) is not ported yet: ROADMAP.md Queue 1 "
+            "item 14 (the fleet across ranks: a process group per replica)")
     if params is not None:
         model.load_state_dict(params, strict=True)
 

@@ -82,8 +82,7 @@ class StubEngine:
     :func:`stub_rows` plus an optional ``delay_s`` sleep (how the deadline
     and mid-batch-kill tests make requests take time). Warmup's programs
     are dict inserts, so the zero-program accounting paths run unchanged.
-    It offers the port engine's warmup surface (``load_kernels``,
-    ``prewarm_cache``, ``run_program``, ``zero_inputs``, ``device``).
+    It offers the port engine's warmup surface (``warm``, ``device``).
     """
 
     def __init__(self, replica_id: str = "stub", *, delay_s: float = 0.0,
@@ -108,17 +107,11 @@ class StubEngine:
             self._programs[key] = ("stub", key)
             self.stats["programs"] += 1
 
-    def load_kernels(self, configs=()) -> None:
-        pass
-
-    def prewarm_cache(self, config, bucket) -> None:
-        pass
-
-    def zero_inputs(self, config, bucket) -> tuple:
-        return ()
-
-    def run_program(self, config, bucket, xs) -> None:
-        self.ensure_program(config, bucket)
+    def warm(self, configs, buckets, *, tolerate_errors: bool = False) -> dict:
+        for config in configs:
+            for bucket in buckets:
+                self.ensure_program(config, bucket)
+        return {"errors": {}, "sp_meshes": {}}
 
     # ---- serving surface -------------------------------------------------
     def submit(self, seed=None, n=1, *, x_init=None, mask=None,

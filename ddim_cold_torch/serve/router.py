@@ -39,8 +39,8 @@ router makes the replica the blast radius instead of the fleet:
 
 * **Sharding-blind** — the router never inspects a config beyond its
   task: every replica warms the SAME ``(SamplerConfig, bucket)`` set, so
-  sequence-parallel configs (refused by the port's engine until ROADMAP.md
-  Queue 1 item 14) will route like any other.
+  sequence-parallel configs (served by an engine across ranks; replicas
+  across ranks are ROADMAP.md Queue 1 item 14) will route like any other.
 
 Requests carry a ``seed`` (or an ``x_init``): the port's engine draws each
 start from ``torch.Generator(device).manual_seed(seed)``, and a seed is

@@ -6,7 +6,8 @@ libraries, building a config's model variant (the int8 state of a quant
 config), the first launch of each kernel, and the first use of each
 (config, bucket) batch shape (cuBLAS handles and workspaces, the caching
 allocator's blocks), and, for a cached config, allocating its spare step
-cache. ``warmup`` does all of it up front: it loads the kernels, then for
+cache. ``warmup`` does all of it up front (``Engine.warm``): it loads the
+kernels, then for
 every (config, bucket) allocates the spare cache (``Engine.prewarm_cache``)
 and builds and runs the program once on a zero batch. The libraries loaded
 are those of every warmed config's variant
@@ -14,6 +15,16 @@ are those of every warmed config's variant
 the warmed pairs; serving a warmed set adds none (the tests pin it). A
 program that fails to warm raises, or with ``tolerate_errors=True`` is
 recorded and skipped, as in the JAX package.
+
+Sequence-parallel configs (``sp_degree > 1``) warm like any other: every
+degree's ``(data, seq)`` mesh is built first, and the report's
+``sp_meshes`` lists them (``{degree: {axis: size}}``, JAX's key).
+
+An engine across ranks (``Engine(mesh=...)``) warms on every rank in
+lockstep: every rank calls ``warmup`` with the same configs, and
+:meth:`Engine.warm` does the ranks' part (the table of configs they can
+run, the meshes built on every rank at once, rank 0 running each program as
+it serves a batch while the others follow).
 
 JAX's ``persistent_cache``, ``cache_dir`` and ``dedup`` have no
 counterpart: there is no compiler cache to wire (the kernel libraries are
@@ -46,17 +57,7 @@ def warmup(engine, configs: Sequence[SamplerConfig],
     ``warmup.*`` under the engine's metrics scope."""
     buckets = tuple(buckets) if buckets is not None else engine.buckets
     before = engine.stats["programs"]
-    errors: dict = {}
-    engine.load_kernels(configs)
-    for config in configs:
-        for bucket in buckets:
-            try:
-                engine.prewarm_cache(config, bucket)
-                engine.run_program(config, bucket, engine.zero_inputs(config, bucket))
-            except Exception as exc:  # noqa: BLE001 — optionally isolated
-                if not tolerate_errors:
-                    raise
-                errors[(config, bucket)] = exc
+    warmed = engine.warm(configs, buckets, tolerate_errors=tolerate_errors)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     programs = engine.stats["programs"]
@@ -67,5 +68,6 @@ def warmup(engine, configs: Sequence[SamplerConfig],
         "programs": programs,
         "buckets": buckets,
         "configs": len(set(configs)),
-        "errors": errors,
+        "sp_meshes": warmed["sp_meshes"],
+        "errors": warmed["errors"],
     }

@@ -17,8 +17,10 @@ Cases: :func:`attention` (ring or Ulysses over whole arrays, forward and
 the gradients summed over the mesh), :func:`model_forward`,
 :func:`train_steps`, :func:`sample` (TINY sizes, weights passed in),
 :func:`cli_sample` (the ``sample`` command's samples on a data mesh),
-:func:`ulysses_heads_error`, and the card's :func:`probe`,
-:func:`card_train` and :func:`card_sample`.
+:func:`ulysses_heads_error`, the serving engine across ranks
+(:func:`serve_engine`, :func:`serve_follower_fault`, :func:`bucket_error`),
+and the card's :func:`probe`, :func:`card_train`, :func:`card_sample` and
+:func:`card_serve`.
 """
 
 from __future__ import annotations
@@ -43,14 +45,17 @@ class RankError(RuntimeError):
 
 
 def run_world(cases: list, world: int, *, device: str = "cpu",
-              backend: Optional[str] = None, timeout_s: float = 100.0) -> list:
+              backend: Optional[str] = None, timeout_s: float = 100.0,
+              may_exit: tuple = ()) -> list:
     """Run ``cases`` (``[(name, kwargs), ...]``) in a spawned world of
     ``world`` ranks on ``device`` (each CUDA rank on ``cuda:0``: one card
     serves every rank) and return ``results[case][rank]``. ``backend``
     None is ``initialize_distributed``'s default. Each rank runs one intra-op
     thread (the ranks share the host's cores). A rank that raises or dies,
     or a world still running after ``timeout_s``, raises :class:`RankError`
-    with what the ranks left; every process is gone when this returns."""
+    with what the ranks left; every process is gone when this returns. The
+    ranks of ``may_exit`` may leave early with exit code 0 (their results of
+    the cases they did not finish are None)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="dist_cases_") as out:
@@ -82,9 +87,11 @@ def run_world(cases: list, world: int, *, device: str = "cpu",
                 results.append(got.get("results"))
             else:
                 results.append(None)
-        if failure or errors or any(r is None for r in results):
+        if failure or errors or any(r is None for i, r in enumerate(results)
+                                    if i not in may_exit):
             raise RankError("; ".join([failure or ""] + errors))
-    return [[results[r][i] for r in range(world)] for i in range(len(cases))]
+    return [[results[r][i] if results[r] is not None and i < len(results[r]) else None
+             for r in range(world)] for i in range(len(cases))]
 
 
 def _rank_main(rank: int, world: int, init: str, cases: list, device: str,
@@ -97,17 +104,19 @@ def _rank_main(rank: int, world: int, init: str, cases: list, device: str,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     got = {"results": None, "errors": []}
+    path = os.path.join(out, f"rank{rank}.pkl")
     try:
         pmesh.initialize_distributed(backend, init, world, rank, device=dev)
-        results = []
+        got["results"] = []
         for name, kwargs in cases:
-            results.append(globals()[name](dev=dev, **kwargs))
-        got["results"] = results
+            got["results"].append(globals()[name](dev=dev, **kwargs))
+            with open(path, "wb") as f:  # a rank that leaves keeps what it ran
+                pickle.dump(got, f)
     except BaseException:  # noqa: BLE001 — the parent reports it
         got["errors"].append(traceback.format_exc())
         raise
     finally:
-        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        with open(path, "wb") as f:
             pickle.dump(got, f)
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -185,12 +194,23 @@ def ulysses_heads_error(dev, spec: dict) -> str:
     return ""
 
 
-def _model(dev, cfg: dict, state_dict: dict, mesh=None, sp_mode: Optional[str] = None):
+def _model(dev, cfg: dict, state_dict: dict, mesh=None, sp_mode: Optional[str] = None,
+           quant: Optional[str] = None, fused: bool = False):
+    """The model of ``cfg`` with the float ``state_dict``, as its ``quant``
+    and ``fused`` variant (the weights quantized as the engine quantizes
+    them), ``sp_clone``d onto ``mesh`` when ``sp_mode`` is given."""
     from ddim_cold_torch.models import DiffusionViT, sp_clone
+    from ddim_cold_torch.ops import quant as quant_ops
 
     model = DiffusionViT(**cfg, device=dev)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()},
                           strict=True)
+    if quant is not None or fused:
+        variant = model.clone(quant=quant, fused=fused)
+        state = model.state_dict()
+        variant.load_state_dict(quant_ops.quantize_state_dict(state) if quant else state,
+                                strict=True)
+        model = variant
     if sp_mode is not None:
         model = sp_clone(model, mesh, sp_mode=sp_mode)
     return model
@@ -261,6 +281,22 @@ def sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, fn: str = "ddim
     return {"images": _np(out)}
 
 
+def quant_sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, quant: str,
+                 fused: bool = False, sp_mode: Optional[str] = None, **kwargs) -> dict:
+    """``ddim_sample`` of the ``quant``/``fused`` model on the mesh (its
+    ``sp_clone`` with ``sp_mode``), and the one-process call of the same
+    model on the whole batch in this rank: a w8a8 model's activation scale
+    must be the whole batch's on both."""
+    from ddim_cold_torch.ops import sampling
+
+    mesh = mesh_for(spec, dev)
+    one = _model(dev, cfg, state_dict, quant=quant, fused=fused)
+    model = _model(dev, cfg, state_dict, mesh, sp_mode, quant=quant, fused=fused)
+    return {"mesh": _np(sampling.ddim_sample(model, x_init=x_init, mesh=mesh, device=dev,
+                                             **kwargs)),
+            "one": _np(sampling.ddim_sample(one, x_init=x_init, device=dev, **kwargs))}
+
+
 def cli_sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, acc_k: int) -> dict:
     """The ``sample`` command's samples (``cli.sample.samples``) over the
     mesh's data axis, and the same call without a mesh in this rank."""
@@ -270,6 +306,181 @@ def cli_sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, acc_k: int)
     return {"mesh": _np(command.samples(model, x_init, acc_k=acc_k,
                                         mesh=mesh_for(spec, dev))),
             "one": _np(command.samples(model, x_init, acc_k=acc_k))}
+
+
+# ------------------------------------------------------------ the engine
+
+def _engine(dev, spec: dict, cfg: dict, state_dict: dict, buckets, configs: list,
+            **engine_kw):
+    """Every rank's engine on ``spec``'s mesh, warmed with ``configs``
+    (SamplerConfig kwargs): the engine, its configs and warmup's report."""
+    from ddim_cold_torch import serve
+
+    model = _model(dev, cfg, state_dict)
+    configs = [serve.SamplerConfig(**c) for c in configs]
+    eng = serve.Engine(model, buckets=tuple(buckets), mesh=mesh_for(spec, dev),
+                       device=dev, **engine_kw)
+    return eng, configs, serve.warmup(eng, configs)
+
+
+def _outcomes(tickets: list) -> list:
+    """Each ticket's rows, or the name of its exception's type."""
+    out = []
+    for t in tickets:
+        exc = t.exception(timeout=60)
+        out.append(type(exc).__name__ if exc is not None else t.result(timeout=1))
+    return out
+
+
+def _one_process(dev, cfg: dict, state_dict: dict, buckets, configs: list,
+                 requests: list) -> list:
+    """The one-process engine's rows of ``requests`` (``(config index,
+    x_init[, submit kwargs])``), each config at degree 1: the reference a
+    mesh row is held to at the same bucket."""
+    import dataclasses
+
+    from ddim_cold_torch import serve
+
+    model = _model(dev, cfg, state_dict)
+    flat = [dataclasses.replace(c, sp_mode="none", sp_degree=1) for c in configs]
+    eng = serve.Engine(model, buckets=tuple(buckets), device=dev)
+    serve.warmup(eng, list(dict.fromkeys(flat)))
+    tickets = _submit(eng, flat, requests)
+    eng.run()
+    return _outcomes(tickets)
+
+
+def _submit(eng, configs: list, requests: list) -> list:
+    """Each request ``(config index, x_init[, submit kwargs])`` submitted."""
+    return [eng.submit(x_init=x, config=configs[i], **(kw[0] if kw else {}))
+            for i, x, *kw in requests]
+
+
+def serve_engine(dev, spec: dict, cfg: dict, state_dict: dict, buckets, configs: list,
+                 requests: list, faults: tuple = (), probe_buckets: tuple = (),
+                 stall_s: float = 0.0, reference: bool = True) -> dict:
+    """An engine across the ranks of ``spec``'s mesh: every rank warms
+    ``configs``; rank 0 serves ``requests`` (``(config index, x_init[,
+    submit kwargs])``)
+    under the fault specs ``faults`` (``FaultSpec`` kwargs), drains, and
+    with ``reference`` serves them again on a one-process engine; the other
+    ranks follow. Rank 0 returns the rows (or exception type names), the
+    report, the stats, each config's resolved sp_mode, the spare-cache
+    keys, the ``ensure_program`` errors of ``probe_buckets`` (``(config
+    index, bucket)``); every rank its programs after warmup, and the others
+    their ``follow()`` reports."""
+    from ddim_cold_torch.utils import faults as fault_mod
+
+    eng, configs, wu = _engine(dev, spec, cfg, state_dict, buckets, configs,
+                               stall_s=stall_s, retry_base_s=0.0)
+    res = {"warm_programs": eng.stats["programs"], "sp_meshes": wu["sp_meshes"]}
+    if not eng.is_leader:
+        res["follow"] = eng.follow()
+        res["programs_after_warmup"] = eng.stats["programs"] - res["warm_programs"]
+        return res
+    res["sp_modes"] = [eng._model_for(c).sp_mode if c.sp_degree > 1 else None
+                       for c in configs]
+    res["spare"] = sorted(repr(k) for k in eng._spare_caches)
+    res["probe_errors"] = []
+    for i, bucket in probe_buckets:
+        try:
+            eng.ensure_program(configs[i], bucket)
+            res["probe_errors"].append("")
+        except ValueError as e:
+            res["probe_errors"].append(str(e))
+    specs = [fault_mod.FaultSpec(**f) for f in faults]
+    with fault_mod.inject(*specs):
+        tickets = _submit(eng, configs, requests)
+        report = eng.run()
+    res["rows"] = _outcomes(tickets)
+    res["report"] = {k: v for k, v in report.items() if k != "latency"}
+    res["stats"] = {k: v for k, v in eng.stats.items() if k != "latencies_s"}
+    res["quarantined"] = list(eng.quarantined)
+    eng.drain()
+    res["programs_after_warmup"] = eng.stats["programs"] - res["warm_programs"]
+    if reference:
+        res["one_process"] = _one_process(dev, cfg, state_dict, buckets, configs,
+                                          requests)
+    return res
+
+
+def bucket_error(dev, spec: dict, cfg: dict, state_dict: dict, buckets) -> str:
+    """The message of an engine whose buckets do not divide the mesh's data
+    axis (raised before any collective, on every rank)."""
+    from ddim_cold_torch import serve
+
+    try:
+        serve.Engine(_model(dev, cfg, state_dict), buckets=tuple(buckets),
+                     mesh=mesh_for(spec, dev), device=dev)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def serve_follower_fault(dev, spec: dict, cfg: dict, state_dict: dict, buckets,
+                         config: dict, requests: list, where: str, after: int,
+                         stall_s: float, reference: bool = False) -> dict:
+    """A follower that fails once it has run ``after`` programs after
+    warmup: ``where="prepare"`` it cannot ready the next program (once),
+    ``"forward"`` its model raises inside the next one, ``"exit"`` it leaves
+    the process (exit code 0, no result). Every rank warms ``config``; rank
+    0 serves ``requests`` (x_init arrays) and returns each ticket's outcome,
+    the run's wall time, its failure counters, whether the engine closed
+    and, with ``reference``, the one-process engine's rows; a follower
+    returns its ``follow()`` report, or the type of what it raised and its
+    errors."""
+    from ddim_cold_torch.serve.errors import RankLostError
+
+    eng, configs, _ = _engine(dev, spec, cfg, state_dict, buckets, [config],
+                              stall_s=stall_s, retry_base_s=0.0)
+    if not eng.is_leader:
+        prepare, launch, runs, failed = eng._prepare, eng._launch, [0], [False]
+
+        def prepare_once_failing(*args):
+            if where == "prepare" and runs[0] == after and not failed[0]:
+                failed[0] = True
+                raise RuntimeError("injected: this rank cannot ready its program")
+            return prepare(*args)
+
+        def broken_forward(*args, **kwargs):
+            raise RuntimeError("injected: this rank's forward raised")
+
+        def launch_then_fail(*args):
+            if runs[0] == after:
+                if where == "exit":
+                    os._exit(0)
+                if where == "forward":
+                    eng._model_for(configs[0]).forward = broken_forward
+            runs[0] += 1
+            return launch(*args)
+
+        eng._prepare, eng._launch = prepare_once_failing, launch_then_fail
+        try:
+            out = {"follow": eng.follow()}
+        except RankLostError as e:
+            out = {"raised": type(e).__name__, "errors": list(eng._follow_errors)}
+        dist.barrier()  # the next case's engine groups wait stall_s at most
+        return out
+    tickets = [eng.submit(x_init=x, config=configs[0]) for x in requests]
+    t0 = time.perf_counter()
+    report = eng.run()
+    wall = time.perf_counter() - t0
+    out = {"rows": _outcomes(tickets), "wall_s": wall, "stalled": report["stalled"],
+           "stats": {k: eng.stats[k] for k in ("failed_batches", "quarantined",
+                                               "dispatches")},
+           "health": {k: eng.health()[k] for k in ("closed", "stalled", "stalls")}}
+    try:
+        eng.submit(x_init=requests[0], config=configs[0])
+        out["submit_after"] = ""
+    except Exception as e:  # noqa: BLE001 — the refusal is the finding
+        out["submit_after"] = type(e).__name__
+    eng.drain(timeout=stall_s)
+    if reference:
+        out["one_process"] = _one_process(dev, cfg, state_dict, buckets, configs,
+                                          [(0, x) for x in requests])
+    if where != "exit":
+        dist.barrier()
+    return out
 
 
 # ------------------------------------------------------------ card cases
@@ -484,3 +695,101 @@ def card_sample(dev, layouts: list, model_cfg: dict, n: int, k: int, seed: int) 
         out[name] = res
         del model
     return out
+
+
+def _kernel_counts() -> dict:
+    """Every kernel's launch count so far in this rank."""
+    from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.ops import quant
+
+    return {**{k: fa.LAUNCHES[k] for k in ("flash_fwd", "fused_trunk")},
+            **{k: quant.LAUNCHES[k] for k in ("dequant_mm", "mlp_fused")}}
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _kernel_counts().items()}
+
+
+def card_serve(dev, model_cfg: dict, bucket: int, configs: list, seed: int,
+               rows: tuple = (3, 5)) -> dict:
+    """The serving engine across the world's ranks (``{data: world}``) on
+    the full-width model: every rank warms ``configs`` (SamplerConfig
+    kwargs, sp ones included); rank 0 serves, config by config, one batch
+    of two requests of ``rows`` rows each (seeded starts), recording its
+    wall, img/s, p50 latency and this rank's kernel launches, then drains
+    and runs each config's one-process twin (degree 1, the engine's own
+    variant, ``ddim_sample`` on the same 8-row start: the engine's
+    dispatch shape) for the largest |Δ| of the served rows. The other
+    ranks follow and record each run's launches. Every rank reports its
+    programs after warmup."""
+    import dataclasses
+
+    from ddim_cold_torch import serve
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.ops import sampling
+
+    model = DiffusionViT(**model_cfg, device=dev)
+    configs = [serve.SamplerConfig(**c) for c in configs]
+    mesh = pmesh.make_mesh({"data": dist.get_world_size()}, device=dev)
+    eng = serve.Engine(model, buckets=(bucket,), mesh=mesh, device=dev)
+    _sync_cuda(dev)
+    t0 = time.perf_counter()
+    wu = serve.warmup(eng, configs)
+    res = {"warmup_s": time.perf_counter() - t0, "sp_meshes": wu["sp_meshes"],
+           "warm_programs": eng.stats["programs"]}
+    if not eng.is_leader:
+        runs, launch = [], eng._launch
+
+        def counted(config, b, *args):
+            before = _kernel_counts()
+            out = launch(config, b, *args)
+            _sync_cuda(dev)
+            runs.append({"config": configs.index(config), "launches": _delta(before)})
+            return out
+
+        eng._launch = counted
+        res["follow"] = eng.follow()
+        res["runs"] = runs
+        res["programs_after_warmup"] = eng.stats["programs"] - res["warm_programs"]
+        return res
+    rs = np.random.default_rng(seed)
+    H, W = model.img_size
+    starts = [[rs.standard_normal((n, H, W, 3)).astype(np.float32) for n in rows]
+              for _ in configs]
+    served = []
+    for config, xs in zip(configs, starts):
+        before = _kernel_counts()
+        _sync_cuda(dev)
+        tickets = [eng.submit(x_init=x, config=config) for x in xs]
+        report = eng.run()
+        _sync_cuda(dev)
+        got = [t.result(timeout=60) for t in tickets]
+        served.append({"sp_mode": (eng._model_for(config).sp_mode
+                                   if config.sp_degree > 1 else None),
+                       "launches": _delta(before), "wall_s": report["wall_s"],
+                       "img_per_sec": report["img_per_sec"],
+                       "p50_s": report["latency"]["p50_s"], "batches": report["batches"],
+                       "failed_tickets": report["failed_tickets"],
+                       "shapes": [list(g.shape) for g in got],
+                       "finite": all(bool(np.isfinite(g).all()) for g in got),
+                       "in_unit_range": all(bool((g >= 0).all() and (g <= 1).all())
+                                            for g in got),
+                       "rows": got})
+    res["stats"] = {k: v for k, v in eng.stats.items() if k != "latencies_s"}
+    eng.drain()
+    res["programs_after_warmup"] = eng.stats["programs"] - res["warm_programs"]
+    for config, xs, rec in zip(configs, starts, served):
+        twin = dataclasses.replace(config, sp_mode="none", sp_degree=1)
+        kw = dict(k=twin.k, t_start=twin.t_start)
+        if twin.cached:
+            kw.update(cache_interval=twin.cache_interval, cache_mode=twin.cache_mode)
+        ref = sampling.ddim_sample(eng._model_for(twin), x_init=np.concatenate(xs),
+                                   device=dev, **kw).cpu().numpy()
+        rec["max_abs_err"] = float(np.abs(np.concatenate(rec.pop("rows")) - ref).max())
+    res["served"] = served
+    return res
+
+
+def _sync_cuda(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

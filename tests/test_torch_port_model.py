@@ -143,23 +143,37 @@ class _OneRankMesh:
         return None
 
 
-# sequence parallelism landed (seq_mesh, seq_axis, batch_axis, sp_mode);
-# tensor parallelism's head_axis and quant under sequence parallelism did not
+# sequence parallelism landed (seq_mesh, seq_axis, batch_axis, sp_mode),
+# with quant and fused under it; tensor parallelism's head_axis did not
 @pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(head_axis="model"),
-                                  dict(num_experts=2), dict(scan_blocks=True),
-                                  dict(seq_mesh=_OneRankMesh(), seq_axis="seq",
-                                       quant="pallas")])
+                                  dict(num_experts=2), dict(scan_blocks=True)])
 def test_later_slice_ctor_hooks_raise(hook):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PortViT(**TINY, device="cpu", **hook)
 
 
-@pytest.mark.parametrize("hook", [dict(stage="embed")])
+# the token cache is refused under sequence parallelism only
+@pytest.mark.parametrize("hook", [dict(stage="embed"), dict(capture_tokens=True)])
 def test_later_slice_forward_hooks_raise(hook):
-    model = PortViT(**TINY, device="cpu")
+    sp = (dict(seq_mesh=_OneRankMesh(), seq_axis="seq") if "capture_tokens" in hook
+          else {})
+    model = PortViT(**TINY, device="cpu", **sp)
     x, t = _inputs()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model(torch.from_numpy(x), torch.from_numpy(t), **hook)
+
+
+@pytest.mark.parametrize("quant,fused", [("pallas", False), ("w8a8", True)])
+def test_quant_and_fused_build_under_sequence_parallelism(quant, fused):
+    """quant and fused under sequence parallelism build: the fused
+    attention is gated off (its kernel is not among the model's libraries),
+    the qkv and proj stay int8 linears and the fused Mlp stays one kernel."""
+    model = PortViT(**TINY, device="cpu", seq_mesh=_OneRankMesh(), seq_axis="seq",
+                    quant=quant, fused=fused)
+    libs = model.kernel_libraries()
+    assert "fused_trunk" not in libs
+    assert ("mlp_fused" in libs) == fused
+    assert ("dequant_mm" in libs) == (quant == "pallas")
 
 
 @pytest.mark.parametrize("hook", [dict(capture_split=1), dict(token_k=3),

@@ -41,6 +41,17 @@ same numpy inputs; JAX's parameters reach the port through
   ``ddim_sample_fewstep``, ``cold_sample`` and ``sample_from`` on ``{data:
   2}``, each against JAX's on the same mesh: atol 1e-4 (as
   tests/test_torch_port_samplers.py);
+* a w8a8 model's ``ddim_sample`` on ``{data: 2}`` and ``{data: 2, seq: 2}``
+  (Ulysses), unfused and fused: its per-tensor activation scale is the
+  whole batch's (``quant.act_scale_over``), so the rows are the one-process
+  call's within rtol = atol = 2e-5 (the int8 products are exact; the float
+  GEMMs run at another row count) and JAX's mesh sampler's within atol
+  1e-4. The fused Mlp requantizes its hidden activation per ``block_m``
+  tile of the rows it is given, and a rank's tiles are not the one-process
+  tiles (nor are a sequence block's padding tokens out of them), so the
+  fused cases are held within atol 5e-4 of both: about seven times the
+  largest gap read (7.1e-5 on ``{data: 2, seq: 2}``), a hundredth of the
+  w8a8 contract (5e-2 on x̂0, PERF.md §2);
 * the ``sample`` command's samples on ``{data: 2}``: every rank's whole
   batch bit for bit the one-process command's in that rank;
 * the loader's shards against JAX's ``ShardedLoader`` (index for index).
@@ -59,6 +70,7 @@ from ddim_cold_torch.tools import dist_cases
 from ddim_cold_torch.utils.weights import state_dict_from_flax
 from ddim_cold_tpu.data import ShardedLoader
 from ddim_cold_tpu.models import DiffusionViT, sp_clone
+from ddim_cold_tpu.ops import quant as jax_quant
 from ddim_cold_tpu.ops import sampling
 from ddim_cold_tpu.ops.losses import smooth_l1
 from ddim_cold_tpu.parallel import make_mesh, shard_batch, shard_train_state
@@ -117,6 +129,15 @@ SAMPLE = {
 }
 
 
+#: the w8a8 cases: id → (mesh, sp_mode or None, fused); the tolerances
+#: against the one-process call and against JAX (module docstring)
+QUANT = {"dp2-w8a8": (DP2, None, False), "dp2sp2-w8a8": (DP2SP2, "ulysses", False),
+         "dp2-w8a8-fused": (DP2, None, True),
+         "dp2sp2-w8a8-fused": (DP2SP2, "ulysses", True)}
+QUANT_TOL = {False: dict(one=dict(rtol=2e-5, atol=2e-5), jax=dict(rtol=0, atol=1e-4)),
+             True: dict(one=dict(rtol=0, atol=5e-4), jax=dict(rtol=0, atol=5e-4))}
+
+
 def _jax_mesh(spec):
     n = int(np.prod(list(spec.values())))
     return make_mesh(dict(spec), devices=jax.devices()[:n])
@@ -172,6 +193,11 @@ def world():
             spec=spec, cfg=dict(TINY, depth=depth, use_flash=True),
             state_dict=_sd(params[4 if depth == 1 else "depth2"]), x_init=x, fn=fn,
             sp_mode=mode, **kw)))
+    for key, (spec, mode, fused) in QUANT.items():
+        ids.append(("quant", key))
+        cases.append(("quant_sample", dict(
+            spec=spec, cfg=dict(TINY, use_flash=True), state_dict=_sd(params[4]),
+            x_init=x, quant="w8a8", fused=fused, sp_mode=mode, k=2)))
     ids.append(("cli", "sample"))
     cases.append(("cli_sample", dict(spec=DP2, cfg=dict(TINY, use_flash=True),
                                      state_dict=_sd(params[4]), x_init=x, acc_k=2)))
@@ -360,6 +386,30 @@ def test_mesh_sampling_matches_jax(world, case):
         assert min(halves) < ADAPTIVE_TAU <= max(halves), halves
     assert got["images"].shape == (4, 16, 16, 3)
     np.testing.assert_allclose(got["images"], np.asarray(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", list(QUANT))
+def test_w8a8_scale_on_a_mesh_is_the_whole_batchs(world, case):
+    """A w8a8 model sampled on a mesh: every rank's whole batch against the
+    one-process call in that rank and against JAX's mesh sampler (which
+    quantizes the global array); the tolerances are the module
+    docstring's."""
+    spec, mode, fused = QUANT[case]
+    x, _, _ = world["inputs"]
+    mesh = _jax_mesh(spec)
+    jmodel = DiffusionViT(**TINY, use_flash=True).clone(quant="w8a8", fused=fused)
+    if mode is not None:
+        jmodel = sp_clone(jmodel, mesh, sp_mode=mode)
+    want = np.asarray(sampling.ddim_sample(
+        jmodel, jax_quant.quantize_params(world["params"][4]), x_init=jnp.asarray(x),
+        mesh=mesh, k=2))
+    tol = QUANT_TOL[fused]
+    for rank, got in enumerate(world["all"][("quant", case)]):
+        assert got["mesh"].shape == (4, 16, 16, 3)
+        np.testing.assert_allclose(got["mesh"], got["one"], **tol["one"],
+                                   err_msg=f"rank {rank} against one process")
+        np.testing.assert_allclose(got["mesh"], want, **tol["jax"],
+                                   err_msg=f"rank {rank} against JAX")
 
 
 def test_sample_command_over_a_data_mesh(world):
