@@ -160,14 +160,20 @@ Phases, one JSON object per line:
    must all hold;
 10h. dist-train, dist-sample — one world of two gloo ranks on the one card
    (NCCL refuses two ranks on one device), CUDA tensors, on ``{data: 2}``,
-   Ulysses ``{seq: 2}`` and ring ``{seq: 2}``: the bf16 200_p4 model, every
-   drop rate 0, 1 + 3 steps at B=16, each step held to the one-process step
-   on the same batches within ``DIST_TRAIN_TOL``, the
-   flash kernels launched 18 times each a rank (none on the ring), a traced
-   step of each sequence-parallel layout attributed to its ``sp/`` scopes,
-   ms/step and peak memory a rank reported; then ``ddim_sample(mesh=)`` of
-   the float32 model at k=20 over 8 rows within ``DIST_SAMPLE_TOL`` of the
-   one-process sampler, flash_fwd 600 a rank (none on the ring); then
+   Ulysses ``{seq: 2}``, ring ``{seq: 2}``, tensor-parallel ``{model: 2}``
+   and pipelined ``{pipe: 2}`` (4 microbatches): the bf16 200_p4 model,
+   every drop rate 0, 1 + 3 steps at B=16, built as the trainer builds it,
+   each step held to the one-process step on the same batches within
+   ``DIST_TRAIN_TOL``, the flash kernels launched exactly a rank (18 each,
+   the tp rank on its 2 heads; 36 each on the pipe, 3 blocks × 4
+   microbatches × 3 steps; none on the ring), the pipe layout's gathered
+   checkpoint read back into a one-process model within the update limit
+   of the twin's, a traced step of each sequence-parallel layout attributed
+   to its ``sp/`` scopes, ms/step, peak memory and parameter and moment
+   elements a rank reported; then ``ddim_sample(mesh=)`` of the float32
+   model at k=20 over 8 rows on the data and seq layouts within
+   ``DIST_SAMPLE_TOL`` of the one-process sampler, flash_fwd 600 a rank
+   (none on the ring); then
    dist-serve in the same world: the serving engine across the two ranks
    (``Engine(mesh={data: 2})``), every rank warming the nine configs of
    ``DIST_SERVE`` (float, ``quant="pallas"``, pallas fused, w8a8 and w8a8
@@ -178,6 +184,10 @@ Phases, one JSON object per line:
    start, zero programs after warmup on both ranks, each rank's launches
    exact, rank 1's ``follow()`` report rank 0's batches; wall, img/s and
    p50 reported (two ranks share one card: no speed claimed);
+10h'. dist-train-4 — a world of four gloo ranks on the card: ``{pipe: 2,
+   model: 2}`` (4 microbatches) and Ulysses ``{seq: 2, model: 2}``, 1 + 2
+   steps each under dist-train's limits, every rank's launches exact (24
+   and 12 of each flash kernel);
 10i. dist-cli — ``python -m ddim_cold_torch train`` as three children at
    once on 10c's folder: a ``{data: 1, seq: 1}`` Ulysses mesh (an NCCL
    world of one: its log line, the epoch, loadable checkpoints, exact
@@ -2346,10 +2356,19 @@ def phase_cli(torch, fa, quant, run_dir: str, data_root: str, serve_report: dict
     return paths
 
 
-#: the two-rank layouts of dist-train and dist-sample: (name, mesh, sp_mode)
+#: the two-rank layouts of dist-train: (name, mesh, sp_mode); dist-sample
+#: runs the data and seq ones (the samplers take no model or pipe mesh)
 DIST_LAYOUTS = (("data", {"data": 2}, None), ("ulysses", {"seq": 2}, "ulysses"),
-                ("ring", {"seq": 2}, "ring"))
+                ("ring", {"seq": 2}, "ring"), ("tp", {"model": 2}, None),
+                ("pipe", {"pipe": 2}, None))
+DIST_SAMPLE_LAYOUTS = DIST_LAYOUTS[:3]
+#: dist-train-4: the layouts of a second world, of four gloo ranks on the card
+DIST4_LAYOUTS = (("pipe-tp", {"pipe": 2, "model": 2}, None),
+                 ("ulysses-tp", {"seq": 2, "model": 2}, "ulysses"))
+#: microbatches a pipelined layout splits its B=16 rows into
+DIST_MICROBATCHES = {"pipe": 4, "pipe-tp": 4}
 DIST_WARM, DIST_STEPS = 1, 3
+DIST4_STEPS = 2
 #: dist-train's limits against the one-process step: both sides run the same
 #: kernels, so each is about ten times the largest difference of a sound
 #: two-rank run on an H100 (loss 4.5e-5, gradient norm 1.6e-4, update
@@ -2389,19 +2408,15 @@ DIST_SERVE = (
      {"mlp_fused": 1, "dequant_mm": 2, "flash_fwd": 1}),
 )
 #: dist-serve: the largest |Δ| allowed against the one-process twin at the
-#: same bucket and start. Every config but w8a8 fused takes DIST_SAMPLE_TOL
-#: (~10× the ring's reading): on an H100 a sound run read 0 for each but the
-#: ring (4.8e-7), the quant ones included (each row runs the same kernels at
-#: the same shape on both sides, and w8a8 takes the whole batch's activation
-#: scale), while the w8a8 config with the scale taken per rank read 1.1e-2
-#: and followers sampling zeros in place of the broadcast batch 0.88. The
-#: fused w8a8 Mlp requantizes its hidden activation per tile of the rows a
-#: rank holds, not of the whole batch's (ROADMAP.md Queue 3 item 3): a sound
-#: run read 8.98e-3 on an H100, so that config takes ~10× it; with the scale
-#: taken per rank it reads about the same (9.57e-3: the unfused w8a8 config
-#: is the one that catches that fault)
+#: same bucket and start, DIST_SAMPLE_TOL for every config (~10× the ring's
+#: reading): on an H100 a sound run read 0 for each but the ring (4.8e-7),
+#: the quant ones included (each row runs the same kernels at the same shape
+#: on both sides, w8a8 takes the whole batch's activation scale, and the
+#: fused w8a8 Mlp runs the whole row tiles of the one-process call that a
+#: rank's rows touch, so each tile's requant is the one-process one), while
+#: the w8a8 config with the scale taken per rank read 1.1e-2 and followers
+#: sampling zeros in place of the broadcast batch 0.88
 DIST_SERVE_TOL = {label: DIST_SAMPLE_TOL for label, _, _ in DIST_SERVE}
-DIST_SERVE_TOL["w8a8 fused {data: 2}"] = 9e-2
 #: the collectives parallel/ runs: the ring rotates with all_to_all_single
 #: (point to point is not needed), the head's outputs are all_gather'ed,
 #: the gradients all_reduce'd, rank 0's parameters broadcast
@@ -2447,59 +2462,53 @@ def phase_dist(torch, MODEL_CONFIGS):
     on the one card (NCCL refuses two ranks on one device), CUDA tensors,
     first probes the collectives (the dist-probe phase). dist-train:
     the bf16 200_p4 model, every drop rate 0, B=16 a step, 1 + 3 steps on
-    each layout, every step held to the one-process step on the same
-    batches within ``DIST_TRAIN_TOL`` (the update's largest gap within the
-    train check's, scaled by the steps taken), launches exact, ms/step and peak memory
-    a rank reported (two ranks share the card: no speed is claimed), a
-    traced step of each sequence-parallel layout attributed to its ``sp/``
-    scopes. dist-sample: the float32 model, ``ddim_sample`` at k=20 over 8
-    rows on each layout against the one-process call on the same start."""
+    each layout of ``DIST_LAYOUTS`` (tensor- and pipeline-parallel ones
+    built as the trainer builds them), every step held to the one-process
+    step on the same batches within ``DIST_TRAIN_TOL`` (the update's
+    largest gap within the train check's, scaled by the steps taken),
+    launches exact, ms/step and peak memory a rank reported (two ranks
+    share the card: no speed is claimed), the pipe layout's gathered
+    checkpoint read back into a one-process model, a traced step of each
+    sequence-parallel layout attributed to its ``sp/`` scopes. dist-sample:
+    the float32 model, ``ddim_sample`` at k=20 over 8 rows on each layout
+    of ``DIST_SAMPLE_LAYOUTS`` against the one-process call on the same
+    start."""
+    import tempfile
+
     from ddim_cold_torch.tools import dist_cases as dc
 
     cfg = dict(MODEL_CONFIGS[MODEL], use_flash=True, seed=SEED, drop_rate=0.0,
                attn_drop_rate=0.0, drop_path_rate=0.0)
     lr = 0.005 * 16 / 512
     trace_dir = os.path.join(TRACE_DIR, "dist")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_ckpt_")
     t0 = time.perf_counter()
     gloo, train, sample, served = dc.run_world(
         [("probe", {"ops": dc.PROBE_OPS[:-1]}),
          ("card_train", dict(layouts=DIST_LAYOUTS, model_cfg=dict(cfg, dtype=torch.bfloat16),
                              warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
-                             lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir)),
-         ("card_sample", dict(layouts=DIST_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N, k=K,
-                              seed=SEED + 6)),
+                             lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir,
+                             microbatches=DIST_MICROBATCHES, checkpoint_dir=ckpt_dir)),
+         ("card_sample", dict(layouts=DIST_SAMPLE_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N,
+                              k=K, seed=SEED + 6)),
          dist_serve_case(cfg)],
         2, device="cuda", backend="gloo", timeout_s=800)
     shutil.rmtree(trace_dir, ignore_errors=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
     phase_dist_probe(torch, gloo)
     depth = MODEL_CONFIGS[MODEL]["depth"]
-    tol = DIST_TRAIN_TOL
     launches = {}
     for name, spec, mode in DIST_LAYOUTS:
-        r0, r1 = train[0][name], train[1][name]
-        rec = {"phase": "dist-train", "layout": name, "mesh": spec, "sp_mode": mode,
-               "model": MODEL, "dtype": "bfloat16", "batch": 16, "lr": lr,
-               "backend": "gloo (two ranks, one card)", "warmup_steps": DIST_WARM,
-               "steps": DIST_STEPS, "ms_per_step": [r0["ms_per_step"], r1["ms_per_step"]],
-               "peak_mem_gib": [r0["peak_mem_gib"], r1["peak_mem_gib"]],
-               "launches": [r0["launches"], r1["launches"]], "per_step": r0["per_step"],
-               "tol": tol, "tol_max_param_gap_lr_a_step": MAX_UPDATE_GAP_LR,
-               "world_s": wall}
-        emit(rec)
-        want = 0 if mode == "ring" else depth * DIST_STEPS
-        for r in (r0, r1):
-            check(all(n == want for n in r["launches"].values()),
-                  f"dist-train {name}: launches {r['launches']}, expected {want} each")
-        for i, st in enumerate(r0["per_step"]):
-            rel = {"loss": abs(st["loss"] - st["loss_one_process"]) / abs(st["loss_one_process"]),
-                   "grad_norm": abs(st["grad_norm"] - st["grad_norm_one_process"])
-                   / st["grad_norm_one_process"], "upd_rel": st["upd_rel"]}
-            for key, val in rel.items():
-                check(math.isfinite(val) and val <= tol[key],
-                      f"dist-train {name} step {i}: {key} {val} over {tol[key]}")
-            check(st["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR * (i + 1),
-                  f"dist-train {name} step {i}: param gap {st['max_param_gap_lr']} lr")
+        check_dist_train(name, spec, mode, train, depth, DIST_STEPS, lr, wall)
+        r0 = train[0][name]
+        if name == "pipe":
+            cp = r0.get("checkpoint") or {}
+            emit({"phase": "dist-train", "layout": name, "checkpoint": cp,
+                  "tol_max_gap_lr": MAX_UPDATE_GAP_LR * (DIST_WARM + DIST_STEPS)})
+            check(bool(cp) and cp["keys"] == cp["one_process_keys"]
+                  and cp["max_gap_lr"] <= MAX_UPDATE_GAP_LR * (DIST_WARM + DIST_STEPS),
+                  f"dist-train pipe: the gathered checkpoint against one process {cp}")
         if mode is not None:
             scopes = r0.get("attrib", {})
             emit({"phase": "attrib", "capture": f"dist-train {name} step (rank 0)",
@@ -2510,7 +2519,7 @@ def phase_dist(torch, MODEL_CONFIGS):
                 check(scopes.get(scope, {}).get("events", 0) > 0,
                       f"dist-train {name}: no device work under {scope} ({scopes})")
         launches[f"dist-train {name} (a rank)"] = r0["launches"]
-    for name, spec, mode in DIST_LAYOUTS:
+    for name, spec, mode in DIST_SAMPLE_LAYOUTS:
         r0, r1 = sample[0][name], sample[1][name]
         rec = {"phase": "dist-sample", "layout": name, "mesh": spec, "sp_mode": r0["sp_mode"],
                "model": MODEL, "dtype": "float32", "rows": DIST_SAMPLE_N, "k": K,
@@ -2531,6 +2540,84 @@ def phase_dist(torch, MODEL_CONFIGS):
         launches[f"dist-sample {name} (a rank)"] = {"flash_fwd": r0["launches"]}
     launches.update(phase_dist_serve(served, MODEL_CONFIGS[MODEL]))
     return launches
+
+
+def dist_train_launches(name: str, spec: dict, mode, depth: int, steps: int) -> int:
+    """Each flash kernel's launches a rank over ``steps`` training steps:
+    one a block a microbatch the rank's stage runs (a tensor-parallel rank
+    on its own heads, Ulysses on its heads' share); the ring none."""
+    if mode == "ring":
+        return 0
+    pipe = spec.get("pipe", 1)
+    micro = DIST_MICROBATCHES.get(name, 2 * pipe) if pipe > 1 else 1
+    return depth // pipe * micro * steps
+
+
+def check_dist_train(name: str, spec: dict, mode, train: list, depth: int, steps: int,
+                     lr: float, wall: float) -> None:
+    """Emit and check one dist-train layout's record: every rank's launches
+    exact (:func:`dist_train_launches`), every rank's whole parameters
+    after the steps rank 0's, each step's loss, ‖g‖ and update
+    against the one-process step within ``DIST_TRAIN_TOL`` and the update's
+    largest gap within ``MAX_UPDATE_GAP_LR`` a step."""
+    tol = DIST_TRAIN_TOL
+    ranks = [r[name] for r in train]
+    r0 = ranks[0]
+    emit({"phase": "dist-train", "layout": name, "mesh": spec, "sp_mode": mode,
+          "model": MODEL, "dtype": "bfloat16", "batch": 16, "lr": lr,
+          "microbatches": DIST_MICROBATCHES.get(name),
+          "backend": f"gloo ({len(ranks)} ranks, one card)", "warmup_steps": DIST_WARM,
+          "steps": steps, "ms_per_step": [r["ms_per_step"] for r in ranks],
+          "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+          "local_params": [r["local_params"] for r in ranks],
+          "local_moments": [r["local_moments"] for r in ranks],
+          "launches": [r["launches"] for r in ranks], "per_step": r0["per_step"],
+          "tol": tol, "tol_max_param_gap_lr_a_step": MAX_UPDATE_GAP_LR,
+          "speed": "ranks share one card: no speed claimed", "world_s": wall})
+    want = dist_train_launches(name, spec, mode, depth, steps)
+    for rank, r in enumerate(ranks):
+        check(all(n == want for n in r["launches"].values()),
+              f"dist-train {name} rank {rank}: launches {r['launches']}, expected {want} each")
+        # every rank applied the same update: its whole parameters, gathered,
+        # are rank 0's bit for bit (a replica left behind shows here)
+        check(r["param_sums"] == r0["param_sums"],
+              f"dist-train {name} rank {rank}: parameters differ from rank 0's")
+    for i, st in enumerate(r0["per_step"]):
+        rel = {"loss": abs(st["loss"] - st["loss_one_process"]) / abs(st["loss_one_process"]),
+               "grad_norm": abs(st["grad_norm"] - st["grad_norm_one_process"])
+               / st["grad_norm_one_process"], "upd_rel": st["upd_rel"]}
+        for key, val in rel.items():
+            check(math.isfinite(val) and val <= tol[key],
+                  f"dist-train {name} step {i}: {key} {val} over {tol[key]}")
+        check(st["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR * (i + 1),
+              f"dist-train {name} step {i}: param gap {st['max_param_gap_lr']} lr")
+
+
+def phase_dist4(torch, MODEL_CONFIGS) -> dict:
+    """dist-train-4: a world of four gloo ranks on the one card, CUDA
+    tensors, the bf16 200_p4 model at every drop rate 0 on ``{pipe: 2,
+    model: 2}`` (4 microbatches) and Ulysses ``{seq: 2, model: 2}``, 1 + 2
+    steps of B=16 each held to the one-process step as dist-train's, every
+    rank's launches exact. Returns each layout's launches on rank 0."""
+    from ddim_cold_torch.tools import dist_cases as dc
+
+    cfg = dict(MODEL_CONFIGS[MODEL], use_flash=True, seed=SEED, drop_rate=0.0,
+               attn_drop_rate=0.0, drop_path_rate=0.0, dtype=torch.bfloat16)
+    lr = 0.005 * 16 / 512
+    t0 = time.perf_counter()
+    (train,) = dc.run_world(
+        [("card_train", dict(layouts=DIST4_LAYOUTS, model_cfg=cfg, warm=DIST_WARM,
+                             steps=DIST4_STEPS, batch=16, seed=SEED + 8, lr=lr,
+                             total_steps=TRAIN_TOTAL_STEPS,
+                             microbatches=DIST_MICROBATCHES))],
+        4, device="cuda", backend="gloo", timeout_s=400)
+    wall = time.perf_counter() - t0
+    depth = MODEL_CONFIGS[MODEL]["depth"]
+    out = {}
+    for name, spec, mode in DIST4_LAYOUTS:
+        check_dist_train(name, spec, mode, train, depth, DIST4_STEPS, lr, wall)
+        out[f"dist-train-4 {name} (a rank)"] = train[0][name]["launches"]
+    return out
 
 
 def dist_serve_case(cfg: dict) -> tuple:
@@ -3953,6 +4040,7 @@ def main() -> int:
     new_paths.update(phase_cli(torch, fa, quant, run_dir, data_root, profile_report))
     shutil.rmtree(run_work, ignore_errors=True)
     dist_launches = phase_dist(torch, MODEL_CONFIGS)  # dist-serve's too
+    dist_launches.update(phase_dist4(torch, MODEL_CONFIGS))
     dist_launches.update(phase_dist_cli(torch, data_root))
     shutil.rmtree(data_root, ignore_errors=True)
     phase_probe_xla(torch, fa)

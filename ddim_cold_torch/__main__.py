@@ -29,7 +29,8 @@ working directory, creates ``Saved_Models/<ExpName><framework>/`` there
 the YAML in, trains with ``train/trainer.run`` and prints the launcher's
 closing line. It trains on the card: without CUDA it exits with code 3
 and a message before touching the file system, unless ``--device cpu``
-asks for the CPU. ``num_gpus: N`` or a ``mesh: {data: d, seq: s}`` in the
+asks for the CPU. ``num_gpus: N`` (a ``data`` mesh) or a ``mesh: {model:
+m, pipe: p, data: d, seq: s}`` (with ``microbatches`` under ``pipe``) in the
 YAML trains one process per device, as the reference's launcher spawned
 them (``train/trainer.py``): NCCL on the cards, gloo on the CPU; under
 torchrun each process runs this command and only rank 0 prepares the run

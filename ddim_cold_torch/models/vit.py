@@ -85,21 +85,41 @@ forward from that stream drops. ``batch_axis`` is checked and recorded:
 each process already holds its own rows. The token cache and the probe
 under sequence parallelism raise.
 
+Tensor parallelism (``head_axis``, an axis of ``seq_mesh``; Megatron's
+column → row pairs, :mod:`ddim_cold_torch.parallel.sharding`): every rank
+draws the whole seeded init and keeps its shard. ``qkv`` holds the q, k
+and v columns of its H/m heads and attention runs over them alone (the
+flash kernels on ``(B, N, H/m, hd)``; under sequence parallelism Ulysses
+splits those heads over ``seq`` and the ring rotates their K/V, with no
+qkv all-gather); ``fc1`` holds its hidden units; each input enters through
+Megatron's *f* (identity forward, gradient summed over the group), and
+``proj``/``fc2`` sum their partial products over the group in float32 and
+add their bias once, after the sum. Dropout masks on a shard (the hidden
+units, the heads' weights) are drawn whole and sliced, so every rank draws
+what one process draws. ``quant`` and ``fused`` under it raise (ROADMAP.md
+Queue 1 item 14). ``scan_blocks`` (JAX's stacked layout) keeps the
+``blocks.{i}`` modules (the weight bridge unstacks JAX's tree) and takes
+JAX's refusals: ``quant``, the step and token caches and the probe.
+``pipe_axis`` (needs ``scan_blocks``) keeps this rank's pipeline stage of
+depth/p consecutive blocks only; its trunk runs through
+``parallel.pipeline.make_pipelined_apply``, over the ``stage="embed"`` and
+``stage="head"`` (with ``tokens``) forward hooks. :attr:`plan` is the
+layout of every key of the whole state_dict.
+
 The forward records autograd history like any module; the samplers and the
 serving engine run it under ``torch.inference_mode()``. The step-cache
 hooks of the JAX forward (``capture_split``, ``skip_blocks`` +
 ``block_delta``, ``capture_tokens``, ``token_cache`` + ``token_k``) are
 ported on every route above, and so is the attention probe
-(``return_attention_layer``); see :meth:`DiffusionViT.forward`. The later
-slices' hooks (MoE, tensor parallelism, scan_blocks, pipeline stages)
-raise ``NotImplementedError`` naming the ROADMAP.md item that brings them.
+(``return_attention_layer``); see :meth:`DiffusionViT.forward`. MoE
+raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 18.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,8 +134,10 @@ from ddim_cold_torch.ops.flash_attention import (DEFAULT_BLOCK_KV,
                                                  flash_attention_qkv,
                                                  fused_trunk_attention)
 from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.parallel import sharding
 from ddim_cold_torch.parallel.ring_attention import ring_attention
-from ddim_cold_torch.parallel.ulysses import ulysses_attention_qkv
+from ddim_cold_torch.parallel.ulysses import (check_head_axis, heads_error,
+                                              ulysses_attention_qkv)
 from ddim_cold_torch.utils.platform import resolve_device
 from ddim_cold_torch.utils.slices import refuse_later
 
@@ -145,15 +167,16 @@ _LATER_CTOR = {
     "num_experts": (1, "Queue 1 item 18 (MoE)"),
     "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
     "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
-    "scan_blocks": (False, "Queue 1 item 14 (parallel/pipeline)"),
-    "head_axis": (None, "Queue 1 item 14 (tensor parallelism)"),
 }
 
-#: forward hooks of the JAX model that belong to later slices
-_LATER_FORWARD = {
-    "stage": ("full", "Queue 1 item 14 (pipeline stages)"),
-    "tokens": (None, "Queue 1 item 14 (pipeline stages)"),
-}
+
+class TensorShard(NamedTuple):
+    """This rank's place on a tensor-parallel axis: its ``group``, the axis
+    ``size`` and this rank's ``index`` along it."""
+
+    group: object
+    size: int
+    index: int
 
 
 #: JAX's block sizes off TPU: ``NS_FLASH_BLOCKS[0]`` for the fused
@@ -184,25 +207,69 @@ def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-             shape=None, shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
+             shape=None, shard: Optional[pmesh.SeqShard] = None,
+             part: Optional[tuple] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: identity without a generator (deterministic) or at
     rate 0; else a Bernoulli(1 − rate) mask of ``shape`` (default x's; a
     broadcastable shape gives stochastic depth) with survivors scaled by
-    1/(1 − rate) in x's dtype. ``shard``: x is a token block; the mask is
-    drawn for every token and this block's rows taken."""
+    1/(1 − rate) in x's dtype. ``shard``: x is a token block; ``part=(dim,
+    tp)``: x is this rank's ``tp.index``-th of ``tp.size`` equal parts of
+    ``dim`` (heads or hidden units). The mask is drawn for the whole tensor
+    and this rank's part taken, so every rank draws what one process
+    draws."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    if shard is not None and shape is None:
-        full = (x.shape[0], shard.total, *x.shape[2:])
-        mask = shard.take(torch.rand(full, generator=generator, device=x.device) < keep,
-                          True)
+    if shape is None and (shard is not None or part is not None):
+        full = list(x.shape)
+        if shard is not None:
+            full[1] = shard.total
+        if part is not None:
+            full[part[0]] *= part[1].size
+        mask = torch.rand(full, generator=generator, device=x.device) < keep
+        if shard is not None:
+            mask = shard.take(mask, True)
+        if part is not None:
+            dim, tp = part
+            n = x.shape[dim]
+            mask = mask.narrow(dim, tp.index * n, n)
     else:
         mask = torch.rand(x.shape if shape is None else shape, generator=generator,
                           device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, tp: TensorShard) -> torch.Tensor:
+    """A row-parallel linear (``proj``, ``fc2``): this rank's partial product
+    in float32 (bfloat16 operands are exact in it), summed over the ``model``
+    group in float32, the bias added once after the sum, then x's dtype."""
+    part = F.linear(x.float(), lin.weight.to(x.dtype).float())
+    out = pmesh.reduce_from_group(part, tp.group)
+    if lin.bias is not None:
+        out = out + lin.bias.to(x.dtype).float()
+    return out.to(x.dtype)
+
+
+def _shrink(lin: nn.Linear, key: str, tp: TensorShard) -> nn.Linear:
+    """``lin`` (``attn.qkv``, ``attn.proj``, ``mlp.fc1`` or ``mlp.fc2``, as
+    ``key`` names it) cut to this rank's shard along the tensor-parallel
+    axis, per the Megatron plan (:mod:`~ddim_cold_torch.parallel.sharding`)."""
+    out = nn.Linear(1, 1, bias=lin.bias is not None, device="meta")  # draws nothing
+    for name in ("weight", "bias"):
+        t = getattr(lin, name)
+        if t is None:
+            continue
+        full = f"blocks.0.{key}.{name}"
+        plan = sharding.plan_for({full: t.shape}, "model")[full]
+        t = t.detach()
+        if plan.sharded:
+            t = sharding.take_part(t, plan.dims.index("model"), tp.index, tp.size,
+                                   plan.groups)
+        setattr(out, name, nn.Parameter(t.clone()))
+    out.out_features, out.in_features = out.weight.shape
+    return out
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -279,7 +346,10 @@ class Mlp(nn.Module):
     ViT.py:74-90). ``quant``/``fused`` route it as the JAX module does: one
     ``mlp_fused`` kernel when ``fused and quant != "xla"`` and the dropout
     is inactive, else the two linears (int8 :class:`QuantLinear`s when
-    ``quant`` is set, swapped in by :class:`DiffusionViT`)."""
+    ``quant`` is set, swapped in by :class:`DiffusionViT`). Tensor-parallel
+    (:meth:`shard_hidden`): ``fc1`` holds its column shard of the hidden
+    units, ``fc2`` its row shard; the input enters through Megatron's *f*
+    and ``fc2``'s partial products are summed over the group (*g*)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  drop: float = 0.0, quant: Optional[str] = None, fused: bool = False,
@@ -289,11 +359,25 @@ class Mlp(nn.Module):
         self.quant = quant
         self.fused = fused
         self.shard = shard
+        self.tp: Optional[TensorShard] = None
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
 
+    def shard_hidden(self, tp: TensorShard) -> None:
+        """Keep this rank's hidden units only (``fc1`` columns, ``fc2``
+        rows)."""
+        self.fc1, self.fc2 = _shrink(self.fc1, "mlp.fc1", tp), _shrink(self.fc2, "mlp.fc2", tp)
+        self.tp = tp
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            x = pmesh.copy_to_group(x, tp.group)
+            h = F.gelu(_linear(x, self.fc1), approximate="none")
+            h = _dropout(h, self.drop, generator, shard=self.shard, part=(2, tp))
+            return _dropout(_row_parallel(h, self.fc2, tp), self.drop, generator,
+                            shard=self.shard)
         if self.fused and self.quant != "xla" and (generator is None or self.drop == 0.0):
             fc1, fc2 = self.fc1, self.fc2
             if self.quant:
@@ -308,7 +392,11 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with fused qkv (reference ViT.py:93-117)."""
+    """Multi-head self-attention with fused qkv (reference ViT.py:93-117).
+    Tensor-parallel (:meth:`shard_heads`): ``qkv`` holds the q, k and v
+    columns of this rank's heads, attention runs over them alone (the
+    flash kernels on ``(B, N, H/m, hd)``), and ``proj`` holds its row shard,
+    summed over the group with its bias added once after the sum."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
@@ -320,9 +408,11 @@ class Attention(nn.Module):
         self.quant = quant
         self.fused = fused
         self.shard = shard
+        self.tp: Optional[TensorShard] = None
         self.block_q = block_q
         self.block_kv = block_kv
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qk_scale = qk_scale
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
@@ -330,18 +420,38 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank attends over."""
+        return self.num_heads // (self.tp.size if self.tp is not None else 1)
+
+    def shard_heads(self, tp: TensorShard) -> None:
+        """Keep this rank's heads only (``qkv`` columns, ``proj`` rows)."""
+        self.qkv, self.proj = _shrink(self.qkv, "attn.qkv", tp), _shrink(self.proj,
+                                                                        "attn.proj", tp)
+        self.tp = tp
+
+    def _out(self, out: torch.Tensor, generator) -> torch.Tensor:
+        """The context ``(B, n, heads·hd)`` through ``proj`` and its dropout."""
+        if self.tp is not None:
+            out = _row_parallel(out, self.proj, self.tp)
+        else:
+            out = _linear(out, self.proj)
+        return _dropout(out, self.proj_drop, generator, shard=self.shard)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 need_weights: bool = False) -> torch.Tensor:
         """The attention output; with ``need_weights`` the (B, H, N, N)
         attention weights instead (dense path, after attention dropout, as
         JAX's probe returns them)."""
         B, N, C = x.shape
-        head_dim = C // self.num_heads
-        scale = self.qk_scale or head_dim**-0.5
+        scale = self.qk_scale or self.head_dim**-0.5
         # the flash, blockwise and fused routes never materialise the
         # weights: they need attention dropout inactive and no probe (JAX's
         # weightless_ok, vit.py:231)
         weightless = not need_weights and (generator is None or self.attn_drop == 0.0)
+        if self.tp is not None:
+            x = pmesh.copy_to_group(x, self.tp.group)
         if self.shard is not None:
             return self._seq_parallel(x, generator, need_weights, weightless, scale)
         if self.fused and self.quant in ("pallas", "w8a8") and weightless:
@@ -355,8 +465,10 @@ class Attention(nn.Module):
             return _dropout(out, self.proj_drop, generator)
         # (B, N, 3, H, hd) unpack order, as the reference reshape; the flash
         # kernels read q, k, v as strided slices of the projection and write
-        # its gradient as one buffer
-        qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, head_dim)
+        # its gradient as one buffer (a rank's column shard of qkv is this
+        # layout over its own heads)
+        heads = self.local_heads
+        qkv = _linear(x, self.qkv).reshape(B, N, 3, heads, self.head_dim)
         if self.use_flash == "xla" and weightless:
             out = blockwise_attention_xla(*qkv.unbind(2), scale, self.block_kv)
         elif self.use_flash and weightless:
@@ -365,16 +477,19 @@ class Attention(nn.Module):
             q, k, v = qkv.unbind(2)
             logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
             attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-            attn = _dropout(attn, self.attn_drop, generator)
+            attn = _dropout(attn, self.attn_drop, generator,
+                            part=None if self.tp is None else (1, self.tp))
             if need_weights:
-                return attn
+                # every head's weights, on every rank of the group
+                return attn if self.tp is None else pmesh.gather_cat(
+                    attn, self.tp.group, dim=1)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
-        out = _linear(out.reshape(B, N, C), self.proj)
-        return _dropout(out, self.proj_drop, generator)
+        return self._out(out.reshape(B, N, heads * self.head_dim), generator)
 
     def _seq_parallel(self, x, generator, need_weights, weightless, scale):
         """Attention of this rank's token block over the seq group (JAX
-        vit.py:286-296, :333-355): ring or Ulysses by the shard's mode."""
+        vit.py:286-296, :333-355): ring or Ulysses by the shard's mode, over
+        this rank's heads (``head_axis``: no qkv all-gather)."""
         shard = self.shard
         if need_weights:
             raise NotImplementedError(
@@ -387,8 +502,9 @@ class Attention(nn.Module):
                 "sequence-parallel attention cannot apply attention-dropout "
                 f"(attn_drop={self.attn_drop} active in training); set "
                 "attn_drop_rate=0.0 on the model")
-        B, n, C = x.shape
-        qkv = _linear(x, self.qkv).reshape(B, n, 3, self.num_heads, C // self.num_heads)
+        B, n, _ = x.shape
+        heads = self.local_heads
+        qkv = _linear(x, self.qkv).reshape(B, n, 3, heads, self.head_dim)
         if shard.mode == "ulysses":
             out = ulysses_attention_qkv(qkv, group=shard.group, n_valid=shard.total,
                                         scale=scale, use_flash=self.use_flash,
@@ -396,8 +512,7 @@ class Attention(nn.Module):
         else:
             out = ring_attention(*qkv.unbind(2), shard.valid(B, x.device),
                                  group=shard.group, scale=scale)
-        out = _linear(out.reshape(B, n, C), self.proj)
-        return _dropout(out, self.proj_drop, generator, shard=shard)
+        return self._out(out.reshape(B, n, heads * self.head_dim), generator)
 
 
 class Block(nn.Module):
@@ -468,7 +583,9 @@ class DiffusionViT(nn.Module):
                  quant: Optional[str] = None, fused: bool = False,
                  flash_blocks: Optional[tuple] = None, remat: bool = False,
                  seq_mesh=None, seq_axis: Optional[str] = None,
-                 batch_axis: Optional[str] = None, sp_mode: str = "ring", *,
+                 batch_axis: Optional[str] = None, sp_mode: str = "ring",
+                 head_axis: Optional[str] = None, scan_blocks: bool = False,
+                 pipe_axis: Optional[str] = None, *,
                  device=None, seed: int = 0, **later):
         ctor = {k: v for k, v in locals().items()
                 if k not in ("self", "later", "__class__")}
@@ -491,8 +608,24 @@ class DiffusionViT(nn.Module):
             raise ValueError(f"flash_blocks must be (block_q, block_kv), got "
                              f"{flash_blocks!r}")
         refuse_later(later, _LATER_CTOR, "DiffusionViT")
+        if quant is not None and scan_blocks:
+            # JAX: the stacked kernel layout has no per-layer scale axis
+            raise ValueError("quant requires scan_blocks=False")
         shard = _seq_shard(seq_mesh, seq_axis, batch_axis, sp_mode,
                            (img_size[0] // patch_size) * (img_size[1] // patch_size) + 1)
+        tp = _tensor_shard(seq_mesh, head_axis, num_heads, int(embed_dim * mlp_ratio),
+                           quant, fused)
+        if shard is not None and tp is not None and shard.mode == "ulysses" and (
+                (num_heads // tp.size) % pmesh.axis_size(seq_mesh, seq_axis)):
+            raise heads_error(f"{num_heads}//{tp.size}={num_heads // tp.size}", seq_axis,
+                              pmesh.axis_size(seq_mesh, seq_axis))
+        stage = None
+        if pipe_axis is not None:
+            if not scan_blocks:
+                raise ValueError("pipelined apply requires scan_blocks=True")
+            if pipe_axis not in tuple(getattr(seq_mesh, "mesh_dim_names", None) or ()):
+                raise ValueError(f"pipe_axis {pipe_axis!r} is not an axis of seq_mesh")
+            stage = sharding.stage_blocks(depth, seq_mesh, pipe_axis)
         if not (use_flash in (True, False) or use_flash == "xla"):
             raise ValueError(f"use_flash must be True (the flash kernels), False "
                              f"(dense) or 'xla' (blockwise), got {use_flash!r}")
@@ -516,6 +649,10 @@ class DiffusionViT(nn.Module):
         self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
         self.batch_axis, self.sp_mode = batch_axis, sp_mode
         self.shard = shard
+        self.head_axis, self.tp = head_axis, tp
+        self.scan_blocks = bool(scan_blocks)
+        self.pipe_axis, self.stage = pipe_axis, stage
+        self.mlp_ratio = mlp_ratio
         self._ctor = ctor
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate
@@ -553,6 +690,17 @@ class DiffusionViT(nn.Module):
                     for name in names:
                         setattr(mod, name, quant_ops.QuantLinear.from_linear(
                             getattr(mod, name), quant))
+        # the layout of every key of the whole model (names and ranks only)
+        self.plan = sharding.plan_for(self.state_dict(), head_axis, pipe_axis)
+        # sharded: every rank draws the whole seeded init, then keeps its part
+        if tp is not None:
+            for blk in self.blocks:
+                blk.attn.shard_heads(tp)
+                blk.mlp.shard_hidden(tp)
+        if stage is not None:
+            for i in range(depth):
+                if i not in stage:
+                    self.blocks[i] = _Elsewhere()
         self.to(device)
         self.eval()
 
@@ -624,6 +772,7 @@ class DiffusionViT(nn.Module):
                 token_cache: Optional[tuple] = None,
                 token_k: Optional[int] = None,
                 return_attention_layer: Optional[int] = None,
+                stage: str = "full", tokens: Optional[torch.Tensor] = None,
                 **later):
         """``deterministic=False`` is the training forward and needs
         ``generator`` (on the model's device) for its dropout masks.
@@ -658,39 +807,38 @@ class DiffusionViT(nn.Module):
         before layer ``i % depth`` run as usual, then that layer's
         attention weights (B, H, N, N) in the model dtype are returned from
         the dense path, whatever ``use_flash`` (JAX vit.py:923-931). The
-        probed layer is never rematerialised; the cache hooks exclude it."""
-        refuse_later(later, _LATER_FORWARD, "DiffusionViT.forward")
+        probed layer is never rematerialised; the cache hooks exclude it.
+
+        ``stage="embed"`` returns the token stream after the embeddings and
+        ``pos_drop`` (this rank's sequence block under sequence
+        parallelism); ``stage="head"`` takes ``tokens``, the trunk's output,
+        through the final LayerNorm, the head and the un-patchify (JAX
+        vit.py:657-662). A pipeline stage's model (``pipe_axis``) runs no
+        ``stage="full"`` forward: its trunk is the pipeline's."""
+        if later:
+            raise TypeError(f"DiffusionViT.forward got an unexpected argument "
+                            f"{next(iter(later))!r}")
         self._check_cache_hooks(skip_blocks, block_delta, capture_split,
                                 capture_tokens, token_cache, token_k,
-                                return_attention_layer)
+                                return_attention_layer, stage)
         if deterministic:
             generator = None
         elif generator is None:
             raise ValueError("the training forward (deterministic=False) draws "
                              "dropout masks: pass generator")
+        if stage == "head":
+            if tokens is None:
+                raise ValueError('stage="head" requires tokens')
+            return self._head(tokens)
+        tokens = self._embed(x, t, generator)
+        if stage == "embed":
+            return tokens
+        if self.stage is not None:
+            raise ValueError(
+                f"this model holds pipeline stage blocks {list(self.stage)} only: "
+                "run its trunk through parallel.pipeline.make_pipelined_apply")
         B = x.shape[0]
-        x = x.to(self.dtype)
         shard = self.shard
-        lo, hi = (0, self.num_patches + 1) if shard is None else (
-            shard.lo, shard.lo + shard.n_real)
-        if shard is None:
-            tokens = self.patch_embed(x)
-        else:  # this rank's tokens only: token i ≥ 1 is patch i − 1
-            tokens = self.patch_embed.embed(
-                self.patch_embed.patchify(x)[:, max(lo - 1, 0):hi - 1])
-        if lo == 0:
-            cls = self.cls_token.to(self.dtype).expand(B, 1, self.embed_dim)
-            tokens = torch.cat([cls, tokens], dim=1)
-        # time conditioning: one learned row per step, added to EVERY token
-        # (cls included) with the positional embedding (ViT.py:204-205)
-        time = F.embedding(t.to(x.device).long(),
-                           self.time_embed.weight.to(self.dtype))[:, None, :]
-        pos = self.pos_embed if self.pos_embed is not None else self.pos_table
-        tokens = tokens + pos[:, lo:hi].to(self.dtype) + time
-        if shard is not None:
-            tokens = shard.pad(tokens)
-        tokens = _dropout(tokens, self.drop_rate, generator, shard=shard)  # pos_drop
-
         stream_in = tokens  # post-embed stream: the token cache's reference
         live = None
         if token_cache is not None:
@@ -704,7 +852,7 @@ class DiffusionViT(nn.Module):
         probe = (None if return_attention_layer is None
                  else return_attention_layer % self.depth)
         # a w8a8 block's activation scale is the whole sequence's
-        scope = (quant_ops.act_scale_over(shard.group, n_valid=shard.n_real)
+        scope = (quant_ops.act_scale_over(tokens=shard)
                  if shard is not None and self.quant == "w8a8"
                  else contextlib.nullcontext())
         with scope:
@@ -715,10 +863,7 @@ class DiffusionViT(nn.Module):
                     continue
                 if i == probe:
                     return blk(tokens, generator, return_attention=True)
-                if self.remat and torch.is_grad_enabled():
-                    tokens = _remat_block(blk, tokens, generator)
-                else:
-                    tokens = blk(tokens, generator)
+                tokens = self.run_block(i, tokens, generator)
                 if capture_split is not None and i == capture_split - 1:
                     tokens_mid = tokens
 
@@ -741,18 +886,82 @@ class DiffusionViT(nn.Module):
             cache = (tokens_mid - tokens_in, tokens - tokens_mid)
         elif capture_tokens:
             cache = (stream_in, tokens - stream_in)
-        tokens = _linear(_layer_norm(tokens, self.norm), self.head)
-        if shard is not None:  # every rank of the group returns the whole image
-            tokens = shard.gather(tokens)
-        out = self.unpatchify(tokens[:, 1:, :]).float()
+        out = self._head(tokens)
         return out if cache is None else (out, cache)
+
+    def _embed(self, x: torch.Tensor, t: torch.Tensor, generator) -> torch.Tensor:
+        """The token stream after the patch, class, positional and time
+        embeddings and ``pos_drop`` (``stage="embed"``): ``(B, N+1, E)``, or
+        this rank's padded sequence block."""
+        B = x.shape[0]
+        x = x.to(self.dtype)
+        shard = self.shard
+        lo, hi = (0, self.num_patches + 1) if shard is None else (
+            shard.lo, shard.lo + shard.n_real)
+        if shard is None:
+            tokens = self.patch_embed(x)
+        else:  # this rank's tokens only: token i ≥ 1 is patch i − 1
+            tokens = self.patch_embed.embed(
+                self.patch_embed.patchify(x)[:, max(lo - 1, 0):hi - 1])
+        if lo == 0:
+            cls = self.cls_token.to(self.dtype).expand(B, 1, self.embed_dim)
+            tokens = torch.cat([cls, tokens], dim=1)
+        # time conditioning: one learned row per step, added to EVERY token
+        # (cls included) with the positional embedding (ViT.py:204-205)
+        time = F.embedding(t.to(x.device).long(),
+                           self.time_embed.weight.to(self.dtype))[:, None, :]
+        pos = self.pos_embed if self.pos_embed is not None else self.pos_table
+        tokens = tokens + pos[:, lo:hi].to(self.dtype) + time
+        if shard is not None:
+            tokens = shard.pad(tokens)
+        return _dropout(tokens, self.drop_rate, generator, shard=shard)  # pos_drop
+
+    def _head(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The trunk's output through the final LayerNorm, the head and the
+        un-patchify (``stage="head"``): ``(B, H, W, C)`` float32; a sequence
+        block's outputs are gathered, so every rank of the group returns
+        the whole image."""
+        tokens = _linear(_layer_norm(tokens, self.norm), self.head)
+        if self.shard is not None:
+            tokens = self.shard.gather(tokens)
+        return self.unpatchify(tokens[:, 1:, :]).float()
+
+    def run_block(self, i: int, tokens: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Block ``i`` on ``tokens`` (rematerialised under ``remat`` when a
+        gradient is recorded)."""
+        blk = self.blocks[i]
+        if self.remat and torch.is_grad_enabled():
+            return _remat_block(blk, tokens, generator)
+        return blk(tokens, generator)
 
     def _check_cache_hooks(self, skip_blocks, block_delta, capture_split,
                            capture_tokens, token_cache, token_k,
-                           return_attention_layer=None) -> None:
-        """The JAX model's validation of the step-cache hooks and the probe
-        (vit.py:724-773); under sequence parallelism the token cache and the
+                           return_attention_layer=None, stage="full") -> None:
+        """The JAX model's validation of the step-cache hooks, the probe and
+        ``stage`` (vit.py:713-773, :851-853), with its refusals under
+        ``scan_blocks``; under sequence parallelism the token cache and the
         probe raise (ROADMAP.md Queue 1 item 14)."""
+        if stage not in ("full", "embed", "head"):
+            raise ValueError(f"stage must be 'full', 'embed' or 'head', got {stage!r}")
+        if skip_blocks is not None or capture_split is not None:
+            if self.scan_blocks:
+                raise ValueError(
+                    "step caching (skip_blocks/capture_split) requires "
+                    "scan_blocks=False — one scanned block body cannot "
+                    "statically drop layers")
+            if stage != "full":
+                raise ValueError("step caching composes with stage='full' only")
+        if capture_tokens or token_cache is not None:
+            if self.scan_blocks:
+                raise ValueError(
+                    "token caching (capture_tokens/token_cache) requires "
+                    "scan_blocks=False — the gathered subset changes the "
+                    "scanned body's shape")
+            if stage != "full":
+                raise ValueError("token caching composes with stage='full' only")
+        if return_attention_layer is not None and self.scan_blocks and stage == "full":
+            raise ValueError("attention probe requires scan_blocks=False")
         if self.shard is not None and (capture_tokens or token_cache is not None
                                        or return_attention_layer is not None):
             raise NotImplementedError(
@@ -820,25 +1029,81 @@ def _seq_shard(mesh, seq_axis: Optional[str], batch_axis: Optional[str], sp_mode
     return pmesh.seq_shard(mesh, seq_axis, total, sp_mode)
 
 
+class _Elsewhere(nn.Module):
+    """The place of a block another pipeline stage holds (no parameters)."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this block lives on another pipeline stage")
+
+
+def _tensor_shard(mesh, head_axis: Optional[str], num_heads: int, hidden: int,
+                  quant: Optional[str], fused: bool) -> Optional[TensorShard]:
+    """This rank's place on the ``head_axis`` of ``mesh`` (None without
+    one), with JAX's head-divisibility error."""
+    if head_axis is None:
+        return None
+    if mesh is None:
+        raise ValueError("head_axis names an axis of seq_mesh: pass the mesh")
+    m = check_head_axis(mesh, head_axis, num_heads)
+    if hidden % m:
+        raise ValueError(f"the Mlp's {hidden} hidden units must divide over the "
+                         f"'{head_axis}' axis ({m})")
+    if quant is not None or fused:
+        raise NotImplementedError(
+            "quant and fused under tensor parallelism are not ported yet: "
+            "ROADMAP.md Queue 1 item 14")
+    return TensorShard(mesh.get_group(head_axis), m, pmesh.axis_index(mesh, head_axis))
+
+
+def block_template(model: DiffusionViT, *, seq_manual_axis=None, seq_valid_len=None,
+                   seq_varying_axes=None) -> Block:
+    """A fresh single-layer :class:`Block` of ``model``'s configuration
+    (JAX's ``block_template``, vit.py:501-523): its width, heads, drop rates
+    (drop path 0: JAX feeds each layer's rate in), kernels route, sequence
+    block and tensor shard, weights from torch's default init. The port's
+    pipeline runs the model's own blocks; this is the unit a stage repeats.
+    ``seq_manual_axis`` must name the model's own ``seq_axis`` (the port's
+    sequence-parallel blocks always run on their local block);
+    ``seq_valid_len`` and ``seq_varying_axes`` (JAX's typing aids) are
+    accepted and unused."""
+    del seq_valid_len, seq_varying_axes
+    if seq_manual_axis is not None and seq_manual_axis != model.seq_axis:
+        raise ValueError(f"seq_manual_axis {seq_manual_axis!r} is not the model's "
+                         f"seq_axis {model.seq_axis!r}")
+    blk = Block(model.embed_dim, model.num_heads, mlp_ratio=model.mlp_ratio,
+                qkv_bias=model._ctor["qkv_bias"], qk_scale=model._ctor["qk_scale"],
+                drop=model.drop_rate, attn_drop=model.attn_drop_rate, drop_path=0.0,
+                use_flash=model.use_flash, fused=model.fused,
+                block_q=int(model.flash_blocks[0]) if model.flash_blocks else DEFAULT_BLOCK_Q,
+                block_kv=int(model.flash_blocks[1]) if model.flash_blocks else DEFAULT_BLOCK_KV,
+                shard=model.shard)
+    if model.tp is not None:
+        blk.attn.shard_heads(model.tp)
+        blk.mlp.shard_hidden(model.tp)
+    return blk.to(model.device)
+
+
 def sp_clone(model: DiffusionViT, mesh, *, sp_mode: str = "ulysses",
              seq_axis: str = "seq", batch_axis: str = "data",
              head_axis=None) -> DiffusionViT:
     """The sequence-parallel variant of ``model`` over ``mesh``, carrying
     ``model``'s weights (JAX ``sp_clone``, vit.py:986); a quant or fused
-    model keeps its ``quant`` and ``fused``. ``sp_mode="ulysses"``
-    needs the head count divisible by the seq axis and falls back to the ring
-    otherwise, which has no head constraint. A ``batch_axis`` the mesh lacks
-    is dropped; ``head_axis`` (tensor parallelism) is ROADMAP.md Queue 1
-    item 14."""
-    if head_axis is not None:
-        raise NotImplementedError("sp_clone(head_axis=...) is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 14 (tensor parallelism)")
+    model keeps its ``quant`` and ``fused``. ``sp_mode="ulysses"`` needs the
+    tp-local head count divisible by the seq axis and falls back to the
+    ring otherwise, which has no head constraint. A ``batch_axis`` the mesh
+    lacks is dropped. ``head_axis`` (a tensor-parallel axis of ``mesh``):
+    each rank holds its heads' shard of the weights and attends over those
+    heads only, inside the sequence-parallel attention."""
     parts = pmesh.axis_size(mesh, seq_axis)
-    if sp_mode == "ulysses" and model.num_heads % parts:
+    tp = pmesh.axis_size(mesh, head_axis) if head_axis else 1
+    if sp_mode == "ulysses" and (model.num_heads // tp) % parts:
         sp_mode = "ring"
     if batch_axis not in tuple(mesh.mesh_dim_names or ()):
         batch_axis = None
     clone = model.clone(seq_mesh=mesh, seq_axis=seq_axis, batch_axis=batch_axis,
-                        sp_mode=sp_mode)
-    clone.load_state_dict(model.state_dict(), strict=True)
+                        sp_mode=sp_mode, head_axis=head_axis)
+    state = model.state_dict()
+    if head_axis is not None:
+        state = sharding.shard_state_dict(state, mesh, clone.plan)
+    clone.load_state_dict(state, strict=True)
     return clone

@@ -107,36 +107,60 @@ def dequantize_weight(w_int8: torch.Tensor, scale: torch.Tensor,
 
 class _ActScope(threading.local):
     """The ranks that hold the rest of this thread's activations: process
-    groups to reduce ``max|x|`` over, and how many leading token rows of a
-    ``(B, n, …)`` activation are real (None: all of them)."""
+    groups whose ranks hold equal blocks of a ``(B, …)`` activation's rows
+    in rank order (``groups``), and the sequence block a ``(B, n, …)``
+    activation's tokens are (``tokens``: a ``parallel.mesh.SeqShard``, or
+    None). ``whole`` is set while a call already runs on whole tiles."""
 
     groups: tuple = ()
-    n_valid: Optional[int] = None
+    tokens: Optional[object] = None
+    whole: bool = False
+
+    @property
+    def n_valid(self) -> Optional[int]:
+        """Leading token rows of dim 1 that are real (None: all of them)."""
+        return None if self.tokens is None else self.tokens.n_real
+
+    @property
+    def split(self) -> bool:
+        """True when this rank holds only a part of the activation."""
+        return bool(self.groups) or self.tokens is not None
 
 
 _ACT_SCOPE = _ActScope()
 
 
 @contextlib.contextmanager
-def act_scale_over(*groups, n_valid: Optional[int] = None):
+def act_scale_over(*groups, tokens=None):
     """Make every :func:`quantize_act` in this block (this thread) take the
     per-tensor scale of the whole tensor when its rows or tokens are split
     over ranks: ``max|x|`` is reduced with ``MAX`` over each process group
     of ``groups`` (None entries and groups already in force are skipped, so
-    scopes nest). ``n_valid``: only the first ``n_valid`` rows of dim 1 of a
-    ``(B, n, …)`` activation are real tokens (a sequence block's padding is
-    not part of the tensor). The samplers enter it with a mesh's ``data``
-    group and a sequence-parallel model with its ``seq`` group."""
+    scopes nest; each splits dim 0 into equal blocks in rank order, a later
+    one inside an earlier one's block) and over ``tokens``' group.
+    ``tokens`` (a ``parallel.mesh.SeqShard``): dim 1 of a ``(B, n, …)``
+    activation is this rank's sequence block, of which only the first
+    ``n_real`` rows are real tokens (a block's padding is not part of the
+    tensor). The samplers enter it with a mesh's ``data`` group and a
+    sequence-parallel model with its shard. The fused w8a8 Mlp also runs
+    over whole row tiles of the one-process call inside it
+    (:func:`mlp_fused`)."""
     scope = _ACT_SCOPE
-    saved = scope.groups, scope.n_valid
+    saved = scope.groups, scope.tokens
     scope.groups = saved[0] + tuple(g for g in dict.fromkeys(groups)
                                     if g is not None and g not in saved[0])
-    if n_valid is not None:
-        scope.n_valid = int(n_valid)
+    if tokens is not None:
+        scope.tokens = tokens
     try:
         yield
     finally:
-        scope.groups, scope.n_valid = saved
+        scope.groups, scope.tokens = saved
+
+
+def _scope_groups(scope: _ActScope) -> tuple:
+    """Every group the scope's activation is split over."""
+    tok = () if scope.tokens is None else (scope.tokens.group,)
+    return scope.groups + tuple(g for g in tok if g not in scope.groups)
 
 
 def act_amax(xf: torch.Tensor) -> torch.Tensor:
@@ -146,7 +170,7 @@ def act_amax(xf: torch.Tensor) -> torch.Tensor:
     if scope.n_valid is not None and xf.dim() >= 3:
         xf = xf[:, :scope.n_valid]
     amax = xf.abs().amax() if xf.numel() else xf.new_zeros(())
-    for group in scope.groups:
+    for group in _scope_groups(scope):
         amax = amax.reshape(1).clone()
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
         amax = amax.reshape(())
@@ -496,6 +520,10 @@ def mlp_fused_reference(x, w1, b1, w2, b2=None, *, scale1=None, scale2=None,
     for :func:`requant_flip_bound`.
     """
     _check_mlp(x, w1, b1, w2, b2, scale1, scale2, mode)
+    if _whole_tiles_due(mode) and not return_row_scale:
+        return _over_whole_tiles(lambda rows, bm: mlp_fused_reference(
+            rows, w1, b1, w2, b2, scale1=scale1, scale2=scale2, mode=mode,
+            block_m=bm), x, block_m)
     row_scale = None
     cdt = x.dtype
     lead, K = x.shape[:-1], x.shape[-1]
@@ -526,6 +554,60 @@ def mlp_fused_reference(x, w1, b1, w2, b2=None, *, scale1=None, scale2=None,
             y = y + b2.float()
     y = y.to(cdt).reshape(*lead, w2.shape[0])
     return (y, row_scale) if return_row_scale else y
+
+
+def _gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _over_whole_tiles(run, x: torch.Tensor, block_m: int) -> torch.Tensor:
+    """The w8a8 fused Mlp of this rank's part of an activation split over
+    the ranks of :func:`act_scale_over`, as the one-process call computes
+    it: that call requantizes the hidden activation per ``block_m``-row
+    tile of the whole ``(B·N)``-row grid, so this rank gathers the whole
+    activation (its real tokens, each row tagged with its owner), runs
+    ``run(rows, block)`` on every whole tile its own rows touch (the last
+    tile zero-padded, as the kernel pads it) and keeps its own rows'
+    outputs. A rank runs at most 2·(block − 1) rows more than it holds for
+    each contiguous run of its rows."""
+    scope = _ACT_SCOPE
+    K = x.shape[-1]
+    rank = float(dist.get_rank())
+    tagged = torch.cat([x, torch.full((*x.shape[:-1], 1), rank, dtype=x.dtype,
+                                      device=x.device)], dim=-1)
+    tok = scope.tokens
+    if tok is not None:
+        tagged = _gather_cat(tagged, tok.group, 1)[:, :tok.total]
+    for group in reversed(scope.groups):
+        tagged = _gather_cat(tagged, group, 0)
+    whole = tagged.reshape(-1, K + 1)
+    M = whole.shape[0]
+    bm = tiling.legal_block(block_m, M, torch.int8)
+    mine = (whole[:, K] == rank).nonzero()[:, 0]
+    tiles = torch.unique(mine // bm)
+    rows = (tiles[:, None] * bm + torch.arange(bm, device=x.device)).reshape(-1)
+    sub = torch.zeros((rows.shape[0], K), dtype=x.dtype, device=x.device)
+    live = rows < M
+    sub[live] = whole[rows[live], :K]
+    scope.whole = True
+    try:
+        y = run(sub, bm)
+    finally:
+        scope.whole = False
+    # own rows in the whole grid's order are this block's in row-major order
+    y = y[torch.searchsorted(tiles, mine // bm) * bm + mine % bm]
+    if tok is not None:  # the block's padding tokens take zeros
+        y = F.pad(y.reshape(x.shape[0], tok.n_real, -1),
+                  (0, 0, 0, x.shape[1] - tok.n_real))
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def _whole_tiles_due(mode: Optional[str]) -> bool:
+    """True where a w8a8 fused Mlp must run over the one-process call's
+    whole tiles (:func:`_over_whole_tiles`)."""
+    return mode == "w8a8" and _ACT_SCOPE.split and not _ACT_SCOPE.whole
 
 
 def requant_flip_bound(row_scale: torch.Tensor, w_codes: torch.Tensor,
@@ -605,6 +687,10 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """
     _check_mlp(x, w1, b1, w2, b2, scale1, scale2, mode)
     refuse_grad("the fused Mlp kernel", x, w1, b1, w2, b2)
+    if _whole_tiles_due(mode):
+        return _over_whole_tiles(lambda rows, bm: mlp_fused(
+            rows, w1, b1, w2, b2, scale1=scale1, scale2=scale2, mode=mode,
+            block_m=bm), x, block_m)
     if not _on_cuda("mlp_fused", x):
         with profiling.scope("mlp/pallas"):
             return mlp_fused_reference(x, w1, b1, w2, b2, scale1=scale1,

@@ -7,11 +7,18 @@ with DistributedSampler. The JAX package drives every chip of a host from
 one process instead, over a named ``Mesh``. The port goes back to one
 process per card, as PyTorch does it: :func:`initialize_distributed` joins
 the ``torch.distributed`` world, :func:`make_mesh` names its axes with a
-``DeviceMesh`` (``data``: batch rows; ``seq``: tokens), and each process
-holds its own rows, its own tokens and a full copy of the parameters.
+``DeviceMesh`` (``data``: batch rows; ``seq``: tokens; ``model``: attention
+heads and Mlp hidden units, Megatron's tensor parallelism; ``pipe``:
+pipeline stages), and each process holds its own rows and tokens, and the
+parameters of its ``model``/``pipe`` coordinates
+(:mod:`~ddim_cold_torch.parallel.sharding`), equal along ``data`` and
+``seq``.
 
 The collectives the parallel layers need are here too, each one call that
 both NCCL and gloo carry, with no branch on the backend:
+
+* :func:`copy_to_group` and :func:`reduce_from_group` — Megatron's *f* and
+  *g* around a tensor-parallel (column → row) pair of linears;
 
 * :func:`all_to_all` — ``all_to_all_single`` in equal chunks along dim 0,
   differentiable (its backward is the same exchange of the gradient);
@@ -45,9 +52,12 @@ import torch.distributed as dist
 
 from ddim_cold_torch.utils.platform import resolve_device
 
-#: the mesh axes this slice runs; ``model``, ``pipe`` and ``expert`` are
-#: ROADMAP.md Queue 1 item 14's other half
-PORTED_AXES = ("data", "seq")
+#: the mesh axes the port runs; ``expert`` is ROADMAP.md Queue 1 item 18
+PORTED_AXES = ("data", "seq", "model", "pipe")
+
+#: the axes whose ranks hold identical parameters (every other axis, the
+#: ``model`` and ``pipe`` ones, holds a shard of them)
+REPLICA_AXES = ("data", "seq")
 
 #: largest flat buffer :func:`all_reduce_flat` sums in one call (DDP's
 #: default bucket)
@@ -209,17 +219,25 @@ def seq_shard(mesh, axis: str, total: int, mode: Optional[str] = None) -> SeqSha
                     n_real=max(0, min(n_loc, total - lo)), mode=mode)
 
 
-def over_sequence(fn, xs: tuple, mesh, axis: str, batch_axis: Optional[str] = None):
+def over_sequence(fn, xs: tuple, mesh, axis: str, batch_axis: Optional[str] = None,
+                  head_axis: Optional[str] = None):
     """``fn(shard, *blocks)`` on this rank's rows (along ``batch_axis``, if
-    any) and token block (along ``axis``) of whole ``(B, N, …)`` tensors
-    ``xs``; its ``(B, n_local, …)`` result is gathered back, so every rank
-    returns the whole ``(B, N, …)``. The gradients of a rank's inputs are its
-    own rows and tokens' share: summed over the ranks they are the whole
+    any), token block (along ``axis``) and heads (dim 2, along
+    ``head_axis``, if any) of whole ``(B, N, H, …)`` tensors ``xs``; its
+    ``(B, n_local, …)`` result is gathered back, so every rank returns the
+    whole ``(B, N, H, …)``. The gradients of a rank's inputs are its own
+    rows, tokens and heads' share: summed over the ranks they are the whole
     gradient."""
     shard = seq_shard(mesh, axis, xs[0].shape[1])
     if batch_axis is not None:
         xs = tuple(shard_rows(x, mesh, batch_axis) for x in xs)
+    if head_axis is not None:
+        parts, i = axis_size(mesh, head_axis), axis_index(mesh, head_axis)
+        h = xs[0].shape[2] // parts
+        xs = tuple(x[:, :, i * h:(i + 1) * h] for x in xs)
     out = shard.gather(fn(shard, *(shard.take(x) for x in xs)))
+    if head_axis is not None:
+        out = gather_cat(out, mesh.get_group(head_axis), dim=2)
     if batch_axis is not None:
         out = gather_cat(out, mesh.get_group(batch_axis), dim=0)
     return out
@@ -241,22 +259,41 @@ def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0, group=None)
                 t.copy_(v)
 
 
-def shard_params(model) -> None:
-    """Every rank takes rank 0's parameters and buffers (broadcast over the
-    world; the mesh replicates them on every axis this slice runs). JAX's
-    ``shard_params`` with no specs."""
+def _from_replica_zero(tensors: list, mesh) -> None:
+    """``tensors`` of the first rank of each replica group copied into the
+    others': over the world when ``mesh`` (None: the world) shards nothing,
+    else along each of its :data:`REPLICA_AXES` in turn, from that axis's
+    rank 0 (the ranks of a ``model`` or ``pipe`` axis hold other shards)."""
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    if not set(names) - set(REPLICA_AXES):
+        broadcast_tensors(tensors)
+        return
+    for axis in REPLICA_AXES:
+        if axis_size(mesh, axis) > 1:
+            group = mesh.get_group(axis)
+            broadcast_tensors(tensors, src=dist.get_global_rank(group, 0), group=group)
+
+
+def shard_params(model, mesh=None) -> None:
+    """Every rank takes its replica group's first rank's parameters and
+    buffers (rank 0's where ``mesh`` shards nothing: JAX's ``shard_params``
+    with no specs). Under ``model``/``pipe`` axes each rank holds its own
+    shard already (the model is built sharded,
+    :mod:`~ddim_cold_torch.parallel.sharding`), equal along ``data`` and
+    ``seq``."""
     if dist.is_initialized():
-        broadcast_tensors(list(model.parameters()) + list(model.buffers()))
+        _from_replica_zero(list(model.parameters()) + list(model.buffers()), mesh)
 
 
-def shard_train_state(state):
+def shard_train_state(state, mesh=None):
     """:func:`shard_params` for a ``train.step.TrainState``: parameters, the
-    EMA shadow and AdamW's moments from rank 0, so every rank starts from
+    EMA shadow and AdamW's moments, which are co-sharded with the
+    parameters (lists in their order), so every replica starts from
     identical tensors."""
     if dist.is_initialized():
-        shard_params(state.model)
+        shard_params(state.model, mesh)
         extra = list(state.ema_params) if state.ema_params is not None else []
-        broadcast_tensors(list(state.mu) + list(state.nu) + extra)
+        _from_replica_zero(list(state.mu) + list(state.nu) + extra, mesh)
     return state
 
 
@@ -379,6 +416,50 @@ def gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _GatherCat.apply(x, group, dim)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; the backward sums the gradient
+    over ``group`` (each rank's column shard contributes its share of the
+    input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's *g*: the forward sums the ranks' partial products over
+    ``group``; the backward passes the gradient through (every rank holds
+    the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel linear (see :class:`_CopyToGroup`)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The summed output of a row-parallel linear (see
+    :class:`_ReduceFromGroup`)."""
+    return _ReduceFromGroup.apply(x, group)
 
 
 def mesh_ranks(mesh) -> list:

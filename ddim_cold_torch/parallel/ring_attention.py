@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from ddim_cold_torch.ops.flash_attention import exp_f32, online_softmax_update
 from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.parallel.ulysses import check_head_axis
 from ddim_cold_torch.utils import profiling
 
 _NEG_INF = -1e30
@@ -152,13 +153,13 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     :func:`ring_attention`, and the blocks are gathered back, so every rank
     returns the dense-softmax result ``(B, N, H, D)``
     (:func:`~ddim_cold_torch.parallel.mesh.over_sequence`). ``head_axis``
-    (tensor parallelism) is ROADMAP.md Queue 1 item 14."""
-    if head_axis is not None:
-        raise NotImplementedError("ring_self_attention(head_axis=...) is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 14 (tensor parallelism)")
+    (tensor parallelism): this rank also takes its heads along that axis,
+    so each tp group rings only its own heads (softmax is per head)."""
     if scale is None:
         scale = q.shape[-1]**-0.5
+    if head_axis is not None:
+        check_head_axis(mesh, head_axis, q.shape[2])
     return pmesh.over_sequence(
         lambda shard, q, k, v: ring_attention(q, k, v, shard.valid(q.shape[0], q.device),
                                               group=shard.group, scale=scale),
-        (q, k, v), mesh, axis, batch_axis)
+        (q, k, v), mesh, axis, batch_axis, head_axis)

@@ -40,7 +40,7 @@ class SeqParallelConfigError(ValueError):
     when resolving a config's attention strategy."""
 
 
-def _heads_error(heads: str, axis: str, parts: int) -> SeqParallelConfigError:
+def heads_error(heads: str, axis: str, parts: int) -> SeqParallelConfigError:
     """JAX's message for heads (``heads``: the count as JAX words it) that
     do not divide over ``axis``'s ``parts`` ranks."""
     return SeqParallelConfigError(
@@ -48,6 +48,21 @@ def _heads_error(heads: str, axis: str, parts: int) -> SeqParallelConfigError:
         f"({parts}); use sp_mode='ring' otherwise (serving: SamplerConfig("
         "sp_mode='ring', sp_degree=...), or pick an sp_degree that divides the "
         "local head count)")
+
+
+def check_head_axis(mesh, head_axis: str, heads: int) -> int:
+    """The ``head_axis`` size, with JAX's errors for an axis the mesh lacks
+    and heads that do not divide over it."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if head_axis not in names:
+        shape = {a: pmesh.axis_size(mesh, a) for a in names}
+        raise ValueError(f"head_axis {head_axis!r} is not an axis of the mesh {shape} "
+                         "— drop it, or add the tp axis to the mesh")
+    tp = pmesh.axis_size(mesh, head_axis)
+    if heads % tp:
+        raise SeqParallelConfigError(
+            f"num_heads ({heads}) must divide over the '{head_axis}' axis ({tp})")
+    return tp
 
 
 def _local_attention(qkv: torch.Tensor, scale: float, use_flash,
@@ -75,7 +90,7 @@ def ulysses_attention_qkv(qkv: torch.Tensor, *, group, n_valid: Optional[int] = 
     S = dist.get_world_size(group)
     B, n_loc, _, H, D = qkv.shape
     if H % S != 0:
-        raise _heads_error(str(H), axis_name, S)
+        raise heads_error(str(H), axis_name, S)
     Np = n_loc * S
     n_valid = Np if n_valid is None else int(n_valid)
     Hs = H // S
@@ -123,19 +138,20 @@ def ulysses_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, me
     ``batch_axis`` and its block of the padded sequence along ``axis`` go
     through :func:`ulysses_attention`, and every rank returns the whole
     result. ``flash_blocks[1]`` is the blockwise route's key block.
-    ``head_axis`` (tensor parallelism) is ROADMAP.md Queue 1 item 14."""
-    if head_axis is not None:
-        raise NotImplementedError("ulysses_self_attention(head_axis=...) is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 14 (tensor parallelism)")
+    ``head_axis`` (tensor parallelism): this rank also takes its H/tp heads
+    along that axis, and the exchanges split each tp group's local heads
+    over ``axis`` (every (tp, sp) pair attends over H/(tp·sp) heads of the
+    whole sequence); needs ``(H / tp) % sp == 0``."""
     B, N, H, D = q.shape
     if scale is None:
         scale = D**-0.5
+    tp = check_head_axis(mesh, head_axis, H) if head_axis is not None else 1
     parts = pmesh.axis_size(mesh, axis)
-    if H % parts != 0:  # before any exchange; JAX words it with its tp split (1 here)
-        raise _heads_error(f"{H}//1={H}", axis, parts)
+    if (H // tp) % parts != 0:  # before any exchange
+        raise heads_error(f"{H}//{tp}={H // tp}", axis, parts)
     block_kv = flash_blocks[1] if flash_blocks else None
     return pmesh.over_sequence(
         lambda shard, q, k, v: ulysses_attention(
             q, k, v, group=shard.group, n_valid=N, scale=scale, use_flash=use_flash,
             block_kv=block_kv, axis_name=axis),
-        (q, k, v), mesh, axis, batch_axis)
+        (q, k, v), mesh, axis, batch_axis, head_axis)

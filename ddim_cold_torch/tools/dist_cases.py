@@ -16,6 +16,9 @@ ranks at once, each block a one-axis mesh of its own
 Cases: :func:`attention` (ring or Ulysses over whole arrays, forward and
 the gradients summed over the mesh), :func:`model_forward`,
 :func:`train_steps`, :func:`sample` (TINY sizes, weights passed in),
+tensor and pipeline parallelism (:func:`tp_pp_grads`, :func:`tp_pp_train`,
+:func:`shard_round_trip`, :func:`tp_pp_errors`, over
+:func:`sharded_model`, the model as the trainer builds it on a mesh),
 :func:`cli_sample` (the ``sample`` command's samples on a data mesh),
 :func:`ulysses_heads_error`, the serving engine across ranks
 (:func:`serve_engine`, :func:`serve_follower_fault`, :func:`bucket_error`),
@@ -195,7 +198,8 @@ def ulysses_heads_error(dev, spec: dict) -> str:
 
 
 def _model(dev, cfg: dict, state_dict: dict, mesh=None, sp_mode: Optional[str] = None,
-           quant: Optional[str] = None, fused: bool = False):
+           quant: Optional[str] = None, fused: bool = False,
+           head_axis: Optional[str] = None):
     """The model of ``cfg`` with the float ``state_dict``, as its ``quant``
     and ``fused`` variant (the weights quantized as the engine quantizes
     them), ``sp_clone``d onto ``mesh`` when ``sp_mode`` is given."""
@@ -212,7 +216,7 @@ def _model(dev, cfg: dict, state_dict: dict, mesh=None, sp_mode: Optional[str] =
                                 strict=True)
         model = variant
     if sp_mode is not None:
-        model = sp_clone(model, mesh, sp_mode=sp_mode)
+        model = sp_clone(model, mesh, sp_mode=sp_mode, head_axis=head_axis)
     return model
 
 
@@ -263,16 +267,160 @@ def train_steps(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr:
             "params": {n: _np(p) for n, p in model.named_parameters()}}
 
 
+def sharded_model(dev, spec: dict, cfg: dict, state_dict: Optional[dict] = None,
+                  sp_mode: Optional[str] = None, mesh=None):
+    """``(model, mesh)``: the model of ``cfg`` built for ``spec``'s mesh as
+    the trainer builds it (``parallel.layout.model_axes``; sequence-parallel
+    over a ``seq`` axis with ``sp_mode``), loaded with this rank's part of
+    the whole ``state_dict`` (default: the seeded init)."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.parallel import sharding
+    from ddim_cold_torch.parallel.layout import model_axes
+
+    mesh = mesh_for(spec, dev) if mesh is None else mesh
+    names = tuple(mesh.mesh_dim_names)
+    extra = dict(seq_mesh=mesh, **model_axes(mesh))
+    if sp_mode is not None:
+        extra.update(seq_axis="seq", sp_mode=sp_mode,
+                     batch_axis="data" if "data" in names else None)
+    model = DiffusionViT(**cfg, **extra, device=dev)
+    if state_dict is not None:
+        whole = {k: torch.from_numpy(v) for k, v in state_dict.items()}
+        model.load_state_dict(sharding.shard_state_dict(whole, mesh, model.plan),
+                              strict=True)
+    return model, mesh
+
+
+def _whole_np(part: dict, model, mesh) -> dict:
+    from ddim_cold_torch.parallel import sharding
+
+    full = sharding.gather_state_dict(part, mesh, model.plan, depth=model.depth)
+    return {k: _np(v) for k, v in full.items()}
+
+
+def tp_pp_grads(dev, spec: dict, cfg: dict, state_dict: dict, x, t,
+                sp_mode: Optional[str] = None, n_microbatch: int = 2,
+                seed: Optional[int] = None) -> dict:
+    """The sharded model's forward on this rank's rows of ``x`` (through the
+    pipelined apply under ``pipe``; with ``seed``, the training forward
+    drawing from a generator of that seed) and the gradient of
+    ``mean(out²)`` over the whole batch, reduced as the train step reduces
+    it: the whole batch's output, the whole state_dict of gradients and
+    ‖g‖."""
+    from ddim_cold_torch.parallel.layout import layout_for_mesh
+    from ddim_cold_torch.train.step import _Reducer
+
+    model, mesh = sharded_model(dev, spec, cfg, state_dict, sp_mode)
+    _, apply_fn = layout_for_mesh(model, mesh, n_microbatch=n_microbatch)
+    fwd = apply_fn or model
+    xs, ts = (torch.from_numpy(pmesh.shard_rows(a, mesh)).to(dev) for a in (x, t))
+    if seed is None:
+        out = fwd(xs, ts)
+    else:
+        out = fwd(xs, ts, deterministic=False,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+    loss = out.float().square().mean()
+    names = [n for n, _ in model.named_parameters()]
+    grads = list(torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
+                                     materialize_grads=True))
+    loss, grads, norm = _Reducer(model, mesh)(loss.detach(), grads)
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if pmesh.data_axis_size(mesh) > 1:
+        out = pmesh.gather_cat(out.detach(), mesh.get_group("data"))
+    return {"out": _np(out), "grads": _whole_np(dict(zip(names, grads)), model, mesh),
+            "norm": float(norm), "loss": float(loss)}
+
+
+def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr: float,
+                total_steps: int, sp_mode: Optional[str] = None, n_microbatch: int = 2,
+                ema_decay: float = 0.0) -> dict:
+    """``train.step`` of the sharded model on ``spec``'s mesh (the pipelined
+    apply under ``pipe``): the losses, the global norms the clip saw and
+    the whole parameters (and EMA shadow) after the steps, gathered."""
+    from ddim_cold_torch.parallel.layout import layout_for_mesh
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    model, mesh = sharded_model(dev, spec, cfg, state_dict, sp_mode)
+    _, apply_fn = layout_for_mesh(model, mesh, n_microbatch=n_microbatch)
+    state = pmesh.shard_train_state(
+        create_train_state(model, lr, total_steps, ema_decay=ema_decay), mesh)
+    step = make_train_step(model, apply_fn, ema_decay=ema_decay, mesh=mesh)
+    rec = torch.tensor(5.0, device=dev)
+    losses, norms = [], []
+    for batch in batches:
+        local = tuple(torch.from_numpy(a).to(dev) for a in pmesh.shard_batch(batch, mesh))
+        state, loss, rec = step(state, local, torch.Generator(device=dev), rec)
+        losses.append(float(loss))
+        norms.append(float(state.grad_norm))
+    names = state.names
+    out = {"losses": losses, "grad_norms": norms,
+           "params": _whole_np(dict(zip(names, state.params)), model, mesh),
+           "local_params": len(names), "local_numel": sum(p.numel() for p in state.params),
+           "moments_numel": sum(m.numel() for m in state.mu)}
+    if ema_decay:
+        out["ema"] = _whole_np(dict(zip(names, state.ema_params)), model, mesh)
+        out["ema_numel"] = sum(e.numel() for e in state.ema_params)
+    return out
+
+
+def shard_round_trip(dev, spec: dict, state_dict: dict) -> dict:
+    """``gather_state_dict(shard_state_dict(sd))`` on ``spec``'s mesh: the
+    whole dict back (key order kept) and this rank's keys and shapes."""
+    from ddim_cold_torch.parallel import sharding
+
+    mesh = mesh_for(spec, dev)
+    whole = {k: torch.from_numpy(v) for k, v in state_dict.items()}
+    part = sharding.shard_state_dict(whole, mesh)
+    back = sharding.gather_state_dict(part, mesh)
+    return {"keys": list(back), "back": {k: v.numpy() for k, v in back.items()},
+            "part": {k: tuple(v.shape) for k, v in part.items()}}
+
+
+def tp_pp_errors(dev, cfg: dict) -> dict:
+    """The messages of the layouts JAX refuses on a four-rank world: depth
+    not divisible by the stages, a batch not divisible by the microbatches,
+    Ulysses over more seq ranks than a tp rank's heads, a non-sp model's
+    trunk under ``seq_axis``."""
+    from ddim_cold_torch.parallel.pipeline import pipeline_blocks
+
+    out = {}
+
+    def catch(key, fn):
+        try:
+            fn()
+            out[key] = ""
+        except (ValueError, NotImplementedError) as e:
+            out[key] = f"{type(e).__name__}: {e}"
+
+    world = pmesh.make_mesh({"pipe": 4}, device=dev)
+    catch("depth", lambda: sharded_model(dev, {"pipe": 4}, dict(cfg, depth=2), mesh=world))
+    two = mesh_for({"pipe": 2, "model": 2}, dev)
+    model, _ = sharded_model(dev, {}, cfg, mesh=two)
+    x = torch.zeros(3, *cfg["img_size"], 3, device=dev)
+    t = torch.zeros(3, dtype=torch.long, device=dev)
+    catch("batch", lambda: pipeline_blocks(model, model(x, t, stage="embed"), two,
+                                           n_microbatch=2))
+    catch("seq_axis", lambda: pipeline_blocks(model, model(x[:2], t[:2], stage="embed"),
+                                              two, seq_axis="seq"))
+    sm = mesh_for({"seq": 2, "model": 2}, dev)
+    catch("ulysses", lambda: sharded_model(dev, {}, dict(cfg, num_heads=2), sp_mode="ulysses",
+                                           mesh=sm))
+    return out
+
+
 def sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, fn: str = "ddim_sample",
-           sp_mode: Optional[str] = None, **kwargs) -> dict:
+           sp_mode: Optional[str] = None, head_axis: Optional[str] = None,
+           **kwargs) -> dict:
     """``sampling.<fn>(model, x_init=..., mesh=..., **kwargs)`` (``ddim_sample``,
     ``ddim_sample_fewstep``, ``cold_sample`` or ``sample_from``), the model
-    ``sp_clone``d onto the mesh when ``sp_mode`` is given: the whole batch,
-    and with ``telemetry`` each step's branch and gate drift."""
+    ``sp_clone``d onto the mesh when ``sp_mode`` is given (tensor-parallel
+    over ``head_axis`` too, if given): the whole batch, and with
+    ``telemetry`` each step's branch and gate drift."""
     from ddim_cold_torch.ops import sampling
 
     mesh = mesh_for(spec, dev)
-    model = _model(dev, cfg, state_dict, mesh, sp_mode)
+    model = _model(dev, cfg, state_dict, mesh, sp_mode, head_axis=head_axis)
     out = getattr(sampling, fn)(model, x_init=x_init, mesh=mesh, device=dev, **kwargs)
     if kwargs.get("telemetry"):
         out, tel = out
@@ -285,12 +433,16 @@ def quant_sample(dev, spec: dict, cfg: dict, state_dict: dict, x_init, quant: st
                  fused: bool = False, sp_mode: Optional[str] = None, **kwargs) -> dict:
     """``ddim_sample`` of the ``quant``/``fused`` model on the mesh (its
     ``sp_clone`` with ``sp_mode``), and the one-process call of the same
-    model on the whole batch in this rank: a w8a8 model's activation scale
-    must be the whole batch's on both."""
+    model on the whole batch in this rank (with ``sp_mode``, its
+    ``sp_clone`` over a mesh of this rank alone: under sequence parallelism
+    the fused attention is gated off): a w8a8 model's activation scale must
+    be the whole batch's on both."""
     from ddim_cold_torch.ops import sampling
 
     mesh = mesh_for(spec, dev)
-    one = _model(dev, cfg, state_dict, quant=quant, fused=fused)
+    alone = (pmesh.submesh([dist.get_rank()], {"seq": 1}, device=dev)
+             if sp_mode is not None else None)
+    one = _model(dev, cfg, state_dict, alone, sp_mode, quant=quant, fused=fused)
     model = _model(dev, cfg, state_dict, mesh, sp_mode, quant=quant, fused=fused)
     return {"mesh": _np(sampling.ddim_sample(model, x_init=x_init, mesh=mesh, device=dev,
                                              **kwargs)),
@@ -549,26 +701,38 @@ def _sync(dev) -> None:
 
 
 def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch: int,
-               seed: int, lr: float, total_steps: int, trace_dir: Optional[str] = None
+               seed: int, lr: float, total_steps: int, trace_dir: Optional[str] = None,
+               microbatches: Optional[dict] = None, checkpoint_dir: Optional[str] = None
                ) -> dict:
     """Training steps of the full-width model on each layout ``(name, mesh,
-    sp_mode or None)``: ``warm`` + ``steps`` steps of ``batch``-row cold
-    batches corrupted on the device, every drop rate 0. Rank 0 also runs
-    the one-process step on the same batches from the same weights after
-    each of them (outside the timed and counted windows) and records, step
-    by step, both losses and gradient norms and the cumulative updates'
-    relative L2 distance and largest element gap. Launch counts cover the
-    timed steps of this rank only; ms/step is the barrier-to-barrier wall
-    of a step; peak memory is this rank's over the layout. With
-    ``trace_dir``, one more step of each sequence-parallel layout is traced
-    on rank 0 and attributed (``obs/attrib``): its scopes' events and self
-    seconds."""
+    sp_mode or None)``, built as the trainer builds it (sharded over
+    ``model``/``pipe``, the pipelined apply under ``pipe`` with
+    ``microbatches[name]`` microbatches, default 2·pipe): ``warm`` + ``steps``
+    steps of ``batch``-row cold batches corrupted on the device, every drop
+    rate 0. Rank 0 also runs the one-process step on the same batches from
+    the same weights after each of them (outside the timed and counted
+    windows) and records, step by step, both losses and gradient norms and
+    the cumulative updates' relative L2 distance and largest element gap
+    (a sharded layout's parameters gathered whole on every rank first);
+    every rank reports its whole parameters' float64 sums after the steps.
+    Launch counts cover the timed steps of this rank only; ms/step is the
+    barrier-to-barrier wall of a step; peak memory is this rank's over the
+    layout. With ``trace_dir``, one more step of each sequence-parallel
+    layout is traced on rank 0 and attributed (``obs/attrib``): its scopes'
+    events and self seconds. With ``checkpoint_dir``, a sharded layout's
+    gathered state_dict after the steps is written there by rank 0
+    (``utils/checkpoint.save_checkpoint``), read back into a one-process
+    model (``strict=True``), and its largest gap to the one-process twin's
+    parameters, in units of lr, recorded."""
     from ddim_cold_torch.models import DiffusionViT
     from ddim_cold_torch.obs import attrib
     from ddim_cold_torch.ops import degrade
     from ddim_cold_torch.ops import flash_attention as fa
+    from ddim_cold_torch.parallel import sharding
+    from ddim_cold_torch.parallel.layout import layout_for_mesh, model_axes
     from ddim_cold_torch.train.step import (create_train_state, make_train_step,
                                             step_generator)
+    from ddim_cold_torch.utils import checkpoint as ckpt
     from ddim_cold_torch.utils import profiling
 
     rank = dist.get_rank()
@@ -578,21 +742,28 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
     out = {}
     for name, spec, mode in layouts:
         mesh = pmesh.make_mesh(spec, device=dev)
-        extra = {}
-        if mode is not None:
-            extra = dict(seq_mesh=mesh, seq_axis="seq", sp_mode=mode,
-                         batch_axis="data" if "data" in spec else None)
-        model = DiffusionViT(**model_cfg, device=dev, **extra)
-        state = pmesh.shard_train_state(create_train_state(model, lr, total_steps))
-        step = make_train_step(model, prepare=prepare, mesh=mesh)
+        sharded = bool(model_axes(mesh))
+        model, _ = sharded_model(dev, spec, model_cfg, sp_mode=mode, mesh=mesh)
+        _, apply_fn = layout_for_mesh(
+            model, mesh, n_microbatch=(microbatches or {}).get(
+                name, 2 * pmesh.axis_size(mesh, "pipe")))
+        state = pmesh.shard_train_state(create_train_state(model, lr, total_steps), mesh)
+        step = make_train_step(model, apply_fn, prepare=prepare, mesh=mesh)
         stream = pmesh.axis_index(mesh, "data") if pmesh.data_axis_size(mesh) > 1 else None
         rec = torch.tensor(5.0, device=dev)
+
+        def whole() -> dict:  # every rank calls it at once
+            part = {n: p.detach() for n, p in model.named_parameters()}
+            if not sharded:
+                return part
+            return sharding.gather_state_dict(part, mesh, model.plan, depth=model.depth)
+
         if rank == 0:
             ref = DiffusionViT(**model_cfg, device=dev)
             ref_state = create_train_state(ref, lr, total_steps)
             ref_step = make_train_step(ref, prepare=prepare)
             ref_rec = torch.tensor(5.0, device=dev)
-            p0 = [p.detach().clone() for p in model.parameters()]
+            p0 = {n: p.detach().clone() for n, p in ref.named_parameters()}
         counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
         times, per_step = [], []
         if dev.type == "cuda":
@@ -611,12 +782,14 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
             if i >= warm:
                 times.append(dt)
                 counts = {k: counts[k] + got[k] for k in counts}
+            cur = whole()
             if rank == 0:
                 full = (torch.from_numpy(base).to(dev), torch.from_numpy(t).to(dev))
                 ref_state, ref_loss, ref_rec = ref_step(
                     ref_state, full, step_generator(seed, ref_state.step, dev), ref_rec)
-                upd = [p.detach() - a for p, a in zip(model.parameters(), p0)]
-                rupd = [p.detach() - a for p, a in zip(ref.parameters(), p0)]
+                names = list(p0)
+                upd = [cur[n].to(dev) - p0[n] for n in names]
+                rupd = [dict(ref.named_parameters())[n].detach() - p0[n] for n in names]
                 gap = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(upd, rupd)))
                 norm = math.sqrt(sum(float((b ** 2).sum()) for b in rupd))
                 per_step.append({
@@ -628,7 +801,25 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
                                             for a, b in zip(upd, rupd)) / lr})
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
         res = {"mesh": spec, "sp_mode": mode, "launches": counts, "ms_per_step":
-               [1e3 * s for s in times], "peak_mem_gib": peak, "per_step": per_step}
+               [1e3 * s for s in times], "peak_mem_gib": peak, "per_step": per_step,
+               "local_params": sum(p.numel() for p in model.parameters()),
+               "local_moments": sum(m.numel() for m in state.mu),
+               # every rank's whole parameters after the steps, key by key
+               "param_sums": [float(v.double().sum()) for v in cur.values()]}
+        if checkpoint_dir is not None and sharded:
+            full = sharding.gather_state_dict(model.state_dict(), mesh, model.plan,
+                                              depth=model.depth)
+            if rank == 0:
+                path = os.path.join(checkpoint_dir, f"{name}.ckpt")
+                ckpt.save_checkpoint(path, full)
+                one = DiffusionViT(**model_cfg, device=dev)
+                one.load_state_dict(ckpt.load_checkpoint(path), strict=True)
+                res["checkpoint"] = {
+                    "keys": len(full), "one_process_keys": len(one.state_dict()),
+                    "max_gap_lr": max(float((p.detach() - q.detach()).abs().max())
+                                      for p, q in zip(one.parameters(), ref.parameters()))
+                    / lr}
+            pmesh.barrier()
         if trace_dir is not None and mode is not None:
             base, t = host[-1]
             local = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)

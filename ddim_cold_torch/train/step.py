@@ -26,12 +26,22 @@ data row share their stream.
 
 With a ``mesh`` (:mod:`ddim_cold_torch.parallel`, one process per device)
 the step reduces the gradients across the ranks before the clip, so the
-clip sees JAX's global gradient: a sum over each mesh axis in a few flat
-buffers, divided by the ``data`` size, is the mean over data ranks of the
-sum over seq ranks. A seq rank's gradient is its own tokens' share of its
-data row's loss (the model gathers the head's outputs with a backward that
-keeps each rank's slice), so the sum over seq ranks is the whole gradient.
-The logged loss is the same mean over data ranks.
+clip sees JAX's global gradient: a sum over the ``data`` and ``seq`` axes
+in a few flat buffers, divided by the ``data`` size, is the mean over data
+ranks of the sum over seq ranks. A seq rank's gradient is its own tokens'
+share of its data row's loss (the model gathers the head's outputs with a
+backward that keeps each rank's slice), so the sum over seq ranks is the
+whole gradient. The logged loss is the same mean over data ranks.
+
+Tensor and pipeline parallelism reduce by parameter class. A ``model``
+rank's gradient of its shard is the whole gradient of that shard (the
+column linears' input enters through Megatron's *f*), and of a whole
+parameter the same on every ``model`` rank: nothing is summed over
+``model``. A ``pipe`` stage holds the gradient of its own blocks; the
+head's is the same on every stage (the trunk's output is broadcast and the
+head runs on every stage), the embedding's is on stage 0 only and is summed
+over the stages. The clip's ‖g‖ counts every element of the whole model
+once: a shard's square sum is summed over the axes it is split along.
 """
 
 from __future__ import annotations
@@ -41,10 +51,12 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ddim_cold_torch.ops.losses import smooth_l1
 from ddim_cold_torch.ops.sampling import fold_in
 from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.parallel import sharding
 
 B1, B2, EPS, WEIGHT_DECAY, MAX_NORM = 0.9, 0.999, 1e-8, 0.05, 1.0
 
@@ -119,15 +131,19 @@ def create_train_state(model: torch.nn.Module, lr: float, total_steps: int,
 
 
 @torch.no_grad()
-def apply_gradients(state: TrainState, grads: list) -> None:
+def apply_gradients(state: TrainState, grads: list,
+                    g_norm: Optional[torch.Tensor] = None) -> None:
     """One optax-chain update of ``state.model``'s parameters, in place:
     clip by global norm 1.0, Adam moments and bias correction, decoupled
     weight decay on every parameter, cosine lr, ``p ← p + (−lr)·u``. The
-    clip decision stays on the device (no sync)."""
+    clip decision stays on the device (no sync). ``g_norm``: the global
+    norm of the whole model's gradient when ``grads`` are this rank's
+    shards (default: their own norm)."""
     params = state.params
     lr = state.learning_rate()
     # clip_by_global_norm: select(‖g‖ < max, g, g / ‖g‖ · max)
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if g_norm is None:
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     state.grad_norm = g_norm
     denom = torch.where(g_norm < MAX_NORM, torch.ones_like(g_norm), g_norm / MAX_NORM)
     grads = torch._foreach_div(grads, denom)
@@ -160,7 +176,81 @@ def step_generator(seed: int, step: int, device, data_index: Optional[int] = Non
     return g if data_index is None else fold_in(g, data_index)
 
 
-def make_train_step(model, prepare: Optional[Callable] = None,
+#: the parameters every stage computes but only stage 0's embedding feeds
+#: the trunk: under ``pipe`` their gradient is summed over the stages
+_EMBED = ("cls_token", "pos_embed", "patch_embed.", "time_embed.")
+
+
+class _Reducer:
+    """The gradient reduction and the global norm of one model on ``mesh``
+    (see the module), by parameter class: a stage's block (under ``pipe``)
+    or a tensor-parallel shard is held by its own ranks only; the embedding
+    under ``pipe`` has its gradient on stage 0 only; every other parameter
+    is whole and equal on the ``model`` and ``pipe`` ranks."""
+
+    def __init__(self, model, mesh):
+        self.mesh, self.data = mesh, pmesh.data_axis_size(mesh)
+        self.groups = [mesh.get_group(a) for a in pmesh.REPLICA_AXES
+                       if pmesh.axis_size(mesh, a) > 1]
+        self.axes = {}  # "tp"/"pipe" → (group, size) of the model's sharded axes
+        for key, attr in (("tp", "head_axis"), ("pipe", "pipe_axis")):
+            axis = getattr(model, attr, None)
+            if pmesh.axis_size(mesh, axis) > 1:
+                self.axes[key] = (mesh.get_group(axis), pmesh.axis_size(mesh, axis))
+        plan = getattr(model, "plan", {})
+        names = [n for n, _ in model.named_parameters()]
+        staged = ["pipe" in self.axes and sharding.block_index(n) is not None
+                  for n in names]
+        split = [n in plan and plan[n].sharded for n in names]
+        self.embed = [i for i, n in enumerate(names)
+                      if "pipe" in self.axes and n.startswith(_EMBED)]
+        # the norm's classes: 0 whole, 1 tp shard, 2 stage block, 3 both
+        self.cls = [2 * st + sp for st, sp in zip(staged, split)]
+
+    def __call__(self, loss: torch.Tensor, grads: list):
+        """(loss, grads, ‖g‖): the mean over data ranks of the sum over seq
+        ranks (and, for the embedding under ``pipe``, over the stages)."""
+        out = list(grads)
+        rest = [i for i in range(len(grads)) if i not in self.embed]
+        summed = _sum([grads[i] for i in rest] + [loss.reshape(1)], self.groups)
+        for i, g in zip(rest, summed):
+            out[i] = g
+        loss = summed[-1][0] / math.prod(dist.get_world_size(g) for g in self.groups)
+        if self.embed:
+            groups = self.groups + [self.axes["pipe"][0]]
+            for i, g in zip(self.embed, _sum([grads[i] for i in self.embed], groups)):
+                out[i] = g
+        out = torch._foreach_div(out, float(self.data))
+        return loss, out, self._norm(out)
+
+    def _norm(self, grads: list) -> Optional[torch.Tensor]:
+        """‖g‖ of the whole model: a shard's square sum summed over its
+        axes, a whole parameter counted once; None where every rank holds
+        every parameter."""
+        if not self.axes:
+            return None
+        sq = torch.stack(torch._foreach_norm(grads)).square()
+        cls = torch.tensor(self.cls, device=sq.device)
+        parts = torch.stack([sq[cls == c].sum() for c in range(4)])
+        # classes split along tp (1, 3) and along pipe (2, 3) sum over it;
+        # the others are equal there and stay as they are
+        for key, split in (("tp", (0.0, 1.0, 0.0, 1.0)), ("pipe", (0.0, 0.0, 1.0, 1.0))):
+            if key in self.axes:
+                mask = torch.tensor(split, device=sq.device)
+                total = _sum([parts * mask], [self.axes[key][0]])[0]
+                parts = parts * (1.0 - mask) + total
+        return torch.sqrt(parts.sum())
+
+
+def _sum(tensors: list, groups: list) -> list:
+    """``tensors`` summed over each group in turn."""
+    for group in groups:
+        tensors = pmesh.all_reduce_flat(tensors, group=group)
+    return list(tensors)
+
+
+def make_train_step(model, apply_fn: Optional[Callable] = None,
+                    prepare: Optional[Callable] = None,
                     ema_decay: float = 0.0, grad_accum: int = 1,
                     moe_aux_weight: float = 0.0,
                     steps_per_dispatch: int = 1, mesh=None) -> Callable:
@@ -177,10 +267,13 @@ def make_train_step(model, prepare: Optional[Callable] = None,
     ``grad_accum`` > 1 splits the batch into that many interleaved slices
     (slice j = rows j, j+ga, …, as the JAX step), averages their gradients
     and their losses, and makes one update. ``mesh``: this rank's rows (and,
-    for a sequence-parallel model, its tokens); the gradients and the loss
-    are reduced across the world as the module says, so every rank applies
-    the same update. ``moe_aux_weight`` > 0 and ``steps_per_dispatch`` > 1
-    belong to later slices and raise.
+    for a sequence-parallel model, its tokens; for a tensor- or
+    pipeline-parallel one, its shards); the gradients and the loss are
+    reduced across the ranks as the module says, so every rank of a
+    replica group applies the same update. ``apply_fn`` replaces the
+    model's forward with the same signature (the pipelined apply,
+    ``parallel.pipeline.make_pipelined_apply``). ``moe_aux_weight`` > 0 and
+    ``steps_per_dispatch`` > 1 belong to later slices and raise.
     """
     if moe_aux_weight:
         raise NotImplementedError("moe_aux_weight is ROADMAP.md Queue 1 item 18 (MoE)")
@@ -196,21 +289,17 @@ def make_train_step(model, prepare: Optional[Callable] = None,
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay!r}")
 
+    forward = apply_fn or model
+
     def loss_and_grads(params, noisy, target, t, generator):
-        pred = model(noisy, t, deterministic=False, generator=generator)
+        pred = forward(noisy, t, deterministic=False, generator=generator)
         loss = smooth_l1(pred, target)
-        # a seq rank that holds no class token leaves it unused: its share is 0
+        # a seq rank that holds no class token leaves it unused, and a
+        # pipeline stage but the first its embedding: their share is 0
         return loss, list(torch.autograd.grad(loss, params, allow_unused=True,
                                               materialize_grads=True))
 
-    data_size = pmesh.data_axis_size(mesh)
-
-    def reduce(loss, grads):
-        """Sum over the mesh, then the mean over data ranks (the seq ranks'
-        losses are one loss counted once per rank)."""
-        out = pmesh.all_reduce_mesh(grads + [loss.reshape(1)], mesh)
-        grads = torch._foreach_div(out[:-1], float(data_size))
-        return out[-1][0] / mesh.size(), grads
+    reduce = _Reducer(model, mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    loss_rec: torch.Tensor):
@@ -242,9 +331,11 @@ def make_train_step(model, prepare: Optional[Callable] = None,
             torch._foreach_div_(grads, float(grad_accum))
             loss = loss / grad_accum
         loss = loss.detach()
-        if mesh is not None:
-            loss, grads = reduce(loss, grads)
-        apply_gradients(state, grads)
+        if reduce is None:
+            apply_gradients(state, grads)
+        else:
+            loss, grads, g_norm = reduce(loss, grads)
+            apply_gradients(state, grads, g_norm=g_norm)
         if ema_decay:
             with torch.no_grad():  # optax.incremental_update(p, ema, 1 − d)
                 step_size = 1.0 - ema_decay
@@ -255,15 +346,18 @@ def make_train_step(model, prepare: Optional[Callable] = None,
     return train_step
 
 
-def make_eval_step(model, prepare: Optional[Callable] = None) -> Callable:
-    """``(batch) → loss``: the deterministic forward's smooth-L1, under
+def make_eval_step(model, apply_fn: Optional[Callable] = None,
+                   prepare: Optional[Callable] = None) -> Callable:
+    """``(batch) → loss``: the deterministic forward's smooth-L1 (through
+    ``apply_fn`` when given, the pipelined apply), under
     ``torch.inference_mode()`` (no autograd history)."""
+    forward = apply_fn or model
 
     @torch.inference_mode()
     def eval_step(batch):
         if prepare is not None:
             batch = prepare(batch, None)
         noisy, target, t = batch
-        return smooth_l1(model(noisy, t, deterministic=True), target)
+        return smooth_l1(forward(noisy, t, deterministic=True), target)
 
     return eval_step

@@ -3,7 +3,7 @@ which replaced ``multi_gpu_trainer.main``).
 
     run(config)
     ├─ one process per device: spawned workers over a local TCP rendezvous
-    │  (or torchrun's), each a rank of a ``data``/``seq`` mesh  (parallel/)
+    │  (or torchrun's), each a rank of a data/seq/model/pipe mesh (parallel/)
     ├─ datasets (native decode tier) + ShardedLoader + device_prefetch   (data/)
     ├─ build_model + create_train_state            (models/, train/step.py)
     ├─ optional warm-start / resume                (utils/checkpoint.py)
@@ -47,8 +47,22 @@ first non-finite value appears, forward or backward
 (``utils/profiling.enable_nan_checks``), for the whole run; both are
 process-wide and put back when ``run`` returns or raises.
 
-Tensor, pipeline and expert axes and ``flash_blocks`` raise, naming their
-ROADMAP.md items.
+Tensor and pipeline parallelism (``mesh: {model: m, pipe: p, data: d, seq:
+s}``, ``microbatches``): the model is built sharded
+(``parallel.layout.model_axes``: each rank holds its heads and hidden
+units along ``model``, its stage's blocks along ``pipe``), the step runs
+the pipelined apply under ``pipe`` and reduces the gradients by parameter
+class (``train/step.py``), and AdamW's moments and the EMA shadow are
+co-sharded with the parameters. JAX's checks hold: the global batch divides
+into the microbatches (default 2·pipe) and each microbatch over ``data``,
+``grad_accum`` does not compose with ``pipe``. Every checkpoint (``bestloss``,
+``lastepoch``, the epoch snapshots, the ``.pkl`` files) holds the gathered
+one-process state_dict (``parallel.sharding.gather_state_dict``: every rank
+gathers, rank 0 writes), and a warm start or a resume cuts it to the run's
+own layout, whatever layout wrote it.
+
+An ``expert`` axis (ROADMAP.md Queue 1 item 18) and ``flash_blocks`` (item
+17) raise, naming their items.
 """
 
 from __future__ import annotations
@@ -70,6 +84,8 @@ from ddim_cold_torch.data.loader import device_prefetch
 from ddim_cold_torch.models import DiffusionViT
 from ddim_cold_torch.ops import degrade
 from ddim_cold_torch.parallel import mesh as pmesh
+from ddim_cold_torch.parallel import sharding
+from ddim_cold_torch.parallel.layout import layout_for_mesh, model_axes
 from ddim_cold_torch.train.step import (create_train_state, make_eval_step,
                                         make_train_step, step_generator)
 from ddim_cold_torch.utils import checkpoint as ckpt
@@ -170,8 +186,7 @@ class _AsyncSaver:
 def _refuse_later(config: ExperimentConfig) -> None:
     other = sorted(set(config.mesh or {}) - set(pmesh.PORTED_AXES))
     later = [
-        (other, f"config.mesh axis {other}",
-         "Queue 1 item 14 (parallel/: tensor, pipeline and expert parallelism)"),
+        (other, f"config.mesh axis {other}", "Queue 1 item 18 (MoE: expert parallelism)"),
         (config.flash_blocks is not None, "flash_blocks",
          "Queue 1 item 17 (tuning: the CUDA kernels' tiles are fixed)"),
     ]
@@ -200,7 +215,10 @@ def build_model(config: ExperimentConfig, device=None, mesh=None) -> DiffusionVi
     has no key for them), so a training forward with ``use_flash`` takes the
     dense path, as in the JAX trainer on one device. With a ``seq`` axis on
     ``mesh`` the model is sequence-parallel over it (``config.sp_mode``) and
-    attention dropout is 0, as JAX's ``build_model`` makes it."""
+    attention dropout is 0, as JAX's ``build_model`` makes it; a ``model``
+    axis makes it tensor-parallel (heads sharded inside the sequence-parallel
+    attention too), a ``pipe`` axis builds the stacked layout with this
+    rank's stage of blocks (``parallel.layout.model_axes``)."""
     _refuse_later(config)
     kwargs = dict(config.model_kwargs())
     names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
@@ -208,6 +226,9 @@ def build_model(config: ExperimentConfig, device=None, mesh=None) -> DiffusionVi
         kwargs.update(seq_mesh=mesh, seq_axis="seq",
                       batch_axis="data" if "data" in names else None,
                       attn_drop_rate=0.0, sp_mode=config.sp_mode)
+    axes = model_axes(mesh) if mesh is not None else {}
+    if axes:
+        kwargs.update(seq_mesh=mesh, **axes)
     return DiffusionViT(dtype=torch.bfloat16 if config.amp else torch.float32,
                         device=device, seed=config.seed, **kwargs)
 
@@ -242,6 +263,47 @@ def _mesh_shape(config: ExperimentConfig, dev: torch.device, log: Optional[str])
         # batch actually trained (config.lr derives from num_devices)
         config = dataclasses.replace(config, num_devices=ndev)
     return ({"data": ndev} if ndev > 1 else None), config
+
+
+def _batching(config: ExperimentConfig, shape: Optional[dict]) -> tuple[int, int]:
+    """``(global batch, microbatches)`` of the run on the mesh ``shape``,
+    with JAX's checks (trainer.py:279-293): under ``pipe`` the global batch
+    divides into ``microbatches`` (default 2·pipe) and each microbatch over
+    ``data``; ``grad_accum`` does not compose with ``pipe`` and its slices
+    divide over ``data``."""
+    shape = shape or {}
+    data, pipe = int(shape.get("data", 1)), int(shape.get("pipe", 1))
+    global_batch = config.effective_batch * data
+    n_micro = (config.microbatches or 2 * pipe) if pipe > 1 else 1
+    if pipe > 1 and (global_batch % n_micro or (global_batch // n_micro) % data):
+        raise ValueError(
+            f"pipeline needs global batch {global_batch} divisible by "
+            f"microbatches {n_micro} and each microbatch by data={data}")
+    if config.grad_accum > 1:
+        if pipe > 1:
+            raise ValueError(
+                "grad_accum composes with dp/tp/sp only — the pipe axis has "
+                "its own microbatching (config.microbatches)")
+        if global_batch % config.grad_accum or (global_batch // config.grad_accum) % data:
+            raise ValueError(
+                f"grad_accum needs global batch {global_batch} divisible by "
+                f"{config.grad_accum} and each slice by data={data}")
+    return global_batch, n_micro
+
+
+def _snapshot(model, state, whole) -> tuple:
+    """``(params, opt_state, ema or None)`` to save: the one-process
+    state_dicts (``whole`` of this rank's parts), copied on the device,
+    since the next step updates the parameters in place."""
+    def copy(d: dict) -> dict:
+        return {k: v.detach().clone() for k, v in whole(d).items()}
+
+    opt_state = state.opt_state_dict()
+    opt = {"count": opt_state["count"], "mu": copy(opt_state["mu"]),
+           "nu": copy(opt_state["nu"])}
+    ema = (copy(dict(zip(state.names, state.ema_params)))
+           if state.ema_params is not None else None)
+    return copy(model.state_dict()), opt, ema
 
 
 def _rank_device(dev: torch.device, local_rank: int) -> torch.device:
@@ -280,6 +342,7 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
     launched = "RANK" in os.environ
     log = os.path.join(run_dir, "train.log") if int(os.environ.get("RANK", 0)) == 0 else None
     shape, config = _mesh_shape(config, dev, log)
+    _batching(config, shape)  # before any rank starts
     if launched:  # torchrun started every rank: this process is one
         world = int(os.environ.get("WORLD_SIZE", 1))
         if world != (math.prod(shape.values()) if shape else 1):
@@ -332,12 +395,19 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
 
     data = pmesh.data_axis_size(mesh)
     data_index = pmesh.axis_index(mesh, "data")
-    global_batch = config.effective_batch * data
-    if config.grad_accum > 1 and (global_batch % config.grad_accum
-                                  or (global_batch // config.grad_accum) % data):
-        raise ValueError(
-            f"grad_accum needs global batch {global_batch} divisible by "
-            f"{config.grad_accum} and each slice by data={data}")
+    global_batch, n_micro = _batching(config, shape)
+    # sharded over model/pipe: each rank holds its part; files hold the whole
+    sharded = mesh is not None and bool(model_axes(mesh))
+
+    def whole(part: dict) -> dict:
+        """The one-process state_dict of a dict of this rank's parts (every
+        rank calls it at once)."""
+        if not sharded:
+            return part
+        return sharding.gather_state_dict(part, mesh, model.plan, depth=model.depth)
+
+    def mine(full: dict) -> dict:
+        return sharding.shard_state_dict(full, mesh, model.plan) if sharded else full
     train_set = _build_dataset(config, config.data_storage[0])
     test_set = _build_dataset(config, config.data_storage[1])
     # device-side corruption: the datasets ship clean bases and the step
@@ -372,30 +442,34 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
     # persist this init for future runs
     epoch_start = config.epoch[0]
     steps, loss_rec, best_loss = 0, 5.0, 5.0
+    template = whole(model.state_dict()) if (
+        config.initializing not in ("", "none") or config.resume != "none") else None
     if config.initializing not in ("", "none"):
         init_path = os.path.join(saved_dir, config.initializing)
         if os.path.isfile(init_path):
             loaded = ckpt.load_torch_pkl(init_path)
-            ckpt.check_loaded_params(loaded, model.state_dict(), init_path)
-            model.load_state_dict(loaded, strict=True)
+            ckpt.check_loaded_params(loaded, template, init_path)
+            model.load_state_dict(mine(loaded), strict=True)
         elif rank0:
-            ckpt.save_torch_pkl(model.state_dict(), init_path)
+            ckpt.save_torch_pkl(template, init_path)
         pmesh.barrier()  # no rank reads a file rank 0 is still writing
 
     restored = None
     if config.resume != "none":
         restored = ckpt.load_checkpoint(config.resume)
-        ckpt.check_loaded_params(restored["params"], model.state_dict(), config.resume)
-        model.load_state_dict(restored["params"], strict=True)
-        state.load_opt_state_dict(restored["opt_state"])
+        ckpt.check_loaded_params(restored["params"], template, config.resume)
+        model.load_state_dict(mine(restored["params"]), strict=True)
+        opt = restored["opt_state"]
+        state.load_opt_state_dict({"count": opt["count"], "mu": mine(opt["mu"]),
+                                   "nu": mine(opt["nu"])})
         epoch_start = int(restored["epoch"]) + 1
         steps = int(restored["steps"])
         loss_rec = float(restored["loss_rec"])
         best_loss = float(restored["metric"])
         state.step = steps
         if config.ema_decay and "ema_params" in restored:
-            names = state.names
-            state.ema_params = [restored["ema_params"][n].to(dev) for n in names]
+            ema = mine(restored["ema_params"])
+            state.ema_params = [ema[n].to(dev) for n in state.names]
         elif config.ema_decay:
             log("resume checkpoint has no ema_params — re-seeding the "
                 "EMA shadow from the restored params")
@@ -416,15 +490,21 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
         # init, warm start, or an ema-less resume)
         state.seed_ema()
     if mesh is not None:
-        pmesh.shard_train_state(state)  # every rank from rank 0's tensors
+        # every replica from its first rank's tensors (rank 0's unsharded)
+        pmesh.shard_train_state(state, mesh)
+    # the layout of the mesh: the pipelined apply under pipe (JAX trainer.py:
+    # 447-451); the params, moments and EMA are co-sharded by construction
+    _, apply_fn = layout_for_mesh(model, mesh, n_microbatch=n_micro) if (
+        mesh is not None) else (None, None)
 
-    train_step = make_train_step(model, prepare=prepare, ema_decay=config.ema_decay,
+    train_step = make_train_step(model, apply_fn, prepare=prepare,
+                                 ema_decay=config.ema_decay,
                                  grad_accum=config.grad_accum,
                                  moe_aux_weight=(config.moe_aux_weight
                                                  if config.num_experts > 1 else 0.0),
                                  steps_per_dispatch=config.steps_per_dispatch,
                                  mesh=mesh)
-    eval_step = make_eval_step(model, prepare=eval_prepare)
+    eval_step = make_eval_step(model, apply_fn, prepare=eval_prepare)
     writer = ScalarWriter(run_dir) if rank0 else None
     # the data coordinate separates the data ranks' streams; seq ranks of a
     # row share theirs (and one device folds in nothing)
@@ -502,20 +582,14 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
             improved = vloss < best_loss
             if improved:
                 best_loss = vloss
+            if sharded or rank0:  # a sharded run's every rank gathers
+                params_snap, opt_snap, ema_snap = _snapshot(model, state, whole)
             if not rank0:
                 pmesh.barrier()  # rank 0 saves the epoch
                 if done:
                     break
                 continue
             saver.wait()  # at most one epoch's saves in flight
-            # snapshot on the device: the next step updates params in place
-            params_snap = {k: v.detach().clone() for k, v in model.state_dict().items()}
-            opt_state = state.opt_state_dict()
-            opt_snap = {"count": opt_state["count"],
-                        "mu": {k: v.clone() for k, v in opt_state["mu"].items()},
-                        "nu": {k: v.clone() for k, v in opt_state["nu"].items()}}
-            ema_snap = (dict(zip(state.names, (p.clone() for p in state.ema_params)))
-                        if state.ema_params is not None else None)
 
             def save_epoch(epoch=epoch, steps=steps, loss_rec=loss_rec,
                            improved=improved, best=best_loss,

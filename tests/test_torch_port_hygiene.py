@@ -502,6 +502,14 @@ def test_cli_slice_modules_are_checked():
     assert {"ddim_cold_torch/utils/image.py", "ddim_cold_torch/utils/run_io.py"} <= names
 
 
+def test_tensor_and_pipeline_slice_modules_are_checked():
+    """The import checks walk the tensor and pipeline parallelism modules:
+    the shard plan, the pipeline executor and the layout selection."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/parallel/{m}.py" for m in (
+        "mesh", "sharding", "pipeline", "layout", "ring_attention", "ulysses")} <= names
+
+
 def test_every_command_is_classified():
     from ddim_cold_torch import __main__ as cli
 

@@ -143,23 +143,41 @@ class _OneRankMesh:
         return None
 
 
+class _OneTpMesh(_OneRankMesh):
+    """The stand-in with one ``model`` rank."""
+
+    mesh_dim_names = ("model",)
+
+
 # sequence parallelism landed (seq_mesh, seq_axis, batch_axis, sp_mode),
-# with quant and fused under it; tensor parallelism's head_axis did not
-@pytest.mark.parametrize("hook", [dict(moe_dispatch="index"), dict(head_axis="model"),
-                                  dict(num_experts=2), dict(scan_blocks=True)])
-def test_later_slice_ctor_hooks_raise(hook):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PortViT(**TINY, device="cpu", **hook)
+# with quant and fused under it; tensor parallelism's head_axis and the
+# stacked layout landed, and what stays refused under them raises: quant
+# under tensor parallelism (ROADMAP.md), quant under scan_blocks (JAX's
+# ValueError); MoE stays ROADMAP.md Queue 1 item 18
+@pytest.mark.parametrize("hook,exc,match", [
+    (dict(moe_dispatch="index"), NotImplementedError, "ROADMAP.md Queue 1 item 18"),
+    (dict(head_axis="model", quant="pallas"), NotImplementedError,
+     "ROADMAP.md Queue 1 item 14"),
+    (dict(num_experts=2), NotImplementedError, "ROADMAP.md Queue 1 item 18"),
+    (dict(scan_blocks=True, quant="pallas"), ValueError, "quant requires scan_blocks=False"),
+])
+def test_later_slice_ctor_hooks_raise(hook, exc, match):
+    mesh = dict(seq_mesh=_OneTpMesh()) if "head_axis" in hook else {}
+    with pytest.raises(exc, match=match):
+        PortViT(**TINY, device="cpu", **mesh, **hook)
 
 
-# the token cache is refused under sequence parallelism only
-@pytest.mark.parametrize("hook", [dict(stage="embed"), dict(capture_tokens=True)])
+# the token cache is refused under sequence parallelism only; the stage
+# hooks landed, and a head stage without its tokens is JAX's error
+@pytest.mark.parametrize("hook", [dict(stage="head"), dict(capture_tokens=True)])
 def test_later_slice_forward_hooks_raise(hook):
     sp = (dict(seq_mesh=_OneRankMesh(), seq_axis="seq") if "capture_tokens" in hook
           else {})
     model = PortViT(**TINY, device="cpu", **sp)
     x, t = _inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    exc, match = ((ValueError, 'stage="head" requires tokens') if "stage" in hook
+                  else (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(exc, match=match):
         model(torch.from_numpy(x), torch.from_numpy(t), **hook)
 
 

@@ -455,7 +455,7 @@ def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
 
 
 @pytest.mark.parametrize("later,item", [
-    (dict(mesh={"model": 2}), "item 14"), (dict(mesh={"pipe": 2}), "item 14"),
+    (dict(mesh={"expert": 2}), "item 18"), (dict(mesh={"pipe": 2, "expert": 2}), "item 18"),
     (dict(flash_blocks=(512, 1024)), "item 17"),
     (dict(steps_per_dispatch=2), "item 11"),
     (dict(num_experts=2), "item 18"),
