@@ -160,8 +160,10 @@ Phases, one JSON object per line:
    must all hold;
 10h. dist-train, dist-sample — one world of two gloo ranks on the one card
    (NCCL refuses two ranks on one device), CUDA tensors, on ``{data: 2}``,
-   Ulysses ``{seq: 2}``, ring ``{seq: 2}``, tensor-parallel ``{model: 2}``
-   and pipelined ``{pipe: 2}`` (4 microbatches): the bf16 200_p4 model,
+   Ulysses ``{seq: 2}``, ring ``{seq: 2}``, tensor-parallel ``{model: 2}``,
+   pipelined ``{pipe: 2}`` (4 microbatches) and expert-parallel ``{expert:
+   2}`` (the moe phase's Switch-MoE model, 2 experts a bank a rank, stepping
+   with its aux weight; ``DIST_MOE``): the bf16 200_p4 model,
    every drop rate 0, 1 + 3 steps at B=16, built as the trainer builds it,
    each step held to the one-process step on the same batches within
    ``DIST_TRAIN_TOL``, the flash kernels launched exactly a rank (18 each,
@@ -185,9 +187,10 @@ Phases, one JSON object per line:
    exact, rank 1's ``follow()`` report rank 0's batches; wall, img/s and
    p50 reported (two ranks share one card: no speed claimed);
 10h'. dist-train-4 — a world of four gloo ranks on the card: ``{pipe: 2,
-   model: 2}`` (4 microbatches) and Ulysses ``{seq: 2, model: 2}``, 1 + 2
-   steps each under dist-train's limits, every rank's launches exact (24
-   and 12 of each flash kernel);
+   model: 2}`` (4 microbatches), Ulysses ``{seq: 2, model: 2}`` and
+   Ulysses ``{seq: 2, expert: 2}`` (the Switch-MoE model), 1 + 2 steps each
+   under dist-train's limits, every rank's launches exact (24, 12 and 12 of
+   each flash kernel);
 10i. dist-cli — ``python -m ddim_cold_torch train`` as three children at
    once on 10c's folder: a ``{data: 1, seq: 1}`` Ulysses mesh (an NCCL
    world of one: its log line, the epoch, loadable checkpoints, exact
@@ -259,6 +262,17 @@ Phases, one JSON object per line:
    kernel an update), ms/step, peak memory, every loss finite; a restart
    resuming ``live/`` at its iteration; ``distilled_sampler_guard`` of the
    k=1 student; the k=1 student served, bit for bit its direct call;
+17b. moe — the Switch-MoE model family (``models/moe.py``) at full width,
+   200_p4 with 4 experts and capacity factor 1.25 (782 slots an expert),
+   both dispatches: the float32 forward at B=8 against the port's CPU
+   forward on the same weights (routing equal, |Δ| within ``MOE_FWD_TOL``),
+   einsum against index, each block's dropped-token share; an engine over
+   the bf16 model serving 8 one-row requests at k=20 in one batch
+   (flash_fwd 600, every row bit for bit its direct ``ddim_sample``, no
+   program after warmup, img/s and p50 beside the serve phase's); 2 + 5
+   bf16 training steps at B=16 per dispatch with ``moe_aux_weight`` 0.01
+   (loss and aux finite, 30 launches of each flash kernel, ms/step and peak
+   memory);
 18. the ``kernels`` summary line (all six kernels, each with its design:
    "wgmma", the bfloat16 route on the tensor cores; the flash rows count
    the train-remat launches too), then the card's
@@ -323,6 +337,16 @@ TRAIN_CHECK_TOL = {
     "float32": {"loss": 1e-5, "grad_norm": 1e-4, "upd_rel": 1e-2},
     "bfloat16": {"loss": 1e-2, "grad_norm": 5e-2, "upd_rel": 0.5},
 }
+#: the moe phase: JAX's Switch-MoE defaults on the 200_p4 model, C =
+#: ⌈2501·1.25/4⌉ = 782 slots an expert
+MOE = dict(num_experts=4, moe_capacity_factor=1.25)
+MOE_FWD_BATCH, MOE_SERVE_N, MOE_TRAIN_BATCH = 8, 8, 16
+MOE_TRAIN_WARM, MOE_TRAIN_STEPS = 2, 5
+MOE_AUX_WEIGHT = 0.01
+#: the float32 card forward against the port's CPU forward on the same
+#: weights: the dense forward's flash-vs-dense limit (FWD_TOL), every
+#: routing decision equal (the per-block expert and kept counts)
+MOE_FWD_TOL = FWD_TOL["float32"]
 MAX_UPDATE_GAP_LR = 2.1  # max |Δp| between the paths, in units of lr
 #: the libraries whose bfloat16 kernels run on the tensor cores, and how
 #: many bfloat16 and float32 kernel functions each holds (D = 32 and 64;
@@ -2360,11 +2384,15 @@ def phase_cli(torch, fa, quant, run_dir: str, data_root: str, serve_report: dict
 #: runs the data and seq ones (the samplers take no model or pipe mesh)
 DIST_LAYOUTS = (("data", {"data": 2}, None), ("ulysses", {"seq": 2}, "ulysses"),
                 ("ring", {"seq": 2}, "ring"), ("tp", {"model": 2}, None),
-                ("pipe", {"pipe": 2}, None))
+                ("pipe", {"pipe": 2}, None), ("expert", {"expert": 2}, None))
 DIST_SAMPLE_LAYOUTS = DIST_LAYOUTS[:3]
 #: dist-train-4: the layouts of a second world, of four gloo ranks on the card
 DIST4_LAYOUTS = (("pipe-tp", {"pipe": 2, "model": 2}, None),
-                 ("ulysses-tp", {"seq": 2, "model": 2}, "ulysses"))
+                 ("ulysses-tp", {"seq": 2, "model": 2}, "ulysses"),
+                 ("ulysses-ep", {"seq": 2, "expert": 2}, "ulysses"))
+#: the dist-train layouts of the Switch-MoE model (the moe phase's E = 4,
+#: stepping with its aux weight), each expert rank holding 2 experts a bank
+DIST_MOE = {"expert": MOE, "ulysses-ep": MOE}
 #: microbatches a pipelined layout splits its B=16 rows into
 DIST_MICROBATCHES = {"pipe": 4, "pipe-tp": 4}
 DIST_WARM, DIST_STEPS = 1, 3
@@ -2488,7 +2516,8 @@ def phase_dist(torch, MODEL_CONFIGS):
          ("card_train", dict(layouts=DIST_LAYOUTS, model_cfg=dict(cfg, dtype=torch.bfloat16),
                              warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
                              lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir,
-                             microbatches=DIST_MICROBATCHES, checkpoint_dir=ckpt_dir)),
+                             microbatches=DIST_MICROBATCHES, checkpoint_dir=ckpt_dir,
+                             model_extra=DIST_MOE, moe_aux_weight=MOE_AUX_WEIGHT)),
          ("card_sample", dict(layouts=DIST_SAMPLE_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N,
                               k=K, seed=SEED + 6)),
          dist_serve_case(cfg)],
@@ -2609,8 +2638,9 @@ def phase_dist4(torch, MODEL_CONFIGS) -> dict:
         [("card_train", dict(layouts=DIST4_LAYOUTS, model_cfg=cfg, warm=DIST_WARM,
                              steps=DIST4_STEPS, batch=16, seed=SEED + 8, lr=lr,
                              total_steps=TRAIN_TOTAL_STEPS,
-                             microbatches=DIST_MICROBATCHES))],
-        4, device="cuda", backend="gloo", timeout_s=400)
+                             microbatches=DIST_MICROBATCHES, model_extra=DIST_MOE,
+                             moe_aux_weight=MOE_AUX_WEIGHT))],
+        4, device="cuda", backend="gloo", timeout_s=500)
     wall = time.perf_counter() - t0
     depth = MODEL_CONFIGS[MODEL]["depth"]
     out = {}
@@ -3971,6 +4001,170 @@ def phase_profile_quant(torch, eng, config, per_layer, model):
                       rec["idle_share"], floor=True)
 
 
+def _moe_forward(model, x, t):
+    """``model``'s forward and its banks' routing statistics."""
+    records = []
+    out = model(x, t, losses=records)
+    return out, records
+
+
+def phase_moe(torch, fa, serve, DiffusionViT, MODEL_CONFIGS, serve_report) -> dict:
+    """The Switch-MoE model family at full width (200_p4, E = 4, cf 1.25,
+    both dispatches): (1) the float32 forward at B=8 on the card against the
+    port's CPU forward on the same weights, einsum against index on the
+    card (TF32 off), each block's dropped-token share; (2) an ``Engine``
+    over the bf16 einsum model serving 8 one-row requests at k=20 in one
+    batch: flash_fwd depth × 100, every row bit for bit the direct
+    ``ddim_sample`` at the bucket shape, no program after warmup, img/s and
+    p50 beside the float serve phase's; (3) bf16 training at B=16, every
+    drop rate 0, ``moe_aux_weight`` 0.01, 2 warm-up and 5 timed steps per
+    dispatch: loss and aux finite, each flash kernel depth a step, ms/step
+    and peak memory. Returns each path's launches."""
+    from ddim_cold_torch.models import moe
+    from ddim_cold_torch.ops import degrade, quant, sampling
+    from ddim_cold_torch.serve.batching import plan_batches
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dict(MODEL_CONFIGS[MODEL], use_flash=True, seed=SEED, **MOE)
+    depth = cfg["depth"]
+    n_tok = (cfg["img_size"][0] // cfg["patch_size"]) ** 2 + 1
+    launches: dict = {}
+
+    # (1) forward: card against CPU, einsum against index
+    gen = torch.Generator().manual_seed(SEED + 20)
+    H, W = cfg["img_size"]
+    x = torch.randn((MOE_FWD_BATCH, H, W, 3), generator=gen)
+    t = torch.randint(0, 2000, (MOE_FWD_BATCH,), generator=gen)
+    card = {d: DiffusionViT(**cfg, moe_dispatch=d) for d in moe.DISPATCHES}
+    out, stats = {}, {}
+    with torch.inference_mode():
+        for d, m in card.items():
+            _zero((fa.LAUNCHES, quant.LAUNCHES))
+            out[d], stats[d] = _moe_forward(m, x.cuda(), t.cuda())
+            torch.cuda.synchronize()
+            launches[f"moe forward {d}"] = _counts(fa, quant)
+        cpu = DiffusionViT(**cfg, moe_dispatch="index", device="cpu")
+        cpu.load_state_dict(card["einsum"].state_dict(), strict=True)
+        t0 = time.perf_counter()
+        ref, ref_stats = _moe_forward(cpu, x, t)
+        cpu_s = time.perf_counter() - t0
+    del cpu
+    err = float((out["einsum"].cpu() - ref).abs().max())
+    gap = float((out["einsum"] - out["index"]).abs().max())
+    same_routing = all(
+        torch.equal(a.routed.cpu(), b.routed) and torch.equal(a.kept.cpu(), b.kept)
+        for a, b in zip(stats["einsum"], ref_stats))
+    dropped = [1.0 - float(s.kept.sum() / s.count) for s in stats["einsum"]]
+    rec = {"phase": "moe", "part": "forward", "model": MODEL, **MOE,
+           "capacity": moe.capacity(n_tok, MOE["moe_capacity_factor"], MOE["num_experts"]),
+           "dtype": "float32", "batch": MOE_FWD_BATCH, "max_abs_err_card_vs_cpu": err,
+           "tol": MOE_FWD_TOL, "routing_equal_card_vs_cpu": same_routing,
+           "max_abs_einsum_vs_index": gap, "dropped_share_by_block": dropped,
+           "tokens_by_expert_by_block": [s.routed.tolist() for s in stats["einsum"]],
+           "aux": float(moe.mean_load_balance(stats["einsum"])),
+           "cpu_forward_s": cpu_s, "launches": launches["moe forward einsum"]}
+    emit(rec)
+    check(all(o.shape == (MOE_FWD_BATCH, H, W, 3) and bool(torch.isfinite(o).all())
+              for o in out.values()), "moe forward: shape and finite")
+    check(same_routing, "moe forward: the card routes otherwise than the CPU")
+    check(err <= MOE_FWD_TOL, f"moe forward: card vs CPU {err} over {MOE_FWD_TOL}")
+    check(gap <= MOE_FWD_TOL, f"moe forward: einsum vs index {gap} over {MOE_FWD_TOL}")
+    for d in moe.DISPATCHES:
+        check(launches[f"moe forward {d}"].get("flash_fwd") == depth
+              and sum(launches[f"moe forward {d}"].values()) == depth,
+              f"moe forward {d}: launches {launches[f'moe forward {d}']}")
+    del card, out, ref
+    torch.cuda.empty_cache()
+
+    # (2) serving
+    model = DiffusionViT(**cfg, dtype=torch.bfloat16)
+    eng = serve.Engine(model, buckets=(MOE_SERVE_N,))
+    config = serve.SamplerConfig(k=K)
+    serve.warmup(eng, [config])
+    programs = eng.stats["programs"]
+    reqs = tuple((300 + i, 1) for i in range(MOE_SERVE_N))
+    _zero((fa.LAUNCHES, quant.LAUNCHES))                   # main path starts here
+    tickets = {s: eng.submit(seed=s, n=n, config=config) for s, n in reqs}
+    report = eng.run()
+    torch.cuda.synchronize()
+    served = _counts(fa, quant)           # ... and ends here
+    launches["moe serve"] = served
+    pending = [serve.Request(config=config, n=n, key=s, ticket=tickets[s]) for s, n in reqs]
+    bitwise = _rows_bitwise(torch, model, sampling, reqs,
+                            plan_batches(pending, (MOE_SERVE_N,)))
+    expected = depth * len(range(model.total_steps - 1, 0, -K))
+    rec = {"phase": "moe", "part": "serve", "model": MODEL, **MOE, "dtype": "bfloat16",
+           "moe_dispatch": "einsum", "k": K, "requests": len(reqs),
+           "batches": report["batches"], "wall_s": report["wall_s"],
+           "img_per_sec": report["img_per_sec"], "p50_latency_s": report["latency"]["p50_s"],
+           "float_serve_img_per_sec": serve_report["img_per_sec"],
+           "float_serve_p50_latency_s": serve_report["latency"]["p50_s"],
+           "programs_after_warmup": eng.stats["programs"] - programs,
+           "launches": served, "expected_flash_fwd": expected,
+           "rows_bitwise": sum(bitwise.values())}
+    emit(rec)
+    check(report["batches"] == 1 and report["failed_tickets"] == 0,
+          f"moe serve: {report['batches']} batches, {report['failed_tickets']} failed")
+    check(served.get("flash_fwd") == expected and sum(served.values()) == expected,
+          f"moe serve: launches {served}, expected flash_fwd {expected}")
+    check(rec["programs_after_warmup"] == 0, "moe serve: a program after warmup")
+    check(rec["rows_bitwise"] == len(reqs), f"moe serve: bitwise rows {bitwise}")
+    del eng, model
+    torch.cuda.empty_cache()
+
+    # (3) training, each dispatch
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    host = _cold_batches(MOE_TRAIN_WARM + MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, SEED + 21)
+    lr = 0.005 * MOE_TRAIN_BATCH / 512
+    for d in moe.DISPATCHES:
+        model = DiffusionViT(**cfg, moe_dispatch=d, dtype=torch.bfloat16, drop_rate=0.0,
+                             attn_drop_rate=0.0, drop_path_rate=0.0)
+        state = create_train_state(model, lr, TRAIN_TOTAL_STEPS)
+        step = make_train_step(model, prepare=prepare, moe_aux_weight=MOE_AUX_WEIGHT)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        rec_loss = torch.tensor(5.0, device="cuda")
+        state, _, rec_loss = _run_steps(torch, step, state, host[:MOE_TRAIN_WARM], gen,
+                                        rec_loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero((fa.LAUNCHES, quant.LAUNCHES))               # main path starts here
+        t0 = time.perf_counter()
+        state, loss, rec_loss = _run_steps(torch, step, state, host[MOE_TRAIN_WARM:], gen,
+                                           rec_loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trained = _counts(fa, quant)      # ... and ends here
+        launches[f"moe train {d}"] = trained
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        base, tt = host[-1]
+        with torch.inference_mode():
+            noisy, _, tt = prepare((torch.from_numpy(base).cuda(), torch.from_numpy(tt).cuda()),
+                                   gen)
+            _, records = _moe_forward(model, noisy, tt)
+        aux = float(moe.mean_load_balance(records))
+        rec = {"phase": "moe", "part": "train", "model": MODEL, **MOE, "moe_dispatch": d,
+               "dtype": "bfloat16", "batch": MOE_TRAIN_BATCH, "lr": lr,
+               "moe_aux_weight": MOE_AUX_WEIGHT, "warmup_steps": MOE_TRAIN_WARM,
+               "steps": MOE_TRAIN_STEPS, "ms_per_step": wall / MOE_TRAIN_STEPS * 1e3,
+               "img_per_sec": MOE_TRAIN_BATCH * MOE_TRAIN_STEPS / wall,
+               "peak_mem_gib": peak, "final_loss": loss.item(), "aux": aux,
+               "dropped_share_by_block": [1.0 - float(s.kept.sum() / s.count)
+                                          for s in records],
+               "launches": trained}
+        emit(rec)
+        check(math.isfinite(rec["final_loss"]) and math.isfinite(aux),
+              f"moe train {d}: loss {rec['final_loss']}, aux {aux}")
+        want = {k: depth * MOE_TRAIN_STEPS for k in ("flash_fwd", "flash_bwd_dq",
+                                                     "flash_bwd_dkv")}
+        check({k: n for k, n in trained.items() if n} == want,
+              f"moe train {d}: launches {trained}, expected {want}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    emit({"phase": "moe", "part": "done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4029,6 +4223,7 @@ def main() -> int:
                  **phase_distill(torch, model, fa, quant, serve)}
     del model
     torch.cuda.empty_cache()
+    new_paths.update(phase_moe(torch, fa, serve, DiffusionViT, MODEL_CONFIGS, serve_report))
     phase_train_check(torch, fa)
     train_model, state, step, batch, gen, train_launches = phase_train(torch, fa)
     phase_train_profile(torch, train_model, state, step, batch, gen)

@@ -25,12 +25,12 @@ The optional keys the JAX package added keep their meaning;
 ``nan_checks`` raises at the first non-finite value (the port's
 counterparts of a ``jax.profiler`` trace and ``jax_debug_nans``);
 ``remat`` checkpoints each block's activations (``models/vit.py``);
-``num_gpus: N`` or ``mesh: {model: m, pipe: p, data: d, seq: s}`` (with
-``sp_mode: ring | ulysses`` and ``microbatches``) trains one process per
-device (``train/trainer.py``, ``parallel/``). The port's trainer refuses
-those whose slice has not landed (an ``expert`` mesh axis,
-``steps_per_dispatch`` > 1, MoE, ``flash_blocks``), naming the ROADMAP.md
-item.
+``num_gpus: N`` or ``mesh: {model: m, pipe: p, data: d, seq: s, expert:
+e}`` (with ``sp_mode: ring | ulysses`` and ``microbatches``) trains one
+process per device (``train/trainer.py``, ``parallel/``); ``num_experts``
+> 1 trains the Switch-MoE model (``models/moe.py``). The port's trainer
+refuses those whose slice has not landed (``steps_per_dispatch`` > 1,
+``flash_blocks``), naming the ROADMAP.md item.
 """
 
 from __future__ import annotations

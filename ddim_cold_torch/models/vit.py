@@ -111,8 +111,17 @@ serving engine run it under ``torch.inference_mode()``. The step-cache
 hooks of the JAX forward (``capture_split``, ``skip_blocks`` +
 ``block_delta``, ``capture_tokens``, ``token_cache`` + ``token_k``) are
 ported on every route above, and so is the attention probe
-(``return_attention_layer``); see :meth:`DiffusionViT.forward`. MoE
-raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 18.
+(``return_attention_layer``); see :meth:`DiffusionViT.forward`.
+
+Switch-MoE (``num_experts`` > 1, ``moe_capacity_factor``, ``moe_dispatch``:
+:mod:`ddim_cold_torch.models.moe`): each block's Mlp is a top-1 routed
+expert bank (``blocks.{i}.moe``), in both block layouts, under ``remat``,
+the step-cache hooks (the token cache routes its k live tokens, with
+capacity from k) and sequence parallelism; ``fused`` launches no Mlp
+kernel there (the bank replaces the Mlp) and ``quant`` raises JAX's
+ValueError. ``forward(..., losses=[])`` appends every bank call's routing
+statistics, the load-balance term's inputs. ``expert_axis`` (an axis of
+``seq_mesh``) keeps this rank's E/ep experts of every bank.
 """
 
 from __future__ import annotations
@@ -139,7 +148,6 @@ from ddim_cold_torch.parallel.ring_attention import ring_attention
 from ddim_cold_torch.parallel.ulysses import (check_head_axis, heads_error,
                                               ulysses_attention_qkv)
 from ddim_cold_torch.utils.platform import resolve_device
-from ddim_cold_torch.utils.slices import refuse_later
 
 #: Model configurations appearing in the reference (same table as the JAX
 #: package's MODEL_CONFIGS).
@@ -160,15 +168,6 @@ MODEL_CONFIGS = {
         img_size=(200, 200), patch_size=8, embed_dim=384, depth=7, num_heads=12
     ),
 }
-
-#: constructor hooks of the JAX model that belong to later slices, with
-#: their off value and the ROADMAP.md item that ports them
-_LATER_CTOR = {
-    "num_experts": (1, "Queue 1 item 18 (MoE)"),
-    "moe_capacity_factor": (1.25, "Queue 1 item 18 (MoE)"),
-    "moe_dispatch": ("einsum", "Queue 1 item 18 (MoE)"),
-}
-
 
 class TensorShard(NamedTuple):
     """This rank's place on a tensor-parallel axis: its ``group``, the axis
@@ -291,15 +290,17 @@ def _live_tokens(tokens: torch.Tensor, ref_in: torch.Tensor, k: int) -> torch.Te
     return order[:, :k].sort(dim=-1).values
 
 
-def _remat_block(blk: nn.Module, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+def _remat_block(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator],
+                 losses: Optional[list] = None) -> torch.Tensor:
     """``blk(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant),
     with the block's dropout masks replayed exactly in the recomputation.
     ``preserve_rng_state`` covers only the global RNGs, and the port draws
     from an explicit generator, so: the first forward draws from the
     caller's generator (leaving it where the plain block would), and the
     recomputation runs with a fresh generator on the same device set to the
-    state that forward started from."""
+    state that forward started from. An expert bank's routing statistics
+    reach ``losses`` from the first forward; the recomputation computes
+    them again (the same operations) into a list of its own."""
     snapshot = None if generator is None else generator.get_state()
     replay = False
 
@@ -308,7 +309,8 @@ def _remat_block(blk: nn.Module, x: torch.Tensor,
         if replay and generator is not None:
             gen = torch.Generator(device=generator.device)
             gen.set_state(snapshot)
-        return blk(inp, gen)
+        sink = losses if losses is None or not replay else []
+        return blk(inp, gen, losses=sink)
 
     out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
     replay = True  # read by the recomputation, during the backward
@@ -517,7 +519,9 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block with stochastic-depth residuals (reference
-    ViT.py:120-138)."""
+    ViT.py:120-138). ``num_experts`` > 1 puts a Switch-MoE expert bank
+    (``moe``, :class:`~ddim_cold_torch.models.moe.SwitchMlp`) where the
+    dense ``mlp`` would be (JAX vit.py:471-494)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -525,8 +529,13 @@ class Block(nn.Module):
                  drop_path: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
                  block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV,
-                 shard: Optional[pmesh.SeqShard] = None):
+                 shard: Optional[pmesh.SeqShard] = None, num_experts: int = 1,
+                 moe_capacity_factor: float = 1.25, moe_dispatch: str = "einsum"):
         super().__init__()
+        if quant and num_experts > 1:
+            raise ValueError(
+                "quant covers the dense trunk only — the Switch-MoE expert "
+                "banks have no quantized path (set num_experts=1)")
         self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
@@ -535,8 +544,15 @@ class Block(nn.Module):
                               fused=fused, block_q=block_q, block_kv=block_kv,
                               shard=shard)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, quant=quant,
-                       fused=fused, shard=shard)
+        if num_experts > 1:
+            from ddim_cold_torch.models.moe import SwitchMlp
+
+            self.moe = SwitchMlp(dim, num_experts, int(dim * mlp_ratio), dim,
+                                 capacity_factor=moe_capacity_factor, drop=drop,
+                                 dispatch=moe_dispatch, shard=shard)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, quant=quant,
+                           fused=fused, shard=shard)
 
     def _residual(self, y: torch.Tensor, generator) -> torch.Tensor:
         """Per-sample stochastic depth (reference ViT.py:52-71): one
@@ -544,16 +560,20 @@ class Block(nn.Module):
         return _dropout(y, self.drop_path, generator, shape=(y.shape[0], 1, 1))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                return_attention: bool = False) -> torch.Tensor:
+                return_attention: bool = False,
+                losses: Optional[list] = None) -> torch.Tensor:
         """The block's output; with ``return_attention`` its attention
         weights (B, H, N, N) instead (reference Block.return_attention,
-        ViT.py:132-135)."""
+        ViT.py:132-135). ``losses``: an expert bank appends its routing
+        statistics there."""
         if return_attention:
             return self.attn(_layer_norm(x, self.norm1), generator, need_weights=True)
         x = x + self._residual(self.attn(_layer_norm(x, self.norm1), generator),
                                generator)
-        return x + self._residual(self.mlp(_layer_norm(x, self.norm2), generator),
-                                  generator)
+        h = _layer_norm(x, self.norm2)
+        y = (self.moe(h, generator, losses) if hasattr(self, "moe")
+             else self.mlp(h, generator))
+        return x + self._residual(y, generator)
 
 
 class DiffusionViT(nn.Module):
@@ -585,18 +605,13 @@ class DiffusionViT(nn.Module):
                  seq_mesh=None, seq_axis: Optional[str] = None,
                  batch_axis: Optional[str] = None, sp_mode: str = "ring",
                  head_axis: Optional[str] = None, scan_blocks: bool = False,
-                 pipe_axis: Optional[str] = None, *,
-                 device=None, seed: int = 0, **later):
-        ctor = {k: v for k, v in locals().items()
-                if k not in ("self", "later", "__class__")}
-        if quant is not None:
-            if quant not in quant_ops.QUANT_MODES:
-                raise ValueError(f"quant must be None or one of "
-                                 f"{quant_ops.QUANT_MODES}, got {quant!r}")
-            if later.get("num_experts", 1) > 1:
-                raise ValueError(
-                    "quant covers the dense trunk only — the Switch-MoE expert "
-                    "banks have no quantized path (set num_experts=1)")
+                 pipe_axis: Optional[str] = None, num_experts: int = 1,
+                 moe_capacity_factor: float = 1.25, moe_dispatch: str = "einsum",
+                 expert_axis: Optional[str] = None, *, device=None, seed: int = 0):
+        ctor = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
+        if quant is not None and quant not in quant_ops.QUANT_MODES:
+            raise ValueError(f"quant must be None or one of "
+                             f"{quant_ops.QUANT_MODES}, got {quant!r}")
         if fused and quant == "xla":
             raise ValueError(
                 "fused=True requests the Pallas fused trunk kernels but "
@@ -607,7 +622,6 @@ class DiffusionViT(nn.Module):
                 len(flash_blocks) != 2 or any(int(b) < 1 for b in flash_blocks)):
             raise ValueError(f"flash_blocks must be (block_q, block_kv), got "
                              f"{flash_blocks!r}")
-        refuse_later(later, _LATER_CTOR, "DiffusionViT")
         if quant is not None and scan_blocks:
             # JAX: the stacked kernel layout has no per-layer scale axis
             raise ValueError("quant requires scan_blocks=False")
@@ -615,6 +629,7 @@ class DiffusionViT(nn.Module):
                            (img_size[0] // patch_size) * (img_size[1] // patch_size) + 1)
         tp = _tensor_shard(seq_mesh, head_axis, num_heads, int(embed_dim * mlp_ratio),
                            quant, fused)
+        ep = _expert_shard(seq_mesh, expert_axis, num_experts)
         if shard is not None and tp is not None and shard.mode == "ulysses" and (
                 (num_heads // tp.size) % pmesh.axis_size(seq_mesh, seq_axis)):
             raise heads_error(f"{num_heads}//{tp.size}={num_heads // tp.size}", seq_axis,
@@ -650,6 +665,9 @@ class DiffusionViT(nn.Module):
         self.batch_axis, self.sp_mode = batch_axis, sp_mode
         self.shard = shard
         self.head_axis, self.tp = head_axis, tp
+        self.num_experts = int(num_experts)
+        self.moe_capacity_factor, self.moe_dispatch = moe_capacity_factor, moe_dispatch
+        self.expert_axis, self.ep = expert_axis, ep
         self.scan_blocks = bool(scan_blocks)
         self.pipe_axis, self.stage = pipe_axis, stage
         self.mlp_ratio = mlp_ratio
@@ -678,7 +696,8 @@ class DiffusionViT(nn.Module):
                   fused=self.fused,
                   block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q,
                   block_kv=int(flash_blocks[1]) if flash_blocks else DEFAULT_BLOCK_KV,
-                  shard=shard)
+                  shard=shard, num_experts=num_experts,
+                  moe_capacity_factor=moe_capacity_factor, moe_dispatch=moe_dispatch)
             for i in range(depth))
         self.norm = nn.LayerNorm(E, eps=1e-5)
         self.head = nn.Linear(E, in_chans * patch_size**2)
@@ -691,12 +710,11 @@ class DiffusionViT(nn.Module):
                         setattr(mod, name, quant_ops.QuantLinear.from_linear(
                             getattr(mod, name), quant))
         # the layout of every key of the whole model (names and ranks only)
-        self.plan = sharding.plan_for(self.state_dict(), head_axis, pipe_axis)
+        self.plan = sharding.plan_for(self.state_dict(), head_axis, pipe_axis,
+                                      expert_axis)
         # sharded: every rank draws the whole seeded init, then keeps its part
-        if tp is not None:
-            for blk in self.blocks:
-                blk.attn.shard_heads(tp)
-                blk.mlp.shard_hidden(tp)
+        for blk in self.blocks:
+            _shard_block(blk, tp, ep)
         if stage is not None:
             for i in range(depth):
                 if i not in stage:
@@ -723,7 +741,7 @@ class DiffusionViT(nn.Module):
             libs.add("fused_trunk")
         elif self.use_flash is True and (self.shard is None or self.shard.mode == "ulysses"):
             libs.add("flash_fwd")
-        if self.fused and self.quant != "xla":
+        if self.fused and self.quant != "xla" and self.num_experts == 1:
             libs.add("mlp_fused")
         if self.quant == "pallas" and not fused_attn:
             libs.add("dequant_mm")
@@ -753,8 +771,12 @@ class DiffusionViT(nn.Module):
         trunc_normal_(self.time_embed.weight, g)
         if self.pos_embed is not None:
             trunc_normal_(self.pos_embed, g)
+        from ddim_cold_torch.models.moe import SwitchMlp
+
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, SwitchMlp):
+                mod.reset_parameters(g)
+            elif isinstance(mod, nn.Linear):
                 trunc_normal_(mod.weight, g)
                 if mod.bias is not None:
                     nn.init.zeros_(mod.bias)
@@ -773,7 +795,7 @@ class DiffusionViT(nn.Module):
                 token_k: Optional[int] = None,
                 return_attention_layer: Optional[int] = None,
                 stage: str = "full", tokens: Optional[torch.Tensor] = None,
-                **later):
+                losses: Optional[list] = None, **later):
         """``deterministic=False`` is the training forward and needs
         ``generator`` (on the model's device) for its dropout masks.
 
@@ -814,7 +836,12 @@ class DiffusionViT(nn.Module):
         parallelism); ``stage="head"`` takes ``tokens``, the trunk's output,
         through the final LayerNorm, the head and the un-patchify (JAX
         vit.py:657-662). A pipeline stage's model (``pipe_axis``) runs no
-        ``stage="full"`` forward: its trunk is the pipeline's."""
+        ``stage="full"`` forward: its trunk is the pipeline's.
+
+        ``losses``: a list every expert bank call appends its
+        :class:`~ddim_cold_torch.models.moe.RouterStats` to, the Switch
+        load-balance term's inputs (JAX's ``sow`` into ``losses``;
+        ``models.moe.mean_load_balance`` turns them into the aux)."""
         if later:
             raise TypeError(f"DiffusionViT.forward got an unexpected argument "
                             f"{next(iter(later))!r}")
@@ -863,7 +890,7 @@ class DiffusionViT(nn.Module):
                     continue
                 if i == probe:
                     return blk(tokens, generator, return_attention=True)
-                tokens = self.run_block(i, tokens, generator)
+                tokens = self.run_block(i, tokens, generator, losses)
                 if capture_split is not None and i == capture_split - 1:
                     tokens_mid = tokens
 
@@ -927,13 +954,15 @@ class DiffusionViT(nn.Module):
         return self.unpatchify(tokens[:, 1:, :]).float()
 
     def run_block(self, i: int, tokens: torch.Tensor,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator],
+                  losses: Optional[list] = None) -> torch.Tensor:
         """Block ``i`` on ``tokens`` (rematerialised under ``remat`` when a
-        gradient is recorded)."""
+        gradient is recorded); an expert bank appends its routing
+        statistics to ``losses``."""
         blk = self.blocks[i]
         if self.remat and torch.is_grad_enabled():
-            return _remat_block(blk, tokens, generator)
-        return blk(tokens, generator)
+            return _remat_block(blk, tokens, generator, losses)
+        return blk(tokens, generator, losses=losses)
 
     def _check_cache_hooks(self, skip_blocks, block_delta, capture_split,
                            capture_tokens, token_cache, token_k,
@@ -1055,12 +1084,44 @@ def _tensor_shard(mesh, head_axis: Optional[str], num_heads: int, hidden: int,
     return TensorShard(mesh.get_group(head_axis), m, pmesh.axis_index(mesh, head_axis))
 
 
+def _expert_shard(mesh, expert_axis: Optional[str],
+                  num_experts: int) -> Optional[TensorShard]:
+    """This rank's place on the ``expert_axis`` of ``mesh`` (None without
+    one), with JAX's check: the axis needs ``num_experts`` > 1 and divisible
+    by it (JAX trainer.py:263-268)."""
+    if expert_axis is None:
+        return None
+    if mesh is None:
+        raise ValueError("expert_axis names an axis of seq_mesh: pass the mesh")
+    if expert_axis not in tuple(mesh.mesh_dim_names or ()):
+        raise ValueError(f"expert_axis {expert_axis!r} is not an axis of seq_mesh")
+    size = pmesh.axis_size(mesh, expert_axis)
+    if num_experts <= 1 or num_experts % size:
+        raise ValueError(f"mesh 'expert' axis of {size} needs num_experts (got "
+                         f"{num_experts}) set and divisible by it")
+    return TensorShard(mesh.get_group(expert_axis), size,
+                       pmesh.axis_index(mesh, expert_axis))
+
+
+def _shard_block(blk: Block, tp: Optional[TensorShard], ep: Optional[TensorShard]) -> None:
+    """Cut a block built whole to this rank's shards: its heads and Mlp
+    hidden units along ``tp``, its experts along ``ep`` (an expert bank
+    stays whole along ``tp``, as JAX's specs keep it)."""
+    if tp is not None:
+        blk.attn.shard_heads(tp)
+        if hasattr(blk, "mlp"):
+            blk.mlp.shard_hidden(tp)
+    if ep is not None:
+        blk.moe.shard_experts(ep)
+
+
 def block_template(model: DiffusionViT, *, seq_manual_axis=None, seq_valid_len=None,
                    seq_varying_axes=None) -> Block:
     """A fresh single-layer :class:`Block` of ``model``'s configuration
     (JAX's ``block_template``, vit.py:501-523): its width, heads, drop rates
-    (drop path 0: JAX feeds each layer's rate in), kernels route, sequence
-    block and tensor shard, weights from torch's default init. The port's
+    (drop path 0: JAX feeds each layer's rate in), kernels route, expert
+    bank, sequence block and tensor and expert shards, weights from torch's
+    default init (an expert bank's from JAX's, seeded 0). The port's
     pipeline runs the model's own blocks; this is the unit a stage repeats.
     ``seq_manual_axis`` must name the model's own ``seq_axis`` (the port's
     sequence-parallel blocks always run on their local block);
@@ -1076,10 +1137,12 @@ def block_template(model: DiffusionViT, *, seq_manual_axis=None, seq_valid_len=N
                 use_flash=model.use_flash, fused=model.fused,
                 block_q=int(model.flash_blocks[0]) if model.flash_blocks else DEFAULT_BLOCK_Q,
                 block_kv=int(model.flash_blocks[1]) if model.flash_blocks else DEFAULT_BLOCK_KV,
-                shard=model.shard)
-    if model.tp is not None:
-        blk.attn.shard_heads(model.tp)
-        blk.mlp.shard_hidden(model.tp)
+                shard=model.shard, num_experts=model.num_experts,
+                moe_capacity_factor=model.moe_capacity_factor,
+                moe_dispatch=model.moe_dispatch)
+    if hasattr(blk, "moe"):
+        blk.moe.reset_parameters(torch.Generator().manual_seed(0))
+    _shard_block(blk, model.tp, model.ep)
     return blk.to(model.device)
 
 

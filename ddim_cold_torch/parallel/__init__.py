@@ -1,13 +1,13 @@
-"""Data, sequence, tensor and pipeline parallelism, one process per device
+"""Data, sequence, tensor, pipeline and expert parallelism, one process per device
 (counterpart of ``ddim_cold_tpu/parallel/``): the mesh and its collectives
 (:mod:`~ddim_cold_torch.parallel.mesh`), ring attention
 (:mod:`~ddim_cold_torch.parallel.ring_attention`), Ulysses
 (:mod:`~ddim_cold_torch.parallel.ulysses`), the Megatron shard plan over
 the state_dict (:mod:`~ddim_cold_torch.parallel.sharding`), GPipe
 microbatching (:mod:`~ddim_cold_torch.parallel.pipeline`) and the layout a
-mesh selects (:mod:`~ddim_cold_torch.parallel.layout`). JAX's
-``_compat.py`` is a shim over JAX versions and has no counterpart; the
-``expert`` axis is ROADMAP.md Queue 1 item 18."""
+mesh selects (:mod:`~ddim_cold_torch.parallel.layout`), the ``expert``
+axis of the Switch-MoE banks among its axes. JAX's ``_compat.py`` is a
+shim over JAX versions and has no counterpart."""
 
 from ddim_cold_torch.parallel.layout import layout_for_mesh, model_axes
 from ddim_cold_torch.parallel.mesh import (

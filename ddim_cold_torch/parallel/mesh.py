@@ -9,8 +9,9 @@ process per card, as PyTorch does it: :func:`initialize_distributed` joins
 the ``torch.distributed`` world, :func:`make_mesh` names its axes with a
 ``DeviceMesh`` (``data``: batch rows; ``seq``: tokens; ``model``: attention
 heads and Mlp hidden units, Megatron's tensor parallelism; ``pipe``:
-pipeline stages), and each process holds its own rows and tokens, and the
-parameters of its ``model``/``pipe`` coordinates
+pipeline stages; ``expert``: the Switch-MoE expert banks), and each process
+holds its own rows and tokens, and the parameters of its
+``model``/``pipe``/``expert`` coordinates
 (:mod:`~ddim_cold_torch.parallel.sharding`), equal along ``data`` and
 ``seq``.
 
@@ -29,7 +30,9 @@ both NCCL and gloo carry, with no branch on the backend:
   differentiable with the backward every rank of the group computing the
   same function of the result needs: its own slice of the gradient;
 * :func:`all_reduce_flat` — a list of tensors summed across a group in a
-  few flat buffers (:func:`all_reduce_mesh`: across a whole mesh).
+  few flat buffers (:func:`all_reduce_mesh`: across a whole mesh);
+* :func:`reduce_shares` — every rank's share of a global statistic summed
+  over groups, each share's gradient its own (scaled).
 
 The serving engine across ranks adds :func:`submesh` (a named mesh over a
 given list of ranks, such as a sequence-parallel ``(data, seq)`` mesh over
@@ -52,11 +55,11 @@ import torch.distributed as dist
 
 from ddim_cold_torch.utils.platform import resolve_device
 
-#: the mesh axes the port runs; ``expert`` is ROADMAP.md Queue 1 item 18
-PORTED_AXES = ("data", "seq", "model", "pipe")
+#: the mesh axes the port runs
+PORTED_AXES = ("data", "seq", "model", "pipe", "expert")
 
 #: the axes whose ranks hold identical parameters (every other axis, the
-#: ``model`` and ``pipe`` ones, holds a shard of them)
+#: ``model``, ``pipe`` and ``expert`` ones, holds a shard of them)
 REPLICA_AXES = ("data", "seq")
 
 #: largest flat buffer :func:`all_reduce_flat` sums in one call (DDP's
@@ -460,6 +463,34 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """The summed output of a row-parallel linear (see
     :class:`_ReduceFromGroup`)."""
     return _ReduceFromGroup.apply(x, group)
+
+
+class _ReduceShares(torch.autograd.Function):
+    """Every rank's share of one global sum, summed over ``groups`` in
+    turn; the backward gives each rank the gradient of its own share
+    (every rank computes the same function of the sum), times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, groups, scale: float) -> torch.Tensor:
+        ctx.scale = scale
+        x = x.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad * ctx.scale, None, None
+
+
+def reduce_shares(x: torch.Tensor, groups: Sequence, scale: float = 1.0) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``groups`` (a share of a global
+    statistic: the Switch-MoE router's counts and probabilities over the
+    data and seq ranks). The train step averages the gradients over the
+    ``data`` ranks, so it passes the data size as ``scale``: the shares'
+    gradients, summed over the ranks and divided by it, are the whole
+    statistic's."""
+    return _ReduceShares.apply(x, tuple(groups), float(scale))
 
 
 def mesh_ranks(mesh) -> list:

@@ -18,6 +18,12 @@ torch's ``(out, in)`` weights:
 * the patch embedding, LayerNorms, head and the cls/pos/time tables stay
   replicated; an int8 tree's ``w_int8`` splits as the weight it encodes.
 
+A Switch-MoE expert bank (``blocks.{i}.moe.*``, JAX's ``_spec_for``,
+sharding.py:35-46) splits its stacked ``w1``, ``b1``, ``w2`` and ``b2``
+along dim 0, the experts, over the ``expert`` axis (the port keeps the
+``blocks.{i}`` modules, so the expert axis always leads); the ``router``
+stays whole, and the bank is whole along ``model``.
+
 Under a ``pipe`` axis (:func:`pipeline_param_specs`) every ``blocks.{i}``
 key belongs to one stage: depth/p consecutive blocks a stage, the stage
 being block ``i``'s rank along ``pipe`` (``KeyPlan.stage``), with the tensor
@@ -65,14 +71,16 @@ def block_index(key: str) -> Optional[int]:
     return int(m.group(1)) if m else None
 
 
-def _tensor_plan(key: str, ndim: int, axis: Optional[str]) -> KeyPlan:
+def _tensor_plan(key: str, ndim: int, axis: Optional[str],
+                 expert_axis: Optional[str] = None) -> KeyPlan:
     """JAX's ``_spec_for`` on a torch key: the Megatron split over ``axis``
-    (None: replicated)."""
+    and an expert bank's over ``expert_axis`` (None: replicated)."""
     whole = KeyPlan((None,) * ndim)
     parts = key.split(".")
     if ".moe." in key:
-        raise NotImplementedError("the Switch-MoE expert banks' shard plan is not "
-                                  "ported yet: ROADMAP.md Queue 1 item 18 (MoE)")
+        if expert_axis is None or parts[-1] == "router":
+            return whole
+        return KeyPlan((expert_axis,) + (None,) * (ndim - 1))
     if axis is None or block_index(key) is None or len(parts) < 3:
         return whole
     parent, module, leaf = parts[-3], parts[-2], parts[-1]
@@ -84,40 +92,46 @@ def _tensor_plan(key: str, ndim: int, axis: Optional[str]) -> KeyPlan:
     return whole
 
 
-def plan_for(state, tp_axis: Optional[str] = None,
-             pipe_axis: Optional[str] = None) -> dict:
+def plan_for(state, tp_axis: Optional[str] = None, pipe_axis: Optional[str] = None,
+             expert_axis: Optional[str] = None) -> dict:
     """key → :class:`KeyPlan` of ``state`` (a state_dict, or a dict of key →
     shape) for a model split over ``tp_axis`` (Megatron's plan; a
-    ``model`` axis under any name) and ``pipe_axis`` (every ``blocks.{i}``
-    key belongs to one stage); a Switch-MoE key raises (ROADMAP.md Queue 1
-    item 18)."""
+    ``model`` axis under any name), ``pipe_axis`` (every ``blocks.{i}``
+    key belongs to one stage) and ``expert_axis`` (the expert banks)."""
     out = {}
     for k, v in state.items():
-        plan = _tensor_plan(k, len(_shape(v)), tp_axis)
+        plan = _tensor_plan(k, len(_shape(v)), tp_axis, expert_axis)
         out[k] = (plan._replace(stage=pipe_axis)
                   if pipe_axis is not None and block_index(k) is not None else plan)
     return out
 
 
+def _named(axes, name: str) -> Optional[str]:
+    return name if name in tuple(axes) else None
+
+
 def param_partition_specs(state, axes=("model", "expert")) -> dict:
     """JAX's ``param_partition_specs``: the plan of tensor parallelism over
-    the ``model`` axis when ``axes`` names it."""
-    return plan_for(state, "model" if "model" in tuple(axes) else None)
+    the ``model`` axis and of the expert banks over the ``expert`` axis,
+    each when ``axes`` names it."""
+    return plan_for(state, _named(axes, "model"), None, _named(axes, "expert"))
 
 
 def pipeline_param_specs(state, axis: str = "pipe", tensor_axes=()) -> dict:
     """JAX's ``pipeline_param_specs``: every block a stage's along ``axis``,
-    with the ``model`` split inside it when ``tensor_axes`` names it; every
-    other key replicated."""
-    return plan_for(state, "model" if "model" in tuple(tensor_axes) else None, axis)
+    with the ``model`` and ``expert`` splits inside it when
+    ``tensor_axes`` names them; every other key replicated."""
+    return plan_for(state, _named(tensor_axes, "model"), axis,
+                    _named(tensor_axes, "expert"))
 
 
 def plan_for_mesh(state, mesh) -> dict:
-    """:func:`plan_for` the mesh's ``model`` and ``pipe`` axes of more than
-    one rank (``parallel.layout.layout_for_mesh``'s selection)."""
-    tp = "model" if pmesh.axis_size(mesh, "model") > 1 else None
-    pipe = "pipe" if pmesh.axis_size(mesh, "pipe") > 1 else None
-    return plan_for(state, tp, pipe)
+    """:func:`plan_for` the mesh's ``model``, ``pipe`` and ``expert`` axes
+    of more than one rank (``parallel.layout.layout_for_mesh``'s
+    selection)."""
+    tp, pipe, ep = (a if pmesh.axis_size(mesh, a) > 1 else None
+                    for a in ("model", "pipe", "expert"))
+    return plan_for(state, tp, pipe, ep)
 
 
 def _shape(v) -> tuple:

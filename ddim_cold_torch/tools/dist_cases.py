@@ -18,7 +18,8 @@ the gradients summed over the mesh), :func:`model_forward`,
 :func:`train_steps`, :func:`sample` (TINY sizes, weights passed in),
 tensor and pipeline parallelism (:func:`tp_pp_grads`, :func:`tp_pp_train`,
 :func:`shard_round_trip`, :func:`tp_pp_errors`, over
-:func:`sharded_model`, the model as the trainer builds it on a mesh),
+:func:`sharded_model`, the model as the trainer builds it on a mesh; the
+Switch-MoE model through ``tp_pp_train`` and :func:`moe_errors`),
 :func:`cli_sample` (the ``sample`` command's samples on a data mesh),
 :func:`ulysses_heads_error`, the serving engine across ranks
 (:func:`serve_engine`, :func:`serve_follower_fault`, :func:`bucket_error`),
@@ -334,18 +335,32 @@ def tp_pp_grads(dev, spec: dict, cfg: dict, state_dict: dict, x, t,
 
 def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr: float,
                 total_steps: int, sp_mode: Optional[str] = None, n_microbatch: int = 2,
-                ema_decay: float = 0.0) -> dict:
+                ema_decay: float = 0.0, moe_aux_weight: float = 0.0,
+                aux_inputs: Optional[tuple] = None) -> dict:
     """``train.step`` of the sharded model on ``spec``'s mesh (the pipelined
-    apply under ``pipe``): the losses, the global norms the clip saw and
-    the whole parameters (and EMA shadow) after the steps, gathered."""
+    apply under ``pipe``; ``moe_aux_weight`` for a Switch-MoE ``cfg``): the
+    losses, the global norms the clip saw and the whole parameters (and EMA
+    shadow) after the steps, gathered. ``aux_inputs`` ``(x, t)``: also the
+    Switch load-balance aux of the deterministic forward of this rank's rows
+    of them before the steps (the pipelined apply's, or the statistics
+    summed over the data and seq ranks)."""
+    from ddim_cold_torch.models import moe
     from ddim_cold_torch.parallel.layout import layout_for_mesh
-    from ddim_cold_torch.train.step import create_train_state, make_train_step
+    from ddim_cold_torch.train.step import _Reducer, create_train_state, make_train_step
 
     model, mesh = sharded_model(dev, spec, cfg, state_dict, sp_mode)
     _, apply_fn = layout_for_mesh(model, mesh, n_microbatch=n_microbatch)
     state = pmesh.shard_train_state(
         create_train_state(model, lr, total_steps, ema_decay=ema_decay), mesh)
-    step = make_train_step(model, apply_fn, ema_decay=ema_decay, mesh=mesh)
+    step = make_train_step(model, apply_fn, ema_decay=ema_decay,
+                           moe_aux_weight=moe_aux_weight, mesh=mesh)
+    aux = None
+    if aux_inputs is not None:
+        records = []
+        with torch.no_grad():
+            (apply_fn or model)(*(torch.from_numpy(pmesh.shard_rows(a, mesh)).to(dev)
+                                  for a in aux_inputs), losses=records)
+            aux = float(moe.mean_load_balance(records, _Reducer(model, mesh).groups))
     rec = torch.tensor(5.0, device=dev)
     losses, norms = [], []
     for batch in batches:
@@ -354,7 +369,7 @@ def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr:
         losses.append(float(loss))
         norms.append(float(state.grad_norm))
     names = state.names
-    out = {"losses": losses, "grad_norms": norms,
+    out = {"losses": losses, "grad_norms": norms, "aux": aux,
            "params": _whole_np(dict(zip(names, state.params)), model, mesh),
            "local_params": len(names), "local_numel": sum(p.numel() for p in state.params),
            "moments_numel": sum(m.numel() for m in state.mu)}
@@ -375,6 +390,25 @@ def shard_round_trip(dev, spec: dict, state_dict: dict) -> dict:
     back = sharding.gather_state_dict(part, mesh)
     return {"keys": list(back), "back": {k: v.numpy() for k, v in back.items()},
             "part": {k: tuple(v.shape) for k, v in part.items()}}
+
+
+def moe_errors(dev, cfg: dict) -> dict:
+    """The messages of JAX's Switch-MoE refusals on a four-rank world: a
+    pipelined apply over a ``seq`` axis of a model with expert banks, an
+    ``expert`` axis that does not divide ``num_experts``."""
+    from ddim_cold_torch.parallel.layout import layout_for_mesh
+
+    out = {}
+    for key, spec, extra in (("pipe_seq", {"pipe": 2, "seq": 2}, {}),
+                             ("expert", {"data": 2, "expert": 2}, {"num_experts": 3})):
+        try:
+            model, mesh = sharded_model(dev, spec, dict(cfg, **extra),
+                                        sp_mode="ring" if "seq" in spec else None)
+            layout_for_mesh(model, mesh)
+            out[key] = ""
+        except ValueError as e:
+            out[key] = str(e)
+    return out
 
 
 def tp_pp_errors(dev, cfg: dict) -> dict:
@@ -702,8 +736,8 @@ def _sync(dev) -> None:
 
 def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch: int,
                seed: int, lr: float, total_steps: int, trace_dir: Optional[str] = None,
-               microbatches: Optional[dict] = None, checkpoint_dir: Optional[str] = None
-               ) -> dict:
+               microbatches: Optional[dict] = None, checkpoint_dir: Optional[str] = None,
+               model_extra: Optional[dict] = None, moe_aux_weight: float = 0.0) -> dict:
     """Training steps of the full-width model on each layout ``(name, mesh,
     sp_mode or None)``, built as the trainer builds it (sharded over
     ``model``/``pipe``, the pipelined apply under ``pipe`` with
@@ -723,7 +757,9 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
     gathered state_dict after the steps is written there by rank 0
     (``utils/checkpoint.save_checkpoint``), read back into a one-process
     model (``strict=True``), and its largest gap to the one-process twin's
-    parameters, in units of lr, recorded."""
+    parameters, in units of lr, recorded. ``model_extra[name]``: model
+    options of that layout on top of ``model_cfg`` (a Switch-MoE bank: both
+    sides then step with ``moe_aux_weight``)."""
     from ddim_cold_torch.models import DiffusionViT
     from ddim_cold_torch.obs import attrib
     from ddim_cold_torch.ops import degrade
@@ -741,14 +777,17 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
     host = cold_batches(warm + steps + 1, batch, seed, size)
     out = {}
     for name, spec, mode in layouts:
+        cfg = dict(model_cfg, **(model_extra or {}).get(name, {}))
+        aux_weight = moe_aux_weight if cfg.get("num_experts", 1) > 1 else 0.0
         mesh = pmesh.make_mesh(spec, device=dev)
         sharded = bool(model_axes(mesh))
-        model, _ = sharded_model(dev, spec, model_cfg, sp_mode=mode, mesh=mesh)
+        model, _ = sharded_model(dev, spec, cfg, sp_mode=mode, mesh=mesh)
         _, apply_fn = layout_for_mesh(
             model, mesh, n_microbatch=(microbatches or {}).get(
                 name, 2 * pmesh.axis_size(mesh, "pipe")))
         state = pmesh.shard_train_state(create_train_state(model, lr, total_steps), mesh)
-        step = make_train_step(model, apply_fn, prepare=prepare, mesh=mesh)
+        step = make_train_step(model, apply_fn, prepare=prepare, mesh=mesh,
+                               moe_aux_weight=aux_weight)
         stream = pmesh.axis_index(mesh, "data") if pmesh.data_axis_size(mesh) > 1 else None
         rec = torch.tensor(5.0, device=dev)
 
@@ -759,9 +798,9 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
             return sharding.gather_state_dict(part, mesh, model.plan, depth=model.depth)
 
         if rank == 0:
-            ref = DiffusionViT(**model_cfg, device=dev)
+            ref = DiffusionViT(**cfg, device=dev)
             ref_state = create_train_state(ref, lr, total_steps)
-            ref_step = make_train_step(ref, prepare=prepare)
+            ref_step = make_train_step(ref, prepare=prepare, moe_aux_weight=aux_weight)
             ref_rec = torch.tensor(5.0, device=dev)
             p0 = {n: p.detach().clone() for n, p in ref.named_parameters()}
         counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
@@ -812,7 +851,7 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
             if rank == 0:
                 path = os.path.join(checkpoint_dir, f"{name}.ckpt")
                 ckpt.save_checkpoint(path, full)
-                one = DiffusionViT(**model_cfg, device=dev)
+                one = DiffusionViT(**cfg, device=dev)
                 one.load_state_dict(ckpt.load_checkpoint(path), strict=True)
                 res["checkpoint"] = {
                     "keys": len(full), "one_process_keys": len(one.state_dict()),

@@ -42,6 +42,22 @@ head's is the same on every stage (the trunk's output is broadcast and the
 head runs on every stage), the embedding's is on stage 0 only and is summed
 over the stages. The clip's ‖g‖ counts every element of the whole model
 once: a shard's square sum is summed over the axes it is split along.
+An ``expert`` rank holds the whole gradient of its experts' shard of each
+bank (the bank's input and gate enter through Megatron's *f*), and of every
+whole parameter, the router included, the same as the other ``expert``
+ranks: nothing is summed over ``expert`` either.
+
+Switch-MoE (``moe_aux_weight`` > 0 on a model with ``num_experts`` > 1):
+the forward hands its banks' routing statistics back through its
+``losses`` list, and ``moe_aux_weight × aux`` is added to the smooth-L1
+(the logged loss included), ``aux`` being the mean over the layers of the
+Switch load-balance term (JAX train/step.py:126-168). On a mesh each
+term's ``frac`` and ``mean_prob`` are the global batch's: the statistics
+are summed over the ``data`` and ``seq`` groups before the product
+(``models.moe.mean_load_balance``), and since the gradients are divided by
+the ``data`` size, each rank's share of them is scaled by it in the
+backward. A pipelined apply hands back its own aux (the mean of the
+per-microbatch terms, JAX's).
 """
 
 from __future__ import annotations
@@ -53,6 +69,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from ddim_cold_torch.models import moe
 from ddim_cold_torch.ops.losses import smooth_l1
 from ddim_cold_torch.ops.sampling import fold_in
 from ddim_cold_torch.parallel import mesh as pmesh
@@ -183,29 +200,36 @@ _EMBED = ("cls_token", "pos_embed", "patch_embed.", "time_embed.")
 
 class _Reducer:
     """The gradient reduction and the global norm of one model on ``mesh``
-    (see the module), by parameter class: a stage's block (under ``pipe``)
-    or a tensor-parallel shard is held by its own ranks only; the embedding
-    under ``pipe`` has its gradient on stage 0 only; every other parameter
-    is whole and equal on the ``model`` and ``pipe`` ranks."""
+    (see the module), by parameter class: a stage's block (under ``pipe``),
+    a tensor-parallel shard or an expert shard is held by its own ranks
+    only; the embedding under ``pipe`` has its gradient on stage 0 only;
+    every other parameter is whole and equal on the ``model``, ``pipe`` and
+    ``expert`` ranks."""
 
     def __init__(self, model, mesh):
         self.mesh, self.data = mesh, pmesh.data_axis_size(mesh)
         self.groups = [mesh.get_group(a) for a in pmesh.REPLICA_AXES
                        if pmesh.axis_size(mesh, a) > 1]
-        self.axes = {}  # "tp"/"pipe" → (group, size) of the model's sharded axes
-        for key, attr in (("tp", "head_axis"), ("pipe", "pipe_axis")):
+        # "tp"/"pipe"/"ep" → (group, size) of the model's sharded axes
+        self.axes, key_of = {}, {}
+        for key, attr in (("tp", "head_axis"), ("pipe", "pipe_axis"), ("ep", "expert_axis")):
             axis = getattr(model, attr, None)
             if pmesh.axis_size(mesh, axis) > 1:
                 self.axes[key] = (mesh.get_group(axis), pmesh.axis_size(mesh, axis))
+                key_of[axis] = key
         plan = getattr(model, "plan", {})
         names = [n for n, _ in model.named_parameters()]
-        staged = ["pipe" in self.axes and sharding.block_index(n) is not None
-                  for n in names]
-        split = [n in plan and plan[n].sharded for n in names]
+        # the norm's classes: the sharded axes a parameter is split along
+        splits = []
+        for n in names:
+            on = {key_of[a] for a in (plan[n].dims if n in plan else ()) if a in key_of}
+            if "pipe" in self.axes and sharding.block_index(n) is not None:
+                on.add("pipe")
+            splits.append(frozenset(on))
+        self.classes = sorted(set(splits), key=sorted)
+        self.cls = [self.classes.index(s) for s in splits]
         self.embed = [i for i, n in enumerate(names)
                       if "pipe" in self.axes and n.startswith(_EMBED)]
-        # the norm's classes: 0 whole, 1 tp shard, 2 stage block, 3 both
-        self.cls = [2 * st + sp for st, sp in zip(staged, split)]
 
     def __call__(self, loss: torch.Tensor, grads: list):
         """(loss, grads, ‖g‖): the mean over data ranks of the sum over seq
@@ -231,14 +255,13 @@ class _Reducer:
             return None
         sq = torch.stack(torch._foreach_norm(grads)).square()
         cls = torch.tensor(self.cls, device=sq.device)
-        parts = torch.stack([sq[cls == c].sum() for c in range(4)])
-        # classes split along tp (1, 3) and along pipe (2, 3) sum over it;
-        # the others are equal there and stay as they are
-        for key, split in (("tp", (0.0, 1.0, 0.0, 1.0)), ("pipe", (0.0, 0.0, 1.0, 1.0))):
-            if key in self.axes:
-                mask = torch.tensor(split, device=sq.device)
-                total = _sum([parts * mask], [self.axes[key][0]])[0]
-                parts = parts * (1.0 - mask) + total
+        parts = torch.stack([sq[cls == c].sum() for c in range(len(self.classes))])
+        # the classes split along an axis sum over it; the others are equal
+        # there and stay as they are
+        for key, (group, _) in self.axes.items():
+            mask = torch.tensor([float(key in c) for c in self.classes], device=sq.device)
+            total = _sum([parts * mask], [group])[0]
+            parts = parts * (1.0 - mask) + total
         return torch.sqrt(parts.sum())
 
 
@@ -272,11 +295,19 @@ def make_train_step(model, apply_fn: Optional[Callable] = None,
     reduced across the ranks as the module says, so every rank of a
     replica group applies the same update. ``apply_fn`` replaces the
     model's forward with the same signature (the pipelined apply,
-    ``parallel.pipeline.make_pipelined_apply``). ``moe_aux_weight`` > 0 and
-    ``steps_per_dispatch`` > 1 belong to later slices and raise.
+    ``parallel.pipeline.make_pipelined_apply``). ``moe_aux_weight`` > 0 adds
+    the Switch load-balance term for a model with expert banks (see the
+    module); an ``apply_fn`` must then thread the ``losses`` list (set
+    ``.supports_losses``, as the pipelined apply does). ``steps_per_dispatch``
+    > 1 belongs to a later slice and raises.
     """
-    if moe_aux_weight:
-        raise NotImplementedError("moe_aux_weight is ROADMAP.md Queue 1 item 18 (MoE)")
+    moe_on = moe_aux_weight > 0 and getattr(model, "num_experts", 1) > 1
+    if (moe_on and apply_fn is not None
+            and not getattr(apply_fn, "supports_losses", False)):
+        raise ValueError(
+            "moe_aux_weight requires an apply path that threads the "
+            "'losses' collection — model.apply, or a custom apply_fn that "
+            "sets .supports_losses (e.g. make_pipelined_apply)")
     if steps_per_dispatch != 1:
         if steps_per_dispatch < 1:
             raise ValueError(
@@ -290,16 +321,21 @@ def make_train_step(model, apply_fn: Optional[Callable] = None,
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay!r}")
 
     forward = apply_fn or model
+    reduce = _Reducer(model, mesh) if mesh is not None else None
 
     def loss_and_grads(params, noisy, target, t, generator):
-        pred = forward(noisy, t, deterministic=False, generator=generator)
+        records = [] if moe_on else None
+        extra = {"losses": records} if moe_on else {}
+        pred = forward(noisy, t, deterministic=False, generator=generator, **extra)
         loss = smooth_l1(pred, target)
+        if moe_on:
+            aux = (moe.mean_load_balance(records) if reduce is None else
+                   moe.mean_load_balance(records, reduce.groups, reduce.data))
+            loss = loss + moe_aux_weight * aux
         # a seq rank that holds no class token leaves it unused, and a
         # pipeline stage but the first its embedding: their share is 0
         return loss, list(torch.autograd.grad(loss, params, allow_unused=True,
                                               materialize_grads=True))
-
-    reduce = _Reducer(model, mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    loss_rec: torch.Tensor):

@@ -61,8 +61,15 @@ one-process state_dict (``parallel.sharding.gather_state_dict``: every rank
 gathers, rank 0 writes), and a warm start or a resume cuts it to the run's
 own layout, whatever layout wrote it.
 
-An ``expert`` axis (ROADMAP.md Queue 1 item 18) and ``flash_blocks`` (item
-17) raise, naming their items.
+Switch-MoE (``num_experts`` > 1): the step adds ``moe_aux_weight`` times
+the load-balance aux; an ``expert`` axis keeps each rank's experts of every
+bank (``parallel.layout.model_axes``) and needs ``num_experts`` divisible by
+it (JAX's check, trainer.py:263-268). As in JAX, an MoE run writes no
+``.pkl`` (the reference layout has no experts): a warm start that finds no
+``initializing`` file persists the init in the checkpoint format instead,
+with JAX's log line, and reads it back on the next run.
+
+``flash_blocks`` (ROADMAP.md Queue 1 item 17) raises, naming its item.
 """
 
 from __future__ import annotations
@@ -184,15 +191,19 @@ class _AsyncSaver:
 
 
 def _refuse_later(config: ExperimentConfig) -> None:
-    other = sorted(set(config.mesh or {}) - set(pmesh.PORTED_AXES))
-    later = [
-        (other, f"config.mesh axis {other}", "Queue 1 item 18 (MoE: expert parallelism)"),
-        (config.flash_blocks is not None, "flash_blocks",
-         "Queue 1 item 17 (tuning: the CUDA kernels' tiles are fixed)"),
-    ]
-    for on, what, item in later:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+    if config.flash_blocks is not None:
+        raise NotImplementedError(
+            "flash_blocks is not ported yet: ROADMAP.md Queue 1 item 17 (tuning: "
+            "the CUDA kernels' tiles are fixed)")
+
+
+def _check_expert_axis(config: ExperimentConfig, shape: Optional[dict]) -> None:
+    """JAX's check of an ``expert`` mesh axis (trainer.py:263-268)."""
+    exp_size = int((shape or {}).get("expert", 1))
+    if exp_size > 1 and (config.num_experts <= 1 or config.num_experts % exp_size):
+        raise ValueError(
+            f"mesh 'expert' axis of {exp_size} needs num_experts (got "
+            f"{config.num_experts}) set and divisible by it")
 
 
 def _build_dataset(config: ExperimentConfig, root: str):
@@ -342,6 +353,7 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
     launched = "RANK" in os.environ
     log = os.path.join(run_dir, "train.log") if int(os.environ.get("RANK", 0)) == 0 else None
     shape, config = _mesh_shape(config, dev, log)
+    _check_expert_axis(config, shape)
     _batching(config, shape)  # before any rank starts
     if launched:  # torchrun started every rank: this process is one
         world = int(os.environ.get("WORLD_SIZE", 1))
@@ -451,7 +463,12 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
             ckpt.check_loaded_params(loaded, template, init_path)
             model.load_state_dict(mine(loaded), strict=True)
         elif rank0:
-            ckpt.save_torch_pkl(template, init_path)
+            try:
+                ckpt.save_torch_pkl(template, init_path)
+            except ValueError as e:  # MoE params: no reference layout (JAX's fallback)
+                log(f"init pkl export unavailable ({e}); persisting the checkpoint "
+                    "format instead")
+                ckpt.save_checkpoint(init_path, template)
         pmesh.barrier()  # no rank reads a file rank 0 is still writing
 
     restored = None
@@ -595,11 +612,16 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
                            improved=improved, best=best_loss,
                            params=params_snap, opt_state=opt_snap, ema=ema_snap):
                 if improved:
+                    # MoE params have no reference torch layout: no .pkl
+                    pkl = config.num_experts == 1
                     ckpt.save_checkpoint(os.path.join(run_dir, "bestloss.ckpt"), params)
-                    ckpt.save_torch_pkl(params, os.path.join(run_dir, "bestloss.pkl"))
+                    if pkl:
+                        ckpt.save_torch_pkl(params, os.path.join(run_dir, "bestloss.pkl"))
                     if ema is not None:  # the smoothed weights, beside the live best
                         ckpt.save_checkpoint(os.path.join(run_dir, "bestloss_ema.ckpt"), ema)
-                        ckpt.save_torch_pkl(ema, os.path.join(run_dir, "bestloss_ema.pkl"))
+                        if pkl:
+                            ckpt.save_torch_pkl(ema,
+                                                os.path.join(run_dir, "bestloss_ema.pkl"))
                 if config.snapshot_epochs and epoch % config.snapshot_epochs == 0:
                     snap_dir = os.path.join(run_dir, "snapshots")
                     os.makedirs(snap_dir, exist_ok=True)

@@ -8,7 +8,9 @@ The reference's dual checkpoints (multi_gpu_trainer.py:94-106,152-163):
 * ``bestloss.ckpt`` — bare params whenever the val loss improves, plus
   ``bestloss.pkl``, the params as a reference torch state_dict
   (``blocks.N.attn.qkv.weight`` …: the port's own parameter names are the
-  reference's, the names ``utils/weights.state_dict_from_flax`` writes).
+  reference's, the names ``utils/weights.state_dict_from_flax`` writes);
+  a Switch-MoE model has no reference layout and gets no ``.pkl`` (JAX
+  trainer.py:600).
 
 The warm-start ``initializing`` pkl loads through the same names (a
 reference ``lastepoch`` dict's ``state_dict`` and DDP's ``module.`` prefix
@@ -113,7 +115,13 @@ def load_checkpoint(path: str) -> dict:
 
 def save_torch_pkl(state_dict: dict, path: str) -> None:
     """Params as a reference torch state_dict pickle (float32, on the CPU)
-    that the reference's ``model.load_state_dict`` reads."""
+    that the reference's ``model.load_state_dict`` reads. Switch-MoE params
+    are refused, as JAX's bridge refuses them: the reference has no
+    experts."""
+    if any(".moe." in k for k in state_dict):
+        raise ValueError(
+            "MoE params (num_experts > 1) have no reference torch layout — "
+            "the bridge covers the reference's dense architecture only")
     _atomic_save({k: v.detach().to("cpu", torch.float32, copy=True)
                   for k, v in state_dict.items()}, path)
 

@@ -10,7 +10,11 @@ A tree from JAX's ``quantize_params`` carries each trunk linear as
 ``w_int8`` + ``scale`` leaves; they become ``….w_int8`` (int8, transposed to
 torch's ``(out, in)``) and ``….scale`` entries, which a ``quant`` model loads:
 the same state_dict as ``quantize_state_dict(state_dict_from_flax(float
-tree))``.
+tree))``. A Switch-MoE tree (``num_experts`` > 1) carries each block's
+expert bank as ``blocks.{i}.moe.{router,w1,b1,w2,b2}`` in JAX's own layout
+(the bank's parameters are not linears: nothing is transposed); a
+``scan_blocks`` tree's stacked ``w1`` (depth, E, D, H) is unstacked on its
+leading layer axis like every other block leaf.
 """
 
 from __future__ import annotations
@@ -41,14 +45,9 @@ def unstack_block_params(params: dict) -> dict:
 
 
 def state_dict_from_flax(params, patch_size: int) -> dict:
-    """The JAX ``DiffusionViT`` parameter tree (either block layout) as the
-    port's state_dict. MoE trees are refused: the reference torch layout has
-    no experts."""
+    """The JAX ``DiffusionViT`` parameter tree (either block layout, dense
+    or with expert banks) as the port's state_dict."""
     params = unstack_block_params(params)
-    if any("moe" in blk for blk in params.values() if isinstance(blk, dict)):
-        raise ValueError(
-            "MoE params (num_experts > 1) have no reference torch layout — "
-            "the bridge covers the reference's dense architecture only")
 
     def g(*keys):
         node = params
@@ -78,8 +77,13 @@ def state_dict_from_flax(params, patch_size: int) -> dict:
         sd[t + "norm1.bias"] = g(b, "norm1", "bias")
         sd[t + "norm2.weight"] = g(b, "norm2", "scale")
         sd[t + "norm2.bias"] = g(b, "norm2", "bias")
-        for parent, name in (("attn", "qkv"), ("attn", "proj"),
-                             ("mlp", "fc1"), ("mlp", "fc2")):
+        linears = (("attn", "qkv"), ("attn", "proj"))
+        if "moe" in params[b]:
+            for leaf in ("router", "w1", "b1", "w2", "b2"):
+                sd[f"{t}moe.{leaf}"] = g(b, "moe", leaf)
+        else:
+            linears += (("mlp", "fc1"), ("mlp", "fc2"))
+        for parent, name in linears:
             mod, key = params[b][parent][name], f"{t}{parent}.{name}."
             if "w_int8" in mod:  # a quantize_params tree: codes (in, out) int8
                 sd[key + "w_int8"] = np.ascontiguousarray(

@@ -69,7 +69,7 @@ def test_quant_slice_modules_are_checked():
     """The import check walks the quantized trunk's modules too."""
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     assert {f"ddim_cold_torch/{m}.py" for m in (
-        "ops/quant", "ops/tiling", "ops/flash_attention", "models/vit",
+        "ops/quant", "ops/tiling", "ops/flash_attention", "models/vit", "models/moe",
         "serve/engine", "utils/weights")} <= names
 
 

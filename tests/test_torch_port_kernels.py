@@ -408,6 +408,51 @@ def test_remat_flash_training_is_bitwise_the_plain_route(cuda_device, dtype):
                   "flash_bwd_dkv": 2 * steps}
 
 
+@pytest.mark.parametrize("dispatch", ["einsum", "index"])
+def test_moe_remat_training_is_bitwise_the_plain_route(cuda_device, dispatch):
+    """The Switch-MoE model on the card (64 px, patch 4, 4 experts at
+    capacity 0.5, so tokens drop; dropout on the banks' hidden units and
+    outputs and drop path 0.1, attention dropout 0, ``moe_aux_weight``
+    0.01): two steps with and without remat bit for bit equal (losses,
+    parameters, the generator), the recomputed banks' statistics kept out of
+    the aux; each flash kernel once a block and step (the forward twice
+    under remat)."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.train.step import create_train_state, make_train_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    batches = [(torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randint(0, 2000, (2,), generator=gen, device=cuda_device))
+               for _ in range(2)]
+    got = {}
+    for remat in (False, True):
+        model = DiffusionViT(img_size=(64, 64), patch_size=4, embed_dim=256, depth=2,
+                             num_heads=4, use_flash=True, remat=remat, attn_drop_rate=0.0,
+                             num_experts=4, moe_capacity_factor=0.5, moe_dispatch=dispatch,
+                             seed=5, device=cuda_device)
+        state = create_train_state(model, 1e-3, 10)
+        step = make_train_step(model, moe_aux_weight=0.01)
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        rec = torch.tensor(5.0, device=cuda_device)
+        before = dict(fa.LAUNCHES)
+        losses = []
+        for b in batches:
+            state, loss, rec = step(state, b, g, rec)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launched = {k: fa.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        got[remat] = (torch.stack(losses), [p.detach().clone() for p in model.parameters()],
+                      g.get_state(), launched)
+    (l0, p0, g0, n0), (l1, p1, g1, n1) = got[False], got[True]
+    assert torch.equal(l0, l1) and bool(torch.isfinite(l0).all())
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(g0, g1)
+    assert n0 == {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    assert n1 == {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_blockwise_route_against_the_flash_kernel(cuda_device, dtype):
     """``blockwise_attention_xla`` (plain PyTorch, f32 softmax, no launch)

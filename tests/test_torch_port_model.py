@@ -94,11 +94,31 @@ def test_scan_blocks_tree_bridges(jax_params):
         torch.testing.assert_close(flat[key], stacked[key], rtol=0, atol=0)
 
 
-def test_moe_tree_refused(jax_params):
-    tree = dict(jax_params)
-    tree["blocks_0"] = dict(tree["blocks_0"], moe={})
-    with pytest.raises(ValueError, match="MoE"):
-        state_dict_from_flax(tree, TINY["patch_size"])
+def test_moe_tree_refused(jax_params, tmp_path):
+    """A Switch-MoE tree carries across into the port (both layouts); only
+    the reference-layout ``.pkl`` refuses it, as JAX's bridge does."""
+    from ddim_cold_tpu.utils.checkpoint import torch_state_dict_from_flax
+
+    from ddim_cold_torch.utils.checkpoint import save_torch_pkl
+
+    rs = np.random.RandomState(0)
+    e, c = 2, TINY["embed_dim"]  # JAX's SwitchMlp leaves, in place of each mlp
+    bank = {"router": (c, e), "w1": (e, c, c), "b1": (e, c), "w2": (e, c, c), "b2": (e, c)}
+    tree = {k: ({n: m for n, m in v.items() if n != "mlp"}
+                | {"moe": {leaf: rs.randn(*shape).astype(np.float32)
+                           for leaf, shape in bank.items()}}
+                if k.startswith("blocks_") else v) for k, v in jax_params.items()}
+    sd = state_dict_from_flax(tree, TINY["patch_size"])
+    torch.testing.assert_close(sd["blocks.1.moe.w1"], torch.from_numpy(
+        tree["blocks_1"]["moe"]["w1"]), rtol=0, atol=0)
+    assert sd.keys() == state_dict_from_flax(stack_block_params(tree),
+                                             TINY["patch_size"]).keys()
+    assert tuple(sd["blocks.1.moe.w1"].shape) == (2, 32, 32)
+    PortViT(**TINY, num_experts=2, device="cpu").load_state_dict(sd, strict=True)
+    with pytest.raises(ValueError, match="no reference torch layout"):
+        torch_state_dict_from_flax(tree, patch_size=TINY["patch_size"])
+    with pytest.raises(ValueError, match="no reference torch layout"):
+        save_torch_pkl(sd, str(tmp_path / "moe.pkl"))
 
 
 def test_configs_and_defaults_match_jax():
@@ -153,16 +173,18 @@ class _OneTpMesh(_OneRankMesh):
 # with quant and fused under it; tensor parallelism's head_axis and the
 # stacked layout landed, and what stays refused under them raises: quant
 # under tensor parallelism (ROADMAP.md), quant under scan_blocks (JAX's
-# ValueError); MoE stays ROADMAP.md Queue 1 item 18
+# ValueError); MoE landed, with JAX's refusals of an unknown dispatch and
+# of an expert axis that does not divide num_experts
 @pytest.mark.parametrize("hook,exc,match", [
-    (dict(moe_dispatch="index"), NotImplementedError, "ROADMAP.md Queue 1 item 18"),
+    (dict(num_experts=2, moe_dispatch="gather"), ValueError,
+     "dispatch must be 'einsum' or 'index'"),
     (dict(head_axis="model", quant="pallas"), NotImplementedError,
      "ROADMAP.md Queue 1 item 14"),
-    (dict(num_experts=2), NotImplementedError, "ROADMAP.md Queue 1 item 18"),
+    (dict(expert_axis="model"), ValueError, r"needs num_experts \(got 1\) set"),
     (dict(scan_blocks=True, quant="pallas"), ValueError, "quant requires scan_blocks=False"),
 ])
 def test_later_slice_ctor_hooks_raise(hook, exc, match):
-    mesh = dict(seq_mesh=_OneTpMesh()) if "head_axis" in hook else {}
+    mesh = dict(seq_mesh=_OneTpMesh()) if {"head_axis", "expert_axis"} & set(hook) else {}
     with pytest.raises(exc, match=match):
         PortViT(**TINY, device="cpu", **mesh, **hook)
 

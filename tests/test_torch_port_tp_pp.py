@@ -42,7 +42,8 @@ Pallas compile).
 * JAX's errors: depth % stages, batch % microbatches, a non-sp model under
   ``seq_axis``, Ulysses' local heads, grad_accum × pipe, the microbatch
   split over ``data``, quant/step cache/token cache/probe under
-  ``scan_blocks``; the ``expert`` axis and MoE name ROADMAP.md item 18;
+  ``scan_blocks``; the Switch-MoE plan against JAX's specs and JAX's
+  expert-axis error (tests/test_torch_port_moe.py holds the rest of MoE);
 * ``python -m ddim_cold_torch train`` on ``{data: 2, pipe: 2}``
   (microbatches 2) and ``{model: 2, pipe: 2}`` (batch 4; JAX's
   ``test_pipeline_training_end_to_end``,
@@ -81,7 +82,7 @@ from ddim_cold_tpu.parallel import (make_mesh, make_pipelined_apply, param_parti
                                     pipeline_param_specs, shard_batch, shard_params,
                                     shard_train_state)
 from ddim_cold_tpu.train.step import EmaTrainState, make_optimizer, make_train_step
-from ddim_cold_tpu.utils.checkpoint import flax_from_torch_state_dict
+from ddim_cold_tpu.utils.checkpoint import flax_from_torch_state_dict, stack_block_params
 
 WORLD = 4
 DEADLINE_S = 100.0
@@ -271,16 +272,33 @@ def test_shard_then_gather_is_the_identity(world, params, spec):
 
 
 def test_moe_and_expert_name_item_18(tmp_path, synthetic_image_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
-        sharding.param_partition_specs({"blocks.0.moe.w1": (2, 3)})
+    """The Switch-MoE plan is JAX's specs (``param_partition_specs`` over
+    ``expert`` and ``model`` on the unrolled tree, ``pipeline_param_specs``
+    with ``expert`` inside the stage on the stacked one: the banks' expert
+    dim split, the router whole); JAX's expert-axis ValueError."""
+    x, t, _ = _inputs()
+    moe = DiffusionViT(**TINY, **NO_DROP, num_experts=2)
+    flat = jax.device_get(jax.jit(moe.init)(jax.random.PRNGKey(0), jnp.asarray(x[:2]),
+                                            jnp.asarray(t[:2]))["params"])
+    sd = _sd(flat)
+    for axes in (("expert",), ("model", "expert")):
+        _plan_matches(param_partition_specs(flat, axes=axes), flat,
+                      sharding.param_partition_specs(sd, axes=axes))
+    stacked = stack_block_params(flat)
+    _plan_matches(pipeline_param_specs(stacked, tensor_axes=("expert",)), stacked,
+                  sharding.pipeline_param_specs(sd, tensor_axes=("expert",)),
+                  depth=TINY["depth"])
+    plan = sharding.param_partition_specs(sd, axes=("expert",))
+    assert plan["blocks.0.moe.w1"].dims == ("expert", None, None)
+    assert not plan["blocks.0.moe.router"].sharded
+    PortViT(**TINY, num_experts=2, device="cpu").load_state_dict(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     cfg = ExperimentConfig(
         exp_name="ep", framework="x", batch_size=2, epoch=(0, 1), data_storage=(
             synthetic_image_dir, synthetic_image_dir), image_size=(16, 16),
         patch_size=8, embed_dim=32, depth=2, head=2, mesh={"data": 2, "expert": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
+    with pytest.raises(ValueError, match=r"'expert' axis of 2 needs num_experts \(got 1\)"):
         port_trainer.run(cfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
-        PortViT(**TINY, num_experts=2, device="cpu")
 
 
 # ------------------------------------------------ forwards and gradients

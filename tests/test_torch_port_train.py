@@ -198,8 +198,9 @@ def test_make_train_step_refuses():
     model = PortViT(**TINY, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         port_step.make_train_step(model, steps_per_dispatch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 18"):
-        port_step.make_train_step(model, moe_aux_weight=0.01)
+    moe = PortViT(**TINY, num_experts=2, device="cpu")
+    with pytest.raises(ValueError, match="threads the 'losses' collection"):  # JAX's
+        port_step.make_train_step(moe, lambda *a, **k: None, moe_aux_weight=0.01)
     with pytest.raises(ValueError, match="ema_decay"):
         port_step.make_train_step(model, ema_decay=1.0)
     with pytest.raises(ValueError, match="grad_accum"):
@@ -454,15 +455,22 @@ def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
         port_trainer.run(bigger, base, log_every=2, device="cpu")
 
 
-@pytest.mark.parametrize("later,item", [
-    (dict(mesh={"expert": 2}), "item 18"), (dict(mesh={"pipe": 2, "expert": 2}), "item 18"),
-    (dict(flash_blocks=(512, 1024)), "item 17"),
-    (dict(steps_per_dispatch=2), "item 11"),
-    (dict(num_experts=2), "item 18"),
+# the expert axis landed with JAX's checks: an expert axis needs num_experts
+# set and divisible by it, and the pipeline refuses a seq axis under MoE
+@pytest.mark.parametrize("later,exc,match", [
+    (dict(mesh={"expert": 2}), ValueError, r"needs num_experts \(got 1\) set"),
+    (dict(mesh={"pipe": 2, "expert": 2}, num_experts=3), ValueError,
+     r"needs num_experts \(got 3\) set and divisible"),
+    (dict(flash_blocks=(512, 1024)), NotImplementedError, "ROADMAP.md Queue 1 item 17"),
+    (dict(steps_per_dispatch=2), NotImplementedError, "ROADMAP.md Queue 1 item 11"),
+    (dict(num_experts=2, mesh={"pipe": 1, "seq": 1, "expert": 1}), None, None),
 ])
-def test_trainer_refuses_later_options(tmp_path, synthetic_image_dir, later, item):
+def test_trainer_refuses_later_options(tmp_path, synthetic_image_dir, later, exc, match):
     cfg = _tiny_config(synthetic_image_dir, **later)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+    if exc is None:  # an MoE run on a mesh of one device trains
+        assert port_trainer.run(cfg, str(tmp_path), max_steps=1, device="cpu").steps == 1
+        return
+    with pytest.raises(exc, match=match):
         port_trainer.run(cfg, str(tmp_path), device="cpu")
 
 
