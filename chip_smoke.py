@@ -177,15 +177,26 @@ Phases, one JSON object per line:
    ``DIST_SAMPLE_TOL`` of the one-process sampler, flash_fwd 600 a rank
    (none on the ring); then
    dist-serve in the same world: the serving engine across the two ranks
-   (``Engine(mesh={data: 2})``), every rank warming the nine configs of
+   (``Engine(mesh={data: 2})``), every rank warming the eleven configs of
    ``DIST_SERVE`` (float, ``quant="pallas"``, pallas fused, w8a8 and w8a8
-   fused on the data mesh at k=20; Ulysses, the ring, Ulysses with the full step cache
-   and Ulysses pallas fused at ``sp_degree=2``, k=100), rank 0 serving one
+   fused on the data mesh at k=20; Ulysses, the ring, Ulysses with the full step cache,
+   Ulysses pallas fused, and the token cache under Ulysses and the ring
+   (626 live tokens) at ``sp_degree=2``, k=100), rank 0 serving one
    8-row batch (3 + 5 rows) of each while rank 1 follows: the rows within
    ``DIST_SERVE_TOL`` of the one-process twin's at the same bucket and
    start, zero programs after warmup on both ranks, each rank's launches
-   exact, rank 1's ``follow()`` report rank 0's batches; wall, img/s and
-   p50 reported (two ranks share one card: no speed claimed);
+   exact (the Ulysses token config's flash shapes too), rank 1's
+   ``follow()`` report rank 0's batches; wall, img/s and p50 reported (two
+   ranks share one card: no speed claimed); then dist-probe-sp: the f32
+   probe at B=2 on Ulysses ``{seq: 2}``, layers 0 and −1, the whole
+   weights on each rank within ``PROBE_SP_TOL`` of the one-process probe,
+   a control layer above it, exact launches; then dist-fleet, last: a
+   ``Router`` on rank 0 over two replicas of ``local_factory(mesh={data:
+   2})`` while rank 1 runs ``follow_replicas``, ``DIST_FLEET``'s three
+   configs, an sp ticket hedged off r0 by a transient fault, r0 retired and
+   replaced on both ranks, every row within ``DIST_SERVE_TOL`` of the
+   one-process call at its dispatch shape, each rank's launches exact, zero
+   programs after warmup, no group or thread left; wall, img/s and p50;
 10h'. dist-train-4 — a world of four gloo ranks on the card: ``{pipe: 2,
    model: 2}`` (4 microbatches), Ulysses ``{seq: 2, model: 2}`` and
    Ulysses ``{seq: 2, expert: 2}`` (the Switch-MoE model), 1 + 2 steps each
@@ -2416,6 +2427,8 @@ DIST_SAMPLE_N, DIST_SAMPLE_TOL = 8, 6e-6
 #: sp configs k=100 (20 forwards), since their exchanges stage through the
 #: host under gloo (a k=20 Ulysses call took 26.87 s in dist-sample)
 DIST_SERVE_SP_K = 100
+#: the token configs' live tokens: serve-cache's ⌈(N+1)/TOKEN_SHARE⌉ at 200_p4
+DIST_SERVE_TOKENS = 626
 DIST_SERVE = (
     ("float {data: 2}", dict(k=K), {"flash_fwd": 1}),
     ("pallas {data: 2}", dict(k=K, quant="pallas"), {"flash_fwd": 1, "dequant_mm": 4}),
@@ -2434,7 +2447,21 @@ DIST_SERVE = (
     ("ulysses sp2 pallas fused", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2,
                                       quant="pallas", fused=True),
      {"mlp_fused": 1, "dequant_mm": 2, "flash_fwd": 1}),
+    # the token cache under sp: 10 refresh steps at 2501 tokens, 10 reuse
+    # steps at the 626 live ones (one global selection, the trunk's blocks
+    # of 313 tokens a rank)
+    ("ulysses sp2 token", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2,
+                               cache_interval=2, cache_mode="token",
+                               cache_tokens=DIST_SERVE_TOKENS), {"flash_fwd": 1}),
+    ("ring sp2 token", dict(k=DIST_SERVE_SP_K, sp_mode="ring", sp_degree=2,
+                            cache_interval=2, cache_mode="token",
+                            cache_tokens=DIST_SERVE_TOKENS), {}),
 )
+#: dist-serve: each flash_fwd shape a rank launches per config where the
+#: shape is the point (Ulysses runs a rank's 2 heads over the whole
+#: sequence: 2501 tokens at a refresh, the 626 live ones at a reuse)
+DIST_SERVE_SHAPES = {"ulysses sp2 token": {"(8, 2501, 2, 64)": 60, "(8, 626, 2, 64)": 60},
+                     "ring sp2 token": {}}
 #: dist-serve: the largest |Δ| allowed against the one-process twin at the
 #: same bucket and start, DIST_SAMPLE_TOL for every config (~10× the ring's
 #: reading): on an H100 a sound run read 0 for each but the ring (4.8e-7),
@@ -2449,6 +2476,30 @@ DIST_SERVE_TOL = {label: DIST_SAMPLE_TOL for label, _, _ in DIST_SERVE}
 #: (point to point is not needed), the head's outputs are all_gather'ed,
 #: the gradients all_reduce'd, rank 0's parameters broadcast
 DIST_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all_single")
+#: dist-fleet: (label, SamplerConfig kwargs, kernels one layer-forward
+#: launches on a rank) of the replicas across the two ranks, at one bucket
+#: of FLEET_MESH_BUCKET rows (3 real); the sp config's request is the one
+#: the fault hedges
+DIST_FLEET = (
+    ("float", dict(k=K), {"flash_fwd": 1}),
+    ("ulysses sp2", dict(k=DIST_SERVE_SP_K, sp_mode="ulysses", sp_degree=2),
+     {"flash_fwd": 1}),
+    ("pallas fused", dict(k=K, quant="pallas", fused=True),
+     {"fused_trunk": 1, "mlp_fused": 1}),
+)
+FLEET_MESH_BUCKET, FLEET_MESH_ROWS = 4, 3
+#: JAX's sp failover test's fault: r0's first assembly fails, once
+FLEET_MESH_FAULT = dict(site="serve.assemble", kind="transient", rate=1.0,
+                        match="replica:r0|", max_fires=1)
+#: dist-probe-sp: the f32 200_p4 probe on {seq: 2} at B=2 (a layer's weights
+#: are 200 MB of f32 a rank), its layers, and the control: the last layer's
+#: weights against the one-process probe of layer 1
+PROBE_SP_N, PROBE_SP_LAYERS, PROBE_SP_CONTROL = 2, (0, -1), 1
+#: the largest |Δ| allowed between the sp probe and the one-process one: a
+#: sound run on an H100 read 0.0 at both layers (the same kernels, f32, the
+#: q and k blocks gathered), so the limit is ten float32 spacings at 1, the
+#: largest weight; the control (layer −1 against layer 1) read 3.8e-4
+PROBE_SP_TOL = 1.2e-6
 
 
 def phase_dist_probe(torch, gloo: list) -> None:
@@ -2500,7 +2551,9 @@ def phase_dist(torch, MODEL_CONFIGS):
     sequence-parallel layout attributed to its ``sp/`` scopes. dist-sample:
     the float32 model, ``ddim_sample`` at k=20 over 8 rows on each layout
     of ``DIST_SAMPLE_LAYOUTS`` against the one-process call on the same
-    start."""
+    start. Then dist-serve, dist-probe-sp and dist-fleet in the same world
+    (:func:`phase_dist_serve`, :func:`phase_dist_probe_sp`,
+    :func:`phase_dist_fleet`)."""
     import tempfile
 
     from ddim_cold_torch.tools import dist_cases as dc
@@ -2511,7 +2564,7 @@ def phase_dist(torch, MODEL_CONFIGS):
     trace_dir = os.path.join(TRACE_DIR, "dist")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_ckpt_")
     t0 = time.perf_counter()
-    gloo, train, sample, served = dc.run_world(
+    gloo, train, sample, served, probed, fleet = dc.run_world(
         [("probe", {"ops": dc.PROBE_OPS[:-1]}),
          ("card_train", dict(layouts=DIST_LAYOUTS, model_cfg=dict(cfg, dtype=torch.bfloat16),
                              warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
@@ -2520,8 +2573,14 @@ def phase_dist(torch, MODEL_CONFIGS):
                              model_extra=DIST_MOE, moe_aux_weight=MOE_AUX_WEIGHT)),
          ("card_sample", dict(layouts=DIST_SAMPLE_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N,
                               k=K, seed=SEED + 6)),
-         dist_serve_case(cfg)],
-        2, device="cuda", backend="gloo", timeout_s=800)
+         dist_serve_case(cfg),
+         ("card_probe", dict(model_cfg=cfg, n=PROBE_SP_N, layers=PROBE_SP_LAYERS,
+                             control=PROBE_SP_CONTROL, seed=SEED + 9)),
+         # last: it creates and destroys the groups of three replicas
+         ("card_fleet", dict(model_cfg=cfg, bucket=FLEET_MESH_BUCKET,
+                             configs=[c for _, c, _ in DIST_FLEET], fault=FLEET_MESH_FAULT,
+                             fault_config=1, seed=SEED + 10, rows=FLEET_MESH_ROWS))],
+        2, device="cuda", backend="gloo", timeout_s=1000)
     shutil.rmtree(trace_dir, ignore_errors=True)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -2568,7 +2627,112 @@ def phase_dist(torch, MODEL_CONFIGS):
               f"dist-sample {name}: flash_fwd {rec['launches']}, expected {want}")
         launches[f"dist-sample {name} (a rank)"] = {"flash_fwd": r0["launches"]}
     launches.update(phase_dist_serve(served, MODEL_CONFIGS[MODEL]))
+    launches.update(phase_dist_probe_sp(probed, depth))
+    launches.update(phase_dist_fleet(fleet, depth))
     return launches
+
+
+def phase_dist_probe_sp(ranks: list, depth: int) -> dict:
+    """dist-probe-sp's checks: on each rank the whole (B, H, N+1, N+1)
+    weights of every probed layer within ``PROBE_SP_TOL`` of the
+    one-process probe, rows summing to 1, the control above the limit,
+    and the sequence-parallel call's launches: flash_fwd once a block
+    before the probed layer (Ulysses, a rank's heads), none for the probed
+    layer's dense weights. Returns each layer's launches on a rank."""
+    out = {}
+    for rank, res in enumerate(ranks):
+        for layer, rec in res["layers"].items():
+            before = layer % depth
+            emit({"phase": "dist-probe-sp", "rank": rank, "layer": layer, "model": MODEL,
+                  "dtype": "float32", "rows": PROBE_SP_N, "sp_mode": res["sp_mode"],
+                  **rec, "tol": PROBE_SP_TOL,
+                  "speed": "two ranks share one card: no speed claimed"})
+            check(rec["shape"] == [PROBE_SP_N, 4, 2501, 2501],
+                  f"dist-probe-sp rank {rank} layer {layer}: shape {rec['shape']}")
+            check(rec["max_abs_err"] <= PROBE_SP_TOL and rec["row_sum_err"] <= 1e-3,
+                  f"dist-probe-sp rank {rank} layer {layer}: |Δ| {rec['max_abs_err']}, "
+                  f"row sums {rec['row_sum_err']}")
+            if "control_err" in rec:
+                check(rec["control_err"] > PROBE_SP_TOL,
+                      f"dist-probe-sp rank {rank}: the control {rec['control_err']} "
+                      f"is not above {PROBE_SP_TOL}")
+            check(rec["launches"]["flash_fwd"] == before
+                  and sum(rec["launches"].values()) == before,
+                  f"dist-probe-sp rank {rank} layer {layer}: launches {rec['launches']}")
+            if rank == 0:
+                out[f"dist-probe-sp layer {layer} (a rank)"] = rec["launches"]
+    return out
+
+
+def phase_dist_fleet(ranks: list, depth: int) -> dict:
+    """dist-fleet's checks on the two ranks' results of ``card_fleet``:
+    every row within ``DIST_SERVE_TOL`` of its config's one-process call at
+    its dispatch shape; the fault realized once and the sp ticket hedged
+    (r0 → r1); r0 retired and its replacement spawned and warmed on both
+    ranks; each rank's launches, from after the initial warmups to the
+    drain, exactly depth × forwards × the config's kernels for each served
+    batch and for the replacement's warmup; zero programs after warmup on
+    every replica of both ranks; the follower's batches per replica rank
+    0's dispatches; no fleet thread and no group left on either rank.
+    Returns the launches on a rank."""
+    from ddim_cold_torch.serve import SamplerConfig
+
+    r0, r1 = ranks
+    want = {}
+    for _, kw, per_layer in DIST_FLEET:
+        layers = depth * _forwards(SamplerConfig(**kw), 2000)
+        for name, n in per_layer.items():  # two served batches + r2's warmup
+            want[name] = want.get(name, 0) + 3 * n * layers
+    want = {name: want.get(name, 0) for name in r0["launches"]}
+    follow = r1["follow"]
+    served = r0["served"]
+    lat = sorted(rec["latency_s"] for rec in served)
+    emit({"phase": "dist-fleet", "model": MODEL, "dtype": "float32",
+          "bucket": FLEET_MESH_BUCKET, "rows": FLEET_MESH_ROWS,
+          "configs": [label for label, _, _ in DIST_FLEET],
+          "warmup_s": r0["warmup_s"], "serve_s": r0["serve_s"], "wall_s": r0["wall_s"],
+          "img_per_sec": FLEET_MESH_ROWS * len(served) / r0["serve_s"],
+          "p50_s": lat[len(lat) // 2], "latency_s": [rec["latency_s"] for rec in served],
+          "hedges": r0["hedges"], "replaced": r0["replaced"],
+          "retired_before_drain": r0["retired"], "health": r0["health"],
+          "launches": [r0["launches"], r1["launches"]], "expected": want,
+          "warm_launches_follower": r1["warm_launches"],
+          "follower_order": follow["order"],
+          "groups": [[r["groups_before"], r["groups_after"]] for r in ranks],
+          "threads_after": [r0["threads_after"], r1["threads_after"]],
+          "speed": "two ranks share one card: no speed claimed",
+          "backend": "gloo (two ranks, one card)"})
+    for rec in served:
+        label = DIST_FLEET[rec["config"]][0]
+        emit({"phase": "dist-fleet", "config": label, **rec, "tol": DIST_SERVE_TOL})
+        check(rec["error"] is None and rec["shape"] == [FLEET_MESH_ROWS, 200, 200, 3]
+              and rec["finite"] and rec["in_unit_range"], f"dist-fleet {label}: {rec}")
+        err = rec.get("max_abs_err", math.inf)
+        check(err <= DIST_SERVE_TOL["float {data: 2}"],
+              f"dist-fleet {label}: |Δ| {err} over {DIST_SERVE_TOL['float {data: 2}']}")
+    check(r0["hedges"] == 1 and [rec["realized"] for rec in served[:3]] == [0, 1, 0],
+          f"dist-fleet: hedges {r0['hedges']}, faults {[r['realized'] for r in served]}")
+    h = r0["health"]
+    check(r0["replaced"] and r0["retired"] == 1 and h["replicas_spawned"] == 3
+          and h["failed"] == 0, f"dist-fleet: replacement {h}, retired {r0['retired']}")
+    check([tuple(o) for o in follow["order"]] == [
+        ("spawn", "r0"), ("warm", "r0"), ("spawn", "r1"), ("warm", "r1"), ("close", "r0"),
+        ("spawn", "r2"), ("warm", "r2"), ("close", "r1"), ("close", "r2"), ("stop", "")],
+          f"dist-fleet: the follower's lifecycle {follow['order']}")
+    check(h["programs_after_warmup"] == 0
+          and all(rep["error"] is None and rep["follow"]["new_programs"] == 0
+                  and rep["follow"]["failed_batches"] == 0
+                  for rep in follow["replicas"].values()),
+          f"dist-fleet: programs after warmup or follower errors {follow['replicas']}")
+    check({rid: rep["follow"]["batches"] for rid, rep in follow["replicas"].items()}
+          == h["dispatches"], f"dist-fleet: follower batches against {h['dispatches']}")
+    check(r0["launches"] == want and r1["launches"] == want,
+          f"dist-fleet: launches {r0['launches']}, {r1['launches']}; expected {want}")
+    for rank, r in enumerate(ranks):
+        check(r["groups_after"] == r["groups_before"] and r["threads_after"] == [],
+              f"dist-fleet rank {rank}: groups {r['groups_before']} -> "
+              f"{r['groups_after']}, threads {r['threads_after']}")
+    return {"dist-fleet (a rank)": r0["launches"]}
 
 
 def dist_train_launches(name: str, spec: dict, mode, depth: int, steps: int) -> int:
@@ -2687,6 +2851,7 @@ def phase_dist_serve(ranks: list, model_cfg: dict) -> dict:
     check(r0["sp_meshes"] == {2: {"data": 1, "seq": 2}},
           f"dist-serve: sp meshes {r0['sp_meshes']}")
     runs = {r["config"]: r["launches"] for r in r1["runs"]}
+    shape_runs = {r["config"]: r["flash_shapes"] for r in r1["runs"]}
     out = {}
     for i, ((label, kw, per_layer), rec) in enumerate(zip(DIST_SERVE, r0["served"])):
         config = SamplerConfig(**kw)
@@ -2708,6 +2873,12 @@ def phase_dist_serve(ranks: list, model_cfg: dict) -> dict:
         check(rec["launches"] == want and runs.get(i) == want,
               f"dist-serve {label}: launches {rec['launches']}, {runs.get(i)}; "
               f"expected {want}")
+        if label in DIST_SERVE_SHAPES:
+            shapes = [rec["flash_shapes"], shape_runs.get(i)]
+            emit({"phase": "dist-serve", "config": label, "flash_shapes": shapes})
+            check(all(s == DIST_SERVE_SHAPES[label] for s in shapes),
+                  f"dist-serve {label}: flash_fwd shapes {shapes}, expected "
+                  f"{DIST_SERVE_SHAPES[label]}")
         if config.sp_degree > 1:
             mode = "ring" if config.sp_mode == "ring" else "ulysses"
             check(rec["sp_mode"] == mode, f"dist-serve {label}: sp_mode {rec['sp_mode']}")

@@ -156,10 +156,10 @@ class SwitchMlp(nn.Module):
             setattr(self, name, nn.Parameter(t[ep.index * n:(ep.index + 1) * n].clone()))
         self.ep = ep
 
-    def _offset(self, counts: torch.Tensor) -> Optional[torch.Tensor]:
+    def _offset(self, counts: torch.Tensor,
+                shard: Optional[pmesh.SeqShard]) -> Optional[torch.Tensor]:
         """(B, E): the tokens of each row routed to each expert on the seq
         ranks before this one (None without sequence parallelism)."""
-        shard = self.shard
         if shard is None:
             return None
         with torch.no_grad():
@@ -177,16 +177,20 @@ class SwitchMlp(nn.Module):
         return probs, expert, probs.gather(-1, expert[..., None])[..., 0]
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                losses: Optional[list] = None) -> torch.Tensor:
+                losses: Optional[list] = None,
+                shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
+        """``shard``: the token block x is, when it is not the block's own (a
+        token-cache reuse step's k live tokens: capacity follows k)."""
         B, n, D = x.shape
-        E, dt, shard, ep = self.num_experts, x.dtype, self.shard, self.ep
+        E, dt, ep = self.num_experts, x.dtype, self.ep
+        shard = self.shard if shard is None else shard
         C = capacity(n if shard is None else shard.total, self.capacity_factor, E)
         probs, expert, gate = self.route(x)                        # (B, n, E), (B, n)
         onehot = F.one_hot(expert, E).float()                      # (B, n, E)
         valid = None if shard is None else shard.valid(B, x.device)
         if valid is not None:  # padding tokens route nowhere
             onehot = onehot * valid[..., None]
-        offset = self._offset(onehot.sum(1))
+        offset = self._offset(onehot.sum(1), shard)
         # ---- this rank's experts [lo, hi) --------------------------------
         lo, hi = (0, E) if ep is None else (ep.index * E // ep.size,
                                             (ep.index + 1) * E // ep.size)

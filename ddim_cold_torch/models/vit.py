@@ -82,8 +82,10 @@ over the block's real tokens and reduced over the group
 tokens and sliced, and stochastic depth draws one bit a sample, so every
 rank of a group, sharing one generator stream, drops what a one-process
 forward from that stream drops. ``batch_axis`` is checked and recorded:
-each process already holds its own rows. The token cache and the probe
-under sequence parallelism raise.
+each process already holds its own rows. The token cache runs under it
+(one global selection of the live tokens, the trunk at their k positions
+split over the group), and so does the probe (JAX's dense global weights,
+on every rank): see :meth:`DiffusionViT.forward`.
 
 Tensor parallelism (``head_axis``, an axis of ``seq_mesh``; Megatron's
 column → row pairs, :mod:`ddim_cold_torch.parallel.sharding`): every rank
@@ -278,20 +280,48 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
-def _live_tokens(tokens: torch.Tensor, ref_in: torch.Tensor, k: int) -> torch.Tensor:
-    """The (B, k) indices of the k tokens of each row that changed most
-    against ``ref_in``, in position order: squared change summed in float32
-    (the difference taken in the model dtype, as JAX does), CLS forced live
-    with the float32 maximum, ties taken lower index first as
-    ``jax.lax.top_k`` takes them (a stable descending sort)."""
+def _token_scores(tokens: torch.Tensor, ref_in: torch.Tensor,
+                  has_cls: bool = True) -> torch.Tensor:
+    """Each token's squared change against ``ref_in``, summed in float32
+    (the difference taken in the model dtype, as JAX does); with
+    ``has_cls`` the first token (CLS) scores the float32 maximum."""
     scores = (tokens - ref_in).float().square().sum(-1)
-    scores[:, 0] = torch.finfo(torch.float32).max
+    if has_cls:
+        scores[:, 0] = torch.finfo(torch.float32).max
+    return scores
+
+
+def _top_positions(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The (B, k) positions of the k largest scores of each row, in position
+    order; ties taken lower index first as ``jax.lax.top_k`` takes them (a
+    stable descending sort)."""
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     return order[:, :k].sort(dim=-1).values
 
 
+def _live_tokens(tokens: torch.Tensor, ref_in: torch.Tensor, k: int) -> torch.Tensor:
+    """The (B, k) indices of the k tokens of each row that changed most
+    against ``ref_in``, in position order (:func:`_token_scores`, CLS forced
+    live; :func:`_top_positions`)."""
+    return _top_positions(_token_scores(tokens, ref_in), k)
+
+
+def _live_tokens_sp(tokens: torch.Tensor, ref_in: torch.Tensor, k: int,
+                    shard: pmesh.SeqShard) -> torch.Tensor:
+    """:func:`_live_tokens` of a sequence split by ``shard``, from this rank's
+    blocks of the stream and the reference: each rank scores its own tokens
+    with the one-process arithmetic (CLS forced live on the rank that holds
+    position 0), the (B, n_local) scores are gathered over the group and
+    the block padding (positions ≥ ``total``) cut off, so a padding row is
+    never live, and the one global selection runs on every rank: the same
+    (B, k) global positions everywhere, those of one process given the
+    same stream and reference."""
+    scores = _token_scores(tokens, ref_in, has_cls=shard.lo == 0)
+    return _top_positions(shard.gather(scores), k)
+
+
 def _remat_block(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator],
-                 losses: Optional[list] = None) -> torch.Tensor:
+                 losses: Optional[list] = None, shard=None) -> torch.Tensor:
     """``blk(x, generator)`` under ``torch.utils.checkpoint`` (non-reentrant),
     with the block's dropout masks replayed exactly in the recomputation.
     ``preserve_rng_state`` covers only the global RNGs, and the port draws
@@ -310,7 +340,7 @@ def _remat_block(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Gene
             gen = torch.Generator(device=generator.device)
             gen.set_state(snapshot)
         sink = losses if losses is None or not replay else []
-        return blk(inp, gen, losses=sink)
+        return blk(inp, gen, losses=sink, shard=shard)
 
     out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
     replay = True  # read by the recomputation, during the backward
@@ -371,15 +401,18 @@ class Mlp(nn.Module):
         self.fc1, self.fc2 = _shrink(self.fc1, "mlp.fc1", tp), _shrink(self.fc2, "mlp.fc2", tp)
         self.tp = tp
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
+        """``shard``: the token block x is, when it is not the model's (a
+        token-cache reuse step's subset)."""
         tp = self.tp
+        shard = self.shard if shard is None else shard
         if tp is not None:
             x = pmesh.copy_to_group(x, tp.group)
             h = F.gelu(_linear(x, self.fc1), approximate="none")
-            h = _dropout(h, self.drop, generator, shard=self.shard, part=(2, tp))
+            h = _dropout(h, self.drop, generator, shard=shard, part=(2, tp))
             return _dropout(_row_parallel(h, self.fc2, tp), self.drop, generator,
-                            shard=self.shard)
+                            shard=shard)
         if self.fused and self.quant != "xla" and (generator is None or self.drop == 0.0):
             fc1, fc2 = self.fc1, self.fc2
             if self.quant:
@@ -389,8 +422,8 @@ class Mlp(nn.Module):
             return quant_ops.mlp_fused(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
                                        block_m=DEFAULT_BLOCK_M)
         x = _dropout(F.gelu(_linear(x, self.fc1), approximate="none"), self.drop,
-                     generator, shard=self.shard)
-        return _dropout(_linear(x, self.fc2), self.drop, generator, shard=self.shard)
+                     generator, shard=shard)
+        return _dropout(_linear(x, self.fc2), self.drop, generator, shard=shard)
 
 
 class Attention(nn.Module):
@@ -433,20 +466,24 @@ class Attention(nn.Module):
                                                                         "attn.proj", tp)
         self.tp = tp
 
-    def _out(self, out: torch.Tensor, generator) -> torch.Tensor:
+    def _out(self, out: torch.Tensor, generator, shard=None) -> torch.Tensor:
         """The context ``(B, n, heads·hd)`` through ``proj`` and its dropout."""
         if self.tp is not None:
             out = _row_parallel(out, self.proj, self.tp)
         else:
             out = _linear(out, self.proj)
-        return _dropout(out, self.proj_drop, generator, shard=self.shard)
+        return _dropout(out, self.proj_drop, generator, shard=shard)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                need_weights: bool = False) -> torch.Tensor:
+                need_weights: bool = False,
+                shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
         """The attention output; with ``need_weights`` the (B, H, N, N)
         attention weights instead (dense path, after attention dropout, as
-        JAX's probe returns them)."""
+        JAX's probe returns them; under sequence parallelism the whole
+        sequence's, on every rank). ``shard``: the token block x is, when it
+        is not the model's (a token-cache reuse step's subset)."""
         B, N, C = x.shape
+        shard = self.shard if shard is None else shard
         scale = self.qk_scale or self.head_dim**-0.5
         # the flash, blockwise and fused routes never materialise the
         # weights: they need attention dropout inactive and no probe (JAX's
@@ -454,8 +491,9 @@ class Attention(nn.Module):
         weightless = not need_weights and (generator is None or self.attn_drop == 0.0)
         if self.tp is not None:
             x = pmesh.copy_to_group(x, self.tp.group)
-        if self.shard is not None:
-            return self._seq_parallel(x, generator, need_weights, weightless, scale)
+        if shard is not None:
+            return self._seq_parallel(x, generator, need_weights, weightless, scale,
+                                      shard)
         if self.fused and self.quant in ("pallas", "w8a8") and weightless:
             # one kernel: the qkv projection and the context never reach
             # device memory (JAX vit.py:241-265); forward-only
@@ -488,15 +526,16 @@ class Attention(nn.Module):
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         return self._out(out.reshape(B, N, heads * self.head_dim), generator)
 
-    def _seq_parallel(self, x, generator, need_weights, weightless, scale):
+    def _seq_parallel(self, x, generator, need_weights, weightless, scale, shard):
         """Attention of this rank's token block over the seq group (JAX
         vit.py:286-296, :333-355): ring or Ulysses by the shard's mode, over
-        this rank's heads (``head_axis``: no qkv all-gather)."""
-        shard = self.shard
+        this rank's heads (``head_axis``: no qkv all-gather). The probe
+        (``need_weights``) takes JAX's dense global einsum instead
+        (vit.py:288-293): q and k gathered over the group (and the heads
+        over ``head_axis``), every rank computes the whole (B, H, N, N)
+        weights, as one process does."""
         if need_weights:
-            raise NotImplementedError(
-                "the attention probe under sequence parallelism is not ported "
-                "yet: ROADMAP.md Queue 1 item 14")
+            return self._global_weights(x, generator, scale, shard)
         if not weightless:
             # a dense fallback would hold the full N×N weights on every rank,
             # the thing sequence parallelism exists to avoid
@@ -514,7 +553,22 @@ class Attention(nn.Module):
         else:
             out = ring_attention(*qkv.unbind(2), shard.valid(B, x.device),
                                  group=shard.group, scale=scale)
-        return self._out(out.reshape(B, n, heads * self.head_dim), generator)
+        return self._out(out.reshape(B, n, heads * self.head_dim), generator, shard)
+
+    def _global_weights(self, x, generator, scale, shard):
+        """The probe's weights of the whole sequence from this rank's token
+        block: the q and k blocks joined over the seq group (padding cut
+        off) and, under tensor parallelism, every rank's heads; then the
+        one-process dense softmax and attention dropout (the mask drawn
+        whole, so every rank of a generator stream draws one process's)."""
+        B, n, _ = x.shape
+        qkv = _linear(x, self.qkv).reshape(B, n, 3, self.local_heads, self.head_dim)
+        q, k = shard.gather(qkv[:, :, 0]), shard.gather(qkv[:, :, 1])
+        if self.tp is not None:
+            q, k = (pmesh.gather_cat(a, self.tp.group, dim=2) for a in (q, k))
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+        attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        return _dropout(attn, self.attn_drop, generator)
 
 
 class Block(nn.Module):
@@ -561,18 +615,21 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 return_attention: bool = False,
-                losses: Optional[list] = None) -> torch.Tensor:
+                losses: Optional[list] = None,
+                shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
         """The block's output; with ``return_attention`` its attention
         weights (B, H, N, N) instead (reference Block.return_attention,
         ViT.py:132-135). ``losses``: an expert bank appends its routing
-        statistics there."""
+        statistics there. ``shard``: the token block x is under sequence
+        parallelism, when it is not the model's (a token-cache reuse step
+        runs its k live tokens as blocks of k positions)."""
         if return_attention:
             return self.attn(_layer_norm(x, self.norm1), generator, need_weights=True)
-        x = x + self._residual(self.attn(_layer_norm(x, self.norm1), generator),
-                               generator)
+        x = x + self._residual(self.attn(_layer_norm(x, self.norm1), generator,
+                                         shard=shard), generator)
         h = _layer_norm(x, self.norm2)
-        y = (self.moe(h, generator, losses) if hasattr(self, "moe")
-             else self.mlp(h, generator))
+        y = (self.moe(h, generator, losses, shard=shard) if hasattr(self, "moe")
+             else self.mlp(h, generator, shard=shard))
         return x + self._residual(y, generator)
 
 
@@ -831,6 +888,15 @@ class DiffusionViT(nn.Module):
         the dense path, whatever ``use_flash`` (JAX vit.py:923-931). The
         probed layer is never rematerialised; the cache hooks exclude it.
 
+        Under sequence parallelism (``seq_mesh``) the cache tensors are this
+        rank's token blocks, (B, n_local, E); a token reuse ranks every
+        rank's tokens in one global selection (the positions one process
+        takes), runs the trunk on the k live tokens laid out as blocks of k
+        positions over the same group (``SeqShard.resized``: the attention's
+        exchange and padding mask, the w8a8 scale and the expert capacity
+        all at k), and each rank writes the live rows it owns back into its
+        block. The probe returns the whole sequence's weights on every rank.
+
         ``stage="embed"`` returns the token stream after the embeddings and
         ``pos_drop`` (this rank's sequence block under sequence
         parallelism); ``stage="head"`` takes ``tokens``, the trunk's output,
@@ -868,18 +934,28 @@ class DiffusionViT(nn.Module):
         shard = self.shard
         stream_in = tokens  # post-embed stream: the token cache's reference
         live = None
+        sub = None  # the live subset's block geometry under sequence parallelism
         if token_cache is not None:
             ref_in, trunk_delta = token_cache
-            if token_k < tokens.shape[1]:
-                live = _live_tokens(tokens, ref_in, token_k)
-                tokens = tokens.gather(1, live[:, :, None].expand(-1, -1, self.embed_dim))
+            if token_k < self.num_patches + 1:
+                if shard is None:
+                    live = _live_tokens(tokens, ref_in, token_k)
+                    tokens = tokens.gather(
+                        1, live[:, :, None].expand(-1, -1, self.embed_dim))
+                else:
+                    # one global selection; each rank then runs its block of
+                    # the k live tokens, moved from the ranks that hold them
+                    live = _live_tokens_sp(tokens, ref_in, token_k, shard)
+                    sub = shard.resized(token_k)
+                    tokens = pmesh.rows_to_blocks(tokens, shard, live, sub)
             sub_in = tokens  # the trunk below runs at sequence length k
         lo, hi = skip_blocks if skip_blocks is not None else (0, 0)
         tokens_in, tokens_mid = tokens, None
         probe = (None if return_attention_layer is None
                  else return_attention_layer % self.depth)
-        # a w8a8 block's activation scale is the whole sequence's
-        scope = (quant_ops.act_scale_over(tokens=shard)
+        # a w8a8 block's activation scale is the whole sequence's (a token
+        # reuse step's: its live tokens')
+        scope = (quant_ops.act_scale_over(tokens=sub or shard)
                  if shard is not None and self.quant == "w8a8"
                  else contextlib.nullcontext())
         with scope:
@@ -890,7 +966,7 @@ class DiffusionViT(nn.Module):
                     continue
                 if i == probe:
                     return blk(tokens, generator, return_attention=True)
-                tokens = self.run_block(i, tokens, generator, losses)
+                tokens = self.run_block(i, tokens, generator, losses, shard=sub)
                 if capture_split is not None and i == capture_split - 1:
                     tokens_mid = tokens
 
@@ -900,6 +976,15 @@ class DiffusionViT(nn.Module):
             if live is None:  # k = N+1: every row is live, a full overwrite
                 ref_in.copy_(sub_in)
                 trunk_delta.copy_(sub_out - sub_in)
+            elif sub is not None:
+                # each owner writes its live rows into its own block; the
+                # live rows of the reference are its stream's own rows
+                out, owned = pmesh.rows_from_blocks(sub_out, sub, live, shard)
+                owned = owned[:, :, None]
+                tokens = torch.where(owned, out, stream_in + trunk_delta.to(self.dtype))
+                ref_in.copy_(torch.where(owned, stream_in, ref_in))
+                trunk_delta.copy_(torch.where(
+                    owned, (out - stream_in).to(trunk_delta.dtype), trunk_delta))
             else:
                 # stale tokens: last trunk output ≈ the current embedding plus
                 # the cached displacement; live rows take this step's output
@@ -955,22 +1040,23 @@ class DiffusionViT(nn.Module):
 
     def run_block(self, i: int, tokens: torch.Tensor,
                   generator: Optional[torch.Generator],
-                  losses: Optional[list] = None) -> torch.Tensor:
+                  losses: Optional[list] = None,
+                  shard: Optional[pmesh.SeqShard] = None) -> torch.Tensor:
         """Block ``i`` on ``tokens`` (rematerialised under ``remat`` when a
         gradient is recorded); an expert bank appends its routing
-        statistics to ``losses``."""
+        statistics to ``losses``; ``shard`` is the block geometry of
+        ``tokens`` when it is not the model's (:meth:`Block.forward`)."""
         blk = self.blocks[i]
         if self.remat and torch.is_grad_enabled():
-            return _remat_block(blk, tokens, generator, losses)
-        return blk(tokens, generator, losses=losses)
+            return _remat_block(blk, tokens, generator, losses, shard)
+        return blk(tokens, generator, losses=losses, shard=shard)
 
     def _check_cache_hooks(self, skip_blocks, block_delta, capture_split,
                            capture_tokens, token_cache, token_k,
                            return_attention_layer=None, stage="full") -> None:
         """The JAX model's validation of the step-cache hooks, the probe and
         ``stage`` (vit.py:713-773, :851-853), with its refusals under
-        ``scan_blocks``; under sequence parallelism the token cache and the
-        probe raise (ROADMAP.md Queue 1 item 14)."""
+        ``scan_blocks``."""
         if stage not in ("full", "embed", "head"):
             raise ValueError(f"stage must be 'full', 'embed' or 'head', got {stage!r}")
         if skip_blocks is not None or capture_split is not None:
@@ -991,11 +1077,6 @@ class DiffusionViT(nn.Module):
                 raise ValueError("token caching composes with stage='full' only")
         if return_attention_layer is not None and self.scan_blocks and stage == "full":
             raise ValueError("attention probe requires scan_blocks=False")
-        if self.shard is not None and (capture_tokens or token_cache is not None
-                                       or return_attention_layer is not None):
-            raise NotImplementedError(
-                "the token cache and the attention probe under sequence "
-                "parallelism are not ported yet: ROADMAP.md Queue 1 item 14")
         if (skip_blocks is not None or capture_split is not None) and (
                 return_attention_layer is not None):
             raise ValueError("step caching excludes the attention probe")

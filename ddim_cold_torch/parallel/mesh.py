@@ -32,7 +32,11 @@ both NCCL and gloo carry, with no branch on the backend:
 * :func:`all_reduce_flat` — a list of tensors summed across a group in a
   few flat buffers (:func:`all_reduce_mesh`: across a whole mesh);
 * :func:`reduce_shares` — every rank's share of a global statistic summed
-  over groups, each share's gradient its own (scaled).
+  over groups, each share's gradient its own (scaled);
+* :func:`rows_to_blocks` and :func:`rows_from_blocks` — a subset of a
+  split sequence's rows (the token cache's live tokens) moved from the
+  ranks that hold them into the blocks of the subset's own
+  :meth:`SeqShard.resized` geometry, and back.
 
 The serving engine across ranks adds :func:`submesh` (a named mesh over a
 given list of ranks, such as a sequence-parallel ``(data, seq)`` mesh over
@@ -211,6 +215,60 @@ class SeqShard(NamedTuple):
         """Every rank's block (B, n_local, …) joined into the whole (B,
         total, …), on every rank of the group."""
         return gather_cat(x, self.group, dim=1)[:, :self.total]
+
+    def resized(self, total: int) -> "SeqShard":
+        """This rank's block of ``total`` positions over the same group and
+        mode: the geometry of a subset of the sequence, such as the k live
+        tokens a token-cache reuse step runs its trunk at."""
+        parts, index = ((1, 0) if self.group is None
+                        else (dist.get_world_size(self.group), dist.get_rank(self.group)))
+        n_loc = -(-total // parts)
+        lo = index * n_loc
+        return SeqShard(group=self.group, total=total, n_local=n_loc, lo=lo,
+                        n_real=max(0, min(n_loc, total - lo)), mode=self.mode)
+
+
+def _expand_rows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``rows`` (B, m) as a ``gather``/``scatter`` index over dim 1 of a
+    ``like``-shaped (B, n, …) tensor."""
+    return rows.reshape(*rows.shape, *(1,) * (like.dim() - 2)).expand(
+        *rows.shape, *like.shape[2:])
+
+
+def rows_to_blocks(x: torch.Tensor, shard: SeqShard, rows: torch.Tensor,
+                   sub: SeqShard) -> torch.Tensor:
+    """The rows at global positions ``rows`` ((B, k), the same on every rank
+    of the group) of a sequence split by ``shard``, this rank's block ``x``
+    (B, n_local, …), laid out as ``sub``'s blocks of those k rows: this
+    rank's (B, sub.n_local, …), its padding zero. One ``all_gather`` of the
+    blocks over the group: every rank then holds the whole sequence and
+    takes its block of the subset. Simpler than an ``all_to_all_single``
+    with per-rank splits, which would move only the live rows that change
+    rank, at the cost of the whole stream a step."""
+    mine = rows[:, sub.lo:sub.lo + sub.n_real]
+    whole = shard.gather(x)
+    return sub.pad(whole.gather(1, _expand_rows(mine, whole)))
+
+
+def rows_from_blocks(y: torch.Tensor, sub: SeqShard, rows: torch.Tensor,
+                     shard: SeqShard) -> tuple:
+    """The inverse of :func:`rows_to_blocks`: ``sub``'s blocks ``y`` (B,
+    sub.n_local, …) of the rows at global positions ``rows`` put back into
+    this rank's block of ``shard``. Returns ``(block, owned)``: (B,
+    shard.n_local, …) holding the rows of ``rows`` this rank owns (zeros
+    elsewhere) and the (B, n_local) bool mask of them. One ``all_gather``
+    of the subset's blocks; a rank may own many of the rows or none."""
+    whole = sub.gather(y)  # (B, k, …)
+    local = rows - shard.lo
+    owned = (local >= 0) & (local < shard.n_real)
+    # the rows another rank owns land in a spare row past the block
+    idx = torch.where(owned, local, torch.full_like(local, shard.n_local))
+    B = y.shape[0]
+    block = y.new_zeros((B, shard.n_local + 1, *y.shape[2:]))
+    block.scatter_(1, _expand_rows(idx, whole), whole)
+    mask = torch.zeros((B, shard.n_local + 1), dtype=torch.bool, device=y.device)
+    mask.scatter_(1, idx, True)
+    return block[:, :shard.n_local], mask[:, :shard.n_local]
 
 
 def seq_shard(mesh, axis: str, total: int, mode: Optional[str] = None) -> SeqShard:

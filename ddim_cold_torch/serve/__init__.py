@@ -28,6 +28,9 @@ Fleet::
 
 ``serve.remote_factory(spec)`` in place of ``local_factory`` runs each
 replica in its own process (``python -m ddim_cold_torch.serve.replica_main``).
+Replicas across ranks: rank 0 of a mesh builds the router over
+``serve.local_factory(model, mesh=mesh, buckets=(8,))`` while every other
+rank calls ``serve.follow_replicas(model, mesh=mesh, buckets=(8,))``.
 """
 
 from ddim_cold_torch.obs import metrics, spans
@@ -44,7 +47,8 @@ from ddim_cold_torch.serve.errors import (RETRYABLE_EXCEPTIONS, DeadlineExceeded
                                           ReplicaUnreachableError,
                                           RequestFailedError,
                                           RequestQuarantinedError, ServeError)
-from ddim_cold_torch.serve.fleet import LocalReplica, ReplicaHandle, local_factory
+from ddim_cold_torch.serve.fleet import (LocalReplica, MeshReplica, ReplicaHandle,
+                                         follow_replicas, local_factory)
 from ddim_cold_torch.serve.remote import (RemoteReplica, remote_factory,
                                           save_params_npz)
 from ddim_cold_torch.serve.router import Router
@@ -53,12 +57,12 @@ from ddim_cold_torch.utils import faults
 
 __all__ = [
     "Autoscaler", "BatchPlan", "DeadlineExceeded", "Engine",
-    "EngineClosedError", "EngineStalledError", "LocalReplica",
+    "EngineClosedError", "EngineStalledError", "LocalReplica", "MeshReplica",
     "QueueFullError", "RETRYABLE_EXCEPTIONS", "RemoteRPCError",
     "RemoteReplica", "ReplicaCrashedError", "ReplicaHandle",
     "ReplicaUnreachableError", "Request", "RequestFailedError",
     "RequestQuarantinedError", "Router", "SamplerConfig",
     "SeqParallelConfigError", "ServeError", "Ticket", "cover_rows", "faults",
-    "local_factory", "metrics", "plan_batches", "remote_factory",
+    "follow_replicas", "local_factory", "metrics", "plan_batches", "remote_factory",
     "save_params_npz", "select_bucket", "spans", "warmup",
 ]

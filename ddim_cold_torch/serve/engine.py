@@ -136,9 +136,11 @@ the open tickets with :class:`~.errors.RankLostError`, an
 collective of the protocol that fails (a rank died) or outlives
 ``stall_s``, which bounds every group the engine creates (rank 0 waits in
 a raising follower's collective that long). The groups are the engine's
-own: it leaves the caller's mesh as it found it. The token cache under
-``sp_degree > 1`` raises ``NotImplementedError`` at ``submit`` (ROADMAP.md
-Queue 1 item 14).
+own: it leaves the caller's mesh as it found it, and
+:meth:`Engine.process_groups` names them for an owner that destroys them
+(the fleet's replicas across ranks do). Every cached mode runs under
+``sp_degree > 1``, the token cache included: its live tokens are one
+global selection and each rank runs its block of them (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -225,16 +227,6 @@ def _need_seed(seed) -> int:
     if seed is None:
         raise ValueError("this request's init/noise draw is keyed — pass seed=")
     return int(seed)
-
-
-def refuse_unported(config: SamplerConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the port so far:
-    the token cache under sequence parallelism."""
-    if config.sp_degree > 1 and config.cached and config.cache_mode == "token":
-        raise NotImplementedError(
-            f"SamplerConfig(cache_mode='token', sp_degree={config.sp_degree}) is "
-            "not ported yet: ROADMAP.md Queue 1 item 14 (the token cache under "
-            "sequence parallelism)")
 
 
 class Engine:
@@ -429,6 +421,18 @@ class Engine:
         if self.student_params is not None:
             tensors += [self.student_params[k] for k in sorted(self.student_params)]
         pmesh.broadcast_tensors(tensors, self._leader, self._wire)
+
+    def process_groups(self) -> list:
+        """The process groups this engine created across ranks (its mesh
+        copy, the header and wire groups, every sp degree's mesh), for its
+        owner to destroy once no rank runs it (the fleet's replicas across
+        ranks do); empty for an engine of one process."""
+        if not self._multi:
+            return []
+        groups = [self._ctrl, self._wire]
+        for mesh in [self.mesh, *self._sp_meshes.values()]:
+            groups += [mesh.get_group(axis) for axis in mesh.mesh_dim_names]
+        return list(dict.fromkeys(groups))
 
     def _need_leader(self, what: str) -> None:
         if not self.is_leader:
@@ -688,7 +692,6 @@ class Engine:
         elif kwargs:
             raise ValueError(f"pass config OR keyword options, not both: {kwargs}")
         self._need_leader("submit")
-        refuse_unported(config)
         if config.student and self.student_params is None:
             raise ValueError(_NO_STUDENT)
         if self._multi and config not in self._index:
@@ -952,7 +955,6 @@ class Engine:
         key = (config, bucket)
         prog = self._programs.get(key)
         if prog is None:
-            refuse_unported(config)
             if config.sp_degree > 1:
                 shards = pmesh.data_axis_size(self._sp_mesh(config.sp_degree))
                 if bucket % shards:

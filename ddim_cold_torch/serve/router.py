@@ -39,8 +39,10 @@ router makes the replica the blast radius instead of the fleet:
 
 * **Sharding-blind** — the router never inspects a config beyond its
   task: every replica warms the SAME ``(SamplerConfig, bucket)`` set, so
-  sequence-parallel configs (served by an engine across ranks; replicas
-  across ranks are ROADMAP.md Queue 1 item 14) will route like any other.
+  sequence-parallel configs (served by replicas across ranks,
+  ``fleet.local_factory(model, mesh=...)``) route like any other. When it
+  drains, the router calls its factory's ``close``, if it has one (the
+  factory of replicas across ranks releases its followers there).
 
 Requests carry a ``seed`` (or an ``x_init``): the port's engine draws each
 start from ``torch.Generator(device).manual_seed(seed)``, and a seed is
@@ -725,6 +727,9 @@ class Router:
             sp = getattr(rep, "_obs_span", None)
             if sp is not None:
                 sp.end(retired=False)
+        close = getattr(self._factory, "close", None)
+        if close is not None:  # the factory's own resources, after its replicas
+            close()
         # replica drains may have produced final failure events; with the
         # fleet closed, _handle_failure fails them through typed
         self._drain_events()

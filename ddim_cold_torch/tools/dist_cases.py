@@ -23,8 +23,11 @@ Switch-MoE model through ``tp_pp_train`` and :func:`moe_errors`),
 :func:`cli_sample` (the ``sample`` command's samples on a data mesh),
 :func:`ulysses_heads_error`, the serving engine across ranks
 (:func:`serve_engine`, :func:`serve_follower_fault`, :func:`bucket_error`),
-and the card's :func:`probe`, :func:`card_train`, :func:`card_sample` and
-:func:`card_serve`.
+the token cache's selection and the probe under sequence parallelism
+(:func:`token_selection`, :func:`sp_probe`), the fleet across ranks
+(:func:`serve_fleet`, :func:`serve_fleet_lost`), and the card's
+:func:`probe`, :func:`card_train`, :func:`card_sample`, :func:`card_serve`,
+:func:`card_probe` and :func:`card_fleet`.
 """
 
 from __future__ import annotations
@@ -669,6 +672,177 @@ def serve_follower_fault(dev, spec: dict, cfg: dict, state_dict: dict, buckets,
     return out
 
 
+def token_selection(dev, spec: dict, cases: list) -> list:
+    """The token cache's live positions under sequence parallelism: for each
+    case ``{"stream", "ref", "k"[, "pad_score"]}`` (whole (B, N+1, E)
+    arrays) this rank's blocks of the stream and the reference go through
+    the model's global selection (``vit._live_tokens_sp``); with
+    ``pad_score`` this rank's padding rows of the stream are set far from
+    the reference first (the largest score a padding row could have)."""
+    from ddim_cold_torch.models import vit
+
+    mesh = mesh_for(spec, dev)
+    out = []
+    for case in cases:
+        stream, ref = (torch.from_numpy(case[k]).to(dev) for k in ("stream", "ref"))
+        shard = pmesh.seq_shard(mesh, "seq", stream.shape[1])
+        blk, ref_blk = shard.take(stream), shard.take(ref)
+        if case.get("pad_score") and shard.n_real < shard.n_local:
+            blk[:, shard.n_real:] = 1e6
+        out.append(vit._live_tokens_sp(blk, ref_blk, case["k"], shard).cpu().numpy())
+    return out
+
+
+def sp_probe(dev, spec: dict, cfg: dict, state_dict: dict, x, t, sp_mode: str,
+             layers: tuple, head_axis: Optional[str] = None) -> dict:
+    """The attention probe of the model ``sp_clone``d onto ``spec``'s mesh
+    (tensor-parallel over ``head_axis`` too, if given): each of ``layers``'
+    weights on this rank, and the message of a training forward with
+    attention dropout active that probes the last layer."""
+    mesh = mesh_for(spec, dev)
+    model = _model(dev, cfg, state_dict, mesh, sp_mode, head_axis=head_axis)
+    x, t = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+    with torch.no_grad():
+        res = {"weights": {i: _np(model(x, t, return_attention_layer=i)) for i in layers}}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        try:
+            model(x, t, deterministic=False, generator=gen, return_attention_layer=-1)
+            res["dropout_error"] = ""
+        except ValueError as e:
+            res["dropout_error"] = str(e)
+    return res
+
+
+def _groups() -> int:
+    """The process groups alive in this process."""
+    from torch.distributed import distributed_c10d
+
+    return len(distributed_c10d._world.pg_names)
+
+
+def _fleet_threads() -> list:
+    """The names of the fleet's threads alive in this process."""
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(("replica-", "follow-", "router")))
+
+
+def _fleet(dev, spec: dict, cfg: dict, state_dict: dict, buckets, stall_s: float):
+    """Every rank's part of a fleet across ``spec``'s mesh: the model, the
+    mesh, the engines' keyword arguments and whether this rank leads."""
+    model = _model(dev, cfg, state_dict)
+    mesh = mesh_for(spec, dev)
+    kw = dict(buckets=tuple(buckets), device=dev, stall_s=stall_s, retry_base_s=0.0)
+    return model, mesh, kw, dist.get_rank() == pmesh.mesh_ranks(mesh)[0]
+
+
+def _poll(pred, timeout_s: float) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return pred()
+
+
+def serve_fleet(dev, spec: dict, cfg: dict, state_dict: dict, buckets, configs: list,
+                requests: list, fault: dict, after: list, stall_s: float = 30.0) -> dict:
+    """A fleet of two replicas across ``spec``'s mesh
+    (``serve.local_factory(mesh=)`` on rank 0, ``serve.follow_replicas`` on
+    the others), every replica warmed with ``configs``. Rank 0: ``requests``
+    (``(config index, x_init)``) through the router under the fault
+    ``fault`` (``FaultSpec`` kwargs): the rows, the faults realized and the
+    router's hedges; then r0 retired (``scale_to(1)``), the replacement
+    spawned (``scale_to(2)``) and ``after`` submitted at once (the
+    least-loaded placement spreads them); each replica's dispatches and the
+    router's health after its drain. Every rank: the process groups and
+    fleet threads alive before the fleet and after the drain; a follower
+    its ``follow_replicas`` report."""
+    from ddim_cold_torch import serve
+    from ddim_cold_torch.serve.router import Router
+    from ddim_cold_torch.utils import faults as fault_mod
+
+    model, mesh, kw, lead = _fleet(dev, spec, cfg, state_dict, buckets, stall_s)
+    res = {"groups_before": _groups()}
+    if not lead:
+        res["follow"] = serve.follow_replicas(model, mesh=mesh, **kw)
+        res.update(groups_after=_groups(), threads_after=_fleet_threads())
+        return res
+    configs = [serve.SamplerConfig(**c) for c in configs]
+    router = Router(serve.local_factory(model, mesh=mesh, **kw), replicas=2,
+                    configs=configs, drain_timeout_s=stall_s)
+    with fault_mod.inject(fault_mod.FaultSpec(**fault)) as plan:
+        tickets = [router.submit(x_init=x, config=configs[i]) for i, x in requests]
+        res["rows"] = _outcomes(tickets)
+        res["realized"] = len(plan.realized)
+    res["hedges"] = router.stats["hedges"]
+    router.scale_to(1)
+    router.scale_to(2)
+    res["replaced"] = _poll(lambda: router.stats["replicas_spawned"] == 3
+                            and router.health()["active_replicas"] == 2, 4 * stall_s)
+    # before the drain, whose closing replicas the supervisor may retire too
+    res["retired"] = router.stats["replicas_retired"]
+    res["replicas"] = sorted(router.health()["replicas"])
+    tickets = [router.submit(x_init=x, config=configs[i]) for i, x in after]
+    res["rows_after"] = _outcomes(tickets)
+    placed = router.health()["replicas"]
+    res["dispatches"] = {rid: h.get("dispatches", 0) for rid, h in placed.items()}
+    health = router.drain(timeout=stall_s)
+    res["health"] = {"programs_after_warmup": health["programs_after_warmup"],
+                     "states": {rid: h["state"] for rid, h in health["replicas"].items()},
+                     "stats": {k: health[k] for k in ("hedges", "failovers",
+                                                      "replicas_spawned",
+                                                      "replicas_retired", "failed")}}
+    _poll(lambda: not _fleet_threads(), stall_s)
+    res.update(groups_after=_groups(), threads_after=_fleet_threads())
+    return res
+
+
+def serve_fleet_lost(dev, spec: dict, cfg: dict, state_dict: dict, buckets,
+                     config: dict, x_init, stall_s: float) -> dict:
+    """A fleet of one replica across ``spec``'s mesh whose follower rank
+    leaves the process (exit code 0) at its first program after warmup.
+    Rank 0: the ticket's exception (type, message, seconds after submit),
+    the supervisor's spawn failures, a spawn's own exception and seconds,
+    and the fleet threads and groups after the router's drain."""
+    from ddim_cold_torch import serve
+    from ddim_cold_torch.serve.engine import Engine
+    from ddim_cold_torch.serve.router import Router
+
+    model, mesh, kw, lead = _fleet(dev, spec, cfg, state_dict, buckets, stall_s)
+    if not lead:
+        follow = Engine.follow
+
+        def follow_then_leave(self):
+            self._launch = lambda *args: os._exit(0)
+            return follow(self)
+
+        Engine.follow = follow_then_leave  # this spawned rank's own class
+        serve.follow_replicas(model, mesh=mesh, **kw)
+        return {}
+    res = {"groups_before": _groups()}
+    factory = serve.local_factory(model, mesh=mesh, **kw)
+    # no failover: the ticket fails through with the replica's own error
+    router = Router(factory, replicas=1, configs=[serve.SamplerConfig(**config)],
+                    max_failovers=0, drain_timeout_s=stall_s)
+    t0 = time.perf_counter()
+    exc = router.submit(x_init=x_init, config=serve.SamplerConfig(**config)).exception(
+        timeout=10 * stall_s)
+    res["ticket"] = (type(exc).__name__, str(exc), time.perf_counter() - t0)
+    res["spawn_failures"] = _poll(lambda: router.stats["spawn_failures"] >= 1, 4 * stall_s)
+    t0 = time.perf_counter()
+    try:
+        factory("r9")
+        res["spawn"] = ("", "", 0.0)
+    except Exception as e:  # noqa: BLE001 — the refusal is the finding
+        res["spawn"] = (type(e).__name__, str(e), time.perf_counter() - t0)
+    router.drain(timeout=stall_s)
+    _poll(lambda: not _fleet_threads(), stall_s)
+    res.update(groups_after=_groups(), threads_after=_fleet_threads())
+    return res
+
+
 # ------------------------------------------------------------ card cases
 
 #: the collectives a backend may carry on CUDA tensors, probed in order
@@ -967,14 +1141,17 @@ def card_serve(dev, model_cfg: dict, bucket: int, configs: list, seed: int,
     wu = serve.warmup(eng, configs)
     res = {"warmup_s": time.perf_counter() - t0, "sp_meshes": wu["sp_meshes"],
            "warm_programs": eng.stats["programs"]}
+    shapes = _record_flash_shapes()
     if not eng.is_leader:
         runs, launch = [], eng._launch
 
         def counted(config, b, *args):
             before = _kernel_counts()
+            shapes.clear()
             out = launch(config, b, *args)
             _sync_cuda(dev)
-            runs.append({"config": configs.index(config), "launches": _delta(before)})
+            runs.append({"config": configs.index(config), "launches": _delta(before),
+                         "flash_shapes": dict(shapes)})
             return out
 
         eng._launch = counted
@@ -988,15 +1165,17 @@ def card_serve(dev, model_cfg: dict, bucket: int, configs: list, seed: int,
               for _ in configs]
     served = []
     for config, xs in zip(configs, starts):
-        before = _kernel_counts()
         _sync_cuda(dev)
+        before = _kernel_counts()
+        shapes.clear()
         tickets = [eng.submit(x_init=x, config=config) for x in xs]
         report = eng.run()
         _sync_cuda(dev)
         got = [t.result(timeout=60) for t in tickets]
         served.append({"sp_mode": (eng._model_for(config).sp_mode
                                    if config.sp_degree > 1 else None),
-                       "launches": _delta(before), "wall_s": report["wall_s"],
+                       "launches": _delta(before), "flash_shapes": dict(shapes),
+                       "wall_s": report["wall_s"],
                        "img_per_sec": report["img_per_sec"],
                        "p50_s": report["latency"]["p50_s"], "batches": report["batches"],
                        "failed_tickets": report["failed_tickets"],
@@ -1012,7 +1191,8 @@ def card_serve(dev, model_cfg: dict, bucket: int, configs: list, seed: int,
         twin = dataclasses.replace(config, sp_mode="none", sp_degree=1)
         kw = dict(k=twin.k, t_start=twin.t_start)
         if twin.cached:
-            kw.update(cache_interval=twin.cache_interval, cache_mode=twin.cache_mode)
+            kw.update(cache_interval=twin.cache_interval, cache_mode=twin.cache_mode,
+                      cache_tokens=twin.cache_tokens or None)
         ref = sampling.ddim_sample(eng._model_for(twin), x_init=np.concatenate(xs),
                                    device=dev, **kw).cpu().numpy()
         rec["max_abs_err"] = float(np.abs(np.concatenate(rec.pop("rows")) - ref).max())
@@ -1023,3 +1203,192 @@ def card_serve(dev, model_cfg: dict, bucket: int, configs: list, seed: int,
 def _sync_cuda(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _record_flash_shapes() -> dict:
+    """From now on in this rank, every ``flash_forward`` launch's q shape
+    counted in the returned dict (``"(B, N, H, D)" → launches``); a
+    comparison's plain version is not a launch and is not counted."""
+    from ddim_cold_torch.ops import flash_attention as fa
+
+    shapes: dict = {}
+    if getattr(fa.flash_forward, "_records", None) is not None:
+        return fa.flash_forward._records
+    orig = fa.flash_forward
+
+    def recording(q, k, v, scale, *args, **kwargs):
+        if q.is_cuda:
+            key = str(tuple(q.shape))
+            shapes[key] = shapes.get(key, 0) + 1
+        return orig(q, k, v, scale, *args, **kwargs)
+
+    recording._records = shapes
+    fa.flash_forward = recording
+    return shapes
+
+
+def card_fleet(dev, model_cfg: dict, bucket: int, configs: list, fault: dict,
+               fault_config: int, seed: int, rows: int = 3,
+               stall_s: float = 300.0) -> dict:
+    """The fleet across the world's ranks (``{data: world}``) on the
+    full-width model: rank 0 a ``Router`` over two replicas of
+    ``serve.local_factory(mesh=)``, the others ``serve.follow_replicas``,
+    every replica warmed with ``configs`` (SamplerConfig kwargs) at one
+    bucket. Rank 0 serves one request of ``rows`` rows per config in turn,
+    config ``fault_config``'s under ``fault`` (``FaultSpec`` kwargs: it
+    hedges), retires r0 (``scale_to(1)``), waits for the replacement
+    (``scale_to(2)``), serves one request per config again and drains; then
+    holds every row against the one-process call of its config's variant
+    on its dispatch shape (the start zero-padded to the bucket). Every rank
+    counts its kernel launches from the initial replicas' warmup to the
+    drain (a follower without the initial warmups it ran), and reports the
+    process groups and fleet threads left."""
+    import dataclasses
+    import importlib
+
+    from ddim_cold_torch import serve
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.ops import quant as quant_ops
+    from ddim_cold_torch.ops import sampling
+    from ddim_cold_torch.serve.router import Router
+    from ddim_cold_torch.utils import faults as fault_mod
+
+    model = DiffusionViT(**model_cfg, device=dev)
+    mesh = pmesh.make_mesh({"data": dist.get_world_size()}, device=dev)
+    kw = dict(buckets=(bucket,), device=dev, stall_s=stall_s)
+    configs = [serve.SamplerConfig(**c) for c in configs]
+    res = {"groups_before": _groups()}
+    _sync_cuda(dev)
+    t0 = time.perf_counter()
+    if dist.get_rank() != 0:
+        # the module (the package exports its function under the same name)
+        warmup_mod = importlib.import_module("ddim_cold_torch.serve.warmup")
+        warm, orig = {}, warmup_mod.warmup
+
+        def counted(engine, *args, **kwargs):
+            before = _kernel_counts()
+            out = orig(engine, *args, **kwargs)
+            _sync_cuda(dev)
+            warm[engine.replica_id] = _delta(before)
+            return out
+
+        warmup_mod.warmup = counted
+        try:
+            before = _kernel_counts()
+            res["follow"] = serve.follow_replicas(model, mesh=mesh, **kw)
+            total = _delta(before)
+        finally:
+            warmup_mod.warmup = orig
+        res["launches"] = {k: v - warm.get("r0", {}).get(k, 0) - warm.get("r1", {}).get(k, 0)
+                           for k, v in total.items()}
+        res.update(warm_launches=warm, wall_s=time.perf_counter() - t0,
+                   groups_after=_groups(), threads_after=_fleet_threads())
+        return res
+    router = Router(serve.local_factory(model, mesh=mesh, **kw), replicas=2,
+                    configs=configs, drain_timeout_s=stall_s)
+    _sync_cuda(dev)
+    res["warmup_s"] = time.perf_counter() - t0
+    rs = np.random.default_rng(seed)
+    H, W = model.img_size
+    served = []
+    before = _kernel_counts()  # the fleet's main path starts here
+
+    def serve_one(i: int, spec: Optional[dict] = None) -> None:
+        x = rs.standard_normal((rows, H, W, 3)).astype(np.float32)
+        t1 = time.perf_counter()
+        with fault_mod.inject(*([fault_mod.FaultSpec(**spec)] if spec else [])) as plan:
+            ticket = router.submit(x_init=x, config=configs[i])
+            exc = ticket.exception(timeout=10 * stall_s)
+        served.append({"config": i, "x": x, "latency_s": time.perf_counter() - t1,
+                       "realized": len(plan.realized),
+                       "error": None if exc is None else repr(exc),
+                       "rows": None if exc is not None else ticket.result(timeout=1)})
+
+    for i in range(len(configs)):
+        serve_one(i, fault if i == fault_config else None)
+    res["hedges"] = router.stats["hedges"]
+    router.scale_to(1)
+    router.scale_to(2)
+    res["replaced"] = _poll(lambda: router.stats["replicas_spawned"] == 3
+                            and router.health()["active_replicas"] == 2, 2 * stall_s)
+    # before the drain, whose closing replicas the supervisor may retire too
+    res["retired"] = router.stats["replicas_retired"]
+    for i in range(len(configs)):
+        serve_one(i)
+    health = router.drain(timeout=stall_s)
+    _sync_cuda(dev)
+    res["launches"] = _delta(before)
+    res["serve_s"] = time.perf_counter() - t0 - res["warmup_s"]
+    res["wall_s"] = time.perf_counter() - t0
+    res["health"] = {"programs_after_warmup": health["programs_after_warmup"],
+                     "dispatches": {rid: h.get("dispatches", 0)
+                                    for rid, h in health["replicas"].items()},
+                     "states": {rid: h["state"] for rid, h in health["replicas"].items()},
+                     **{k: health[k] for k in ("hedges", "failovers", "replicas_spawned",
+                                               "replicas_retired", "failed")}}
+    _poll(lambda: not _fleet_threads(), 30.0)
+    res.update(groups_after=_groups(), threads_after=_fleet_threads())
+    twins = {}
+    for rec in served:
+        config = configs[rec["config"]]
+        twin = dataclasses.replace(config, sp_mode="none", sp_degree=1)
+        if twin not in twins:
+            variant = model
+            if twin.quant is not None or twin.fused:
+                variant = model.clone(quant=twin.quant, fused=twin.fused)
+                state = model.state_dict()
+                variant.load_state_dict(quant_ops.quantize_state_dict(state)
+                                        if twin.quant else state)
+            twins[twin] = variant
+        padded = np.concatenate([rec["x"], np.zeros((bucket - rows, H, W, 3), np.float32)])
+        rows_out = rec.pop("rows")
+        rec.pop("x")
+        if rows_out is None:
+            continue
+        ref = sampling.ddim_sample(twins[twin], x_init=padded, k=twin.k,
+                                   t_start=twin.t_start, device=dev)[:rows].cpu().numpy()
+        rec.update(max_abs_err=float(np.abs(rows_out - ref).max()),
+                   shape=list(rows_out.shape),
+                   finite=bool(np.isfinite(rows_out).all()),
+                   in_unit_range=bool(((rows_out >= 0) & (rows_out <= 1)).all()))
+    res["served"] = served
+    return res
+
+
+def card_probe(dev, model_cfg: dict, n: int, layers: tuple, control: int, seed: int,
+               sp_mode: str = "ulysses") -> dict:
+    """The attention probe of the full-width model ``sp_clone``d onto
+    ``{seq: world}`` against the one-process probe of the same model in
+    this rank, on ``n`` seeded images: per layer the weights' shape, the
+    largest |Δ|, the rows' largest distance from summing to 1, this rank's
+    kernel launches of the sequence-parallel call and its wall; and the
+    control, the last layer's weights against the one-process probe of
+    layer ``control``."""
+    from ddim_cold_torch.models import DiffusionViT, sp_clone
+
+    model = DiffusionViT(**model_cfg, device=dev)
+    sp = sp_clone(model, pmesh.make_mesh({"seq": dist.get_world_size()}, device=dev),
+                  sp_mode=sp_mode)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, W = model.img_size
+    x = torch.randn((n, H, W, 3), generator=gen, device=dev)
+    t = torch.randint(0, model.total_steps, (n,), generator=gen, device=dev)
+    out = {"sp_mode": sp.sp_mode, "layers": {}}
+    with torch.no_grad():
+        for layer in layers:
+            _sync_cuda(dev)
+            before, t0 = _kernel_counts(), time.perf_counter()
+            got = sp(x, t, return_attention_layer=layer)
+            _sync_cuda(dev)
+            rec = {"launches": _delta(before), "wall_s": time.perf_counter() - t0,
+                   "shape": list(got.shape)}
+            want = model(x, t, return_attention_layer=layer)
+            rec["max_abs_err"] = (got - want).abs().max().item()
+            rec["row_sum_err"] = (got.float().sum(-1) - 1).abs().max().item()
+            if layer == layers[-1]:
+                other = model(x, t, return_attention_layer=control)
+                rec["control_err"] = (got - other).abs().max().item()
+                del other
+            out["layers"][layer] = rec
+            del got, want
+    return out

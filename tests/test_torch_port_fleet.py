@@ -16,9 +16,9 @@ request's start in its first rows: with one bucket, a row is that call's
 bits whatever its batchmates.
 
 ``tests/test_fleet.py::test_sp_ticket_failover_reuses_warmed_programs``
-has no counterpart yet: the port's engine serves ``sp_degree`` only across
-ranks, and a replica across ranks (``local_factory(mesh=)``) is ROADMAP.md
-Queue 1 item 14.
+is held in ``tests/test_torch_port_fleet_mesh.py``: the port's engine
+serves ``sp_degree`` only across ranks, so its counterpart runs replicas
+across ranks (``local_factory(mesh=)``) in a world of gloo ranks.
 """
 
 import threading

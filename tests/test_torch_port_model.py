@@ -189,17 +189,19 @@ def test_later_slice_ctor_hooks_raise(hook, exc, match):
         PortViT(**TINY, device="cpu", **mesh, **hook)
 
 
-# the token cache is refused under sequence parallelism only; the stage
-# hooks landed, and a head stage without its tokens is JAX's error
-@pytest.mark.parametrize("hook", [dict(stage="head"), dict(capture_tokens=True)])
+# the stage hooks landed, and a head stage without its tokens is JAX's
+# error; the token cache landed under sequence parallelism, with JAX's
+# exclusion of the probe
+@pytest.mark.parametrize("hook", [dict(stage="head"),
+                                  dict(capture_tokens=True, return_attention_layer=0)])
 def test_later_slice_forward_hooks_raise(hook):
     sp = (dict(seq_mesh=_OneRankMesh(), seq_axis="seq") if "capture_tokens" in hook
           else {})
     model = PortViT(**TINY, device="cpu", **sp)
     x, t = _inputs()
-    exc, match = ((ValueError, 'stage="head" requires tokens') if "stage" in hook
-                  else (NotImplementedError, "ROADMAP.md"))
-    with pytest.raises(exc, match=match):
+    match = ('stage="head" requires tokens' if "stage" in hook
+             else "token caching excludes the attention probe")
+    with pytest.raises(ValueError, match=match):
         model(torch.from_numpy(x), torch.from_numpy(t), **hook)
 
 

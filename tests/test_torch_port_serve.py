@@ -163,23 +163,6 @@ def test_engine_fresh_starts_and_split_add_no_program(models, warmed):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sp_mode="ring", sp_degree=2, cache_interval=4, cache_mode="token",
-         cache_tokens=3),
-    dict(mesh=object())])
-def test_out_of_slice_configs_raise_at_submit(warmed, kw):
-    """What item 14 still leaves out: the token cache under sequence
-    parallelism (refused at submit) and the fleet's replicas across ranks
-    (``local_factory(mesh=...)``, refused before any replica is built)."""
-    eng, _ = warmed
-    with pytest.raises(NotImplementedError, match="item 14"):
-        if "mesh" in kw:
-            port_serve.local_factory(eng.model, buckets=(4,), device="cpu", **kw)
-        else:
-            eng.submit(seed=0, n=1, k=K, **kw)
-    assert eng.queue_depth() == 0
-
-
-@pytest.mark.parametrize("kw", [
     dict(cache_interval=2), dict(cache_interval=2, quant="pallas"),
     dict(cache_interval=4, cache_mode="token", cache_tokens=3),
     dict(cache_interval=2, telemetry=True)])

@@ -38,7 +38,9 @@ Pallas compile).
   parameters and as many moment and EMA elements;
 * ``ddim_sample`` of ``sp_clone(head_axis="model")`` on ``{seq: 2, model:
   2}`` (Ulysses) against JAX's: atol 1e-4 (as
-  tests/test_torch_port_samplers.py);
+  tests/test_torch_port_samplers.py); its attention probe at layers 0 and
+  −1, every head's whole weights on every rank, against JAX's probe
+  (tests/test_torch_port_sp_token.py holds the probe on ``{seq: 2}``);
 * JAX's errors: depth % stages, batch % microbatches, a non-sp model under
   ``seq_axis``, Ulysses' local heads, grad_accum × pipe, the microbatch
   split over ``data``, quant/step cache/token cache/probe under
@@ -115,6 +117,8 @@ JAX_PIPES = {"dp2pp2": ({"data": 2, "pipe": 2}, 2), "pp4": ({"pipe": 4}, 4),
 #: the sp×tp forwards held against JAX's sp_clone(head_axis="model")
 SPTP = ("sp2tp2-ring", "sp2tp2-ulysses")
 ROUND_TRIPS = ({"pipe": 2, "model": 2}, {"data": 2, "model": 2}, {"pipe": 4})
+#: the layers the probe under ``head_axis`` reads
+PROBE_LAYERS = (0, -1)
 DROP_SEED = 11
 
 
@@ -176,6 +180,11 @@ def world(params):
     cases.append(("sample", dict(spec={"seq": 2, "model": 2}, cfg=dict(TINY, use_flash=True),
                                  state_dict=sd, x_init=x[:4], sp_mode="ulysses",
                                  head_axis="model", k=2)))
+    ids.append(("probe", "sp2tp2-ulysses"))
+    cases.append(("sp_probe", dict(spec={"seq": 2, "model": 2}, cfg=dict(TINY, use_flash=True),
+                                   state_dict=_sd(params["unrolled"]), x=x[:4], t=t[:4],
+                                   sp_mode="ulysses", layers=PROBE_LAYERS,
+                                   head_axis="model")))
     ids.append(("errors", "all"))
     cases.append(("tp_pp_errors", dict(cfg=PORT_CFG)))
     results = dist_cases.run_world(cases, WORLD, device="cpu", timeout_s=DEADLINE_S)
@@ -456,6 +465,34 @@ def test_sp_clone_head_axis_sampling_matches_jax(world, params):
         assert got["images"].shape == (4, 16, 16, 3)
         np.testing.assert_allclose(got["images"], want, rtol=0, atol=1e-4,
                                    err_msg=f"rank {rank}")
+
+
+def test_probe_under_head_axis_matches_jax(world, params):
+    """The attention probe of ``sp_clone(head_axis="model")`` on ``{seq: 2,
+    model: 2}`` (Ulysses): every rank returns every head's whole (B, H,
+    N+1, N+1) weights (q and k gathered over ``seq`` and ``model``), JAX's
+    within the f32 forward's tolerance (rtol 2e-4, atol 2e-5, as
+    tests/test_torch_port_model.py) and the one-process probe's within
+    rtol = atol = 2e-5 (a mesh reduces in another order)."""
+    x, t, _ = _inputs()
+    jmodel = sp_clone(DiffusionViT(**TINY), _jax_mesh({"seq": 2, "model": 2}),
+                      sp_mode="ulysses", batch_axis=None, head_axis="model")
+    port = PortViT(**TINY, device="cpu")
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in _sd(params["unrolled"]).items()})
+    for layer in PROBE_LAYERS:
+        want = np.asarray(jmodel.apply({"params": params["unrolled"]}, jnp.asarray(x[:4]),
+                                       jnp.asarray(t[:4]), return_attention_layer=layer))
+        with torch.no_grad():
+            one = port(torch.from_numpy(x[:4]), torch.from_numpy(t[:4]),
+                       return_attention_layer=layer).numpy()
+        for rank, got in enumerate(world[("probe", "sp2tp2-ulysses")]):
+            w = got["weights"][layer]
+            assert w.shape == (4, 4, 17, 17)
+            np.testing.assert_allclose(w, want, rtol=2e-4, atol=2e-5,
+                                       err_msg=f"layer {layer} rank {rank}")
+            np.testing.assert_allclose(w, one, rtol=2e-5, atol=2e-5,
+                                       err_msg=f"layer {layer} rank {rank}")
+            assert "cannot apply attention-dropout" in got["dropout_error"]
 
 
 # -------------------------------------------------------------- errors
