@@ -103,6 +103,14 @@ Phases, one JSON object per line:
    kernels and of the rest, and the idle share; attributed and held as in
    7 (the three flash scopes), coverage reported only (autograd's
    LayerNorm and GEMM backward kernels run under no scope);
+10a. train-dispatch, train-blocks — the bf16 flash model of 9 (attention
+   dropout 0) built from an ``ExperimentConfig``, four B=16 steps from one
+   seeded state as four single calls, as two calls of
+   ``steps_per_dispatch=2`` and as four single calls with ``flash_blocks:
+   [512, 1024]``: both bit for bit the single calls (parameters, moments,
+   losses, EMA loss), each flash kernel launched exactly depth × 4 in each
+   way (counters zeroed before each way); ms/step reported, no speed
+   claimed;
 10b. train-nan — two B=16 steps with and without
    ``profiling.enable_nan_checks``: losses bit for bit equal, ms/step of
    each; then a NaN weight raises ``FloatingPointError`` naming the
@@ -163,7 +171,9 @@ Phases, one JSON object per line:
    Ulysses ``{seq: 2}``, ring ``{seq: 2}``, tensor-parallel ``{model: 2}``,
    pipelined ``{pipe: 2}`` (4 microbatches) and expert-parallel ``{expert:
    2}`` (the moe phase's Switch-MoE model, 2 experts a bank a rank, stepping
-   with its aux weight; ``DIST_MOE``): the bf16 200_p4 model,
+   with its aux weight; ``DIST_MOE``) and ``{data: 2}`` at
+   ``steps_per_dispatch=2`` (``DIST_DISPATCH``: each rank its rows of both
+   inner steps, 1 + 3 calls of two steps, 36 launches each): the bf16 200_p4 model,
    every drop rate 0, 1 + 3 steps at B=16, built as the trainer builds it,
    each step held to the one-process step on the same batches within
    ``DIST_TRAIN_TOL``, the flash kernels launched exactly a rank (18 each,
@@ -215,6 +225,13 @@ Phases, one JSON object per line:
    ``quant.mm_error_limit`` /
    ``quant.trunk_error_limit``, a 2% fault caught, CUDA-event medians of
    kernel, plain version and library yardstick, and the bound;
+11b. tuning — ``ops/tuning.py``'s sweeps at 200_p4 B=8 in bfloat16 w8a8:
+   every ``fused_trunk`` ``block_q`` (64–512) and ``mlp_fused``
+   ``block_m`` (32–256) launched, timed with CUDA events and held to its
+   plain version at the same block; each candidate's ms, max |Δ| and shared
+   bytes; the static pick in the space and equal to the model's default
+   (512, 256), the default's ms beside 11's w8a16 and w8a8 times; the table
+   stays empty;
 12. quant-forward — the full-width model in float32 and bfloat16: each
    quantized or fused forward against the float one, and fused against
    unfused w8a16, within the stated tolerances;
@@ -1641,6 +1658,103 @@ def phase_train(torch, fa):
     return records
 
 
+#: train-dispatch: optimizer steps of each way, and steps a dispatch
+DISPATCH_STEPS, DISPATCH_N = 4, 2
+
+
+def phase_train_dispatch(torch, fa) -> dict:
+    """train-dispatch and train-blocks: the bf16 flash 200_p4 model at B=16
+    (dropout and drop path 0.1, attention dropout 0), built from an
+    ``ExperimentConfig`` through ``model_kwargs``, from one seeded state,
+    four steps three ways: four single calls, two dispatches of
+    ``steps_per_dispatch=2``, and four single calls of the model built with
+    ``flash_blocks: [512, 1024]``. Each step draws from its own step's
+    generator. Checks: the dispatch and the blocks runs bit for bit the
+    single calls (parameters, moments, EMA loss; a dispatch's loss the mean
+    of its two steps'), each flash kernel launched depth × 4 times in each
+    way. ms/step of each way (no speed claimed). Returns the dispatch's and
+    the blocks run's launches."""
+    from ddim_cold_torch.config import ExperimentConfig
+    from ddim_cold_torch.data.loader import device_prefetch, group_batches
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.ops import degrade
+    from ddim_cold_torch.train.step import (create_train_state, make_train_step,
+                                            step_generator)
+
+    prepare = degrade.make_cold_prepare(200, max_step=7, chain=True)
+    host = _cold_batches(DISPATCH_STEPS, 16, SEED + 11)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    runs = {}
+    for way, n, blocks in (("single", 1, None), ("dispatch", DISPATCH_N, None),
+                           ("blocks", 1, (512, 1024))):
+        config = ExperimentConfig(exp_name="chip_smoke", framework="dispatch", amp=True,
+                                  batch_size=8, epoch=(0, 8), base_lr=0.005,
+                                  image_size=(200, 200), diff_step=7, patch_size=4,
+                                  embed_dim=256, depth=6, head=4, use_flash=True,
+                                  flash_blocks=blocks, steps_per_dispatch=n)
+        model = DiffusionViT(**config.model_kwargs(), dtype=torch.bfloat16, seed=SEED,
+                             attn_drop_rate=0.0, device="cuda")
+        state = create_train_state(model, config.lr, TRAIN_TOTAL_STEPS)
+        step = make_train_step(model, prepare=prepare, steps_per_dispatch=n)
+        rec = torch.tensor(5.0, device="cuda")
+
+        def gen_of(s):
+            return step_generator(SEED, s, "cuda")
+
+        losses = []
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0  # this way's path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in device_prefetch(group_batches(host, n), "cuda"):
+            state, loss, rec = step(state, b, gen_of if n > 1 else gen_of(state.step), rec)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[way] = {"losses": torch.stack(losses), "rec": rec,
+                     "tensors": [p.detach().clone() for p in model.parameters()]
+                     + [m.clone() for m in state.mu + state.nu],
+                     "launches": {k: fa.LAUNCHES[k] for k in kernels},  # ... and ends here
+                     "ms_per_step": wall / DISPATCH_STEPS * 1e3,
+                     "depth": model.depth}
+        del model, state, step
+    single = runs["single"]
+    want = single["depth"] * DISPATCH_STEPS
+    for way in ("dispatch", "blocks"):
+        got = runs[way]
+        if way == "dispatch":
+            pairs = single["losses"].reshape(-1, DISPATCH_N)
+            same_loss = all(torch.equal(got["losses"][j], pairs[j].mean())
+                            for j in range(len(pairs)))
+        else:
+            same_loss = torch.equal(got["losses"], single["losses"])
+        same = all(torch.equal(a, b) for a, b in zip(got["tensors"], single["tensors"]))
+        rec = {"phase": f"train-{way}", "model": MODEL, "dtype": "bfloat16", "batch": 16,
+               "steps": DISPATCH_STEPS,
+               "steps_per_dispatch": DISPATCH_N if way == "dispatch" else 1,
+               "flash_blocks": [512, 1024] if way == "blocks" else None,
+               "ms_per_step": got["ms_per_step"],
+               "single_ms_per_step": single["ms_per_step"],
+               "speed": "reported, no claim", "bitwise_state": same,
+               "bitwise_losses": same_loss,
+               "bitwise_loss_ema": torch.equal(got["rec"], single["rec"]),
+               "losses": got["losses"].tolist(), "launches": got["launches"],
+               "single_launches": single["launches"], "want_launches": want}
+        emit(rec)
+        check(same and same_loss and rec["bitwise_loss_ema"],
+              f"train-{way} not bitwise the single calls: {rec}")
+        check(all(v == want for v in list(got["launches"].values())
+                  + list(single["launches"].values())),
+              f"train-{way} launches {got['launches']} / {single['launches']}, want {want}")
+        check(bool(torch.isfinite(got["losses"]).all()), f"train-{way} losses {rec['losses']}")
+    out = {"train-dispatch n=2": runs["dispatch"]["launches"],
+           "train flash_blocks": runs["blocks"]["launches"]}
+    del runs
+    torch.cuda.empty_cache()
+    return {label: dict(dict.fromkeys(PATH_KERNELS, 0), **counts)
+            for label, counts in out.items()}
+
+
 def phase_train_profile(torch, model, state, step, batch, gen):
     """Where a training step's time goes: PROFILE_STEPS more steps traced by
     ``utils/profiling.start_trace``/``stop_trace`` (the trainer's
@@ -2395,7 +2509,10 @@ def phase_cli(torch, fa, quant, run_dir: str, data_root: str, serve_report: dict
 #: runs the data and seq ones (the samplers take no model or pipe mesh)
 DIST_LAYOUTS = (("data", {"data": 2}, None), ("ulysses", {"seq": 2}, "ulysses"),
                 ("ring", {"seq": 2}, "ring"), ("tp", {"model": 2}, None),
-                ("pipe", {"pipe": 2}, None), ("expert", {"expert": 2}, None))
+                ("pipe", {"pipe": 2}, None), ("expert", {"expert": 2}, None),
+                ("data-n2", {"data": 2}, None))
+#: layouts whose step runs several optimizer steps a call (steps_per_dispatch)
+DIST_DISPATCH = {"data-n2": 2}
 DIST_SAMPLE_LAYOUTS = DIST_LAYOUTS[:3]
 #: dist-train-4: the layouts of a second world, of four gloo ranks on the card
 DIST4_LAYOUTS = (("pipe-tp", {"pipe": 2, "model": 2}, None),
@@ -2570,7 +2687,8 @@ def phase_dist(torch, MODEL_CONFIGS):
                              warm=DIST_WARM, steps=DIST_STEPS, batch=16, seed=SEED + 5,
                              lr=lr, total_steps=TRAIN_TOTAL_STEPS, trace_dir=trace_dir,
                              microbatches=DIST_MICROBATCHES, checkpoint_dir=ckpt_dir,
-                             model_extra=DIST_MOE, moe_aux_weight=MOE_AUX_WEIGHT)),
+                             model_extra=DIST_MOE, moe_aux_weight=MOE_AUX_WEIGHT,
+                             dispatch=DIST_DISPATCH)),
          ("card_sample", dict(layouts=DIST_SAMPLE_LAYOUTS, model_cfg=cfg, n=DIST_SAMPLE_N,
                               k=K, seed=SEED + 6)),
          dist_serve_case(cfg),
@@ -2752,22 +2870,26 @@ def check_dist_train(name: str, spec: dict, mode, train: list, depth: int, steps
     exact (:func:`dist_train_launches`), every rank's whole parameters
     after the steps rank 0's, each step's loss, ‖g‖ and update
     against the one-process step within ``DIST_TRAIN_TOL`` and the update's
-    largest gap within ``MAX_UPDATE_GAP_LR`` a step."""
+    largest gap within ``MAX_UPDATE_GAP_LR`` a step. A layout of
+    ``DIST_DISPATCH`` runs n steps a call: n times the launches, and each
+    record (a call) held to the twin's n steps."""
     tol = DIST_TRAIN_TOL
+    per_call = DIST_DISPATCH.get(name, 1)
     ranks = [r[name] for r in train]
     r0 = ranks[0]
     emit({"phase": "dist-train", "layout": name, "mesh": spec, "sp_mode": mode,
           "model": MODEL, "dtype": "bfloat16", "batch": 16, "lr": lr,
           "microbatches": DIST_MICROBATCHES.get(name),
           "backend": f"gloo ({len(ranks)} ranks, one card)", "warmup_steps": DIST_WARM,
-          "steps": steps, "ms_per_step": [r["ms_per_step"] for r in ranks],
+          "steps": steps, "steps_per_dispatch": per_call,
+          "ms_per_step": [[ms / per_call for ms in r["ms_per_step"]] for r in ranks],
           "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
           "local_params": [r["local_params"] for r in ranks],
           "local_moments": [r["local_moments"] for r in ranks],
           "launches": [r["launches"] for r in ranks], "per_step": r0["per_step"],
           "tol": tol, "tol_max_param_gap_lr_a_step": MAX_UPDATE_GAP_LR,
           "speed": "ranks share one card: no speed claimed", "world_s": wall})
-    want = dist_train_launches(name, spec, mode, depth, steps)
+    want = dist_train_launches(name, spec, mode, depth, steps) * per_call
     for rank, r in enumerate(ranks):
         check(all(n == want for n in r["launches"].values()),
               f"dist-train {name} rank {rank}: launches {r['launches']}, expected {want} each")
@@ -2782,7 +2904,7 @@ def check_dist_train(name: str, spec: dict, mode, train: list, depth: int, steps
         for key, val in rel.items():
             check(math.isfinite(val) and val <= tol[key],
                   f"dist-train {name} step {i}: {key} {val} over {tol[key]}")
-        check(st["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR * (i + 1),
+        check(st["max_param_gap_lr"] <= MAX_UPDATE_GAP_LR * (i + 1) * per_call,
               f"dist-train {name} step {i}: param gap {st['max_param_gap_lr']} lr")
 
 
@@ -3227,6 +3349,60 @@ def phase_kernels_quant(torch, fa, quant):
             del x, x2, w, b, deq, y, ref
             torch.cuda.empty_cache()
     return records
+
+
+#: tuning: timed launches a candidate after the warm one
+TUNING_ITERS = 10
+
+
+def phase_tuning(torch, qk) -> None:
+    """tuning: ``ops/tuning.py``'s sweeps on the card at 200_p4 B=8 (M =
+    20,008 rows) in bfloat16 w8a8, the fused attention's ``block_q`` and
+    the fused Mlp's ``block_m``: every candidate's device ms, max |Δ| to its
+    plain version at the same block (the sweeps raise past
+    ``quant.trunk_error_limit``) and shared bytes; the static pick in the
+    space and equal to the model's default; the default block's time beside
+    the kernel phase's w8a16 (the table's rows 1 and 2) and w8a8 times. No
+    pick is committed: the table stays empty."""
+    from ddim_cold_torch.models import MODEL_CONFIGS
+    from ddim_cold_torch.ops import tuning
+
+    cfg = MODEL_CONFIGS[MODEL]
+    n = (cfg["img_size"][0] // cfg["patch_size"]) * (cfg["img_size"][1] // cfg["patch_size"]) + 1
+    c, h, rows = cfg["embed_dim"], cfg["num_heads"], 8
+    t0 = time.perf_counter()
+    sweeps = (
+        ("fused_trunk", "block_q",
+         tuning.autotune_attn(rows, n, c, h, torch.bfloat16, mode="w8a8",
+                              iters=TUNING_ITERS),
+         tuning.pick_attn(n, c, h, torch.int8, compute_dtype=torch.bfloat16)[0],
+         tuning.attn_blocks(n, c, h, torch.int8, device="cuda")[0]),
+        ("mlp_fused", "block_m",
+         tuning.autotune_mlp(rows * n, c, c, torch.bfloat16, mode="w8a8",
+                             iters=TUNING_ITERS),
+         tuning.pick_mlp(rows * n, c, c, c, torch.int8, compute_dtype=torch.bfloat16),
+         tuning.mlp_block_m(c, c, torch.int8, device="cuda")))
+    for kernel, key, recs, pick, default in sweeps:
+        for r in recs:
+            emit({"phase": "tuning", "kernel": kernel, "model": MODEL, "rows": rows,
+                  "dtype": "bfloat16", "mode": "w8a8", key: r[key], "ms": r["ms"],
+                  "max_abs_err": r["max_abs_err"],
+                  "max_err_over_limit": r["max_err_over_limit"],
+                  "smem_bytes": r["smem_bytes"]})
+            check(r["within_limit"], f"tuning {kernel} {key}={r[key]} over its limit")
+        blocks = sorted(r[key] for r in recs)
+        at_default = [r["ms"] for r in recs if r[key] == default]
+        emit({"phase": "tuning", "kernel": kernel, "candidates": blocks,
+              "fastest_first": [r[key] for r in recs], "static_pick": pick,
+              "default": default, "default_ms": at_default[0] if at_default else None,
+              "kernel_phase_ms": {m: qk[(kernel, "200_p4", "bfloat16", m)]["ms"]
+                                  for m in ("pallas", "w8a8")},
+              "device_kind": tuning._local_device_kind("cuda"),
+              "committed_rows": len(tuning.TUNED_BLOCKS)})
+        check(pick in blocks and pick == default,
+              f"tuning {kernel}: static pick {pick} not the default {default} in {blocks}")
+    check(not tuning.TUNED_BLOCKS, f"tuning: rows committed {tuning.TUNED_BLOCKS}")
+    emit({"phase": "tuning", "seconds": time.perf_counter() - t0})
 
 
 def phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant):
@@ -4368,6 +4544,7 @@ def main() -> int:
     bwd = phase_kernels_bwd(torch, fa)
     phase_bwd_large_logits(torch, fa)
     qk = phase_kernels_quant(torch, fa, quant)
+    phase_tuning(torch, qk)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
     eng, config, serve_launches, serve_report = phase_serve(torch, model, fa, serve)
     profile_report = phase_profile(torch, eng, config)
@@ -4399,6 +4576,7 @@ def main() -> int:
     train_model, state, step, batch, gen, train_launches = phase_train(torch, fa)
     phase_train_profile(torch, train_model, state, step, batch, gen)
     del train_model, state, step
+    new_paths.update(phase_train_dispatch(torch, fa))
     phase_train_nan(torch)
     data_root, tier = phase_native(torch)
     remat_launches = phase_train_remat(torch, fa)

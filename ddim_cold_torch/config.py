@@ -28,9 +28,11 @@ counterparts of a ``jax.profiler`` trace and ``jax_debug_nans``);
 ``num_gpus: N`` or ``mesh: {model: m, pipe: p, data: d, seq: s, expert:
 e}`` (with ``sp_mode: ring | ulysses`` and ``microbatches``) trains one
 process per device (``train/trainer.py``, ``parallel/``); ``num_experts``
-> 1 trains the Switch-MoE model (``models/moe.py``). The port's trainer
-refuses those whose slice has not landed (``steps_per_dispatch`` > 1,
-``flash_blocks``), naming the ROADMAP.md item.
+> 1 trains the Switch-MoE model (``models/moe.py``);
+``steps_per_dispatch: n`` runs n optimizer steps a call
+(``train/step.py``); ``flash_blocks: [block_q, block_kv]`` reaches the
+model (``models/vit.py``: the w8a8 requant block and the blockwise route's
+key block; the CUDA kernels' tiles are fixed).
 """
 
 from __future__ import annotations
@@ -151,8 +153,7 @@ class ExperimentConfig:
         return f"{self.exp_name}{self.framework}"
 
     def model_kwargs(self) -> dict[str, Any]:
-        """The model's constructor arguments (``flash_blocks`` is checked by
-        the trainer's ``build_model``)."""
+        """The model's constructor arguments."""
         return dict(
             img_size=tuple(self.image_size),
             patch_size=self.patch_size,
@@ -161,6 +162,7 @@ class ExperimentConfig:
             num_heads=self.head,
             total_steps=self.total_steps,
             use_flash=self.use_flash,
+            flash_blocks=self.flash_blocks,
             use_sincos_pos=self.use_sincos_pos,
             remat=self.remat,
             scan_blocks=self.scan_blocks,

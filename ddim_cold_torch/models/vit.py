@@ -38,9 +38,12 @@ the attention runs as one qkv → flash → proj kernel (``fused_trunk``) when
 forward that needs a gradient through them raises. ``flash_blocks``
 ``(block_q, block_kv)`` is accepted as in JAX: ``block_q`` sets, for
 ``quant="w8a8", fused=True``, the rows over which the attention context is
-requantized (default 512, JAX's fallback off TPU), and ``block_kv`` the
-blockwise route's key block. Every other block size of the JAX package
-changes only the f32 summation order, and the CUDA kernels pick their own.
+requantized, and ``block_kv`` the blockwise route's key block. Without
+them the fused attention's ``block_q`` and the fused Mlp's ``block_m`` come
+from :mod:`ddim_cold_torch.ops.tuning` for the geometry and the kind of the
+device x is on (its table, else JAX's 512 and 256), as JAX's model reads
+its tuning table. Every other block size of the JAX package changes only
+the f32 summation order, and the CUDA kernels run their own tiles.
 
 ``deterministic=False`` is the training forward. It takes an explicit
 ``torch.Generator`` on the model's device and applies, as flax's
@@ -140,6 +143,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ddim_cold_torch.models.init import torch_default_uniform_, trunc_normal_
 from ddim_cold_torch.ops import quant as quant_ops
+from ddim_cold_torch.ops import tuning
 from ddim_cold_torch.ops.flash_attention import (DEFAULT_BLOCK_KV,
                                                  blockwise_attention_xla,
                                                  flash_attention_qkv,
@@ -178,12 +182,6 @@ class TensorShard(NamedTuple):
     group: object
     size: int
     index: int
-
-
-#: JAX's block sizes off TPU: ``NS_FLASH_BLOCKS[0]`` for the fused
-#: attention's w8a8 requant rows, ``mlp_block_m``'s default for the fused Mlp
-DEFAULT_BLOCK_Q = 512
-DEFAULT_BLOCK_M = 256
 
 
 def positionalencoding1d(d_model: int, length: int) -> np.ndarray:
@@ -415,12 +413,18 @@ class Mlp(nn.Module):
                             shard=shard)
         if self.fused and self.quant != "xla" and (generator is None or self.drop == 0.0):
             fc1, fc2 = self.fc1, self.fc2
+            # the tuned block of this geometry on x's device, else JAX's 256
+            # (JAX vit.py:137-138)
+            block_m = tuning.mlp_block_m(
+                x.shape[-1], fc1.out_features,
+                torch.int8 if self.quant == "w8a8" else x.dtype,
+                quant=self.quant is not None, device=x.device)
             if self.quant:
                 return quant_ops.mlp_fused(
                     x, fc1.w_int8, fc1.bias, fc2.w_int8, fc2.bias, scale1=fc1.scale,
-                    scale2=fc2.scale, mode=self.quant, block_m=DEFAULT_BLOCK_M)
+                    scale2=fc2.scale, mode=self.quant, block_m=block_m)
             return quant_ops.mlp_fused(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                                       block_m=DEFAULT_BLOCK_M)
+                                       block_m=block_m)
         x = _dropout(F.gelu(_linear(x, self.fc1), approximate="none"), self.drop,
                      generator, shard=shard)
         return _dropout(_linear(x, self.fc2), self.drop, generator, shard=shard)
@@ -437,7 +441,7 @@ class Attention(nn.Module):
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV,
+                 block_q: Optional[int] = None, block_kv: int = DEFAULT_BLOCK_KV,
                  shard: Optional[pmesh.SeqShard] = None):
         super().__init__()
         self.quant = quant
@@ -498,10 +502,15 @@ class Attention(nn.Module):
             # one kernel: the qkv projection and the context never reach
             # device memory (JAX vit.py:241-265); forward-only
             qkv, proj = self.qkv, self.proj
+            # explicit flash_blocks win, else the tuned block of this
+            # geometry on x's device (JAX vit.py:255-257)
+            block_q = self.block_q or tuning.attn_blocks(
+                N, C, self.num_heads, torch.int8 if self.quant == "w8a8" else x.dtype,
+                device=x.device)[0]
             out = fused_trunk_attention(
                 x, qkv.w_int8, qkv.scale, qkv.bias, proj.w_int8, proj.scale,
                 proj.bias, num_heads=self.num_heads, scale=scale,
-                block_q=self.block_q, mode=self.quant)
+                block_q=block_q, mode=self.quant)
             return _dropout(out, self.proj_drop, generator)
         # (B, N, 3, H, hd) unpack order, as the reference reshape; the flash
         # kernels read q, k, v as strided slices of the projection and write
@@ -582,7 +591,7 @@ class Block(nn.Module):
                  drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0, use_flash: bool = False,
                  quant: Optional[str] = None, fused: bool = False,
-                 block_q: int = DEFAULT_BLOCK_Q, block_kv: int = DEFAULT_BLOCK_KV,
+                 block_q: Optional[int] = None, block_kv: int = DEFAULT_BLOCK_KV,
                  shard: Optional[pmesh.SeqShard] = None, num_experts: int = 1,
                  moe_capacity_factor: float = 1.25, moe_dispatch: str = "einsum"):
         super().__init__()
@@ -751,7 +760,7 @@ class DiffusionViT(nn.Module):
                   qk_scale=qk_scale, drop=drop_rate, attn_drop=attn_drop_rate,
                   drop_path=float(dpr[i]), use_flash=self.use_flash, quant=quant,
                   fused=self.fused,
-                  block_q=int(flash_blocks[0]) if flash_blocks else DEFAULT_BLOCK_Q,
+                  block_q=int(flash_blocks[0]) if flash_blocks else None,
                   block_kv=int(flash_blocks[1]) if flash_blocks else DEFAULT_BLOCK_KV,
                   shard=shard, num_experts=num_experts,
                   moe_capacity_factor=moe_capacity_factor, moe_dispatch=moe_dispatch)
@@ -1216,7 +1225,7 @@ def block_template(model: DiffusionViT, *, seq_manual_axis=None, seq_valid_len=N
                 qkv_bias=model._ctor["qkv_bias"], qk_scale=model._ctor["qk_scale"],
                 drop=model.drop_rate, attn_drop=model.attn_drop_rate, drop_path=0.0,
                 use_flash=model.use_flash, fused=model.fused,
-                block_q=int(model.flash_blocks[0]) if model.flash_blocks else DEFAULT_BLOCK_Q,
+                block_q=int(model.flash_blocks[0]) if model.flash_blocks else None,
                 block_kv=int(model.flash_blocks[1]) if model.flash_blocks else DEFAULT_BLOCK_KV,
                 shard=model.shard, num_experts=model.num_experts,
                 moe_capacity_factor=model.moe_capacity_factor,

@@ -513,6 +513,10 @@ def blockwise_attention_xla(q, k, v, scale: float,
 
 #: quant modes of the fused trunk attention (w8a16 and w8a8)
 FUSED_MODES = ("pallas", "w8a8")
+#: JAX's (block_q, block_kv) where no tuned entry exists
+#: (``ddim_cold_tpu/ops/flash_attention.py:66``): ``block_q`` is the w8a8
+#: requant block here; the kernel's key tile is fixed
+NS_FLASH_BLOCKS = (512, 4096)
 #: query rows of one unit of ``csrc/fused_trunk.cu`` (a CTA in float32, a
 #: warpgroup in bfloat16); 8 units (512 rows) form a thread-block cluster
 #: sharing each key slice's projection, and a w8a8 ``block_q`` is

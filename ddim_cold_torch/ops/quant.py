@@ -466,6 +466,18 @@ MLP_ROWS = {torch.float32: 32, torch.bfloat16: 128}
 MLP_BLOCK_UNIT = 32
 
 
+def w8a8_block_m(block_m: int, M: int) -> int:
+    """The requant block of the w8a8 fused Mlp for a requested ``block_m``
+    over M rows: JAX's ``legal_block(block_m, M, int8)``, or a ValueError
+    where the kernel cannot take it (not a multiple of
+    :data:`MLP_BLOCK_UNIT`, or more than 8 of them)."""
+    bm = tiling.legal_block(block_m, M, torch.int8)
+    if bm % MLP_BLOCK_UNIT or bm > 8 * MLP_BLOCK_UNIT:
+        raise ValueError(f"the w8a8 kernel takes block_m a multiple of "
+                         f"{MLP_BLOCK_UNIT} up to {8 * MLP_BLOCK_UNIT}, got {bm}")
+    return bm
+
+
 def mlp_geometry(M: int, block_m: int, cta_rows: int) -> tuple[int, int]:
     """Launch geometry of the w8a8 fused Mlp: ``(rows, cluster)``. The CTAs
     of one thread-block cluster cover ``lcm(block_m, cta_rows)`` rows, so
@@ -713,10 +725,7 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         x2, xs = quantize_act(x)
         x2 = x2.reshape(-1, K)
         s1 = (scale1.float() * xs).contiguous()
-        bm = tiling.legal_block(block_m, M, torch.int8)
-        if bm % MLP_BLOCK_UNIT or bm > 8 * MLP_BLOCK_UNIT:
-            raise ValueError(f"the w8a8 kernel takes block_m a multiple of "
-                             f"{MLP_BLOCK_UNIT} up to {8 * MLP_BLOCK_UNIT}, got {bm}")
+        bm = w8a8_block_m(block_m, M)
         # the padded rows of M's last tile count in its amax
         rows, cluster = mlp_geometry(M, bm, MLP_ROWS[cdt])
     else:

@@ -7,7 +7,9 @@ size changes only the f32 summation order. In the w8a8 mode it changes the
 value. The fused Mlp requantises its hidden activation per ``block_m`` rows
 and the fused trunk attention requantises its context per ``block_q``
 rows, so the port must cut those row blocks exactly where the JAX package
-does, and the JAX package cuts them with ``legal_block``.
+does, and the JAX package cuts them with ``legal_block``. A block the
+tuner offers is one ``legal_block`` leaves as it is (:func:`is_legal`), so
+the block it times is the block the kernel runs.
 """
 
 from __future__ import annotations
@@ -38,3 +40,9 @@ def legal_block(requested: int, dim: int, dtype: torch.dtype) -> int:
         raise ValueError(f"array dim must be >= 1, got {dim}")
     unit = sublane_unit(dtype)
     return min(round_up(requested, unit), round_up(dim, unit))
+
+
+def is_legal(block: int, dim: int, dtype: torch.dtype) -> bool:
+    """True when ``legal_block`` returns ``block`` unchanged for an array dim
+    of ``dim`` (a fixed point: the requested block is the one that runs)."""
+    return block >= 1 and legal_block(block, dim, dtype) == block

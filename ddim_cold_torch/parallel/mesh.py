@@ -158,26 +158,30 @@ def data_axis_size(mesh) -> int:
     return axis_size(mesh, "data")
 
 
-def shard_rows(x, mesh, axis: str = "data"):
+def shard_rows(x, mesh, axis: str = "data", dim: int = 0):
     """This rank's rows of ``x`` (tensor or array) along ``axis``: block
-    ``axis_index`` of ``axis_size`` equal blocks of the leading dim."""
+    ``axis_index`` of ``axis_size`` equal blocks of dim ``dim``."""
     parts = axis_size(mesh, axis)
     if parts == 1:
         return x
-    n = x.shape[0]
+    n = x.shape[dim]
     if n % parts:
         raise ValueError(f"batch of {n} rows does not divide over the '{axis}' "
                          f"axis ({parts})")
     b = n // parts
     i = axis_index(mesh, axis)
-    return x[i * b:(i + 1) * b]
+    return x[(slice(None),) * dim + (slice(i * b, (i + 1) * b),)]
 
 
-def shard_batch(batch, mesh):
+def shard_batch(batch, mesh, grouped: bool = False):
     """This rank's rows of a global batch (a tuple of tensors or arrays)
     along ``data``, the whole batch along ``seq`` (every seq rank of a data
-    row reads the same rows): the port's ``shard_batch``."""
-    return tuple(shard_rows(x, mesh) for x in batch)
+    row reads the same rows): the port's ``shard_batch``. ``grouped``: the
+    batch carries a leading steps-per-dispatch axis
+    (``train.step.make_train_step``), which stays whole; ``data`` splits
+    the per-step rows behind it, so a rank holds its shard of every inner
+    step (JAX's ``batch_sharding(grouped=True)``)."""
+    return tuple(shard_rows(x, mesh, dim=1 if grouped else 0) for x in batch)
 
 
 class SeqShard(NamedTuple):

@@ -32,6 +32,7 @@ the token cache's selection and the probe under sequence parallelism
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import pickle
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ddim_cold_torch.data.loader import group_batches
 from ddim_cold_torch.parallel import mesh as pmesh
 
 
@@ -238,13 +240,27 @@ def model_forward(dev, spec: dict, cfg: dict, state_dict: dict, x, t,
     return {"out": _np(out), "sp_mode": model.sp_mode}
 
 
+def _step_calls(batches: list, n: int, mesh, dev):
+    """``(this rank's batch, generator)`` of each step call: a batch a call,
+    or every ``n`` stacked into one call of ``n`` steps (``shard_batch(
+    grouped=True)``: the rank's rows of every inner step); a fresh
+    generator every step."""
+    for batch in group_batches(batches, n):
+        local = tuple(torch.from_numpy(a).to(dev)
+                      for a in pmesh.shard_batch(batch, mesh, grouped=n > 1))
+        yield local, ((lambda _: torch.Generator(device=dev)) if n > 1
+                      else torch.Generator(device=dev))
+
+
 def train_steps(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr: float,
                 total_steps: int, sp_mode: Optional[str] = None,
-                grad_accum: int = 1) -> dict:
+                grad_accum: int = 1, steps_per_dispatch: int = 1) -> dict:
     """``train.step`` on ``mesh``: each batch's rows of this rank (the whole
     batch on seq ranks), the model sequence-parallel when ``sp_mode`` is
-    given. Returns the losses, the global gradient norms the clip saw and
-    the parameters by name."""
+    given. ``steps_per_dispatch`` n > 1 stacks every n batches into one
+    call (``shard_batch(grouped=True)``: the rank's rows of each inner
+    step). Returns the losses (one a call), the global gradient norms the
+    clip saw last in each call and the parameters by name."""
     from ddim_cold_torch.models import DiffusionViT
     from ddim_cold_torch.train.step import create_train_state, make_train_step
 
@@ -259,12 +275,12 @@ def train_steps(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr:
                           strict=True)
     state = create_train_state(model, lr, total_steps)
     pmesh.shard_train_state(state)
-    step = make_train_step(model, grad_accum=grad_accum, mesh=mesh)
+    step = make_train_step(model, grad_accum=grad_accum, mesh=mesh,
+                           steps_per_dispatch=steps_per_dispatch)
     rec = torch.tensor(5.0, device=dev)
     losses, norms = [], []
-    for batch in batches:
-        local = tuple(torch.from_numpy(a).to(dev) for a in pmesh.shard_batch(batch, mesh))
-        state, loss, rec = step(state, local, torch.Generator(device=dev), rec)
+    for local, gen in _step_calls(batches, steps_per_dispatch, mesh, dev):
+        state, loss, rec = step(state, local, gen, rec)
         losses.append(float(loss))
         norms.append(float(state.grad_norm))
     return {"losses": losses, "grad_norms": norms, "rec": float(rec),
@@ -339,14 +355,15 @@ def tp_pp_grads(dev, spec: dict, cfg: dict, state_dict: dict, x, t,
 def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr: float,
                 total_steps: int, sp_mode: Optional[str] = None, n_microbatch: int = 2,
                 ema_decay: float = 0.0, moe_aux_weight: float = 0.0,
-                aux_inputs: Optional[tuple] = None) -> dict:
+                aux_inputs: Optional[tuple] = None, steps_per_dispatch: int = 1) -> dict:
     """``train.step`` of the sharded model on ``spec``'s mesh (the pipelined
     apply under ``pipe``; ``moe_aux_weight`` for a Switch-MoE ``cfg``): the
     losses, the global norms the clip saw and the whole parameters (and EMA
     shadow) after the steps, gathered. ``aux_inputs`` ``(x, t)``: also the
     Switch load-balance aux of the deterministic forward of this rank's rows
     of them before the steps (the pipelined apply's, or the statistics
-    summed over the data and seq ranks)."""
+    summed over the data and seq ranks). ``steps_per_dispatch`` n > 1: every
+    n batches in one call, as :func:`train_steps` runs them."""
     from ddim_cold_torch.models import moe
     from ddim_cold_torch.parallel.layout import layout_for_mesh
     from ddim_cold_torch.train.step import _Reducer, create_train_state, make_train_step
@@ -356,7 +373,8 @@ def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr:
     state = pmesh.shard_train_state(
         create_train_state(model, lr, total_steps, ema_decay=ema_decay), mesh)
     step = make_train_step(model, apply_fn, ema_decay=ema_decay,
-                           moe_aux_weight=moe_aux_weight, mesh=mesh)
+                           moe_aux_weight=moe_aux_weight, mesh=mesh,
+                           steps_per_dispatch=steps_per_dispatch)
     aux = None
     if aux_inputs is not None:
         records = []
@@ -366,9 +384,8 @@ def tp_pp_train(dev, spec: dict, cfg: dict, state_dict: dict, batches: list, lr:
             aux = float(moe.mean_load_balance(records, _Reducer(model, mesh).groups))
     rec = torch.tensor(5.0, device=dev)
     losses, norms = [], []
-    for batch in batches:
-        local = tuple(torch.from_numpy(a).to(dev) for a in pmesh.shard_batch(batch, mesh))
-        state, loss, rec = step(state, local, torch.Generator(device=dev), rec)
+    for local, gen in _step_calls(batches, steps_per_dispatch, mesh, dev):
+        state, loss, rec = step(state, local, gen, rec)
         losses.append(float(loss))
         norms.append(float(state.grad_norm))
     names = state.names
@@ -911,7 +928,8 @@ def _sync(dev) -> None:
 def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch: int,
                seed: int, lr: float, total_steps: int, trace_dir: Optional[str] = None,
                microbatches: Optional[dict] = None, checkpoint_dir: Optional[str] = None,
-               model_extra: Optional[dict] = None, moe_aux_weight: float = 0.0) -> dict:
+               model_extra: Optional[dict] = None, moe_aux_weight: float = 0.0,
+               dispatch: Optional[dict] = None) -> dict:
     """Training steps of the full-width model on each layout ``(name, mesh,
     sp_mode or None)``, built as the trainer builds it (sharded over
     ``model``/``pipe``, the pipelined apply under ``pipe`` with
@@ -933,7 +951,13 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
     model (``strict=True``), and its largest gap to the one-process twin's
     parameters, in units of lr, recorded. ``model_extra[name]``: model
     options of that layout on top of ``model_cfg`` (a Switch-MoE bank: both
-    sides then step with ``moe_aux_weight``)."""
+    sides then step with ``moe_aux_weight``). ``dispatch[name]`` = n > 1:
+    that layout calls the step with ``steps_per_dispatch=n`` on n stacked
+    batches a call (each rank its rows of every inner step,
+    ``shard_batch(grouped=True)``), ``warm`` + ``steps`` calls; the
+    one-process twin takes the same batches one step a call, and a record
+    holds the call's mean loss against the mean of the twin's n losses,
+    the last inner step's gradient norm against the twin's."""
     from ddim_cold_torch.models import DiffusionViT
     from ddim_cold_torch.obs import attrib
     from ddim_cold_torch.ops import degrade
@@ -948,10 +972,12 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
     rank = dist.get_rank()
     size = int(model_cfg["img_size"][0])
     prepare = degrade.make_cold_prepare(size, max_step=7, chain=True)
-    host = cold_batches(warm + steps + 1, batch, seed, size)
+    most = max((dispatch or {}).values(), default=1)
+    host = cold_batches((warm + steps) * most + 1, batch, seed, size)
     out = {}
     for name, spec, mode in layouts:
         cfg = dict(model_cfg, **(model_extra or {}).get(name, {}))
+        n = (dispatch or {}).get(name, 1)
         aux_weight = moe_aux_weight if cfg.get("num_experts", 1) > 1 else 0.0
         mesh = pmesh.make_mesh(spec, device=dev)
         sharded = bool(model_axes(mesh))
@@ -961,7 +987,7 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
                 name, 2 * pmesh.axis_size(mesh, "pipe")))
         state = pmesh.shard_train_state(create_train_state(model, lr, total_steps), mesh)
         step = make_train_step(model, apply_fn, prepare=prepare, mesh=mesh,
-                               moe_aux_weight=aux_weight)
+                               moe_aux_weight=aux_weight, steps_per_dispatch=n)
         stream = pmesh.axis_index(mesh, "data") if pmesh.data_axis_size(mesh) > 1 else None
         rec = torch.tensor(5.0, device=dev)
 
@@ -981,10 +1007,13 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
         times, per_step = [], []
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        for i, (base, t) in enumerate(host[:warm + steps]):
+        for i in range(warm + steps):
+            group = host[i * n:(i + 1) * n]
+            call = next(group_batches(group, n))
             local = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                          for a in pmesh.shard_batch((base, t), mesh))
-            gen = step_generator(seed, state.step, dev, stream)
+                          for a in pmesh.shard_batch(call, mesh, grouped=n > 1))
+            gen = (functools.partial(step_generator, seed, device=dev, data_index=stream)
+                   if n > 1 else step_generator(seed, state.step, dev, stream))
             before = dict(fa.LAUNCHES)
             _sync(dev)
             t0 = time.perf_counter()
@@ -997,9 +1026,13 @@ def card_train(dev, layouts: list, model_cfg: dict, warm: int, steps: int, batch
                 counts = {k: counts[k] + got[k] for k in counts}
             cur = whole()
             if rank == 0:
-                full = (torch.from_numpy(base).to(dev), torch.from_numpy(t).to(dev))
-                ref_state, ref_loss, ref_rec = ref_step(
-                    ref_state, full, step_generator(seed, ref_state.step, dev), ref_rec)
+                ref_losses = []
+                for base, t in group:
+                    full = (torch.from_numpy(base).to(dev), torch.from_numpy(t).to(dev))
+                    ref_state, ref_loss, ref_rec = ref_step(
+                        ref_state, full, step_generator(seed, ref_state.step, dev), ref_rec)
+                    ref_losses.append(ref_loss)
+                ref_loss = torch.stack(ref_losses).mean()
                 names = list(p0)
                 upd = [cur[n].to(dev) - p0[n] for n in names]
                 rupd = [dict(ref.named_parameters())[n].detach() - p0[n] for n in names]

@@ -298,8 +298,17 @@ def make_train_step(model, apply_fn: Optional[Callable] = None,
     ``parallel.pipeline.make_pipelined_apply``). ``moe_aux_weight`` > 0 adds
     the Switch load-balance term for a model with expert banks (see the
     module); an ``apply_fn`` must then thread the ``losses`` list (set
-    ``.supports_losses``, as the pipelined apply does). ``steps_per_dispatch``
-    > 1 belongs to a later slice and raises.
+    ``.supports_losses``, as the pipelined apply does).
+
+    ``steps_per_dispatch`` n > 1 changes the contract, as in JAX: every
+    leaf of ``batch`` gains a leading axis of n (n stacked per-step
+    batches), one call runs n full optimizer steps and returns the mean of
+    their losses, and ``generator`` is a callable ``step → Generator``
+    called at the update count before each inner step (the trainer's
+    :func:`step_generator`, as JAX folds each inner step's key off
+    ``state.step``). The call is n single calls made with those generators,
+    the same launches in the same order: states and losses equal bit for
+    bit. It is a plain loop, not a captured graph.
     """
     moe_on = moe_aux_weight > 0 and getattr(model, "num_experts", 1) > 1
     if (moe_on and apply_fn is not None
@@ -308,13 +317,9 @@ def make_train_step(model, apply_fn: Optional[Callable] = None,
             "moe_aux_weight requires an apply path that threads the "
             "'losses' collection — model.apply, or a custom apply_fn that "
             "sets .supports_losses (e.g. make_pipelined_apply)")
-    if steps_per_dispatch != 1:
-        if steps_per_dispatch < 1:
-            raise ValueError(
-                f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 is ROADMAP.md Queue 1 item 11 (training: "
-            "multi-step dispatch, a CUDA-graph capture of the step)")
+    if steps_per_dispatch < 1:
+        raise ValueError(
+            f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if not 0.0 <= ema_decay < 1.0:
@@ -379,7 +384,24 @@ def make_train_step(model, apply_fn: Optional[Callable] = None,
                 torch._foreach_add_(state.ema_params, params, alpha=step_size)
         return state, loss, loss_rec * 0.99 + loss * 0.01
 
-    return train_step
+    if steps_per_dispatch == 1:
+        return train_step
+
+    def multi_step(state: TrainState, stacked_batch, generator, loss_rec: torch.Tensor):
+        for leaf in stacked_batch:
+            if leaf.shape[0] != steps_per_dispatch:
+                raise ValueError(
+                    f"a batch of steps_per_dispatch={steps_per_dispatch} steps needs "
+                    f"every leaf's leading axis of that length, got {tuple(leaf.shape)}")
+        losses = []
+        for i in range(steps_per_dispatch):
+            state, loss, loss_rec = train_step(
+                state, tuple(leaf[i] for leaf in stacked_batch), generator(state.step),
+                loss_rec)
+            losses.append(loss)
+        return state, torch.stack(losses).mean(), loss_rec
+
+    return multi_step
 
 
 def make_eval_step(model, apply_fn: Optional[Callable] = None,

@@ -69,7 +69,18 @@ it (JAX's check, trainer.py:263-268). As in JAX, an MoE run writes no
 ``initializing`` file persists the init in the checkpoint format instead,
 with JAX's log line, and reads it back on the next run.
 
-``flash_blocks`` (ROADMAP.md Queue 1 item 17) raises, naming its item.
+``flash_blocks`` reaches the model (the w8a8 requant block and the
+blockwise route's key block; the CUDA kernels' tiles are fixed, so a flash
+run with them trains what one without them trains). ``steps_per_dispatch:
+n`` stacks n loader batches into one call of n optimizer steps
+(``data/loader.group_batches``, ``train/step.make_train_step``) with JAX's
+rules (trainer.py:347-356, :453-467, :498-530): an epoch's tail shorter
+than n is dropped and the cosine schedule is sized to the steps that run,
+(batches // n)·n an epoch; an n larger than an epoch, or a ``max_steps``
+not reachable in whole dispatches from the (possibly resumed) start step,
+raises; the log line, the stop vote and the profiling window fire when a
+dispatch crosses their step boundary. Each inner step draws from its own
+step's generator, so a dispatch is n single steps bit for bit.
 """
 
 from __future__ import annotations
@@ -87,7 +98,7 @@ import torch.distributed as dist
 
 from ddim_cold_torch.config import ExperimentConfig
 from ddim_cold_torch.data import ColdDownSampleDataset, DiffusionDataset, ShardedLoader
-from ddim_cold_torch.data.loader import device_prefetch
+from ddim_cold_torch.data.loader import device_prefetch, group_batches
 from ddim_cold_torch.models import DiffusionViT
 from ddim_cold_torch.ops import degrade
 from ddim_cold_torch.parallel import mesh as pmesh
@@ -190,13 +201,6 @@ class _AsyncSaver:
             raise e
 
 
-def _refuse_later(config: ExperimentConfig) -> None:
-    if config.flash_blocks is not None:
-        raise NotImplementedError(
-            "flash_blocks is not ported yet: ROADMAP.md Queue 1 item 17 (tuning: "
-            "the CUDA kernels' tiles are fixed)")
-
-
 def _check_expert_axis(config: ExperimentConfig, shape: Optional[dict]) -> None:
     """JAX's check of an ``expert`` mesh axis (trainer.py:263-268)."""
     exp_size = int((shape or {}).get("expert", 1))
@@ -230,7 +234,6 @@ def build_model(config: ExperimentConfig, device=None, mesh=None) -> DiffusionVi
     axis makes it tensor-parallel (heads sharded inside the sequence-parallel
     attention too), a ``pipe`` axis builds the stacked layout with this
     rank's stage of blocks (``parallel.layout.model_axes``)."""
-    _refuse_later(config)
     kwargs = dict(config.model_kwargs())
     names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
     if "seq" in names:
@@ -347,7 +350,6 @@ def run(config: ExperimentConfig, base_dir: str, *, max_steps: Optional[int] = N
     process each (see the module); under torchrun this process is one of
     them."""
     dev = resolve_device(device)
-    _refuse_later(config)
     run_dir = os.path.join(base_dir, "Saved_Models", config.run_name)
     os.makedirs(run_dir, exist_ok=True)
     launched = "RANK" in os.environ
@@ -448,7 +450,15 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
     if train_batches == 0:
         raise ValueError("dataset smaller than one global batch (drop_last)")
 
-    state = create_train_state(model, config.lr, train_batches * config.epoch[1])
+    # the cosine runs the steps that will run: a grouped epoch drops its
+    # tail shorter than steps_per_dispatch (JAX trainer.py:347-356)
+    spd = config.steps_per_dispatch
+    steps_per_epoch = (train_batches // spd) * spd
+    if steps_per_epoch == 0:
+        raise ValueError(
+            f"steps_per_dispatch {spd} exceeds the "
+            f"{train_batches} batches in an epoch — every epoch would drop")
+    state = create_train_state(model, config.lr, steps_per_epoch * config.epoch[1])
 
     # warm start (the reference's `initializing` key): load if present, else
     # persist this init for future runs
@@ -514,18 +524,28 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
     _, apply_fn = layout_for_mesh(model, mesh, n_microbatch=n_micro) if (
         mesh is not None) else (None, None)
 
+    if max_steps is not None and spd > 1 and max_steps > steps and (max_steps - steps) % spd:
+        # a bound between dispatches would run up to spd - 1 steps past it
+        raise ValueError(
+            f"max_steps={max_steps} is not reachable in whole dispatches of "
+            f"steps_per_dispatch={spd} from start step {steps}; the dispatch "
+            "granularity makes the bound inexact — use a compatible bound, "
+            "or steps_per_dispatch=1")
     train_step = make_train_step(model, apply_fn, prepare=prepare,
                                  ema_decay=config.ema_decay,
                                  grad_accum=config.grad_accum,
                                  moe_aux_weight=(config.moe_aux_weight
                                                  if config.num_experts > 1 else 0.0),
-                                 steps_per_dispatch=config.steps_per_dispatch,
+                                 steps_per_dispatch=spd,
                                  mesh=mesh)
     eval_step = make_eval_step(model, apply_fn, prepare=eval_prepare)
     writer = ScalarWriter(run_dir) if rank0 else None
     # the data coordinate separates the data ranks' streams; seq ranks of a
     # row share theirs (and one device folds in nothing)
     stream = data_index if data > 1 else None
+
+    def generator_of(step: int) -> torch.Generator:
+        return step_generator(config.seed, step, dev, stream)
 
     vloss = float("nan")
     loss_rec_dev = torch.tensor(loss_rec, dtype=torch.float32, device=dev)
@@ -544,16 +564,22 @@ def _train(config: ExperimentConfig, base_dir: str, shape: Optional[dict],
             profiling.start_trace(os.path.join(run_dir, "trace"))
         for epoch in range(epoch_start, config.epoch[1]):
             train_loader.set_epoch(epoch)
-            for batch in device_prefetch(train_loader, dev):
-                generator = step_generator(config.seed, state.step, dev, stream)
-                state, _, loss_rec_dev = train_step(state, batch, generator, loss_rec_dev)
-                steps += 1
+            # n loader batches a dispatch; the log, the stop vote and the
+            # profiling window fire when a dispatch crosses their boundary
+            for batch in device_prefetch(
+                    group_batches(train_loader, spd) if spd > 1 else train_loader, dev):
+                state, _, loss_rec_dev = train_step(
+                    state, batch, generator_of if spd > 1 else generator_of(state.step),
+                    loss_rec_dev)
+                prev_steps = steps
+                steps += spd
+                crossed = steps // log_every > prev_steps // log_every
                 if profiling_until and steps >= profiling_until:
                     float(loss_rec_dev)  # the window's device work is done
                     if rank0:
                         profiling.stop_trace()
                     profiling_until = 0
-                if steps % log_every == 0:
+                if crossed:
                     loss_rec = float(loss_rec_dev)  # the only per-step host sync
                     time_end = time.time()
                     log(f"steps: {steps:8d} loss: {loss_rec:.4f} "

@@ -747,3 +747,69 @@ def test_two_ranks_on_the_card_attend_as_one_process(cuda_device):
         for got in ranks:
             err = (torch.from_numpy(got["out"]) - ref).abs()
             assert bool((err <= limit).all()), (fn, float(err.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_tuning_candidate_matches_plain(cuda_device, dtype):
+    """The w8a8 sweeps of ``ops/tuning.py`` at B=2, N=513, C=256, 4 heads
+    (M = 1,026 rows): every candidate block launches and is held to its
+    plain version at the same block within ``quant.trunk_error_limit`` (the
+    sweeps raise otherwise): ``fused_trunk`` at 64, 128, 256 and 512 rows,
+    ``mlp_fused`` at 32, 64, …, 256."""
+    from ddim_cold_torch.ops import tuning
+
+    attn = tuning.autotune_attn(2, 513, 256, 4, dtype, mode="w8a8", iters=2,
+                                device=cuda_device)
+    assert sorted(r["block_q"] for r in attn) == [64, 128, 256, 512]
+    mlp = tuning.autotune_mlp(2 * 513, 256, 256, dtype, mode="w8a8", iters=2,
+                              device=cuda_device)
+    assert sorted(r["block_m"] for r in mlp) == list(range(32, 257, 32))
+    assert all(r["within_limit"] and r["ms"] > 0 for r in attn + mlp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_n_step_dispatch_is_bitwise_single_steps(cuda_device, dtype):
+    """Four steps of a 64 px, patch 4 flash model (B=2, 257 tokens, 4 heads
+    of 64, dropout and drop path 0.1, attention dropout 0) as two dispatches
+    of ``steps_per_dispatch=2`` and as four single calls, each step's
+    generator from its step: parameters, moments, losses and the EMA loss
+    bit for bit, each flash kernel launched once a block and step."""
+    from ddim_cold_torch.models import DiffusionViT
+    from ddim_cold_torch.train.step import (create_train_state, make_train_step,
+                                            step_generator)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    batches = [(torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randn((2, 64, 64, 3), generator=gen, device=cuda_device),
+                torch.randint(0, 2000, (2,), generator=gen, device=cuda_device))
+               for _ in range(4)]
+    got = {}
+    for n in (1, 2):
+        model = DiffusionViT(img_size=(64, 64), patch_size=4, embed_dim=256, depth=2,
+                             num_heads=4, dtype=dtype, use_flash=True, attn_drop_rate=0.0,
+                             seed=5, device=cuda_device)
+        state = create_train_state(model, 1e-3, 10)
+        step = make_train_step(model, steps_per_dispatch=n)
+        rec = torch.tensor(5.0, device=cuda_device)
+        before = dict(fa.LAUNCHES)
+        losses = []
+        for i in range(0, 4, n):
+            if n == 1:
+                state, loss, rec = step(state, batches[i],
+                                        step_generator(7, state.step, cuda_device), rec)
+            else:
+                stacked = tuple(map(torch.stack, zip(*batches[i:i + n])))
+                state, loss, rec = step(state, stacked,
+                                        lambda s: step_generator(7, s, cuda_device), rec)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launched = {k: fa.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        got[n] = (torch.stack(losses), [p.detach().clone() for p in model.parameters()],
+                  [m.clone() for m in state.mu + state.nu], rec, launched)
+    (l1, p1, m1, r1, n1), (l2, p2, m2, r2, n2) = got[1], got[2]
+    assert all(torch.equal(l2[j], l1[2 * j:2 * j + 2].mean()) for j in range(2))
+    assert bool(torch.isfinite(l1).all())
+    assert all(torch.equal(a, b) for a, b in zip(p1 + m1, p2 + m2))
+    assert torch.equal(r1, r2)
+    assert n1 == n2 == {"flash_fwd": 2 * 4, "flash_bwd_dq": 2 * 4, "flash_bwd_dkv": 2 * 4}

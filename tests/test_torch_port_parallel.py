@@ -154,6 +154,13 @@ def _inputs():
     return x, t, batch
 
 
+def _second_batch():
+    rs = np.random.RandomState(4)
+    return (rs.randn(8, 16, 16, 3).astype(np.float32),
+            rs.randn(8, 16, 16, 3).astype(np.float32),
+            rs.randint(1, 7, size=(8,)).astype(np.int32))
+
+
 def _params(cfg):
     model = DiffusionViT(**cfg)
     return jax.device_get(jax.jit(model.init)(
@@ -188,6 +195,12 @@ def world():
             spec=spec, cfg=dict(TINY, **NO_DROP, use_flash=True),
             state_dict=_sd(params[4]), batches=[batch], lr=LR, total_steps=TOTAL,
             sp_mode=mode)))
+    # two steps in one dispatch on a data mesh: each rank's grouped batch is
+    # its rows of both steps (shard_batch(grouped=True))
+    ids.append(("train", "dp2-dispatch2"))
+    cases.append(("train_steps", dict(
+        spec=DP2, cfg=dict(TINY, **NO_DROP, use_flash=True), state_dict=_sd(params[4]),
+        batches=[batch, _second_batch()], lr=LR, total_steps=TOTAL, steps_per_dispatch=2)))
     for key, (spec, mode, fn, kw, depth) in SAMPLE.items():
         ids.append(("sample", key))
         cases.append(("sample", dict(
@@ -348,9 +361,34 @@ def test_train_step_on_a_mesh_matches_jax(world, case):
                                    err_msg=name)
 
 
+def test_grouped_dispatch_on_a_data_mesh_matches_jax(world):
+    """``steps_per_dispatch=2`` on ``{data: 2}``: JAX's scan over a grouped
+    batch whose dim 1 is sharded on ``data`` (``shard_batch(grouped=True)``),
+    against the port's ranks each holding their rows of both steps; the
+    mean loss and the parameters within the step tolerances above."""
+    _, _, batch = world["inputs"]
+    mesh = _jax_mesh(DP2)
+    model = DiffusionViT(**TINY, **NO_DROP)
+    stacked = tuple(jnp.stack(leaves) for leaves in zip(batch, _second_batch()))
+    state = EmaTrainState.create(apply_fn=model.apply,
+                                 params=jax.tree.map(jnp.asarray, world["params"][4]),
+                                 tx=make_optimizer(LR, TOTAL), ema_params=None)
+    state = shard_train_state(state.replace(step=jnp.asarray(0, jnp.int32)), mesh)
+    step = make_train_step(model, steps_per_dispatch=2)
+    state, loss, _ = step(state, shard_batch(stacked, mesh, grouped=True),
+                          jax.random.PRNGKey(1), jnp.float32(5.0))
+    got = world["by_id"][("train", "dp2-dispatch2")]
+    assert len(got["losses"]) == 1
+    assert got["losses"][0] == pytest.approx(float(loss), rel=1e-5)
+    want = state_dict_from_flax(jax.device_get(state.params), 4)
+    for name, val in got["params"].items():
+        np.testing.assert_allclose(val, want[name].numpy(), rtol=1e-5, atol=3e-3 * LR * 2,
+                                   err_msg=name)
+
+
 def test_train_step_ranks_agree(world):
     """Every rank applies the same update: parameters bit for bit equal."""
-    for case in TRAIN:
+    for case in list(TRAIN) + ["dp2-dispatch2"]:
         ranks = world["all"][("train", case)]
         for r in ranks[1:]:
             assert r["losses"] == ranks[0]["losses"]

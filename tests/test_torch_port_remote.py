@@ -501,33 +501,66 @@ def test_engine_child_without_device_refuses_to_spawn_without_a_card(reaper):
 # ------------------------------------------------------------ fleet failover
 
 
-def test_router_failover_after_kill_is_bitwise_and_respawns(reaper):
-    """Two stub children, r0 SIGKILLed at its second work frame: every
-    ticket completes with its deterministic rows (failover re-placed the
-    dead replica's work), a replacement spawns, and the fleet-wide
-    programs_after_warmup stays 0."""
+#: r0's stub requests outlast the test: whatever the pace of placement, r0
+#: still holds its first ticket when its second work frame kills it. With
+#: r0 at the survivors' 0.2 s, a second frame that reaches r0 after its first
+#: request finished kills a replica that holds nothing; the router then
+#: re-places only the cut submit (no failover owed) and ``failovers`` reads 0.
+R0_HOLDS_S = 60.0
+
+
+def _failover_fleet(reaper, r0_delay_s=R0_HOLDS_S):
+    """Router over two stub children, r0 SIGKILLed at its second work frame."""
     killed = dict(CHILD_ENV, DDIM_COLD_FAULTS="replica.kill:kill:at=1,match=replica:r0|")
-    factory = remote.remote_factory({"backend": "stub", "stub": {"delay_s": 0.2}},
-                                    env=killed, heartbeat_s=0.3, miss_budget=3)
+    factories = {delay: remote.remote_factory(
+        {"backend": "stub", "stub": {"delay_s": delay}}, env=killed, heartbeat_s=0.3,
+        miss_budget=3) for delay in {r0_delay_s, 0.2}}
 
     def tracking(rid):
-        rep = factory(rid)
+        rep = factories[r0_delay_s if rid == "r0" else 0.2](rid)
         reaper.append(rep)
         return rep
 
-    router = Router(tracking, replicas=2, configs=(CFG,), buckets=(4, 8),
-                    drain_timeout_s=10, tick_s=0.02)
+    return Router(tracking, replicas=2, configs=(CFG,), buckets=(4, 8),
+                  drain_timeout_s=10, tick_s=0.02)
+
+
+def _assert_failover(router, reaper):
+    tickets = [(seed, router.submit(seed=seed, n=2)) for seed in range(6)]
+    for seed, t in tickets:
+        np.testing.assert_array_equal(
+            t.result(timeout=30), replica_main.stub_rows(seed, 2, STUB_SHAPE),
+            err_msg=f"seed {seed} not bitwise after failover")
+    assert _poll(lambda: router.health()["retired_replicas"] >= 1)
+    assert _poll(lambda: router.health()["active_replicas"] == 2)
+    h = router.health()
+    assert h["failovers"] >= 1 and h["programs_after_warmup"] == 0
+    assert reaper[0].replica_id == "r0" and reaper[0].crash_reason
+
+
+def test_router_failover_after_kill_is_bitwise_and_respawns(reaper):
+    """Two stub children, r0 SIGKILLed at its second work frame while it
+    holds its first ticket: every ticket completes with its deterministic
+    rows (failover re-placed the dead replica's work), a replacement spawns,
+    and the fleet-wide programs_after_warmup stays 0."""
+    router = _failover_fleet(reaper)
     try:
-        tickets = [(seed, router.submit(seed=seed, n=2)) for seed in range(6)]
-        for seed, t in tickets:
-            np.testing.assert_array_equal(
-                t.result(timeout=30), replica_main.stub_rows(seed, 2, STUB_SHAPE),
-                err_msg=f"seed {seed} not bitwise after failover")
-        assert _poll(lambda: router.health()["retired_replicas"] >= 1)
-        assert _poll(lambda: router.health()["active_replicas"] == 2)
-        h = router.health()
-        assert h["failovers"] >= 1 and h["programs_after_warmup"] == 0
-        assert reaper[0].replica_id == "r0" and reaper[0].crash_reason
+        _assert_failover(router, reaper)
+    finally:
+        router.drain(timeout=15)
+    assert all(rep._proc.poll() is not None for rep in reaper)
+
+
+def test_router_failover_holds_when_r0_is_placed_slowly(reaper):
+    """The same fleet with every submit to r0 held 0.3 s in the parent
+    (``rpc.latency``), longer than a 0.2 s request: r0's second work frame
+    then comes after its first request would have finished. The failover is
+    still owed and counted, because r0 holds that request until the kill."""
+    router = _failover_fleet(reaper)
+    try:
+        with faults.inject(faults.FaultSpec("rpc.latency", "latency", latency_s=0.3,
+                                            match="replica:r0|method:submit|")):
+            _assert_failover(router, reaper)
     finally:
         router.drain(timeout=15)
     assert all(rep._proc.poll() is not None for rep in reaper)

@@ -176,6 +176,12 @@ def world(params):
     cases.append(("tp_pp_train", dict(spec={"data": 2, "model": 2}, cfg=PORT_CFG,
                                       state_dict=sd, batches=[batch, batch], lr=LR,
                                       total_steps=TOTAL, ema_decay=EMA)))
+    # two steps in one dispatch through the pipelined apply, EMA on
+    ids.append(("train", "dp2pp2-dispatch2"))
+    cases.append(("tp_pp_train", dict(spec={"data": 2, "pipe": 2}, cfg=PORT_CFG,
+                                      state_dict=sd, batches=[batch, batch], lr=LR,
+                                      total_steps=TOTAL, ema_decay=EMA,
+                                      steps_per_dispatch=2)))
     ids.append(("sample", "sp2tp2-ulysses"))
     cases.append(("sample", dict(spec={"seq": 2, "model": 2}, cfg=dict(TINY, use_flash=True),
                                  state_dict=sd, x_init=x[:4], sp_mode="ulysses",
@@ -413,6 +419,35 @@ def test_block_template_is_a_block_of_the_model():
 
 
 # ----------------------------------------------------------- train step
+
+
+def test_pipelined_dispatch_matches_jax(world, params):
+    """``steps_per_dispatch=2`` through the pipelined apply on ``{data: 2,
+    pipe: 2}`` (M = 2), EMA on (JAX's ``test_pipelined_steps_per_dispatch_step``,
+    held here to JAX's scan on the same mesh): the mean loss, the whole
+    parameters and the shadow within the train step's tolerances over two
+    steps."""
+    _, _, batch = _inputs()
+    model = DiffusionViT(scan_blocks=True, **TINY, **NO_DROP)
+    mesh = _jax_mesh({"data": 2, "pipe": 2})
+    stacked = jax.tree.map(jnp.asarray, params["stacked"])
+    state = EmaTrainState.create(apply_fn=model.apply, params=stacked,
+                                 tx=make_optimizer(LR, TOTAL),
+                                 ema_params=jax.tree.map(jnp.copy, stacked))
+    state = shard_train_state(state.replace(step=jnp.asarray(0, jnp.int32)), mesh,
+                              pipeline_param_specs(stacked))
+    step = make_train_step(model, make_pipelined_apply(model, mesh, n_microbatch=2),
+                           ema_decay=EMA, steps_per_dispatch=2)
+    grouped = tuple(jnp.stack([jnp.asarray(a)] * 2) for a in batch)
+    state, loss, _ = step(state, shard_batch(grouped, mesh, grouped=True),
+                          jax.random.PRNGKey(1), jnp.float32(5.0))
+    assert int(state.step) == 2
+    want = state_dict_from_flax(jax.device_get(state.params), 4)
+    want_ema = state_dict_from_flax(jax.device_get(state.ema_params), 4)
+    for got in world[("train", "dp2pp2-dispatch2")]:
+        assert got["losses"] == pytest.approx([float(loss)], rel=1e-5)
+        _params_close(got["params"], want, 3e-3 * LR * 2, 1e-5)
+        _params_close(got["ema"], want_ema, 3e-3 * LR * 2, 1e-5)
 
 
 def test_tp_dp_train_step_matches(world, params):

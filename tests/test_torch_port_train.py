@@ -196,8 +196,8 @@ def test_learning_rate_is_optax_cosine_before_the_update():
 
 def test_make_train_step_refuses():
     model = PortViT(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        port_step.make_train_step(model, steps_per_dispatch=2)
+    with pytest.raises(ValueError, match="steps_per_dispatch must be >= 1"):  # JAX's
+        port_step.make_train_step(model, steps_per_dispatch=0)
     moe = PortViT(**TINY, num_experts=2, device="cpu")
     with pytest.raises(ValueError, match="threads the 'losses' collection"):  # JAX's
         port_step.make_train_step(moe, lambda *a, **k: None, moe_aux_weight=0.01)
@@ -289,9 +289,7 @@ def test_config_matches_jax(yaml_name):
     for attr in ("effective_batch", "lr", "total_steps", "run_name",
                  "data_parallel_size"):
         assert getattr(got, attr) == getattr(want, attr)
-    kw = want.model_kwargs()
-    kw.pop("flash_blocks")
-    assert got.model_kwargs() == kw
+    assert got.model_kwargs() == want.model_kwargs()  # flash_blocks included
 
 
 def test_config_validators_match_jax(tmp_path):
@@ -456,19 +454,22 @@ def test_warm_start_refuses_a_mismatched_pkl(trained, synthetic_image_dir):
 
 
 # the expert axis landed with JAX's checks: an expert axis needs num_experts
-# set and divisible by it, and the pipeline refuses a seq axis under MoE
+# set and divisible by it, and the pipeline refuses a seq axis under MoE;
+# flash_blocks and steps_per_dispatch landed and train (a dispatch of 2
+# steps runs to max_steps=2)
 @pytest.mark.parametrize("later,exc,match", [
     (dict(mesh={"expert": 2}), ValueError, r"needs num_experts \(got 1\) set"),
     (dict(mesh={"pipe": 2, "expert": 2}, num_experts=3), ValueError,
      r"needs num_experts \(got 3\) set and divisible"),
-    (dict(flash_blocks=(512, 1024)), NotImplementedError, "ROADMAP.md Queue 1 item 17"),
-    (dict(steps_per_dispatch=2), NotImplementedError, "ROADMAP.md Queue 1 item 11"),
+    (dict(flash_blocks=(512, 1024)), None, None),
+    (dict(steps_per_dispatch=2), None, None),
     (dict(num_experts=2, mesh={"pipe": 1, "seq": 1, "expert": 1}), None, None),
 ])
 def test_trainer_refuses_later_options(tmp_path, synthetic_image_dir, later, exc, match):
     cfg = _tiny_config(synthetic_image_dir, **later)
-    if exc is None:  # an MoE run on a mesh of one device trains
-        assert port_trainer.run(cfg, str(tmp_path), max_steps=1, device="cpu").steps == 1
+    if exc is None:  # trains
+        n = cfg.steps_per_dispatch
+        assert port_trainer.run(cfg, str(tmp_path), max_steps=n, device="cpu").steps == n
         return
     with pytest.raises(exc, match=match):
         port_trainer.run(cfg, str(tmp_path), device="cpu")
