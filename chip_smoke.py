@@ -232,6 +232,20 @@ Phases, one JSON object per line:
    bytes; the static pick in the space and equal to the model's default
    (512, 256), the default's ms beside 11's w8a16 and w8a8 times; the table
    stays empty;
+11c. analysis — the static analysis on the card: ``python -m
+   ddim_cold_torch.analysis`` exits 0 in a child process (no JAX on the
+   card's machine); then at every kernel entry of
+   ``analysis.entries.kernel_entries()`` (all six kernels at the main
+   path's geometry, and a small one each) the P layer's predicted grid,
+   threads, dynamic shared bytes and cluster equal the library's own
+   launch-config query; the built kernel's attributes
+   (``cudaFuncGetAttributes``, blocks an SM holds) pass P001–P003 (static +
+   dynamic shared bytes within the card's limit, at most 255 registers, no
+   spill, registers × threads within 65,536, at least one block an SM) and
+   its registers equal the sass phase's; the kernel launched once at that
+   geometry is held to its plain version at the kernel phases' limit; one
+   record per entry with the predicted and measured bytes, registers,
+   occupancy, device ms and the card's name and power limit;
 12. quant-forward — the full-width model in float32 and bfloat16: each
    quantized or fused forward against the float one, and fused against
    unfused w8a16, within the stated tolerances;
@@ -459,7 +473,7 @@ def _res_usage(text: str) -> dict:
                                 r"SHARED:(\d+) LOCAL:(\d+)", text)}
 
 
-def phase_sass(libs: dict, nvcc: str) -> None:
+def phase_sass(libs: dict, nvcc: str) -> dict:
     """The bfloat16 kernels of every library run their products through
     wgmma (HGMMA in the SASS, and the int8 IGMMA in w8a8) and spill no
     register to local memory; the float32 ones, the exact oracle route,
@@ -493,6 +507,7 @@ def phase_sass(libs: dict, nvcc: str) -> None:
                 check(c["hgmma"] == 0 and c["igmma_s8"] == 0,
                       f"sass {name}: the float32 {fn} runs on the tensor cores")
     emit(rec)
+    return rec
 
 
 def flash_bound(B, N, H, D, dtype_name):
@@ -3405,6 +3420,164 @@ def phase_tuning(torch, qk) -> None:
     emit({"phase": "tuning", "seconds": time.perf_counter() - t0})
 
 
+def _analysis_case(torch, fa, quant, entry):
+    """Inputs at a kernel entry's geometry (bfloat16, from a seed): the
+    kernel's call through its wrapper, its plain version and the limit of
+    each output, as the kernel phases hold them (a tuple of outputs for the
+    dk/dv kernel)."""
+    s, dt = entry.shape, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    if entry.kernel.startswith("flash"):
+        B, N, H, D = s["B"], s["N"], s["H"], s["D"]
+        q, k, v = rand(B, N, 3, H, D).to(dt).unbind(2)  # the model's strided slices
+        scale = D**-0.5
+        if entry.kernel == "flash_fwd":
+            return (lambda: fa.flash_forward(q, k, v, scale)[0],
+                    lambda: fa.flash_forward_reference(q, k, v, scale)[0],
+                    lambda ref, out: fa.o_error_limit(ref))
+        o, lse = fa.flash_forward(q, k, v, scale)
+        do = rand(B, N, H, D).to(dt)
+        delta = fa.backward_delta(o, do)
+        dq, dk, dv = torch.empty((B, N, 3, H, D), dtype=dt, device="cuda").unbind(2)
+        if entry.kernel == "flash_bwd_dq":
+            def run():
+                fa.flash_bwd_dq(q, k, v, do, lse, delta, dq, scale)
+                return dq
+            return (run, lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                    lambda ref, out: fa.grad_error_limit(ref))
+
+        def run():
+            fa.flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale)
+            return dk, dv
+        return (run, lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+                lambda ref, out: fa.grad_error_limit(ref))
+    if entry.kernel == "dequant_mm":
+        x = rand(s["M"], s["K"]).to(dt)
+        codes, scale = quant.quantize_weight(rand(s["N"], s["K"]) * 0.05)
+        b = rand(s["N"]) * 0.1
+        return (lambda: quant.dequant_mm(x, codes, scale, b, dt),
+                lambda: quant.dequant_mm_reference(x, codes, scale, b).to(dt),
+                lambda ref, out: quant.mm_error_limit(x, codes, scale, ref))
+    if entry.kernel == "mlp_fused":
+        M, K, hidden, nout, mode = s["M"], s["K"], s["hidden"], s["Nout"], s["mode"]
+        x = rand(M, K).to(dt)
+        (w1, s1), (w2, s2) = (quant.quantize_weight(rand(r, c) * 0.05)
+                              for r, c in ((hidden, K), (nout, hidden)))
+        if mode is None:
+            w1, w2 = (quant.dequantize_weight(w, sc, dt).float() for w, sc in ((w1, s1), (w2, s2)))
+            kw = dict(block_m=s["block_m"])
+        else:
+            kw = dict(scale1=s1, scale2=s2, mode=mode, block_m=s["block_m"])
+        args = (x, w1, rand(hidden) * 0.1, w2, rand(nout) * 0.1)
+        refs = {}
+
+        def plain():
+            ref, refs["row_scale"] = quant.mlp_fused_reference(*args, **kw,
+                                                               return_row_scale=True)
+            return ref
+        return (lambda: quant.mlp_fused(*args, **kw), plain,
+                lambda ref, out: quant.trunk_error_limit(ref, mode, quant.requant_flip_bound(
+                    refs["row_scale"], w2, s2) if mode == "w8a8" else None))
+    B, N, C, H, mode = s["B"], s["N"], s["C"], s["H"], s["mode"]
+    x = rand(B, N, C).to(dt)
+    (wq, sq), (wp, sp) = (quant.quantize_weight(rand(r, C) * 0.05) for r in (3 * C, C))
+    targs = (x, wq, sq, rand(3 * C) * 0.1, wp, sp, rand(C) * 0.1)
+    kw = dict(num_heads=H, scale=(C // H) ** -0.5, block_q=s["block_q"], mode=mode)
+    refs = {}
+
+    def plain():
+        ref, refs["row_scale"] = fa.fused_trunk_attention_reference(*targs, **kw,
+                                                                    return_row_scale=True)
+        return ref
+    return (lambda: fa.fused_trunk_attention(*targs, **kw), plain,
+            lambda ref, out: quant.trunk_error_limit(ref, mode, quant.requant_flip_bound(
+                refs["row_scale"], wp, sp) if mode == "w8a8" else None))
+
+
+#: ``python -m ddim_cold_torch.analysis`` with JAX, its relatives and the
+#: JAX package made unimportable, whether or not the machine has them
+ANALYSIS_WITHOUT_JAX = """
+import runpy, sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "ddim_cold_tpu"):
+            raise ImportError(name + " is not importable here")
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["python -m ddim_cold_torch.analysis"]
+runpy.run_module("ddim_cold_torch.analysis", run_name="__main__", alter_sys=True)
+"""
+
+
+def phase_analysis(torch, fa, quant, sass: dict, smi: str) -> None:
+    """analysis: ``python -m ddim_cold_torch.analysis`` in a child process
+    where JAX cannot be imported (:data:`ANALYSIS_WITHOUT_JAX`), exit 0;
+    then, at every kernel entry, the P layer's prediction against the
+    library's launch-config query, the built kernel's attributes through
+    P001–P003, its registers against the sass phase's, and one launch held
+    to its plain version."""
+    import importlib.util
+
+    from ddim_cold_torch.analysis import entries as an_entries
+    from ddim_cold_torch.analysis import kernel_checks as kc
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ANALYSIS_WITHOUT_JAX],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    emit({"phase": "analysis", "cli_rc": proc.returncode, "cli_summary": summary,
+          "jax_installed": importlib.util.find_spec("jax") is not None,
+          "seconds": time.perf_counter() - t0})
+    check(proc.returncode == 0, f"analysis: python -m ddim_cold_torch.analysis exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for entry in an_entries.kernel_entries():
+        launch = kc.predict(entry, device_kind=kind, sms=sms)
+        library = kc.card_launch_config(launch)
+        attrs = kc.card_attributes(launch)
+        findings = kc.check_entry(entry, launch, attrs, device_kind=kind)
+        fn = kc.sass_function(launch, sass["libraries"][launch.query[0]])
+        sass_regs = sass["libraries"][launch.query[0]].get(fn, {}).get("reg")
+        run, plain, limit = _analysis_case(torch, fa, quant, entry)
+        with torch.inference_mode():
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        held = [_held(torch, g, r, limit(r, g)) for g, r in zip(got, ref)]
+        with torch.inference_mode():
+            ms = time_ms(torch, run, reps=5, warm=1)
+        rec = {"phase": "analysis", "entry": entry.name, "kernel": entry.kernel,
+               "shape": entry.shape, "logical": entry.logical,
+               "predicted": launch.as_config(), "library": library,
+               "static_smem": attrs["shared"], "dynamic_smem": launch.smem,
+               "max_dynamic_smem": attrs["max_dynamic"],
+               "smem_budget": kc.smem_budget(kind),
+               "regs": attrs["regs"], "sass_function": fn, "sass_regs": sass_regs,
+               "local_bytes": attrs["local"], "max_threads": attrs["max_threads"],
+               "blocks_per_sm": attrs["blocks_per_sm"],
+               "predicted_blocks_per_sm": kc.blocks_per_sm(launch.smem, launch.threads),
+               "findings": [f.render() for f in findings],
+               "max_abs_err": max(h["max_abs_err"] for h in held),
+               "max_err_over_limit": max(h["max_err_over_limit"] for h in held),
+               "ms": ms, "nvidia_smi": smi}
+        emit(rec)
+        what = f"analysis {entry.name}"
+        check(library == launch.as_config(),
+              f"{what}: predicted launch {launch.as_config()} != the library's {library}")
+        check(not findings, f"{what}: {[f.render() for f in findings]}")
+        check(fn is not None and sass_regs == attrs["regs"],
+              f"{what}: numRegs {attrs['regs']} != the sass phase's {sass_regs} ({fn})")
+        for i, h in enumerate(held):
+            _check_held(h, f"{what} output {i}")
+        del run, plain, got, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "analysis", "entries": len(an_entries.kernel_entries()),
+          "seconds": time.perf_counter() - t0})
+
+
 def phase_quant_forward(torch, DiffusionViT, MODEL_CONFIGS, quant):
     """Full-width model: each quantized or fused forward against the float
     one, and fused against unfused w8a16, on the same weights."""
@@ -4538,13 +4711,14 @@ def main() -> int:
         libs = dict(zip(SOURCES, pool.map(_build.load_library, SOURCES)))
     emit({"phase": "build", "libraries": [lib._name for lib in libs.values()],
           "seconds": time.perf_counter() - t0})
-    phase_sass(libs, _build._nvcc())
+    sass = phase_sass(libs, _build._nvcc())
 
     records = phase_kernels(torch, fa)
     bwd = phase_kernels_bwd(torch, fa)
     phase_bwd_large_logits(torch, fa)
     qk = phase_kernels_quant(torch, fa, quant)
     phase_tuning(torch, qk)
+    phase_analysis(torch, fa, quant, sass, smi)
     model = phase_forward(torch, DiffusionViT, MODEL_CONFIGS)
     eng, config, serve_launches, serve_report = phase_serve(torch, model, fa, serve)
     profile_report = phase_profile(torch, eng, config)

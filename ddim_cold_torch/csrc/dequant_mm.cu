@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "gemm_wgmma.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -124,11 +125,17 @@ dequant_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// the launch of the float32 kernel: a CTA per 64×64 output tile, its tiles
+// in static shared memory
+lq::Launch config(int M, int N) {
+  return {(N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1, kThreads, 0, 1};
+}
+
 template <typename T, typename OT>
 cudaError_t launch(const void* x, const void* w, const void* s, const void* b,
                    void* out, int M, int N, int K, int64_t ldx, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  dequant_mm_kernel<T, OT><<<grid, kThreads, 0, stream>>>(
+  const lq::Launch l = config(M, N);
+  dequant_mm_kernel<T, OT><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(s), static_cast<const float*>(b),
       static_cast<OT*>(out), M, N, K, ldx);
@@ -200,16 +207,15 @@ dequant_mm_bf16_wgmma(const __nv_bfloat16* __restrict__ x, const int8_t* __restr
   }
 }
 
+// the launch of the bfloat16 kernel: persistent, as many CTAs as fit the card
+// at once (or one per 128×128 output tile, if fewer), each walking a run of
+// tiles; `vec` says whether scale and bias fit in shared memory beside x
 template <typename OT>
-cudaError_t launch_bf16(const void* x, const void* w, const void* s, const void* b, void* out,
-                        int M, int N, int K, int64_t ldx, cudaStream_t stream) {
-  // x rows and the codes move in 16-byte pieces, at 32-bit offsets
-  if (K % 16 != 0 || ldx % 8 != 0 || static_cast<int64_t>(N) * K >= (1LL << 31)
-      || (reinterpret_cast<uintptr_t>(x) & 15)
-      || (reinterpret_cast<uintptr_t>(w) & 15) || (reinterpret_cast<uintptr_t>(out) & 15))
-    return cudaErrorInvalidValue;
-  const bool vec = bf16_smem_bytes<OT>(N, K, true) <= 232448;  // the most a block may use
-  const size_t smem = bf16_smem_bytes<OT>(N, K, vec);
+cudaError_t config_bf16(int M, int N, int K, lq::Launch* l, bool* vec) {
+  // the codes move in 16-byte pieces, at 32-bit offsets
+  if (K % 16 != 0 || static_cast<int64_t>(N) * K >= (1LL << 31)) return cudaErrorInvalidValue;
+  *vec = bf16_smem_bytes<OT>(N, K, true) <= 232448;  // the most a block may use
+  const size_t smem = bf16_smem_bytes<OT>(N, K, *vec);
   if (smem > 232448) return cudaErrorInvalidValue;
   auto kernel = &dequant_mm_bf16_wgmma<OT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -224,15 +230,69 @@ cudaError_t launch_bf16(const void* x, const void* w, const void* s, const void*
   if (err != cudaSuccess) return err;
   const int items = (M + gm::kRows - 1) / gm::kRows * ((N + gm::kBN - 1) / gm::kBN);
   const int slots = (per_sm > 0 ? per_sm : 1) * sms;
-  const int grid = items < slots ? items : slots;  // persistent: every CTA resident at once
-  kernel<<<grid, gm::kThreads, smem, stream>>>(
+  *l = {items < slots ? items : slots, 1, 1, gm::kThreads, smem, 1};
+  return cudaSuccess;
+}
+
+template <typename OT>
+cudaError_t launch_bf16(const void* x, const void* w, const void* s, const void* b, void* out,
+                        int M, int N, int K, int64_t ldx, cudaStream_t stream) {
+  // x rows move in 16-byte pieces
+  if (ldx % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15)
+      || (reinterpret_cast<uintptr_t>(w) & 15) || (reinterpret_cast<uintptr_t>(out) & 15))
+    return cudaErrorInvalidValue;
+  lq::Launch l;
+  bool vec = false;
+  const cudaError_t err = config_bf16<OT>(M, N, K, &l, &vec);
+  if (err != cudaSuccess) return err;
+  dequant_mm_bf16_wgmma<OT><<<l.gx, l.threads, l.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(s), static_cast<const float*>(b), static_cast<OT*>(out),
       M, N, K, ldx, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
+// the launch and the kernel one dequant_mm call makes (the queries' dispatch)
+cudaError_t plan(int M, int N, int K, int x_dtype, int out_dtype, lq::Launch* l,
+                 const void** fn) {
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  bool vec = false;
+  if (x_dtype == 0 && out_dtype == 0) {
+    *l = config(M, N);
+    *fn = reinterpret_cast<const void*>(dequant_mm_kernel<float, float>);
+    return cudaSuccess;
+  }
+  if (x_dtype == 1 && out_dtype == 0) {
+    *fn = reinterpret_cast<const void*>(dequant_mm_bf16_wgmma<float>);
+    return config_bf16<float>(M, N, K, l, &vec);
+  }
+  if (x_dtype == 1 && out_dtype == 1) {
+    *fn = reinterpret_cast<const void*>(dequant_mm_bf16_wgmma<__nv_bfloat16>);
+    return config_bf16<__nv_bfloat16>(M, N, K, l, &vec);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The launch a dequant_mm call with these shapes makes (launch_query.cuh's
+// layout in out[0..5]), and its kernel's attributes at that launch.
+extern "C" int dequant_mm_launch_config(int M, int N, int K, int x_dtype, int out_dtype,
+                                        long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(M, N, K, x_dtype, out_dtype, &l, &fn);
+  if (err == cudaSuccess) lq::put(l, out);
+  return static_cast<int>(err);
+}
+
+extern "C" int dequant_mm_attributes(int M, int N, int K, int x_dtype, int out_dtype,
+                                     long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(M, N, K, x_dtype, out_dtype, &l, &fn);
+  return static_cast<int>(err == cudaSuccess ? lq::attributes(fn, l, out) : err);
+}
 
 // x (M, K) with row stride ldx (elements) and unit inner stride; w (N, K)
 // int8 contiguous; scale (N,) f32; bias (N,) f32 or null; out (M, N)

@@ -85,6 +85,7 @@
 #include <initializer_list>
 
 #include "attn_wgmma.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -420,17 +421,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the launch of a float32 kernel: a CTA per 64 owned rows of a (batch, head);
+// `slabs` is 1 for dq, 2 for dk/dv
+template <int D>
+lq::Launch config(int B, int N, int H, int slabs) {
+  return {(N + kBlock - 1) / kBlock, B * H, 1, kThreads, smem_bytes<D>(slabs), 1};
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int N,
                       int H, float scale, const int64_t* st, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>(1);
+  const lq::Launch l = config<D>(B, N, H, 1);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBlock - 1) / kBlock, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), N, H, scale,
@@ -444,13 +451,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int B,
                        int N, int H, float scale, const int64_t* st,
                        cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>(2);
+  const lq::Launch l = config<D>(B, N, H, 2);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBlock - 1) / kBlock, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
@@ -701,18 +707,25 @@ inline bool rows_aligned(std::initializer_list<const void*> ptrs, const int64_t*
   return (bits & 15) == 0;
 }
 
+// the launch of a bfloat16 kernel: one warpgroup per 64 owned rows of a
+// (batch, head); `kind` is 1 for dq, 2 for dk/dv
+template <int D>
+lq::Launch config_bf16(int B, int N, int H, int kind) {
+  return {(N + 63) / 64, B * H, 1, wg::kThreads,
+          kind == 1 ? dq_bf16_smem_bytes<D>() : dkv_bf16_smem_bytes<D>(), 1};
+}
+
 template <int D>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int B, int N,
                            int H, float scale, const int64_t* st, cudaStream_t stream) {
   if (!rows_aligned({q, k, v, dout, dq}, st)) return cudaErrorInvalidValue;
-  constexpr size_t smem = dq_bf16_smem_bytes<D>();
+  const lq::Launch l = config_bf16<D>(B, N, H, 1);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + 63) / 64, B * H);
-  flash_bwd_dq_bf16_wgmma<D><<<grid, wg::kThreads, smem, stream>>>(
+  flash_bwd_dq_bf16_wgmma<D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), N, H, scale,
@@ -727,13 +740,12 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
                             int N, int H, float scale, const int64_t* st,
                             cudaStream_t stream) {
   if (!rows_aligned({q, k, v, dout, dk, dv}, st)) return cudaErrorInvalidValue;
-  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
+  const lq::Launch l = config_bf16<D>(B, N, H, 2);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + 63) / 64, B * H);
-  flash_bwd_dkv_bf16_wgmma<D><<<grid, wg::kThreads, smem, stream>>>(
+  flash_bwd_dkv_bf16_wgmma<D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
@@ -742,7 +754,55 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+// the launch and the kernel one flash_bwd_dq (which = 1) or flash_bwd_dkv
+// (which = 2) call makes (the queries' dispatch)
+cudaError_t plan(int which, int B, int N, int H, int D, int dtype, lq::Launch* l,
+                 const void** fn) {
+  if (B < 1 || N < 1 || H < 1 || (which != 1 && which != 2)) return cudaErrorInvalidValue;
+  const bool dq = which == 1;
+  if (dtype == 0 && D == 64) {
+    *l = config<64>(B, N, H, which);
+    *fn = dq ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<float, 64>)
+             : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<float, 64>);
+  } else if (dtype == 0 && D == 32) {
+    *l = config<32>(B, N, H, which);
+    *fn = dq ? reinterpret_cast<const void*>(flash_bwd_dq_kernel<float, 32>)
+             : reinterpret_cast<const void*>(flash_bwd_dkv_kernel<float, 32>);
+  } else if (dtype == 1 && D == 64) {
+    *l = config_bf16<64>(B, N, H, which);
+    *fn = dq ? reinterpret_cast<const void*>(flash_bwd_dq_bf16_wgmma<64>)
+             : reinterpret_cast<const void*>(flash_bwd_dkv_bf16_wgmma<64>);
+  } else if (dtype == 1 && D == 32) {
+    *l = config_bf16<32>(B, N, H, which);
+    *fn = dq ? reinterpret_cast<const void*>(flash_bwd_dq_bf16_wgmma<32>)
+             : reinterpret_cast<const void*>(flash_bwd_dkv_bf16_wgmma<32>);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// The launch a flash_bwd_dq (which = 1) or flash_bwd_dkv (which = 2) call
+// with these shapes makes (launch_query.cuh's layout in out[0..5]), and its
+// kernel's attributes at that launch.
+extern "C" int flash_bwd_launch_config(int which, int B, int N, int H, int D, int dtype,
+                                       long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(which, B, N, H, D, dtype, &l, &fn);
+  if (err == cudaSuccess) lq::put(l, out);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_bwd_attributes(int which, int B, int N, int H, int D, int dtype,
+                                    long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(which, B, N, H, D, dtype, &l, &fn);
+  return static_cast<int>(err == cudaSuccess ? lq::attributes(fn, l, out) : err);
+}
 
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (wgmma; every base
 // pointer 16-byte aligned and every stride a multiple of 8). Strides are in

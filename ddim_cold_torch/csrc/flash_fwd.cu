@@ -54,6 +54,7 @@
 #include <stdint.h>
 
 #include "attn_wgmma.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -230,17 +231,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the launch of the float32 kernel: a CTA per 64 query rows of a (batch, head)
+template <int D>
+lq::Launch config(int B, int N, int H) {
+  return {(N + kBlockQ - 1) / kBlockQ, B * H, 1, kThreads, smem_bytes<D>(), 1};
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int B, int N, int H, float scale, const int64_t* st,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  const lq::Launch l = config<D>(B, N, H);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), N, H, scale,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
@@ -316,6 +322,13 @@ flash_fwd_bf16_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// the launch of the bfloat16 kernel: one warpgroup per 64 query rows of a
+// (batch, head)
+template <int D>
+lq::Launch config_bf16(int B, int N, int H) {
+  return {(N + 63) / 64, B * H, 1, wg::kThreads, bf16_smem_bytes<D>(), 1};
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int N, int H, float scale, const int64_t* st,
@@ -325,13 +338,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
                    | reinterpret_cast<uintptr_t>(v);
   for (int i = 0; i < 9; ++i) bits |= static_cast<uintptr_t>(st[i] * 2);
   if (bits & 15) return cudaErrorInvalidValue;
-  constexpr size_t smem = bf16_smem_bytes<D>();
+  const lq::Launch l = config_bf16<D>(B, N, H);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + 63) / 64, B * H);
-  flash_fwd_bf16_wgmma<D><<<grid, wg::kThreads, smem, stream>>>(
+  flash_fwd_bf16_wgmma<D><<<dim3(l.gx, l.gy), l.threads, l.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), N, H, scale * wg::kLog2e,
@@ -339,7 +351,35 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   return cudaGetLastError();
 }
 
+// the launch and the kernel one flash_fwd call makes (the queries' dispatch)
+cudaError_t plan(int B, int N, int H, int D, int dtype, lq::Launch* l, const void** fn) {
+  if (B < 1 || N < 1 || H < 1) return cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64) *l = config<64>(B, N, H), *fn = reinterpret_cast<const void*>(flash_fwd_kernel<float, 64>);
+  else if (dtype == 0 && D == 32) *l = config<32>(B, N, H), *fn = reinterpret_cast<const void*>(flash_fwd_kernel<float, 32>);
+  else if (dtype == 1 && D == 64) *l = config_bf16<64>(B, N, H), *fn = reinterpret_cast<const void*>(flash_fwd_bf16_wgmma<64>);
+  else if (dtype == 1 && D == 32) *l = config_bf16<32>(B, N, H), *fn = reinterpret_cast<const void*>(flash_fwd_bf16_wgmma<32>);
+  else return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// The launch a flash_fwd call with these shapes makes (launch_query.cuh's
+// layout in out[0..5]), and its kernel's attributes at that launch.
+extern "C" int flash_fwd_launch_config(int B, int N, int H, int D, int dtype, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(B, N, H, D, dtype, &l, &fn);
+  if (err == cudaSuccess) lq::put(l, out);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_fwd_attributes(int B, int N, int H, int D, int dtype, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(B, N, H, D, dtype, &l, &fn);
+  return static_cast<int>(err == cudaSuccess ? lq::attributes(fn, l, out) : err);
+}
 
 // dtype: 0 = float32 (CUDA-core FMAs), 1 = bfloat16 (wgmma; every base
 // pointer 16-byte aligned and every stride a multiple of 8). Strides are in

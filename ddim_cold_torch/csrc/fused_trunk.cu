@@ -78,6 +78,7 @@
 #include <type_traits>
 
 #include "attn_wgmma.cuh"
+#include "launch_query.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -414,24 +415,31 @@ fused_trunk_kernel(const XT* __restrict__ x, const int8_t* __restrict__ wqkv,
   }
 }
 
+// the launch of the float32 kernel: a CTA per 64 query rows of a batch row,
+// clusters of 8 sharing each key chunk's projection
+template <int D>
+lq::Launch config(int B, int H, int rows) {
+  return {rows / kBlockQ, B, 1, kThreads, sizeof(float) * smem_floats<D>(H * D), kCluster};
+}
+
 template <typename T, typename XT, int D, int MODE>
 cudaError_t launch(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                    const void* wp, const void* sp, const void* bp, void* out,
                    int B, int N, int H, int rows, int group, float scale,
                    cudaStream_t stream) {
   auto kernel = fused_trunk_kernel<T, XT, D, MODE>;
-  const size_t smem = sizeof(float) * smem_floats<D>(H * D);
+  const lq::Launch l = config<D>(B, H, rows);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rows / kBlockQ, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(l.gx, l.gy);
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = l.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -776,6 +784,23 @@ __global__ void __launch_bounds__(kBThreads, 1) fused_trunk_w8a8_bf16(FT_BF16_PA
 }
 
 template <int D, int MODE>
+auto bf16_kernel() {
+  auto kernel = &fused_trunk_w8a8_bf16<D>;
+  if constexpr (MODE == 1) kernel = &fused_trunk_w8a16_bf16<D>;
+  return kernel;
+}
+
+// the launch of a bfloat16 kernel: a CTA per 128 query rows (two
+// warpgroups) of a batch row, clusters of 4 (512 rows)
+template <int D, int MODE>
+cudaError_t config_bf16(int B, int H, int rows, lq::Launch* l) {
+  const size_t smem = bf16_smem_bytes<D, MODE>(H * D);
+  if (smem > 232448) return cudaErrorInvalidValue;  // the most a block may use
+  *l = {rows / kBRows, B, 1, kBThreads, smem, kBCluster};
+  return cudaSuccess;
+}
+
+template <int D, int MODE>
 cudaError_t launch_bf16(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                         const void* wp, const void* sp, const void* bp, void* out,
                         int B, int N, int H, int rows, int group, float scale,
@@ -784,21 +809,21 @@ cudaError_t launch_bf16(const void* x, const void* wqkv, const void* sqkv, const
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wqkv)
        | reinterpret_cast<uintptr_t>(wp)) & 15)
     return cudaErrorInvalidValue;
-  auto kernel = &fused_trunk_w8a8_bf16<D>;
-  if constexpr (MODE == 1) kernel = &fused_trunk_w8a16_bf16<D>;
-  const size_t smem = bf16_smem_bytes<D, MODE>(H * D);
-  if (smem > 232448) return cudaErrorInvalidValue;  // the most a block may use
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel = bf16_kernel<D, MODE>();
+  lq::Launch l;
+  cudaError_t err = config_bf16<D, MODE>(B, H, rows, &l);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rows / kBRows, B);
-  cfg.blockDim = dim3(kBThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(l.gx, l.gy);
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kBCluster;
+  attr[0].val.clusterDim.x = l.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -812,7 +837,57 @@ cudaError_t launch_bf16(const void* x, const void* wqkv, const void* sqkv, const
   return cudaGetLastError();
 }
 
+// the entry point's argument checks: C a multiple of 64, rows covering N in
+// whole clusters of 512 rows, a w8a8 group dividing a cluster
+bool valid_args(int B, int N, int H, int D, int rows, int group, int mode) {
+  if (B < 1 || N < 1 || H < 1 || (H * D) % 64 != 0 || rows < N
+      || rows % (kCluster * kBlockQ) != 0)
+    return false;
+  return !(mode == 2 && (group < 1 || kCluster % group != 0));
+}
+
+// the launch and the kernel one fused_trunk call makes (the queries' dispatch)
+cudaError_t plan(int B, int N, int H, int D, int rows, int group, int dtype, int mode,
+                 lq::Launch* l, const void** fn) {
+  if (!valid_args(B, N, H, D, rows, group, mode)) return cudaErrorInvalidValue;
+#define FT_PLAN(T, XT, DD, MODE)                                                  \
+  if (dtype == 0 && D == DD && mode == MODE) {                                   \
+    *l = config<DD>(B, H, rows);                                                 \
+    *fn = reinterpret_cast<const void*>(fused_trunk_kernel<T, XT, DD, MODE>);   \
+    return cudaSuccess;                                                          \
+  }                                                                              \
+  if (dtype == 1 && D == DD && mode == MODE) {                                   \
+    *fn = reinterpret_cast<const void*>(bf16_kernel<DD, MODE>());               \
+    return config_bf16<DD, MODE>(B, H, rows, l);                                 \
+  }
+  FT_PLAN(float, float, 64, 1)
+  FT_PLAN(float, float, 32, 1)
+  FT_PLAN(float, int8_t, 64, 2)
+  FT_PLAN(float, int8_t, 32, 2)
+#undef FT_PLAN
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The launch a fused_trunk call with these shapes makes (launch_query.cuh's
+// layout in out[0..5]), and its kernel's attributes at that launch.
+extern "C" int fused_trunk_launch_config(int B, int N, int H, int D, int rows, int group,
+                                         int dtype, int mode, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(B, N, H, D, rows, group, dtype, mode, &l, &fn);
+  if (err == cudaSuccess) lq::put(l, out);
+  return static_cast<int>(err);
+}
+
+extern "C" int fused_trunk_attributes(int B, int N, int H, int D, int rows, int group,
+                                      int dtype, int mode, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(B, N, H, D, rows, group, dtype, mode, &l, &fn);
+  return static_cast<int>(err == cudaSuccess ? lq::attributes(fn, l, out) : err);
+}
 
 // x (B, N, C) contiguous: T for mode 1 (w8a16), int8 codes for mode 2
 // (w8a8); wqkv (3C, C) and wp (C, C) int8 contiguous; sqkv (3C,) f32 (mode
@@ -831,11 +906,7 @@ extern "C" int fused_trunk(const void* x, const void* wqkv, const void* sqkv,
                            int rows, int group, int dtype, int mode, float scale,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || N < 1 || H < 1 || (H * D) % 64 != 0 || rows < N
-      || rows % (kCluster * kBlockQ) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 2 && (group < 1 || kCluster % group != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_args(B, N, H, D, rows, group, mode)) return static_cast<int>(cudaErrorInvalidValue);
 #define FT_ARGS x, wqkv, sqkv, bqkv, wp, sp, bp, out, B, N, H, rows, group, scale, st
   if (mode == 1 && dtype == 0 && D == 64) return launch<float, float, 64, 1>(FT_ARGS);
   if (mode == 1 && dtype == 0 && D == 32) return launch<float, float, 32, 1>(FT_ARGS);

@@ -81,6 +81,7 @@
 #include <stdint.h>
 
 #include "gemm_wgmma.cuh"
+#include "launch_query.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -236,25 +237,32 @@ size_t smem_bytes(int K, int Hf) {
                           + kBK * kWsStride + kThreads / 32 + 1);
 }
 
+// the launch of the float32 kernel: a CTA per 32 rows, clusters of `cluster`
+// CTAs in w8a8 (mode 2)
+lq::Launch config(int rows, int K, int Hf, int cluster, int mode) {
+  return {(rows + kRows - 1) / kRows, 1, 1, kThreads, smem_bytes(K, Hf),
+          mode == 2 ? cluster : 1};
+}
+
 template <typename XT, typename WT, typename T, int MODE>
 cudaError_t launch(const void* x, const void* w1, const void* s1, const void* b1,
                    const void* w2, const void* s2, const void* b2, void* out,
                    int M, int rows, int K, int Hf, int Nout, int cluster,
                    cudaStream_t stream) {
   auto kernel = mlp_fused_kernel<XT, WT, T, MODE>;
-  const size_t smem = smem_bytes(K, Hf);
+  const lq::Launch l = config(rows, K, Hf, cluster, MODE);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((rows + kRows - 1) / kRows);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(l.gx);
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   if constexpr (MODE == 2) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.x = l.cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -463,40 +471,63 @@ __global__ void __launch_bounds__(gm::kThreads, 1) mlp_fused_w8a8_bf16(MLP_BF16_
 }
 
 template <int KIND>
+auto bf16_kernel() {
+  auto kernel = &mlp_fused_w8a8_bf16;
+  if constexpr (KIND == gm::kBf16) kernel = &mlp_fused_float_bf16;
+  if constexpr (KIND == gm::kWiden) kernel = &mlp_fused_w8a16_bf16;
+  return kernel;
+}
+
+// the launch of a bfloat16 kernel: a CTA per 128 rows (two warpgroups),
+// clusters of `cluster` CTAs in w8a8; `stages` and `vec` are the weight
+// ring's depth and whether scale and bias fit in shared memory, the deepest
+// ring that fits beside the vectors, else two stages and the vectors read
+// from device memory (the most a block may use: 232448 B)
+template <int KIND>
+cudaError_t config_bf16(int rows, int K, int Hf, int Nout, int cluster, lq::Launch* l,
+                        int* stages, bool* vec) {
+  // x, the weights and the output move in 16-byte pieces, at 32-bit offsets
+  if (K % 16 != 0 || Hf % 16 != 0
+      || static_cast<int64_t>(Hf > Nout ? Hf : Nout) * (K > Hf ? K : Hf) >= (1LL << 30))
+    return cudaErrorInvalidValue;
+  *stages = 2;
+  *vec = false;
+  for (int st = KIND == gm::kWiden ? 2 : gm::kMaxStages; st >= 2 && !*vec; --st)
+    if (MlpSmem<KIND>(K, Hf, Nout, st, true).total <= 232448) *stages = st, *vec = true;
+  const size_t smem = MlpSmem<KIND>(K, Hf, Nout, *stages, *vec).total;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  *l = {(rows + gm::kRows - 1) / gm::kRows, 1, 1, gm::kThreads, smem,
+        KIND == gm::kS8 ? cluster : 1};
+  return cudaSuccess;
+}
+
+template <int KIND>
 cudaError_t launch_bf16(const void* x, const void* w1, const void* s1, const void* b1,
                         const void* w2, const void* s2, const void* b2, void* out,
                         int M, int rows, int K, int Hf, int Nout, int cluster, int bm,
                         cudaStream_t stream) {
-  // x, the weights and the output move in 16-byte pieces, at 32-bit offsets
-  if (K % 16 != 0 || Hf % 16 != 0
-      || static_cast<int64_t>(Hf > Nout ? Hf : Nout) * (K > Hf ? K : Hf) >= (1LL << 30)
-      || (reinterpret_cast<uintptr_t>(x) & 15)
+  if ((reinterpret_cast<uintptr_t>(x) & 15)
       || (reinterpret_cast<uintptr_t>(w1) & 15) || (reinterpret_cast<uintptr_t>(w2) & 15)
       || (reinterpret_cast<uintptr_t>(out) & 15))
     return cudaErrorInvalidValue;
-  auto kernel = &mlp_fused_w8a8_bf16;
-  if constexpr (KIND == gm::kBf16) kernel = &mlp_fused_float_bf16;
-  if constexpr (KIND == gm::kWiden) kernel = &mlp_fused_w8a16_bf16;
-  // the deepest ring that fits beside the vectors, else two stages and the
-  // vectors read from device memory (the most a block may use: 232448 B)
+  auto kernel = bf16_kernel<KIND>();
+  lq::Launch l;
   int stages = 2;
   bool vec = false;
-  for (int st = KIND == gm::kWiden ? 2 : gm::kMaxStages; st >= 2 && !vec; --st)
-    if (MlpSmem<KIND>(K, Hf, Nout, st, true).total <= 232448) stages = st, vec = true;
-  const size_t smem = MlpSmem<KIND>(K, Hf, Nout, stages, vec).total;
-  if (smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = config_bf16<KIND>(rows, K, Hf, Nout, cluster, &l, &stages, &vec);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((rows + gm::kRows - 1) / gm::kRows);
-  cfg.blockDim = dim3(gm::kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(l.gx);
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   if constexpr (KIND == gm::kS8) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.x = l.cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -512,7 +543,65 @@ cudaError_t launch_bf16(const void* x, const void* w1, const void* s1, const voi
   return cudaGetLastError();
 }
 
+// the entry point's argument checks: rows covers M; in w8a8 whole clusters
+// of CTAs cover whole requant tiles of block_m rows
+bool valid_args(int M, int rows, int K, int Hf, int Nout, int cluster, int block_m,
+                int dtype, int mode) {
+  const int cta = dtype == 1 ? gm::kRows : kRows;
+  if (M < 1 || rows < M || K < 1 || Hf < 1 || Nout < 1) return false;
+  return !(mode == 2 && (cluster < 1 || cluster > 8 || block_m < 32 || block_m % 32 != 0
+                         || rows % (cluster * cta) != 0 || (cluster * cta) % block_m != 0));
+}
+
+// the launch and the kernel one mlp_fused call makes (the queries' dispatch)
+cudaError_t plan(int M, int rows, int K, int Hf, int Nout, int cluster, int block_m,
+                 int dtype, int mode, lq::Launch* l, const void** fn) {
+  if (!valid_args(M, rows, K, Hf, Nout, cluster, block_m, dtype, mode))
+    return cudaErrorInvalidValue;
+  int stages = 2;
+  bool vec = false;
+  if (dtype == 0 && mode >= 0 && mode <= 2) {
+    *l = config(rows, K, Hf, cluster, mode);
+    *fn = mode == 0 ? reinterpret_cast<const void*>(mlp_fused_kernel<float, float, float, 0>)
+        : mode == 1 ? reinterpret_cast<const void*>(mlp_fused_kernel<float, int8_t, float, 1>)
+                    : reinterpret_cast<const void*>(mlp_fused_kernel<int8_t, int8_t, float, 2>);
+    return cudaSuccess;
+  }
+  if (dtype == 1 && mode == 0) {
+    *fn = reinterpret_cast<const void*>(bf16_kernel<gm::kBf16>());
+    return config_bf16<gm::kBf16>(rows, K, Hf, Nout, cluster, l, &stages, &vec);
+  }
+  if (dtype == 1 && mode == 1) {
+    *fn = reinterpret_cast<const void*>(bf16_kernel<gm::kWiden>());
+    return config_bf16<gm::kWiden>(rows, K, Hf, Nout, cluster, l, &stages, &vec);
+  }
+  if (dtype == 1 && mode == 2) {
+    *fn = reinterpret_cast<const void*>(bf16_kernel<gm::kS8>());
+    return config_bf16<gm::kS8>(rows, K, Hf, Nout, cluster, l, &stages, &vec);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The launch an mlp_fused call with these shapes makes (launch_query.cuh's
+// layout in out[0..5]), and its kernel's attributes at that launch.
+extern "C" int mlp_fused_launch_config(int M, int rows, int K, int Hf, int Nout, int cluster,
+                                       int block_m, int dtype, int mode, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(M, rows, K, Hf, Nout, cluster, block_m, dtype, mode, &l, &fn);
+  if (err == cudaSuccess) lq::put(l, out);
+  return static_cast<int>(err);
+}
+
+extern "C" int mlp_fused_attributes(int M, int rows, int K, int Hf, int Nout, int cluster,
+                                    int block_m, int dtype, int mode, long long* out) {
+  lq::Launch l;
+  const void* fn;
+  const cudaError_t err = plan(M, rows, K, Hf, Nout, cluster, block_m, dtype, mode, &l, &fn);
+  return static_cast<int>(err == cudaSuccess ? lq::attributes(fn, l, out) : err);
+}
 
 // x (M, K) contiguous: T for modes 0 and 1, int8 codes for mode 2; w1
 // (Hf, K), w2 (Nout, Hf) contiguous: T for mode 0, int8 otherwise; s1 (Hf,)
@@ -530,11 +619,7 @@ extern "C" int mlp_fused(const void* x, const void* w1, const void* s1, const vo
                          int M, int rows, int K, int Hf, int Nout, int cluster, int block_m,
                          int dtype, int mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cta = dtype == 1 ? gm::kRows : kRows;
-  if (M < 1 || rows < M || K < 1 || Hf < 1 || Nout < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 2 && (cluster < 1 || cluster > 8 || block_m < 32 || block_m % 32 != 0
-                    || rows % (cluster * cta) != 0 || (cluster * cta) % block_m != 0))
+  if (!valid_args(M, rows, K, Hf, Nout, cluster, block_m, dtype, mode))
     return static_cast<int>(cudaErrorInvalidValue);
 #define MLP_ARGS x, w1, s1, b1, w2, s2, b2, out, M, rows, K, Hf, Nout, cluster
   if (dtype == 0 && mode == 0) return launch<float, float, float, 0>(MLP_ARGS, st);

@@ -34,24 +34,38 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 #: per source ``csrc/<name>.cu``, the C signature of each of its entry
-#: points (restype is always c_int: the launch's cudaError_t)
+#: points (restype is always c_int: the launch's or the query's
+#: cudaError_t). Beside each launcher, ``<name>_launch_config`` takes the
+#: launcher's shape, dtype and mode arguments and writes the launch it
+#: makes, and ``<name>_attributes`` the attributes of the kernel it launches
+#: (``csrc/launch_query.cuh``), each into six long longs
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "flash_fwd": {
         "flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _P],
+        "flash_fwd_launch_config": [_I] * 5 + [_P],
+        "flash_fwd_attributes": [_I] * 5 + [_P],
     },
     "flash_bwd": {
         "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 15 + [_F, _P],
         "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 15 + [_F, _P],
+        "flash_bwd_launch_config": [_I] * 6 + [_P],
+        "flash_bwd_attributes": [_I] * 6 + [_P],
     },
     "dequant_mm": {
         "dequant_mm": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 2 + [_P],
+        "dequant_mm_launch_config": [_I] * 5 + [_P],
+        "dequant_mm_attributes": [_I] * 5 + [_P],
     },
     "mlp_fused": {
         "mlp_fused": [_P] * 8 + [_I] * 9 + [_P],
+        "mlp_fused_launch_config": [_I] * 9 + [_P],
+        "mlp_fused_attributes": [_I] * 9 + [_P],
     },
     "fused_trunk": {
         "fused_trunk": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "fused_trunk_launch_config": [_I] * 8 + [_P],
+        "fused_trunk_attributes": [_I] * 8 + [_P],
     },
 }
 

@@ -43,7 +43,7 @@ from ddim_cold_torch.utils import profiling
 
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain version does not count). Reset by assigning 0.
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = collections.Counter()  # guarded-by: _LAUNCH_LOCK
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -67,7 +67,7 @@ TRUNK_LINEARS = {"attn": ("qkv", "proj"), "mlp": ("fc1", "fc2")}
 
 #: launches per kernel, counted where the kernel is launched and nowhere
 #: else (the plain versions do not count). Reset by assigning 0.
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = collections.Counter()  # guarded-by: _LAUNCH_LOCK
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -447,7 +447,9 @@ class MeshReplica(LocalReplica):
                 self._factory.control.send(
                     WARM, self.replica_id, (tuple(configs), buckets, dict(kwargs)))
                 return super().warm(configs, buckets, **kwargs)
-        except BaseException:
+        except BaseException:  # noqa: BLE001 — whatever stops the warm (an
+            # interrupt too) must close this replica on the followers as
+            # well; the error is re-raised unchanged
             self.close()
             raise
 

@@ -228,19 +228,46 @@ def test_quarantined_request_is_never_hedged(model):
     assert h["retired_replicas"] >= 1 and h["replicas_spawned"] >= 3
 
 
-def test_fleet_chaos_contract(model):
-    """tests/test_fleet.py:168-213 on the port: r0's dispatch dead
-    (permanent), assembly transients at 25%, placement transients at 20%
-    on r1. Every ticket resolves; survivors bitwise; failures typed and
-    naming their replica; r0 drained and replaced; no program after warmup
-    on any replica, the replacement included."""
-    router = _router(model, replicas=2, quarantine_limit=2, max_hedges=2)
-    schedule = (
-        FaultSpec("serve.dispatch", "permanent", rate=1.0, match="replica:r0|"),
-        FaultSpec("serve.assemble", "transient", rate=0.25, seed=11),
-        FaultSpec("router.place", "transient", rate=0.2, seed=12, match="replica:r1|"),
-    )
-    sizes = [(61, 3), (62, 2), (63, 4), (64, 1), (65, 2), (66, 3), (67, 1)]
+#: r0 is retired once it has quarantined this many requests
+CHAOS_QUARANTINE_LIMIT = 2
+
+
+#: the contract's requests, (seed, rows), submitted in this order: the
+#: router numbers them 0..6 (``freq:<n>|`` in its placement fault tags)
+CHAOS_SIZES = [(61, 3), (62, 2), (63, 4), (64, 1), (65, 2), (66, 3), (67, 1)]
+
+
+def _chaos_schedule(*extra):
+    """The chaos contract's faults: r0's dispatch dead (permanent),
+    assembly transients at 25% on r1, placement transients at 20% on r1.
+
+    Three pins make the contract's premise hold whatever the pace of
+    placement (the router's own placement faults, matched by request):
+    r1 refuses requests 0 and 1, so r0 holds ``CHAOS_QUARANTINE_LIMIT``
+    requests; r0 refuses every other request, so they are served by r1 (or
+    r0's replacement) and some survive; the assembly transients fire on r1
+    only, so the requests r0 holds reach its dead dispatch and are
+    quarantined. With one seeded assembly schedule on both replicas, r0's
+    batches could draw its first firing calls and hedge every request r0
+    held to r1 before dispatch (r0 quarantined none and was never
+    retired); least-loaded placement onto a replica that fails at once
+    could equally hand r0 every request (none survived).
+    """
+    held = range(CHAOS_QUARANTINE_LIMIT)
+    return (*extra,
+            FaultSpec("serve.dispatch", "permanent", rate=1.0, match="replica:r0|"),
+            FaultSpec("serve.assemble", "transient", rate=0.25, seed=11,
+                      match="replica:r1|"),
+            FaultSpec("router.place", "transient", rate=0.2, seed=12, match="replica:r1|"),
+            *(FaultSpec("router.place", "transient", rate=1.0,
+                        match=f"replica:{'r1' if fid in held else 'r0'}|freq:{fid}|")
+              for fid in range(len(CHAOS_SIZES))))
+
+
+def _assert_chaos_contract(model, schedule):
+    router = _router(model, replicas=2, quarantine_limit=CHAOS_QUARANTINE_LIMIT,
+                     max_hedges=2)
+    sizes = CHAOS_SIZES
     with faults.inject(*schedule) as plan:
         tickets = {s: router.submit(seed=s, n=n, config=CFG) for s, n in sizes}
         outcomes = {s: tickets[s].exception(timeout=120) for s, _ in sizes}
@@ -264,6 +291,29 @@ def test_fleet_chaos_contract(model):
     assert h["programs_after_warmup"] == 0
     for rid, rh in h["replicas"].items():
         assert rh.get("programs_after_warmup", 0) == 0, rid
+
+
+def test_fleet_chaos_contract(model):
+    """tests/test_fleet.py:168-213 on the port: r0's dispatch dead
+    (permanent), assembly transients at 25%, placement transients at 20%
+    on r1 (:func:`_chaos_schedule`). Every ticket resolves; survivors
+    bitwise; failures typed and naming their replica; r0 drained and
+    replaced; no program after warmup on any replica, the replacement
+    included."""
+    _assert_chaos_contract(model, _chaos_schedule())
+
+
+def test_fleet_chaos_contract_holds_when_r0_takes_the_first_requests(model):
+    """The same contract with r1 refusing its first six placements, so r0
+    takes the first requests and its batches are the first to assemble.
+    Under the unpinned schedule (assembly transients on both replicas, one
+    seeded schedule whose first two calls fire, no placement pins) r0's
+    batches drew those calls: the router placed all seven requests on r0,
+    hedged all seven to r1 before r0's dispatch, and r0 quarantined none
+    and was never retired (every run)."""
+    _assert_chaos_contract(model, _chaos_schedule(
+        FaultSpec("router.place", "transient", rate=1.0, max_fires=6,
+                  match="replica:r1|")))
 
 
 def test_router_place_permanent_fault_fails_typed(model):

@@ -82,6 +82,15 @@ def test_editing_slice_modules_are_checked():
         "workloads/preview", "serve/warmup", "tools/bwd_fixture")} <= names
 
 
+def test_analysis_slice_modules_are_checked():
+    """The import check walks the static analysis' modules too: they import
+    torch where a layer needs it, and nothing of JAX."""
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    assert {f"ddim_cold_torch/analysis/{m}.py" for m in (
+        "__init__", "__main__", "findings", "cli", "ast_checks", "thread_checks",
+        "protocol_checks", "entries", "config_checks", "kernel_checks")} <= names
+
+
 def _edit_entry_points():
     from ddim_cold_torch import workloads
 

@@ -27,6 +27,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from ddim_cold_torch.analysis import kernel_checks
+from ddim_cold_torch.analysis.entries import kernel_entries
 from ddim_cold_torch.ops import _build
 from ddim_cold_torch.ops import flash_attention as fa
 from ddim_cold_torch.ops import quant
@@ -48,6 +50,7 @@ def test_build_is_keyed_by_source_and_lands_in_ignored_dir():
 HEADER_INCLUDERS = {
     "attn_wgmma.cuh": {"flash_fwd", "flash_bwd", "fused_trunk", "dequant_mm", "mlp_fused"},
     "gemm_wgmma.cuh": {"dequant_mm", "mlp_fused"},
+    "launch_query.cuh": {"flash_fwd", "flash_bwd", "fused_trunk", "dequant_mm", "mlp_fused"},
 }
 
 
@@ -813,3 +816,24 @@ def test_n_step_dispatch_is_bitwise_single_steps(cuda_device, dtype):
     assert all(torch.equal(a, b) for a, b in zip(p1 + m1, p2 + m2))
     assert torch.equal(r1, r2)
     assert n1 == n2 == {"flash_fwd": 2 * 4, "flash_bwd_dq": 2 * 4, "flash_bwd_dkv": 2 * 4}
+
+
+#: the static analysis's kernel entries: every kernel at the main path's
+#: geometry and a small one each (``analysis.entries.kernel_entries``)
+ANALYSIS_ENTRIES = {e.name: e for e in kernel_entries()}
+
+
+@pytest.mark.parametrize("name", sorted(ANALYSIS_ENTRIES))
+def test_launch_config_query_is_the_static_prediction(cuda_device, name):
+    """Each library's ``<name>_launch_config`` query (the launcher computes
+    its launch through the same C function) equals the P layer's predicted
+    grid, threads, dynamic shared bytes and cluster, and the built kernel's
+    attributes pass P001–P003 (``analysis/kernel_checks.py``)."""
+    entry = ANALYSIS_ENTRIES[name]
+    kind = torch.cuda.get_device_name(0)
+    launch = kernel_checks.predict(
+        entry, device_kind=kind, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert kernel_checks.card_launch_config(launch) == launch.as_config()
+    attrs = kernel_checks.card_attributes(launch)
+    assert kernel_checks.check_entry(entry, launch, attrs, device_kind=kind) == []
+    assert attrs["local"] == 0 and attrs["blocks_per_sm"] >= 1
